@@ -1,0 +1,50 @@
+"""Fixed-capacity KV cache (counterpart of `mlx_audio_tpu/lm/cache.py`).
+
+Unlike the JAX cache, which is a functional pytree with a traced `pos`,
+this one updates its buffers IN PLACE and keeps `pos` as a Python int: the
+port runs eagerly, so an int cursor costs no host sync per step.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["KVCache"]
+
+
+class KVCache:
+    """Fixed-capacity KV cache for one attention layer.
+
+    `keys, values, cache = cache.update(k, v)` writes k/v at `pos` in place
+    and returns the whole buffers, the cache itself, and advances `pos`.
+    """
+
+    def __init__(self, batch: int, num_kv_heads: int, max_len: int,
+                 head_dim: int, dtype=torch.bfloat16, device=None):
+        shape = (batch, num_kv_heads, max_len, head_dim)
+        self.k = torch.zeros(shape, dtype=dtype, device=device)
+        self.v = torch.zeros(shape, dtype=dtype, device=device)
+        self.pos = 0
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[2]
+
+    def update(self, k: torch.Tensor, v: torch.Tensor):
+        t = k.shape[2]
+        if self.pos + t > self.max_len:
+            raise ValueError(
+                f"KV cache overflow: pos {self.pos} + {t} > capacity {self.max_len}")
+        self.k[:, :, self.pos:self.pos + t] = k
+        self.v[:, :, self.pos:self.pos + t] = v
+        self.pos += t
+        return self.k, self.v, self
+
+    def attention_mask(self, t: int) -> torch.Tensor:
+        """Additive float32 mask (1, 1, t, max_len): causal within the new
+        block and excluding not-yet-written positions."""
+        dev = self.k.device
+        q_pos = self.pos + torch.arange(t, device=dev)[:, None]
+        k_idx = torch.arange(self.max_len, device=dev)[None, :]
+        zero = torch.zeros((), device=dev)
+        return torch.where(k_idx <= q_pos, zero, float("-inf"))[None, None]

@@ -1,0 +1,107 @@
+"""Core layers (counterpart of `mlx_audio_tpu/nn/layers.py`).
+
+Sequence layout is channels-last (N, L, C) at every public boundary, as in
+the JAX package. Parameters are stored in PyTorch's own layouts (Linear
+(out, in); Conv1d (out, in/groups, k)); `nn.module.load_jax_params` carries
+the JAX package's (out, k, in) convolution weights across.
+
+Every layer is created with empty storage on an explicit device and filled
+by `reset_parameters(generator)`, which draws from the same distributions
+as the JAX package's initialisers.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = ["Linear", "Embedding", "Conv1d", "LayerNorm"]
+
+
+def _he_uniform_(w: torch.Tensor, fan_in: int, generator) -> None:
+    bound = math.sqrt(1.0 / max(fan_in, 1))
+    w.uniform_(-bound, bound, generator=generator)
+
+
+class Linear(nn.Module):
+    """y = x @ W.T + b with W stored (out_features, in_features); the
+    product runs in the input's dtype."""
+
+    def __init__(self, input_dims: int, output_dims: int, bias: bool = True,
+                 device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(output_dims, input_dims, device=device))
+        self.bias = (nn.Parameter(torch.empty(output_dims, device=device))
+                     if bias else None)
+
+    def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
+        _he_uniform_(self.weight.data, self.weight.shape[1], generator)
+        if self.bias is not None:
+            self.bias.data.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), b)
+
+
+class Embedding(nn.Module):
+    def __init__(self, num_embeddings: int, dims: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(num_embeddings, dims, device=device))
+
+    def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
+        self.weight.data.normal_(0.0, 0.02, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.weight[x]
+
+    def as_linear(self, x: torch.Tensor) -> torch.Tensor:
+        """Tied-weight output projection: x @ W.T in the input's dtype."""
+        return F.linear(x, self.weight.to(x.dtype))
+
+
+class Conv1d(nn.Module):
+    """1-D convolution with bias over (N, L, C_in) → (N, L', C_out). The
+    weight is stored in PyTorch's (C_out, C_in, K) layout."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(
+            out_channels, in_channels, kernel_size, device=device))
+        self.bias = nn.Parameter(torch.empty(out_channels, device=device))
+        self.stride = stride
+        self.padding = padding
+
+    def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
+        o, i, k = self.weight.shape
+        _he_uniform_(self.weight.data, i * k, generator)
+        self.bias.data.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv1d(x.transpose(1, 2), self.weight.to(x.dtype),
+                     self.bias.to(x.dtype), stride=self.stride, padding=self.padding)
+        return y.transpose(1, 2)
+
+
+class LayerNorm(nn.Module):
+    """Affine LayerNorm that normalises in float32 and casts back to the
+    input's dtype."""
+
+    def __init__(self, dims: int, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(dims, device=device))
+        self.bias = nn.Parameter(torch.empty(dims, device=device))
+        self.eps = eps
+
+    def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
+        self.weight.data.fill_(1.0)
+        self.bias.data.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.weight.shape, self.weight.float(),
+                            self.bias.float(), self.eps).to(x.dtype)

@@ -1,0 +1,86 @@
+"""Module utilities (counterpart of `mlx_audio_tpu/nn/module.py`).
+
+`load_jax_params` is the weight bridge: it takes the JAX package's
+`flatten_params` dict (dotted keys → numpy arrays) and loads it into a
+module of this package, with the same strict, shape-checked contract as the
+JAX package's `load_weights`. Parity tests run both packages on identical
+weights through it.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from .layers import Conv1d
+
+__all__ = ["cast_floats", "load_jax_params", "init_weights"]
+
+
+def cast_floats(module: nn.Module, dtype=torch.bfloat16) -> nn.Module:
+    """Cast every floating-point parameter and buffer to `dtype` in place;
+    integer and bool tensors are left as they are."""
+    for t in list(module.parameters()) + list(module.buffers()):
+        if t.is_floating_point():
+            t.data = t.data.to(dtype)
+    return module
+
+
+def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Fill every layer's parameters from `generator`, in module order."""
+    for m in module.modules():
+        if hasattr(m, "reset_parameters") and m is not module:
+            m.reset_parameters(generator)
+    return module
+
+
+def _to_torch_layout(owner: nn.Module, name: str, w: np.ndarray) -> np.ndarray:
+    if isinstance(owner, Conv1d) and name == "weight" and w.ndim == 3:
+        return np.transpose(w, (0, 2, 1))  # JAX (O, K, I) -> torch (O, I, K)
+    return w
+
+
+def load_jax_params(model: nn.Module, flat: Mapping[str, np.ndarray],
+                    strict: bool = True) -> nn.Module:
+    """Copy a JAX `flatten_params` dict into `model` in place.
+
+    Every key must name a parameter of `model` and match its shape after
+    the layout change; with strict=True every parameter of `model` must be
+    present. Buffers (recomputed constants) are never loaded. Values are
+    cast to each parameter's dtype and device."""
+    params = dict(model.named_parameters())
+    unknown = [k for k in flat if k not in params]
+    if unknown:
+        raise ValueError(
+            f"Checkpoint keys not found in model ({len(unknown)}): "
+            f"{unknown[:10]}{'...' if len(unknown) > 10 else ''}"
+        )
+    if strict:
+        missing = [k for k in params if k not in flat]
+        if missing:
+            raise ValueError(
+                f"Model parameters missing from checkpoint ({len(missing)}): "
+                f"{missing[:10]}{'...' if len(missing) > 10 else ''}"
+            )
+    converted = {}
+    for key, w in flat.items():
+        owner_path, _, name = key.rpartition(".")
+        owner = model.get_submodule(owner_path) if owner_path else model
+        w = _to_torch_layout(owner, name, np.asarray(w))
+        p = params[key]
+        if tuple(w.shape) != tuple(p.shape):
+            raise ValueError(
+                f"Shape mismatch for {key}: model {tuple(p.shape)} vs "
+                f"checkpoint {tuple(w.shape)}"
+            )
+        converted[key] = w
+    with torch.no_grad():
+        for key, w in converted.items():
+            p = params[key]
+            # float32 on the host first: numpy has no bfloat16 of its own
+            w = np.array(w, np.float32 if p.is_floating_point() else None)
+            p.copy_(torch.from_numpy(w))
+    return model

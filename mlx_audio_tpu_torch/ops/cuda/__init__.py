@@ -1,0 +1,10 @@
+"""Hand-written Hopper kernels (sources in `mlx_audio_tpu_torch/csrc/`).
+
+Each wrapper takes its plain PyTorch version for a CPU tensor and launches
+its kernel, or raises, for a CUDA tensor. There is no fallback from a
+failed build or launch to the plain version.
+"""
+
+from .flash_attention import flash_attention, flash_attention_reference
+
+__all__ = ["flash_attention", "flash_attention_reference"]

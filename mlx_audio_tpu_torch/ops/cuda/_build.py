@@ -1,0 +1,92 @@
+"""Build the port's CUDA sources with nvcc into a shared library with a
+plain C interface and load it with ctypes.
+
+The library is built at first use into `build_dir()`, named by a hash of
+the sources and flags, so an unchanged tree reuses it. A failed build
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional
+
+__all__ = ["load_library", "build_dir", "last_build", "error_string"]
+
+_PKG = Path(__file__).resolve().parents[2]
+_SOURCES = [_PKG / "csrc" / "flash_attention.cu"]
+_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LIB: Optional[ctypes.CDLL] = None
+# what the last build in this process did: seconds, path, ptxas report
+last_build: dict = {}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+
+
+def build_dir() -> Path:
+    """`build/kernels/` in a checkout; for an installed package, whose
+    site-packages may be shared or read-only, the user's cache directory."""
+    root = _PKG.parent
+    if (root / "pyproject.toml").is_file():
+        return root / "build" / "kernels"
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "mlx_audio_tpu_torch" / "kernels"
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+def _build() -> Path:
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for src in _SOURCES:
+        h.update(src.read_bytes())
+    out = build_dir() / f"libmlx_audio_kernels_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        last_build.update(seconds=0.0, path=str(out), cached=True, log="")
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, _SOURCES)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+    os.replace(tmp, out)
+    last_build.update(seconds=time.perf_counter() - t0, path=str(out),
+                      cached=False, log=res.stdout + res.stderr)
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(_build()))
+        lib.flash_attention_fwd.argtypes = (
+            [_P, _P, _P, _P] + [_I] * 5 + [_L] * 12 + [ctypes.c_float, _I, _I, _P])
+        lib.flash_attention_fwd.restype = _I
+        lib.cuda_error_string.argtypes = [_I]
+        lib.cuda_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def error_string(err: int) -> str:
+    return f"{err} ({load_library().cuda_error_string(err).decode()})"

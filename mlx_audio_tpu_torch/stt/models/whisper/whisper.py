@@ -1,0 +1,639 @@
+"""Whisper model for PyTorch/CUDA (counterpart of
+`mlx_audio_tpu/stt/models/whisper/whisper.py`).
+
+Parameter names follow the JAX package (encoder.blocks.N.attn.query...), so
+`nn.load_jax_params` carries its weights across. The encoder's
+self-attention (T = S = 1500) takes the hand-written flash kernel on the
+card through `ops.attention`; the decoder's steps take the matmul path.
+
+Ported here: `generate_chunked` (batched 30 s windows, with and without
+previous-text conditioning). Not yet: the sequential seek loop `generate`,
+streaming, word timestamps (DTW, `timing.py`) and beam search.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+import warnings
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ....base import BaseModelArgs
+from ....device import resolve_device
+from ....lm.cache import KVCache
+from ....nn import Conv1d, Embedding, LayerNorm, Linear
+from ....nn.module import cast_floats, init_weights
+from ....ops.attention import make_causal_mask, scaled_dot_product_attention
+from ..base import STTOutput
+from . import audio as A
+from .decoding import DecodingOptions, DecodingResult, decode_window_batch
+
+__all__ = ["Model", "ModelConfig", "ModelDimensions"]
+
+_TIMING_TODO = ("word_timestamps needs timing.py (DTW alignment), which is "
+                "not ported yet (ROADMAP Queue 1 item 6)")
+
+
+@dataclass
+class ModelDimensions(BaseModelArgs):
+    n_mels: int = 80
+    n_audio_ctx: int = 1500
+    n_audio_state: int = 512
+    n_audio_head: int = 8
+    n_audio_layer: int = 6
+    n_vocab: int = 51865
+    n_text_ctx: int = 448
+    n_text_state: int = 512
+    n_text_head: int = 8
+    n_text_layer: int = 6
+    model_path: str = ""
+
+    @classmethod
+    def from_dict(cls, config: dict):
+        config = dict(config)
+        if "d_model" in config:  # HF transformers naming
+            config.setdefault("n_mels", config.get("num_mel_bins", 80))
+            config.setdefault("n_audio_state", config["d_model"])
+            config.setdefault("n_text_state", config["d_model"])
+            config.setdefault("n_audio_head", config.get("encoder_attention_heads", 8))
+            config.setdefault("n_text_head", config.get("decoder_attention_heads", 8))
+            config.setdefault("n_audio_layer", config.get("encoder_layers", 6))
+            config.setdefault("n_text_layer", config.get("decoder_layers", 6))
+            config.setdefault("n_vocab", config.get("vocab_size", 51865))
+            config.setdefault("n_text_ctx", config.get("max_target_positions", 448))
+            config.setdefault("n_audio_ctx", config.get("max_source_positions", 1500))
+        return super(ModelDimensions, cls).from_dict(config)
+
+
+ModelConfig = ModelDimensions
+
+
+def sinusoids(length: int, channels: int, max_timescale: int = 10000) -> np.ndarray:
+    assert channels % 2 == 0
+    log_ts_inc = math.log(max_timescale) / (channels // 2 - 1)
+    inv = np.exp(-log_ts_inc * np.arange(channels // 2))
+    scaled = np.arange(length)[:, None] * inv[None, :]
+    return np.concatenate([np.sin(scaled), np.cos(scaled)], axis=1).astype(np.float32)
+
+
+class MultiHeadAttention(nn.Module):
+    def __init__(self, n_state: int, n_head: int, device=None):
+        super().__init__()
+        self.query = Linear(n_state, n_state, device=device)
+        self.key = Linear(n_state, n_state, bias=False, device=device)
+        self.value = Linear(n_state, n_state, device=device)
+        self.out = Linear(n_state, n_state, device=device)
+        self.n_head = n_head
+
+    def _split(self, x):
+        # (B, T, D) → (B, H, T, Dh) as a view: the flash kernel takes the
+        # strides as they are
+        B, T, D = x.shape
+        return x.view(B, T, self.n_head, D // self.n_head).transpose(1, 2)
+
+    def forward(self, x, xa=None, mask=None, cache: Optional[KVCache] = None,
+                cross_kv: Optional[Tuple] = None):
+        new_cache = None
+        q = self._split(self.query(x))
+        if cross_kv is not None:
+            k, v = cross_kv
+        else:
+            src = xa if xa is not None else x
+            k = self._split(self.key(src))
+            v = self._split(self.value(src))
+            if cache is not None:
+                k, v, new_cache = cache.update(k, v)
+        out = scaled_dot_product_attention(q, k, v, mask=mask)
+        B, H, T, Dh = out.shape
+        return self.out(out.transpose(1, 2).reshape(B, T, H * Dh)), new_cache
+
+    def cross_kv(self, xa):
+        return self._split(self.key(xa)), self._split(self.value(xa))
+
+
+class ResidualAttentionBlock(nn.Module):
+    def __init__(self, n_state: int, n_head: int, cross_attention: bool = False,
+                 device=None):
+        super().__init__()
+        self.attn = MultiHeadAttention(n_state, n_head, device=device)
+        self.attn_ln = LayerNorm(n_state, device=device)
+        if cross_attention:
+            self.cross_attn = MultiHeadAttention(n_state, n_head, device=device)
+            self.cross_attn_ln = LayerNorm(n_state, device=device)
+        else:
+            self.cross_attn = None
+        self.mlp1 = Linear(n_state, 4 * n_state, device=device)
+        self.mlp2 = Linear(4 * n_state, n_state, device=device)
+        self.mlp_ln = LayerNorm(n_state, device=device)
+
+    def forward(self, x, xa=None, mask=None, cache=None, cross_kv=None):
+        a, new_cache = self.attn(self.attn_ln(x), mask=mask, cache=cache)
+        x = x + a
+        if self.cross_attn is not None:
+            c, _ = self.cross_attn(self.cross_attn_ln(x), xa=xa, cross_kv=cross_kv)
+            x = x + c
+        x = x + self.mlp2(F.gelu(self.mlp1(self.mlp_ln(x))))  # exact (erf) GELU
+        return x, new_cache
+
+
+class AudioEncoder(nn.Module):
+    def __init__(self, dims: ModelDimensions, device=None):
+        super().__init__()
+        self.conv1 = Conv1d(dims.n_mels, dims.n_audio_state, 3, padding=1, device=device)
+        self.conv2 = Conv1d(dims.n_audio_state, dims.n_audio_state, 3, stride=2,
+                            padding=1, device=device)
+        self.blocks = nn.ModuleList(
+            ResidualAttentionBlock(dims.n_audio_state, dims.n_audio_head, device=device)
+            for _ in range(dims.n_audio_layer)
+        )
+        self.ln_post = LayerNorm(dims.n_audio_state, device=device)
+        # recomputed constant: not a parameter, never loaded or saved
+        self.register_buffer(
+            "_positional_embedding",
+            torch.from_numpy(sinusoids(dims.n_audio_ctx, dims.n_audio_state)).to(device),
+            persistent=False,
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # x: (B, T=3000, n_mels); compute in the parameter dtype (bf16 after
+        # cast_floats) whatever the float32 mel front-end gives
+        x = x.to(self.conv1.weight.dtype)
+        x = F.gelu(self.conv1(x))
+        x = F.gelu(self.conv2(x))
+        x = x + self._positional_embedding[: x.shape[1]].to(x.dtype)
+        for block in self.blocks:
+            x, _ = block(x)
+        return self.ln_post(x)
+
+
+class TextDecoder(nn.Module):
+    def __init__(self, dims: ModelDimensions, device=None):
+        super().__init__()
+        self.token_embedding = Embedding(dims.n_vocab, dims.n_text_state, device=device)
+        self.positional_embedding = nn.Parameter(
+            torch.empty(dims.n_text_ctx, dims.n_text_state, device=device))
+        self.blocks = nn.ModuleList(
+            ResidualAttentionBlock(dims.n_text_state, dims.n_text_head,
+                                   cross_attention=True, device=device)
+            for _ in range(dims.n_text_layer)
+        )
+        self.ln = LayerNorm(dims.n_text_state, device=device)
+
+    def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
+        self.positional_embedding.data.normal_(0.0, 0.01, generator=generator)
+
+    def cross_kv(self, xa):
+        return [blk.cross_attn.cross_kv(xa) for blk in self.blocks]
+
+    def forward(self, tokens, pos0: int, caches, cross_kv):
+        """tokens (B, t); pos0: starting position; caches: per-layer KVCache
+        or None; cross_kv: list of (k, v). Returns (logits, new_caches)."""
+        B, t = tokens.shape
+        x = self.token_embedding(tokens)
+        x = x + self.positional_embedding[pos0:pos0 + t].to(x.dtype)
+        if caches is not None:
+            mask = caches[0].attention_mask(t)
+        elif t > 1:
+            mask = make_causal_mask(t, t, device=x.device)
+        else:
+            mask = None
+        new_caches = []
+        for i, blk in enumerate(self.blocks):
+            x, nc = blk(
+                x, mask=mask,
+                cache=caches[i] if caches is not None else None,
+                cross_kv=cross_kv[i],
+            )
+            new_caches.append(nc)
+        x = self.ln(x)
+        return self.token_embedding.as_linear(x), new_caches
+
+
+def _hf_to_native(weights: dict) -> dict:
+    """Map HF transformers whisper keys → native (openai/mlx) naming."""
+    out = {}
+    rules = [
+        ("model.encoder.", "encoder."), ("model.decoder.", "decoder."),
+        ("encoder.layers.", "encoder.blocks."), ("decoder.layers.", "decoder.blocks."),
+        (".self_attn.q_proj.", ".attn.query."), (".self_attn.k_proj.", ".attn.key."),
+        (".self_attn.v_proj.", ".attn.value."), (".self_attn.out_proj.", ".attn.out."),
+        (".self_attn_layer_norm.", ".attn_ln."),
+        (".encoder_attn.q_proj.", ".cross_attn.query."),
+        (".encoder_attn.k_proj.", ".cross_attn.key."),
+        (".encoder_attn.v_proj.", ".cross_attn.value."),
+        (".encoder_attn.out_proj.", ".cross_attn.out."),
+        (".encoder_attn_layer_norm.", ".cross_attn_ln."),
+        (".fc1.", ".mlp1."), (".fc2.", ".mlp2."),
+        (".final_layer_norm.", ".mlp_ln."),
+        ("encoder.layer_norm.", "encoder.ln_post."),
+        ("decoder.layer_norm.", "decoder.ln."),
+        ("decoder.embed_tokens.", "decoder.token_embedding."),
+        ("decoder.embed_positions.weight", "decoder.positional_embedding"),
+    ]
+    for k, v in weights.items():
+        nk = k
+        for old, new in rules:
+            nk = nk.replace(old, new)
+        out[nk] = v
+    return out
+
+
+class Model(nn.Module):
+    """Whisper on an explicit device: `Model(dims)` builds on the card and
+    raises when there is none; tests pass `device="cpu"`. Weights are drawn
+    from `seed` and then cast to `dtype`."""
+
+    PROMPT_BUCKETS = (8, 16, 32, 64, 128, 227)
+
+    def __init__(self, dims: Union[ModelDimensions, dict], device=None,
+                 dtype=torch.float32, seed: int = 0):
+        super().__init__()
+        if isinstance(dims, dict):
+            dims = ModelDimensions.from_dict(dims)
+        self.dims = dims
+        self.device = resolve_device(device)
+        self.encoder = AudioEncoder(dims, device=self.device)
+        self.decoder = TextDecoder(dims, device=self.device)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        init_weights(self, gen)
+        if dtype != torch.float32:
+            cast_floats(self, dtype)
+
+    # ---- loading ----
+
+    def sanitize(self, weights: dict) -> dict:
+        """HF or MLX-converted checkpoint dict → this module's names and
+        layouts (convolution weights as torch's (O, I, K))."""
+        if any(k.startswith("model.") for k in weights):
+            weights = _hf_to_native(weights)
+        out = {}
+        for k, v in weights.items():
+            if k.startswith("encoder") and "token" not in k and (
+                "positional_embedding" in k or "embed_positions" in k
+            ):
+                continue  # encoder sinusoids are recomputed
+            if k.endswith("conv1.weight") or k.endswith("conv2.weight"):
+                v = np.asarray(v)
+                if v.ndim == 3 and v.shape[2] > v.shape[1]:
+                    v = v.transpose(0, 2, 1)  # MLX (O,K,I) -> torch (O,I,K)
+            if k == "decoder.positional_embedding.weight":
+                k = "decoder.positional_embedding"
+            out[k] = v
+        out.pop("proj_out.weight", None)
+        return out
+
+    @property
+    def is_multilingual(self) -> bool:
+        return self.dims.n_vocab >= 51865
+
+    # ---- pieces ----
+
+    @torch.inference_mode()
+    def _encode(self, mel: torch.Tensor):
+        xa = self.encoder(mel)
+        return xa, self.decoder.cross_kv(xa)
+
+    def _make_caches(self, batch: int, capacity: int):
+        """Decoder KV caches; `capacity` trims the self-attention window to
+        what the decode will write instead of the full n_text_ctx."""
+        d = self.dims
+        cap = min(capacity, d.n_text_ctx)
+        w = self.decoder.token_embedding.weight
+        return [
+            KVCache(batch, d.n_text_head, cap, d.n_text_state // d.n_text_head,
+                    dtype=w.dtype, device=w.device)
+            for _ in range(d.n_text_layer)
+        ]
+
+    @staticmethod
+    @torch.inference_mode()
+    def _decoder_step(model: "Model", tokens, pos0, caches, cross_kv):
+        return model.decoder(tokens, pos0, caches, cross_kv)
+
+    def _mel_chunks_device(self, audio: np.ndarray):
+        """Stacked per-30 s-chunk log-mel on the model's device:
+        (n_chunks, N_FRAMES, n_mels). Audio is quantised to int16 on the
+        host (the PCM16 writer's quantiser) and goes to the device as int16,
+        as in the JAX package, so both packages see the same samples."""
+        total = len(audio) + A.N_SAMPLES
+        n_chunks = (total + A.N_SAMPLES - 1) // A.N_SAMPLES
+        padded = np.zeros(n_chunks * A.N_SAMPLES, np.int16)
+        padded[: len(audio)] = np.clip(
+            np.round(audio * 32768.0), -32768, 32767
+        ).astype(np.int16)
+        chunks = torch.from_numpy(padded.reshape(n_chunks, A.N_SAMPLES))
+        chunks = chunks.to(self.device).float() / 32768.0
+        return A.log_mel_spectrogram(chunks, n_mels=self.dims.n_mels), n_chunks
+
+    @torch.inference_mode()
+    def detect_language(self, cross_kv, tokenizer) -> Tuple[str, dict]:
+        tokens = torch.tensor([[tokenizer.sot]], dtype=torch.long, device=self.device)
+        logits = self.decoder(tokens, 0, None, cross_kv)[0]
+        logits = logits[0, -1].float().cpu().numpy()
+        lang_tokens = list(tokenizer.all_language_tokens)
+        lang_logits = logits[lang_tokens]
+        probs = np.exp(lang_logits - lang_logits.max())
+        probs = probs / probs.sum()
+        best = int(np.argmax(probs))
+        code = tokenizer.all_language_codes[best]
+        return code, dict(zip(tokenizer.all_language_codes, probs.tolist()))
+
+    def _check_fp16_option(self, decode_options: dict) -> None:
+        """Half precision is the weights' dtype, fixed at build time; say so
+        when an explicit fp16 request disagrees with it."""
+        if "fp16" not in decode_options:
+            return
+        dtype = self.decoder.token_embedding.weight.dtype
+        half = dtype in (torch.bfloat16, torch.float16)
+        if bool(decode_options["fp16"]) != half:
+            warnings.warn(
+                f"fp16={decode_options['fp16']} requested but model weights "
+                f"are {dtype}; the compute precision is the weights' dtype "
+                f"(build with dtype=torch.bfloat16 for half precision)."
+            )
+
+    def get_tokenizer(self, language: str = "en", task: str = "transcribe"):
+        from .tokenizer import WhisperTokenizer
+
+        return WhisperTokenizer(
+            self.dims.model_path, multilingual=self.is_multilingual,
+            language=language, task=task,
+        )
+
+    # ---- transcription ----
+
+    @torch.inference_mode()
+    def generate_chunked(
+        self,
+        audio,
+        *,
+        language: Optional[str] = None,
+        task: str = "transcribe",
+        temperature: Union[float, Sequence[float]] = 0.0,
+        compression_ratio_threshold: Optional[float] = 2.4,
+        logprob_threshold: Optional[float] = -1.0,
+        no_speech_threshold: Optional[float] = 0.6,
+        condition_on_previous_text: bool = False,
+        initial_prompt: Optional[str] = None,
+        without_timestamps: bool = False,
+        word_timestamps: bool = False,
+        tokenizer=None,
+        max_batch: int = 8,
+        max_sweeps: int = 4,
+        strict_conditioning: bool = True,
+        **decode_options,
+    ) -> STTOutput:
+        """Batch-parallel long-form transcription: every 30 s window is
+        encoded in one batch and decoded in one batched loop.
+
+        A temperature sequence enables the quality fallback: the group
+        re-decodes at the next temperature while each window keeps its
+        first result that passes the compression-ratio / logprob
+        thresholds. Windows judged silent emit no segment.
+
+        ``condition_on_previous_text=True`` keeps the seek loop's rolling
+        previous-text prompt as a parallel fixpoint: sweep 1 decodes every
+        window unconditioned, each later sweep rebuilds the prompts from the
+        current estimates and re-decodes only windows whose prompt changed.
+        Window k's prompt depends only on windows < k, so the result is the
+        sequential one; after ``max_sweeps`` sweeps a still-unstable tail is
+        finished window by window."""
+        start_t = time.perf_counter()
+        unknown = set(decode_options) - set(DecodingOptions.__dataclass_fields__)
+        if unknown:
+            raise TypeError(f"unknown decode options: {sorted(unknown)}")
+        if word_timestamps:
+            raise NotImplementedError(_TIMING_TODO)
+        self._check_fp16_option(decode_options)
+        if isinstance(audio, str) or hasattr(audio, "__fspath__"):
+            raise NotImplementedError(
+                "loading audio files is not ported yet (ROADMAP Queue 1 item 9); "
+                "pass a 16 kHz mono waveform")
+        audio = np.asarray(audio, np.float32).reshape(-1)
+
+        mel_dev, _ = self._mel_chunks_device(audio)
+        n_audio_frames = (len(audio) + A.N_SAMPLES) // A.HOP_LENGTH
+        content_frames = n_audio_frames - A.N_FRAMES
+        content_duration = content_frames * A.HOP_LENGTH / A.SAMPLE_RATE
+
+        if tokenizer is None:
+            tokenizer = self.get_tokenizer(language or "en", task)
+
+        # windows at fixed 30 s stride == mel chunk rows
+        starts = list(range(0, max(content_frames, 1), A.N_FRAMES))
+        n_windows = len(starts)
+
+        if language is None:
+            _xa, ckv = self._encode(mel_dev[:1])
+            language, _ = self.detect_language(ckv, tokenizer)
+            tokenizer.language = language
+            if hasattr(tokenizer, "__dict__"):
+                tokenizer.__dict__.pop("sot_sequence", None)
+
+        sot_seq = list(
+            tokenizer.sot_sequence_including_notimestamps
+            if without_timestamps
+            else tokenizer.sot_sequence
+        )
+        # initial_prompt biases every window (windows are independent here)
+        prompt_row = sot_seq
+        if initial_prompt:
+            prompt_row = self._build_prompt(
+                tokenizer.encode(" " + initial_prompt.strip()), sot_seq, tokenizer)
+
+        temps = (
+            [temperature] if isinstance(temperature, (int, float))
+            else list(temperature)
+        )
+
+        def group_opts(t: float) -> DecodingOptions:
+            kw = {
+                k: v for k, v in decode_options.items()
+                if k in DecodingOptions.__dataclass_fields__
+            }
+            # beam options apply only at t=0, best_of only at t>0
+            if t > 0:
+                kw.pop("beam_size", None)
+                kw.pop("patience", None)
+            else:
+                kw.pop("best_of", None)
+            return DecodingOptions(
+                task=task, language=language, temperature=float(t),
+                without_timestamps=without_timestamps, **kw,
+            )
+
+        def result_ok(res) -> bool:
+            if (compression_ratio_threshold is not None
+                    and res.compression_ratio > compression_ratio_threshold):
+                return False
+            if (logprob_threshold is not None
+                    and res.avg_logprob < logprob_threshold):
+                return False
+            return True
+
+        all_segments: List[dict] = []
+        n_gen = 0
+        time_precision = 0.02
+        n_sweeps = 0  # batched conditioning sweeps
+        n_tail = 0  # windows re-decoded by the strict sequential finish
+
+        def is_silent(res) -> bool:
+            # silent windows emit no segment (and no rolling context)
+            return (
+                no_speech_threshold is not None
+                and res.no_speech_prob > no_speech_threshold
+                and (logprob_threshold is None
+                     or res.avg_logprob < logprob_threshold)
+            )
+
+        def decode_idxs(idxs, rows):
+            """Encode + temperature-fallback decode of the given windows as
+            one batch; rows must share a length."""
+            if list(idxs) == list(range(idxs[0], idxs[0] + len(idxs))):
+                group = mel_dev[idxs[0]:idxs[0] + len(idxs)]
+            else:
+                group = mel_dev[torch.tensor(idxs, device=mel_dev.device)]
+            _xa, cross_kv = self._encode(group)
+            got: List = [None] * len(idxs)
+            for t in temps:
+                batch = decode_window_batch(
+                    self, cross_kv, tokenizer, rows, group_opts(t),
+                    n_ctx=self.dims.n_text_ctx, n_vocab=self.dims.n_vocab,
+                    decoder_step=type(self)._decoder_step,
+                    make_caches=self._make_caches,
+                )
+                for j, res in enumerate(batch):
+                    if got[j] is None and (result_ok(res) or t == temps[-1]):
+                        got[j] = res
+                if all(r is not None for r in got):
+                    break
+            return got
+
+        def assemble(seek, res) -> None:
+            """Silence skip + segment build for one window."""
+            nonlocal n_gen
+            if is_silent(res):
+                return
+            time_offset = seek * A.HOP_LENGTH / A.SAMPLE_RATE
+            seg_duration = min(
+                (content_frames - seek) * A.HOP_LENGTH / A.SAMPLE_RATE, 30.0)
+            tokens = res.tokens
+            n_gen += len(tokens) + 1
+            ts = tokenizer.timestamp_begin
+            ts_tokens = [t for t in tokens if t >= ts]
+            end_ts = seg_duration
+            if ts_tokens and ts_tokens[-1] != ts:
+                end_ts = min((ts_tokens[-1] - ts) * time_precision, seg_duration)
+            seg = self._segment(time_offset, time_offset + end_ts, tokens, tokenizer, res)
+            seg["id"] = len(all_segments)
+            seg["seek"] = seek
+            all_segments.append(seg)
+
+        if condition_on_previous_text:
+            init_tokens = (
+                tokenizer.encode(" " + initial_prompt.strip())
+                if initial_prompt else []
+            )
+
+            def desired_row(k, cur) -> List[int]:
+                """Prompt row window k would receive in the sequential seek
+                loop, given current estimates `cur` of earlier windows."""
+                toks = list(init_tokens)
+                for j in range(k):
+                    r = cur[j]
+                    if r is None or is_silent(r):
+                        continue
+                    toks.extend(r.tokens)
+                    if r.temperature > 0.5:
+                        toks = []  # high-temperature fallback resets context
+                return (self._build_prompt(toks, sot_seq, tokenizer)
+                        if toks else list(sot_seq))
+
+            results: List = [None] * n_windows
+            used: List = [None] * n_windows
+            while True:
+                desired = [desired_row(k, results) for k in range(n_windows)]
+                todo = [k for k in range(n_windows) if used[k] != desired[k]]
+                if not todo:
+                    break
+                if n_sweeps >= max_sweeps and not strict_conditioning:
+                    break  # approximation mode: accept the last sweep
+                if n_sweeps >= max_sweeps:
+                    # exact sequential finish for a still-unstable tail
+                    n_tail += len(todo)
+                    for k in todo:
+                        row = desired_row(k, results)
+                        results[k], used[k] = decode_idxs([k], [row])[0], row
+                    continue
+                n_sweeps += 1
+                by_len: dict = {}
+                for k in todo:
+                    by_len.setdefault(len(desired[k]), []).append(k)
+                for _L, idxs in sorted(by_len.items()):
+                    for g0 in range(0, len(idxs), max_batch):
+                        sub = idxs[g0:g0 + max_batch]
+                        got = decode_idxs(sub, [desired[k] for k in sub])
+                        for k, r in zip(sub, got):
+                            results[k], used[k] = r, desired[k]
+
+            for k in range(n_windows):
+                assemble(starts[k], results[k])
+        else:
+            for i0 in range(0, n_windows, max_batch):
+                idxs = list(range(i0, min(i0 + max_batch, n_windows)))
+                got = decode_idxs(idxs, [prompt_row] * len(idxs))
+                for j, k in enumerate(idxs):
+                    assemble(starts[k], got[j])
+
+        wall = time.perf_counter() - start_t
+        text = "".join(s["text"] for s in all_segments).strip()
+        return STTOutput(
+            text=text,
+            segments=all_segments,
+            language=language,
+            generation_tokens=n_gen,
+            generation_tps=n_gen / max(wall, 1e-9),
+            total_tps=n_gen / max(wall, 1e-9),
+            duration=content_duration,
+            extra={"wall_seconds": wall,
+                   "xrt": content_duration / max(wall, 1e-9),
+                   "mode": ("chunked+conditioned"
+                            if condition_on_previous_text else "chunked"),
+                   **({"sweeps": n_sweeps, "tail_windows": n_tail}
+                      if condition_on_previous_text else {})},
+        )
+
+    def _build_prompt(self, prev_tokens, sot_seq, tokenizer):
+        """Previous-context prompt with bucketed length (left-trim + left-pad
+        with sot_prev so positions stay exact)."""
+        sot_seq = list(sot_seq)
+        if not prev_tokens:
+            return sot_seq
+        max_prev = self.dims.n_text_ctx // 2 - 1 - len(sot_seq) - 1
+        prev = list(prev_tokens)[-max_prev:]
+        total = 1 + len(prev) + len(sot_seq)
+        bucket = next((b for b in self.PROMPT_BUCKETS if total <= b), total)
+        pad = bucket - total
+        return [tokenizer.sot_prev] * (1 + pad) + prev + sot_seq
+
+    @staticmethod
+    def _segment(start, end, tokens, tokenizer, result: DecodingResult) -> dict:
+        text_tokens = [t for t in tokens if t < tokenizer.timestamp_begin]
+        return {
+            "seek": 0,
+            "start": float(start),
+            "end": float(end),
+            "text": tokenizer.decode(text_tokens),
+            "tokens": list(tokens),
+            "temperature": result.temperature,
+            "avg_logprob": result.avg_logprob,
+            "compression_ratio": result.compression_ratio,
+            "no_speech_prob": result.no_speech_prob,
+        }

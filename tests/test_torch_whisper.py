@@ -1,0 +1,170 @@
+"""The port's Whisper (mlx_audio_tpu_torch) against the JAX package's, on one
+set of weights carried across by load_jax_params.
+
+A tiny model at the published vocabulary (n_vocab 51866, so DummyTokenizer's
+special ids exist): n_mels 80, width 64, 2 heads, 2 encoder and 2 decoder
+layers. f32 bar 1e-4 for activations and logits: the two packages run the
+same float32 math with other summation orders (the port's mel takes an FFT
+where the JAX package multiplies by a DFT matrix), which leaves ~1e-6.
+Greedy tokens and text must be identical.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mlx_audio_tpu.nn.module import flatten_params
+from mlx_audio_tpu.stt.models.whisper import Model as JaxModel
+from mlx_audio_tpu.stt.models.whisper import ModelDimensions as JaxDims
+from mlx_audio_tpu.stt.models.whisper.tokenizer import DummyTokenizer as JaxTok
+from mlx_audio_tpu_torch.nn import load_jax_params
+from mlx_audio_tpu_torch.stt.models.whisper import Model, ModelDimensions
+from mlx_audio_tpu_torch.stt.models.whisper.tokenizer import DummyTokenizer
+
+ATOL = 1e-4
+DIMS = dict(n_mels=80, n_audio_ctx=1500, n_audio_state=64, n_audio_head=2,
+            n_audio_layer=2, n_vocab=51866, n_text_ctx=448, n_text_state=64,
+            n_text_head=2, n_text_layer=2)
+
+
+@pytest.fixture(scope="module")
+def pair():
+    jm = JaxModel(JaxDims(**DIMS))
+    rng = np.random.default_rng(0)
+    flat = {}
+    for k, v in flatten_params(jm).items():
+        v = np.asarray(v)
+        if k.endswith(".bias") or "_ln." in k or k.endswith("ln_post.weight") \
+                or k.endswith("decoder.ln.weight"):
+            # biases start at zero and norms at one: move them so the
+            # parity covers every parameter
+            v = v + rng.standard_normal(v.shape).astype(np.float32) * 0.1
+        flat[k] = v
+    from mlx_audio_tpu.nn.module import load_weights
+
+    jm = load_weights(jm, {k: jnp.asarray(v) for k, v in flat.items()})
+    pm = Model(ModelDimensions(**DIMS), device="cpu")
+    load_jax_params(pm, flat)
+    return jm, pm
+
+
+def _mel(rng, b=1):
+    return rng.standard_normal((b, 3000, 80)).astype(np.float32)
+
+
+def test_encoder_and_cross_kv(pair):
+    jm, pm = pair
+    mel = _mel(np.random.default_rng(1), b=2)
+    jxa, jkv = JaxModel._encode(jm, jnp.asarray(mel))
+    xa, kv = pm._encode(torch.from_numpy(mel))
+    assert tuple(xa.shape) == (2, 1500, 64)
+    np.testing.assert_allclose(xa.numpy(), np.asarray(jxa), atol=ATOL)
+    for (k, v), (jk, jv) in zip(kv, jkv):
+        np.testing.assert_allclose(k.numpy(), np.asarray(jk), atol=ATOL)
+        np.testing.assert_allclose(v.numpy(), np.asarray(jv), atol=ATOL)
+
+
+def test_decoder_logits_through_kv_cache(pair):
+    """Prefill of a 4-token prompt, then three single-token steps."""
+    jm, pm = pair
+    rng = np.random.default_rng(2)
+    mel = _mel(rng, b=2)
+    _, jkv = JaxModel._encode(jm, jnp.asarray(mel))
+    _, kv = pm._encode(torch.from_numpy(mel))
+    jcaches = jm._make_caches(2, 64)
+    caches = pm._make_caches(2, 64)
+    prompt = rng.integers(0, 50000, (2, 4))
+    steps = [prompt] + [rng.integers(0, 50000, (2, 1)) for _ in range(3)]
+    pos = 0
+    for toks in steps:
+        jl, jcaches = JaxModel._decoder_step(jm, jnp.asarray(toks, jnp.int32), pos,
+                                             jcaches, jkv)
+        pl, caches = Model._decoder_step(pm, torch.from_numpy(toks), pos, caches, kv)
+        np.testing.assert_allclose(pl.numpy(), np.asarray(jl), atol=ATOL)
+        pos += toks.shape[1]
+    assert caches[0].pos == int(jcaches[0].pos) == 7
+
+
+@pytest.fixture(scope="module")
+def audio():
+    # about 70 s: three 30 s windows
+    return (np.random.default_rng(3).standard_normal(16000 * 70) * 0.05).astype(np.float32)
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [dict(without_timestamps=True), dict(without_timestamps=False),
+     dict(without_timestamps=True, condition_on_previous_text=True)],
+    ids=["no_timestamps", "timestamps", "conditioned"],
+)
+def test_generate_chunked_matches_jax(pair, audio, kw):
+    jm, pm = pair
+    common = dict(language="en", temperature=0.0, sample_len=16, **kw)
+    ref = jm.generate_chunked(audio, tokenizer=JaxTok(n_vocab=51866), **common)
+    out = pm.generate_chunked(audio, tokenizer=DummyTokenizer(n_vocab=51866), **common)
+    assert len(out.segments) == len(ref.segments) == 3
+    assert out.text == ref.text
+    assert out.extra["mode"] == ref.extra["mode"]
+    if kw.get("condition_on_previous_text"):
+        assert out.extra["sweeps"] == ref.extra["sweeps"]
+    for s, r in zip(out.segments, ref.segments):
+        assert s["tokens"] == r["tokens"]
+        assert s["text"] == r["text"]
+        assert (s["seek"], s["start"], s["end"]) == (r["seek"], r["start"], r["end"])
+        assert abs(s["avg_logprob"] - r["avg_logprob"]) < ATOL
+        assert abs(s["no_speech_prob"] - r["no_speech_prob"]) < ATOL
+
+
+def test_sanitize_matches_jax_on_hf_names(pair):
+    """An HF-named dict: both packages drop the encoder positions and
+    proj_out and rename alike; the port keeps torch's (O, I, K) conv
+    layout where the JAX package turns it into (O, K, I)."""
+    jm, pm = pair
+    rng = np.random.default_rng(4)
+    hf = {
+        "model.encoder.conv1.weight": rng.standard_normal((64, 80, 3)),
+        "model.encoder.conv2.weight": rng.standard_normal((64, 64, 3)),
+        "model.encoder.embed_positions.weight": rng.standard_normal((1500, 64)),
+        "model.encoder.layers.0.self_attn.q_proj.weight": rng.standard_normal((64, 64)),
+        "model.encoder.layers.0.fc1.bias": rng.standard_normal(256),
+        "model.encoder.layer_norm.weight": rng.standard_normal(64),
+        "model.decoder.embed_tokens.weight": rng.standard_normal((51866, 64)),
+        "model.decoder.embed_positions.weight": rng.standard_normal((448, 64)),
+        "model.decoder.layers.1.encoder_attn.k_proj.weight": rng.standard_normal((64, 64)),
+        "model.decoder.layers.1.encoder_attn_layer_norm.bias": rng.standard_normal(64),
+        "model.decoder.layer_norm.bias": rng.standard_normal(64),
+        "proj_out.weight": rng.standard_normal((51866, 64)),
+    }
+    ours = pm.sanitize(dict(hf))
+    theirs = jm.sanitize(dict(hf))
+    assert sorted(ours) == sorted(theirs)
+    assert "encoder.positional_embedding" not in ours and "proj_out.weight" not in ours
+    params = dict(pm.named_parameters())
+    for k, v in ours.items():
+        assert tuple(np.shape(v)) == tuple(params[k].shape), k
+        if k.endswith(("conv1.weight", "conv2.weight")):
+            np.testing.assert_array_equal(np.asarray(v),
+                                          np.asarray(theirs[k]).transpose(0, 2, 1))
+        else:
+            np.testing.assert_array_equal(np.asarray(v), np.asarray(theirs[k]))
+    # MLX-layout (O, K, I) conv weights come back to torch's layout
+    mlx = {"encoder.conv1.weight": np.zeros((64, 3, 80))}
+    assert pm.sanitize(mlx)["encoder.conv1.weight"].shape == (64, 80, 3)
+
+
+def test_unported_options_raise(pair, audio):
+    _, pm = pair
+    tok = DummyTokenizer(n_vocab=51866)
+    with pytest.raises(NotImplementedError, match="timing.py"):
+        pm.generate_chunked(audio, language="en", tokenizer=tok, word_timestamps=True)
+    with pytest.raises(NotImplementedError, match="beam search"):
+        pm.generate_chunked(audio[:16000], language="en", tokenizer=tok,
+                            beam_size=2, sample_len=2)
+
+
+def test_default_device_is_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Model(ModelDimensions(**DIMS))
