@@ -6,19 +6,28 @@
 Phases, each printing its own lines:
   1. device: card name and power limit, capability (9, 0), kernel build;
   2. every kernel against its plain PyTorch version on the card, at the
-     main path's shapes and a few edge cases, then timed beside its bound,
-     its plain version and one PyTorch library call;
-  3. the card against the CPU on a two-layer Whisper at full width (f32);
+     main paths' shapes and a few edge cases, then timed beside its bound,
+     its plain version and one PyTorch library call (or, for the quantized
+     kernels, a bf16 yardstick);
+  3. the card against the CPU on a two-layer Whisper and on a shallow
+     Qwen3-TTS int4, both at full width (f32);
   4. Whisper-large-v3-turbo at full width (bf16, seeded random weights):
      chunked transcription of 120 s of seeded noise through the port's
-     entry point, with launch counts read around the run.
+     entry point, with launch counts read around the run;
+  5. Qwen3-TTS 0.6B int4 at full width (bf16, seeded random weights):
+     256 frames of synthesis through `Model.generate`, with launch counts
+     read around each run and held to the routing table's;
+  6. the same model at 6 bits, 32 frames.
 The line before the last holds the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero. It
 needs one CUDA card and the checkout's `mlx_audio_tpu_torch/` package.
+`--phases 1,2` runs a subset (a first check of new kernels); the default
+runs all of them.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import statistics
@@ -57,6 +66,36 @@ BF16_REL = 5e-3
 # card path that ran its matmuls in TF32 (~1e-3 relative) fails it.
 CARD_VS_CPU_ATOL = 1e-4
 WARMUP_RUNS, TIMED_RUNS = 3, 7
+
+# Quantized kernels against their plain versions. Both sum in float32 in
+# other orders, and the kernel dequantizes with one fused multiply-add
+# (q*s + b) where the plain version follows the TPU formula (sum x*q*s plus
+# per-group sums of x times b): float32 outputs differ by ~1e-7 relative.
+# bf16 outputs round that float32 once on both sides, so they agree except
+# where it straddles a rounding boundary: one ulp. A kernel that drops the
+# bias term or reads the scales of the neighbouring group is off by O(1)
+# relative; `planted_quant_check` shows each bar rejects both.
+Q_F32_PEAK_REL = 1e-4  # max|d| <= this * max|ref|
+Q_F32_REL = 1e-5       # ||d|| / ||ref||
+Q_BF16_ULPS = 1        # max|d| <= 1 bf16 ulp at max|ref|
+Q_BF16_REL = 1e-3
+GROUP = 64
+L2_BYTES = 50e6  # the H100's L2: timed weights cycle through twice this
+
+# Qwen3-TTS: bench.py's text, with a copy of its deterministic tokenizer
+QWEN_TEXT = ("The quick brown fox jumps over the lazy dog while the "
+             "synthesis model turns text into speech. " * 3).strip()
+QWEN_FRAMES, QWEN_FRAMES_6BIT, QWEN_PROFILE_FRAMES = 256, 32, 16
+QWEN_WARMUP, QWEN_TIMED = 1, 3
+# card (kernels) against CPU (dequantize + matmul), float32, TF32 off
+QWEN_CARD_VS_CPU_ATOL = 1e-4
+
+
+class AsciiTok:
+    """Minimal deterministic text tokenizer (a copy of bench.py's)."""
+
+    def encode(self, text, **kw):
+        return [(ord(c) % 997) + 3 for c in text]
 
 
 def log(msg: str) -> None:
@@ -302,9 +341,9 @@ def phase_slice():
     return launches
 
 
-def profile_one_run(run) -> None:
-    """Device busy time and the top kernels of one transcription, from
-    torch.profiler (CUPTI). Prints "not measured" if it sees no device time."""
+def profile_one_run(run, what: str = "one transcription") -> None:
+    """Device busy time and the top kernels of one run, from torch.profiler
+    (CUPTI). Prints "not measured" if it sees no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -317,18 +356,497 @@ def profile_one_run(run) -> None:
     if busy_us <= 0:
         log("[profile] device time: not measured (the profiler saw no CUDA kernels)")
         return
-    log(f"[profile] one transcription (profiled): wall {wall_us / 1e3:.1f} ms, device busy "
+    log(f"[profile] {what} (profiled): wall {wall_us / 1e3:.1f} ms, device busy "
         f"{busy_us / 1e3:.1f} ms, idle share {100 * (1 - busy_us / wall_us):.1f}%, "
         f"{sum(e.count for e in kernels)} kernel launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"[profile]   {e.self_device_time_total / 1e3:8.2f} ms {e.count:6d}x  {e.key[:90]}")
 
 
+def compare_q(out, ref) -> tuple:
+    """(passes, max|d|, description) of a quantized kernel's output against
+    its plain version, at the bars stated with the Q_* constants."""
+    d = out.float() - ref.float()
+    err = d.abs().max().item()
+    rel = (d.norm() / ref.float().norm()).item()
+    peak = ref.float().abs().max().item()
+    if ref.dtype == torch.float32:
+        tol = Q_F32_PEAK_REL * peak
+        ok = err <= tol and rel <= Q_F32_REL
+        return ok, err, (f"max|d|={err:.3e} (bar {tol:.3e} = {Q_F32_PEAK_REL:g} max|ref| "
+                         f"{peak:.3f}), rel={rel:.3e} (bar {Q_F32_REL:g})")
+    tol = Q_BF16_ULPS * 2.0 ** (math.floor(math.log2(peak)) - 7)
+    ok = err <= tol and rel <= Q_BF16_REL
+    return ok, err, (f"max|d|={err:.3e} (bar {tol:.3e} = {Q_BF16_ULPS} ulp at max|ref| "
+                     f"{peak:.3f}), rel={rel:.3e} (bar {Q_BF16_REL:g})")
+
+
+def quant_weights(N, K, bits, g):
+    from mlx_audio_tpu_torch.nn.quantized import quantize_arrays
+
+    w = torch.randn(N, K, generator=g, device="cuda") * K ** -0.5
+    return quantize_arrays(w, GROUP, bits)
+
+
+def weight_bytes(packed, scales, biases) -> int:
+    return sum(t.numel() * t.element_size() for t in (packed, scales, biases))
+
+
+def planted_quant_check(name, ref_fn, args, bias_idx, scale_idx) -> None:
+    """What a kernel that drops the bias term, or reads the scales of the
+    neighbouring group, returns; the bar must reject both."""
+    ref = ref_fn(*args)
+    for fault, idx, fn in (("bias term dropped", bias_idx, torch.zeros_like),
+                           ("scales shifted by one group", scale_idx,
+                            lambda t: t.roll(1, dims=1))):
+        bad = list(args)
+        for i in idx:
+            bad[i] = fn(bad[i])
+        ok, _, desc = compare_q(ref_fn(*bad), ref)
+        log(f"[kernel] planted fault in {name} ({fault}): {desc} -> "
+            f"{'passes: the bar is too loose' if ok else 'rejected'}")
+        if ok:
+            raise SystemExit(f"chip_smoke: the bar accepts a kernel with the {fault}")
+
+
+def device_ms(fns, iters: int) -> tuple:
+    """(device ms per call, host-loop ms per call) over `iters` calls cycling
+    through `fns`. The device time is the sum of every kernel and memset the
+    calls ran, from torch.profiler (CUPTI), divided by the calls; the
+    host-loop time is CUDA events around the loop, which a launch-bound call
+    sets by its host cost."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for f in fns[:3]:
+        f()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fns[i % len(fns)]()
+    end.record()
+    torch.cuda.synchronize()
+    loop_ms = start.elapsed_time(end) / iters
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fns[i % len(fns)]()
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+    if busy_us <= 0:
+        raise SystemExit("chip_smoke: the profiler saw no device time for a timed kernel")
+    return busy_us / iters / 1e3, loop_ms
+
+
+def quant_bound_ms(wbytes, M, K, N, dtype, flops) -> tuple:
+    elem = torch.tensor([], dtype=dtype).element_size()
+    nbytes = wbytes + elem * M * (K + N)  # weights, x read once; y written once
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+QMM_CASES = [  # name, bits, M, N, K, dtype: the routed shapes of phases 5 and 6
+    ("qkv_m1_f32", 4, 1, 4096, 1024, torch.float32),
+    ("qkv_m1_bf16", 4, 1, 4096, 1024, torch.bfloat16),
+    ("oproj_m2_f32", 4, 2, 1024, 2048, torch.float32),
+    ("codec_head_m16_bf16", 4, 16, 3072, 1024, torch.bfloat16),
+    ("down_prefill_m32_f32", 4, 32, 1024, 3072, torch.float32),
+    ("text_proj_m336_bf16", 4, 336, 2048, 2048, torch.bfloat16),
+    ("codec_qkv_m300_bf16", 4, 300, 3072, 512, torch.bfloat16),
+    ("convnext_m512_bf16", 4, 512, 4096, 1024, torch.bfloat16),
+    ("ragged_n1000_m2_bf16", 4, 2, 1000, 1024, torch.bfloat16),
+    ("int8_m2_bf16", 8, 2, 4096, 1024, torch.bfloat16),
+    ("q6_qkv_m1_f32", 6, 1, 4096, 1024, torch.float32),
+    ("q6_qkv_m1_bf16", 6, 1, 4096, 1024, torch.bfloat16),
+    ("q6_oproj_m2_f32", 6, 2, 1024, 2048, torch.float32),
+    ("q6_down_prefill_m32_f32", 6, 32, 1024, 3072, torch.float32),
+    ("q6_codec_qkv_m300_bf16", 6, 300, 3072, 512, torch.bfloat16),
+    ("q6_ragged_n1000_m16_bf16", 6, 16, 1000, 1024, torch.bfloat16),
+]
+QMLP_CASES = [  # name, bits, M, K, I, N, dtype
+    ("mlp_m1_f32", 4, 1, 1024, 3072, 1024, torch.float32),
+    ("mlp_m1_bf16", 4, 1, 1024, 3072, 1024, torch.bfloat16),
+    ("mlp_m2_f32", 4, 2, 1024, 3072, 1024, torch.float32),
+    ("mlp_m16_bf16", 4, 16, 1024, 3072, 1024, torch.bfloat16),
+    ("mlp_ragged_n1000_m2_f32", 4, 2, 1024, 3072, 1000, torch.float32),
+    ("mlp_int8_m2_bf16", 8, 2, 1024, 3072, 1024, torch.bfloat16),
+]
+
+
+def phase_quant_kernels():
+    """qmm, qmm6 and qmlp against their plain versions, then timed at the
+    decode path's M = 1 shapes in float32 (the talker's residual stream is
+    float32 after its first rope, as in the JAX package)."""
+    from mlx_audio_tpu_torch.ops.cuda.quant_matmul import (
+        quantized_matmul, quantized_matmul_reference, quantized_mlp,
+        quantized_mlp_reference)
+
+    errs = {}
+    for i, (name, bits, M, N, K, dtype) in enumerate(QMM_CASES):
+        g = torch.Generator(device="cuda").manual_seed(200 + i)
+        packed, scales, biases = quant_weights(N, K, bits, g)
+        x = torch.randn(M, K, generator=g, device="cuda").to(dtype)
+        out = quantized_matmul(x, packed, scales, biases, bits=bits, group_size=GROUP)
+        torch.cuda.synchronize()
+        ref = quantized_matmul_reference(x, packed, scales, biases, bits=bits,
+                                         group_size=GROUP)
+        ok, err, desc = compare_q(out, ref)
+        log(f"[kernel] {'qmm6' if bits == 6 else 'qmm'} {name} bits={bits} M={M} N={N} "
+            f"K={K}: {desc}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: quantized_matmul {name} over its bar: {desc}")
+        errs[name] = err
+        if name in ("qkv_m1_f32", "qkv_m1_bf16", "q6_qkv_m1_bf16"):
+            planted_quant_check(
+                name, lambda *a: quantized_matmul_reference(*a, bits=bits, group_size=GROUP),
+                (x, packed, scales, biases), (3,), (2,))
+    for i, (name, bits, M, K, I, N, dtype) in enumerate(QMLP_CASES):
+        g = torch.Generator(device="cuda").manual_seed(300 + i)
+        gu = quant_weights(2 * I, K, bits, g)
+        down = quant_weights(N, I, bits, g)
+        x = torch.randn(M, K, generator=g, device="cuda").to(dtype)
+        out = quantized_mlp(x, *gu, *down, bits=bits, group_size=GROUP)
+        torch.cuda.synchronize()
+        ref = quantized_mlp_reference(x, *gu, *down, bits=bits, group_size=GROUP)
+        ok, err, desc = compare_q(out, ref)
+        log(f"[kernel] qmlp {name} bits={bits} M={M} K={K} I={I} N={N}: {desc}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: quantized_mlp {name} over its bar: {desc}")
+        errs[name] = err
+        if name in ("mlp_m1_f32", "mlp_m1_bf16"):
+            planted_quant_check(
+                name, lambda *a: quantized_mlp_reference(*a, bits=bits, group_size=GROUP),
+                (x, *gu, *down), (3, 6), (2, 5))
+
+    timing = {}
+    f32 = torch.float32
+    for kname, bits in (("qmm", 4), ("qmm6", 6)):
+        M, N, K = 1, 4096, 1024
+        g = torch.Generator(device="cuda").manual_seed(400 + bits)
+        sets = [quant_weights(N, K, bits, g)]
+        wbytes = weight_bytes(*sets[0])
+        sets += [tuple(t.clone() for t in sets[0]) for _ in range(int(2 * L2_BYTES // wbytes))]
+        x = torch.randn(M, K, generator=g, device="cuda")
+        dense = [(x.bfloat16(), (quantized_matmul_reference(
+            torch.eye(K, device="cuda"), *sets[0], bits=bits, group_size=GROUP).T.contiguous()
+            .bfloat16()))]
+        dense += [(dense[0][0], dense[0][1].clone())
+                  for _ in range(int(2 * L2_BYTES // (2 * N * K)))]
+        ms, loop = device_ms([lambda w=w: quantized_matmul(x, *w, bits=bits,
+                                                          group_size=GROUP)
+                              for w in sets], 400)
+        plain, _ = device_ms([lambda w=w: quantized_matmul_reference(x, *w, bits=bits,
+                                                                     group_size=GROUP)
+                              for w in sets], 40)
+        yard, _ = device_ms([lambda d=d: F.linear(d[0], d[1]) for d in dense], 400)
+        bound, by = quant_bound_ms(wbytes, M, K, N, f32, 2.0 * M * N * K)
+        timing[kname] = dict(ms=ms, plain_ms=plain, library_ms=None, yardstick_ms=yard,
+                             bound_ms=bound, bound_by=by, host_loop_ms=loop)
+        log(f"[time] {kname} int{bits} M=1 N={N} K={K} f32 x (weights cycled past L2), device "
+            f"time per call: kernel {ms:.4f} ms, plain {plain:.4f} ms, yardstick F.linear on "
+            f"the bf16 dequantized weight {yard:.4f} ms, bound {bound:.4f} ms ({by}); kernel "
+            f"at {100 * bound / ms:.1f}% of bound; a Python loop of launches takes "
+            f"{loop:.4f} ms a call")
+    M, K, I, N = 1, 1024, 3072, 1024
+    g = torch.Generator(device="cuda").manual_seed(500)
+    sets = [(quant_weights(2 * I, K, 4, g), quant_weights(N, I, 4, g))]
+    wbytes = weight_bytes(*sets[0][0]) + weight_bytes(*sets[0][1])
+    sets += [tuple(tuple(t.clone() for t in part) for part in sets[0])
+             for _ in range(int(2 * L2_BYTES // wbytes))]
+    x = torch.randn(M, K, generator=g, device="cuda")
+    eye = torch.eye(K, device="cuda")
+    w_gu = quantized_matmul_reference(eye, *sets[0][0], group_size=GROUP).T.bfloat16()
+    w_d = quantized_matmul_reference(torch.eye(I, device="cuda"), *sets[0][1],
+                                     group_size=GROUP).T.bfloat16()
+    dense = [(w_gu.clone(), w_d.clone()) for _ in range(int(2 * L2_BYTES // (6 * I * K)) + 1)]
+    xb = x.bfloat16()
+
+    def yard_mlp(d):
+        gate, up = F.linear(xb, d[0]).chunk(2, dim=-1)
+        return F.linear(F.silu(gate) * up, d[1])
+
+    ms, loop = device_ms([lambda w=w: quantized_mlp(x, *w[0], *w[1], group_size=GROUP)
+                          for w in sets], 400)
+    plain, _ = device_ms([lambda w=w: quantized_mlp_reference(x, *w[0], *w[1],
+                                                             group_size=GROUP)
+                          for w in sets], 40)
+    yard, _ = device_ms([lambda d=d: yard_mlp(d) for d in dense], 400)
+    bound, by = quant_bound_ms(wbytes, M, K, N, f32, 2.0 * M * (2 * I * K + N * I))
+    timing["qmlp"] = dict(ms=ms, plain_ms=plain, library_ms=None, yardstick_ms=yard,
+                          bound_ms=bound, bound_by=by, host_loop_ms=loop)
+    log(f"[time] qmlp int4 M=1 K={K} I={I} N={N} f32 x (weights cycled past L2), device time "
+        f"per call: kernel (with its barrier-count memset) {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"yardstick bf16 F.linear gate_up, silu*mul, F.linear down {yard:.4f} ms, bound "
+        f"{bound:.4f} ms ({by}); kernel at {100 * bound / ms:.1f}% of bound; a Python loop "
+        f"of launches takes {loop:.4f} ms a call")
+    return errs, timing
+
+
+def qwen_predicate(path, m):
+    """bench.py's int4 choice: every Linear but the code predictor's heads,
+    which the decode loop reads raw."""
+    from mlx_audio_tpu_torch.nn import Linear
+
+    return isinstance(m, Linear) and "code_predictor.lm_head" not in path
+
+
+def qwen_model(bits, device="cuda", dtype=torch.bfloat16, seed=0, **depth):
+    """Qwen3-TTS at the published 0.6B widths (`ModelConfig.from_dict({})`),
+    quantized and row-stacked as bench.py builds it; `depth` may cut the
+    layer counts (talker, code_predictor, codec)."""
+    from mlx_audio_tpu_torch.nn.quantized import fuse_quantized_projections, quantize_module
+    from mlx_audio_tpu_torch.tts.models.qwen3_tts import Model, ModelConfig
+
+    cfg = ModelConfig.from_dict({})
+    if depth:
+        cfg.talker_config.num_hidden_layers = depth["talker"]
+        cfg.talker_config.code_predictor_config.num_hidden_layers = depth["code_predictor"]
+        cfg.tokenizer_config.decoder_config.num_hidden_layers = depth["codec"]
+    model = Model(cfg, device=device, dtype=dtype, seed=seed)
+    quantize_module(model, bits=bits, predicate=qwen_predicate)
+    fuse_quantized_projections(model)
+    model.set_runtime(tokenizer=AsciiTok())
+    return model
+
+
+def phase_qwen_card_vs_cpu():
+    """A 2-layer talker, 1-layer code predictor and 1-layer codec at full
+    width, int4, float32: the card takes the kernels, the CPU dequantize +
+    matmul. Prefill logits, one decode step and a codec waveform."""
+    from mlx_audio_tpu_torch.ops.cuda import quant_matmul as qk
+
+    depth = dict(talker=2, code_predictor=1, codec=1)
+    cpu = qwen_model(4, device="cpu", dtype=torch.float32, seed=1, **depth)
+    card = qwen_model(4, device="cuda", dtype=torch.float32, seed=2, **depth)
+    card.load_state_dict(cpu.state_dict())
+    qk.quantized_matmul.launches = qk.quantized_mlp.launches = 0
+    errs = {}
+    with torch.inference_mode():
+        out = {}
+        for tag, m in (("cpu", cpu), ("card", card)):
+            embeds, trailing, _ = m._prepare_generation_inputs(QWEN_TEXT)
+            Tp = embeds.shape[1]
+            inp = embeds.new_zeros(1, 32, embeds.shape[-1])
+            inp[:, :Tp] = embeds
+            caches = m.talker.model.make_caches(1, 40)
+            logits, _ = m._prefill(caches, inp, Tp)
+            step, _ = m.talker(trailing[:, :1], caches)
+            codes = torch.randint(0, 2048, (1, 16, 40),
+                                  generator=torch.Generator().manual_seed(3))
+            wav = m.speech_tokenizer.decode(codes.to(m.device))
+            out[tag] = dict(inputs=embeds, prefill=logits, step=step, wave=wav)
+    for what in ("inputs", "prefill", "step", "wave"):
+        errs[what] = (out["card"][what].cpu() - out["cpu"][what]).abs().max().item()
+    launches = (qk.quantized_matmul.launches, qk.quantized_mlp.launches)
+    log(f"[card-vs-cpu] Qwen3-TTS 2+1+1 layers at full width, int4, f32: prompt embeds "
+        f"max|d|={errs['inputs']:.3e}, prefill logits {errs['prefill']:.3e}, decode step "
+        f"logits {errs['step']:.3e}, codec waveform {errs['wave']:.3e} (atol "
+        f"{QWEN_CARD_VS_CPU_ATOL:g}); card launches qmm {launches[0]}, qmlp {launches[1]}")
+    for what, err in errs.items():
+        if not err <= QWEN_CARD_VS_CPU_ATOL:
+            raise SystemExit(f"chip_smoke: Qwen3-TTS card vs CPU {what} max|d| {err}")
+    if min(launches) <= 0:
+        raise SystemExit("chip_smoke: the card comparison did not go through the kernels")
+    del cpu, card
+    torch.cuda.empty_cache()
+
+
+def predicted_launches(model, bits, frames) -> dict:
+    """Kernel launches of one `generate` of `frames` frames of QWEN_TEXT,
+    from the routing guards (`nn.quantized.qmm_routable`,
+    `fused_mlp_routable`) applied to every quantized call the path makes."""
+    from mlx_audio_tpu_torch.nn.quantized import fused_mlp_routable, qmm_routable
+
+    cfg = model.config
+    tk = cfg.talker_config
+    cp = tk.code_predictor_config
+    dc = cfg.tokenizer_config.decoder_config
+    n = {"qmm": 0, "qmlp": 0}
+
+    def proj(N, K, M, times=1):
+        n["qmm"] += times * qmm_routable(bits, GROUP, N, K, M)
+
+    def layer(c, M, times=1):
+        q, kv = c.num_attention_heads * c.head_dim, c.num_key_value_heads * c.head_dim
+        proj(q + 2 * kv, c.hidden_size, M, times)  # fused q/k/v
+        proj(c.hidden_size, q, M, times)  # o_proj
+        if fused_mlp_routable(bits, GROUP, c.hidden_size, c.intermediate_size,
+                              c.hidden_size, M):
+            n["qmlp"] += times
+        else:
+            proj(2 * c.intermediate_size, c.hidden_size, M, times)  # fused gate/up
+            proj(c.hidden_size, c.intermediate_size, M, times)  # down
+
+    chat = f"<|im_start|>assistant\n{QWEN_TEXT}<|im_end|>\n<|im_start|>assistant\n"
+    for M in (len(AsciiTok().encode(chat)), 3):  # the prompt, then tts bos/eos/pad
+        proj(tk.text_hidden_size, tk.text_hidden_size, M)
+        proj(tk.hidden_size, tk.text_hidden_size, M)
+    prompt = model._prepare_generation_inputs(QWEN_TEXT)[0].shape[1]
+    Tp = -(-prompt // 32) * 32  # the prefill bucket, codec head over all of it
+    layer(tk, Tp, tk.num_hidden_layers)
+    proj(tk.vocab_size, tk.hidden_size, Tp)
+    # each frame: one talker step and its head; 16 code predictor calls, the
+    # two-token seed and 15 single tokens (the last one unused)
+    layer(tk, 1, frames * tk.num_hidden_layers)
+    proj(tk.vocab_size, tk.hidden_size, 1, frames)
+    layer(cp, 2, frames * cp.num_hidden_layers)
+    layer(cp, 1, frames * cp.num_hidden_layers * (tk.num_code_groups - 1))
+    # the codec: one chunk (frames <= 300), B = 1, so M = frames, then the
+    # ConvNeXt blocks after each upsampling
+    assert frames <= 300
+    proj(dc.hidden_size, dc.latent_dim, frames)
+    layer(dc, frames, dc.num_hidden_layers)
+    proj(dc.latent_dim, dc.hidden_size, frames)
+    T = frames
+    for r in dc.upsampling_ratios:
+        T *= r
+        proj(4 * dc.latent_dim, dc.latent_dim, T)
+        proj(dc.latent_dim, 4 * dc.latent_dim, T)
+    return n
+
+
+def qwen_run(model, frames, codes_seen):
+    def run():
+        out = list(model.generate(QWEN_TEXT, temperature=0.9, top_k=50, max_tokens=frames,
+                                  min_tokens=frames, seed=0))
+        torch.cuda.synchronize()
+        return out
+
+    orig = model._decode_codes
+
+    def spy(codes):
+        codes_seen.append(np.array(codes))
+        return orig(codes)
+
+    model._decode_codes = spy
+    return run
+
+
+def counted_run(run, counters, predicted, label):
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    results = run()
+    wall = time.perf_counter() - t0
+    got = {k: c.launches for k, c in counters.items()}
+    log(f"[{label}] launches {got}, routing table {predicted}")
+    for k, want in predicted.items():
+        if got[k] != want or want <= 0:
+            raise SystemExit(f"chip_smoke: {label} launched {k} {got[k]} times, the routing "
+                             f"table says {want}")
+    return results, wall, got
+
+
+def check_synthesis(results, frames, codes_seen, model, label):
+    if len(results) != 1 or results[0].token_count != frames:
+        raise SystemExit(f"chip_smoke: {label} gave {[r.token_count for r in results]} frames")
+    audio = results[0].audio
+    G = model.config.talker_config.num_code_groups
+    if audio.shape != (frames * model.speech_tokenizer.decode_upsample_rate,) or \
+            not np.isfinite(audio).all() or np.abs(audio).max() > 1.0:
+        raise SystemExit(f"chip_smoke: {label} audio {audio.shape} not finite or out of range")
+    codes = codes_seen[-1]
+    if codes.shape != (frames, G) or codes.min() < 0 or codes.max() >= 2048:
+        raise SystemExit(f"chip_smoke: {label} codes {codes.shape} out of range")
+    if any(not np.array_equal(c, codes) for c in codes_seen):
+        raise SystemExit(f"chip_smoke: {label}: repeated runs with one seed disagree")
+
+
+def phase_qwen_slice():
+    """Qwen3-TTS 0.6B int4: 256 frames through `generate`, 1 warm-up and 3
+    timed runs, launches held to the routing table's each run."""
+    from mlx_audio_tpu_torch.ops.cuda import quant_matmul as qk
+
+    t0 = time.perf_counter()
+    model = qwen_model(4)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[qwen3] Qwen3-TTS 0.6B widths, int4 g64 (fused q/k/v and gate/up), bf16 "
+        f"activations in, f32 scales and KV caches: {n_params / 1e6:.1f} M stored values, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    frames = QWEN_FRAMES
+    predicted = predicted_launches(model, 4, frames)
+    counters = {"qmm": qk.quantized_matmul, "qmlp": qk.quantized_mlp}
+    codes_seen = []
+    run = qwen_run(model, frames, codes_seen)
+    for _ in range(QWEN_WARMUP):
+        t0 = time.perf_counter()
+        run()
+        log(f"[qwen3] warm-up wall {time.perf_counter() - t0:.4f} s")
+    torch.cuda.reset_peak_memory_stats()
+    qk.quantized_matmul6.launches = 0
+    walls, launches = [], None
+    for _ in range(QWEN_TIMED):
+        results, wall, got = counted_run(run, counters, predicted, "qwen3")
+        walls.append(wall)
+        launches = launches or got
+        check_synthesis(results, frames, codes_seen, model, "qwen3 int4")
+    if qk.quantized_matmul6.launches:
+        raise SystemExit("chip_smoke: the int4 path launched the 6-bit kernel")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    audio_s = results[0].samples / model.sample_rate
+    med = statistics.median(walls)
+    log(f"[qwen3] {frames} frames = {audio_s:.2f} s of audio, {QWEN_TIMED} runs after "
+        f"{QWEN_WARMUP} warm-up: walls {', '.join(f'{w:.4f}' for w in walls)} s; median "
+        f"RTF {med / audio_s:.4f} (wall / audio), {frames / med:.1f} talker frames/s, "
+        f"{audio_s / med:.2f}x real time; peak memory {peak_gb:.2f} GB; codes identical "
+        f"across {len(codes_seen)} runs")
+    short = qwen_run(model, QWEN_PROFILE_FRAMES, [])
+    profile_one_run(short, f"one {QWEN_PROFILE_FRAMES}-frame synthesis")
+    del model, run, short
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_qwen_6bit():
+    """The same model at 6 bits, 32 frames: the 6-bit kernel carries every
+    routed projection, the MLPs included (the fused MLP kernel takes 4 and
+    8 bits)."""
+    from mlx_audio_tpu_torch.ops.cuda import quant_matmul as qk
+
+    model = qwen_model(6)
+    frames = QWEN_FRAMES_6BIT
+    predicted = predicted_launches(model, 6, frames)
+    counters = {"qmm6": qk.quantized_matmul6}
+    codes_seen = []
+    run = qwen_run(model, frames, codes_seen)
+    walls = []
+    for _ in range(2):
+        results, wall, got = counted_run(run, counters, {"qmm6": predicted["qmm"]}, "qwen3-6bit")
+        walls.append(wall)
+        check_synthesis(results, frames, codes_seen, model, "qwen3 6-bit")
+    log(f"[qwen3-6bit] {frames} frames twice: walls {', '.join(f'{w:.4f}' for w in walls)} s, "
+        f"codes identical")
+    del model, run
+    torch.cuda.empty_cache()
+    return got["qmm6"]
+
+
+QUANT_SOURCE = "mlx_audio_tpu_torch/csrc/quant_matmul.cu"
+
+
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phases", default="1,2,3,4,5,6",
+                    help="comma-separated subset to run; a subset prints no result")
+    phases = {int(p) for p in ap.parse_args().phases.split(",")}
     smi = phase_device()
-    errs, timing = phase_kernels()
-    phase_card_vs_cpu()
-    launches = phase_slice()
+    if 2 in phases:
+        errs, timing = phase_kernels()
+        qerrs, qtiming = phase_quant_kernels()
+    if 3 in phases:
+        phase_card_vs_cpu()
+        phase_qwen_card_vs_cpu()
+    if 4 in phases:
+        launches = phase_slice()
+    if 5 in phases:
+        qlaunches = phase_qwen_slice()
+    if 6 in phases:
+        q6_launches = phase_qwen_6bit()
+    if phases != {1, 2, 3, 4, 5, 6}:
+        log(f"[device] {smi}")
+        sys.exit(f"chip_smoke: ran phases {sorted(phases)} only; no result")
     t = timing["whisper_bf16"]
     record = {"kernels": [{
         "name": "flash_attention", "route": "cuda",
@@ -338,6 +856,16 @@ def main():
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
     }]}
+    for name, replaces, n, err in (
+            ("qmm", "mlx_audio_tpu/ops/pallas/quant_matmul.py:64", qlaunches["qmm"],
+             qerrs["qkv_m1_f32"]),
+            ("qmlp", "mlx_audio_tpu/ops/pallas/quant_matmul.py:72", qlaunches["qmlp"],
+             qerrs["mlp_m1_f32"]),
+            ("qmm6", "mlx_audio_tpu/ops/pallas/quant_matmul.py:126", q6_launches,
+             qerrs["q6_qkv_m1_f32"])):
+        record["kernels"].append({"name": name, "route": "cuda", "source": QUANT_SOURCE,
+                                  "replaces": replaces, "launches": n, "max_abs_err": err,
+                                  **qtiming[name]})
     log(f"[device] {smi}")
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

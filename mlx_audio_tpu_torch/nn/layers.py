@@ -2,8 +2,9 @@
 
 Sequence layout is channels-last (N, L, C) at every public boundary, as in
 the JAX package. Parameters are stored in PyTorch's own layouts (Linear
-(out, in); Conv1d (out, in/groups, k)); `nn.module.load_jax_params` carries
-the JAX package's (out, k, in) convolution weights across.
+(out, in); Conv1d (out, in/groups, k); ConvTranspose1d (in, out, k));
+`nn.module.load_jax_params` carries the JAX package's (out, k, in)
+convolution weights across.
 
 Every layer is created with empty storage on an explicit device and filled
 by `reset_parameters(generator)`, which draws from the same distributions
@@ -19,7 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Linear", "Embedding", "Conv1d", "LayerNorm"]
+__all__ = ["Linear", "Embedding", "Conv1d", "ConvTranspose1d", "LayerNorm",
+           "RMSNorm"]
 
 
 def _he_uniform_(w: torch.Tensor, fan_in: int, generator) -> None:
@@ -65,26 +67,68 @@ class Embedding(nn.Module):
 
 
 class Conv1d(nn.Module):
-    """1-D convolution with bias over (N, L, C_in) → (N, L', C_out). The
-    weight is stored in PyTorch's (C_out, C_in, K) layout."""
+    """1-D convolution over (N, L, C_in) → (N, L', C_out). The weight is
+    stored in PyTorch's (C_out, C_in/groups, K) layout."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, padding: int = 0, device=None):
+                 stride: int = 1, padding: int = 0, dilation: int = 1,
+                 groups: int = 1, bias: bool = True, device=None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(
-            out_channels, in_channels, kernel_size, device=device))
-        self.bias = nn.Parameter(torch.empty(out_channels, device=device))
+            out_channels, in_channels // groups, kernel_size, device=device))
+        self.bias = (nn.Parameter(torch.empty(out_channels, device=device))
+                     if bias else None)
         self.stride = stride
         self.padding = padding
+        self.dilation = dilation
+        self.groups = groups
 
     def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
         o, i, k = self.weight.shape
         _he_uniform_(self.weight.data, i * k, generator)
-        self.bias.data.zero_()
+        if self.bias is not None:
+            self.bias.data.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv1d(x.transpose(1, 2), self.weight.to(x.dtype),
-                     self.bias.to(x.dtype), stride=self.stride, padding=self.padding)
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        y = F.conv1d(x.transpose(1, 2), self.weight.to(x.dtype), b,
+                     stride=self.stride, padding=self.padding,
+                     dilation=self.dilation, groups=self.groups)
+        return y.transpose(1, 2)
+
+
+class ConvTranspose1d(nn.Module):
+    """Transposed 1-D convolution with torch semantics over (N, L, C_in) →
+    (N, L', C_out), L' = (L-1)·stride - 2·padding + K + output_padding. The
+    weight is stored in PyTorch's (C_in, C_out/groups, K) layout; the JAX
+    package keeps (C_out, K, C_in)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0, output_padding: int = 0,
+                 groups: int = 1, bias: bool = True, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(
+            in_channels, out_channels // groups, kernel_size, device=device))
+        self.bias = (nn.Parameter(torch.empty(out_channels, device=device))
+                     if bias else None)
+        self.stride = stride
+        self.padding = padding
+        self.output_padding = output_padding
+        self.groups = groups
+
+    def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
+        # the JAX package's fan-in: in_channels/groups · K
+        i, o, k = self.weight.shape
+        _he_uniform_(self.weight.data, i // self.groups * k, generator)
+        if self.bias is not None:
+            self.bias.data.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        y = F.conv_transpose1d(x.transpose(1, 2), self.weight.to(x.dtype), b,
+                               stride=self.stride, padding=self.padding,
+                               output_padding=self.output_padding,
+                               groups=self.groups)
         return y.transpose(1, 2)
 
 
@@ -105,3 +149,21 @@ class LayerNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(x.float(), self.weight.shape, self.weight.float(),
                             self.bias.float(), self.eps).to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    """RMSNorm with float32 statistics, cast back to the input's dtype."""
+
+    def __init__(self, dims: int, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(dims, device=device))
+        self.eps = eps
+
+    def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
+        self.weight.data.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + self.eps)
+        # a bf16 weight promotes inside the product, exactly, with no copy
+        return (y * self.weight).to(x.dtype)

@@ -9,13 +9,13 @@ weights through it.
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
-from .layers import Conv1d
+from .layers import Conv1d, ConvTranspose1d
 
 __all__ = ["cast_floats", "load_jax_params", "init_weights"]
 
@@ -38,19 +38,32 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 def _to_torch_layout(owner: nn.Module, name: str, w: np.ndarray) -> np.ndarray:
-    if isinstance(owner, Conv1d) and name == "weight" and w.ndim == 3:
-        return np.transpose(w, (0, 2, 1))  # JAX (O, K, I) -> torch (O, I, K)
+    if name == "weight" and w.ndim == 3:
+        if isinstance(owner, Conv1d):
+            return np.transpose(w, (0, 2, 1))  # JAX (O, K, I) -> torch (O, I, K)
+        if isinstance(owner, ConvTranspose1d):
+            return np.transpose(w, (2, 0, 1))  # JAX (O, K, I) -> torch (I, O, K)
+    if w.dtype == np.uint32:
+        # packed quantized words: the same 32 bits, as torch's int32
+        return w.view(np.int32)
     return w
 
 
 def load_jax_params(model: nn.Module, flat: Mapping[str, np.ndarray],
-                    strict: bool = True) -> nn.Module:
+                    strict: bool = True,
+                    not_built: Sequence[str] = ()) -> nn.Module:
     """Copy a JAX `flatten_params` dict into `model` in place.
 
     Every key must name a parameter of `model` and match its shape after
     the layout change; with strict=True every parameter of `model` must be
-    present. Buffers (recomputed constants) are never loaded. Values are
-    cast to each parameter's dtype and device."""
+    present. `not_built` lists JAX key prefixes of parts the port does not
+    build (e.g. an encoder only another path uses); their keys are dropped
+    by name, every other key stays checked. Buffers (recomputed constants)
+    are never loaded. Floating values are cast to each parameter's dtype and
+    device; packed quantized weights (uint32 words, uint8 bitstreams) go in
+    bit for bit, uint32 as int32."""
+    flat = {k: v for k, v in flat.items()
+            if not any(k.startswith(p) for p in not_built)}
     params = dict(model.named_parameters())
     unknown = [k for k in flat if k not in params]
     if unknown:
@@ -71,6 +84,11 @@ def load_jax_params(model: nn.Module, flat: Mapping[str, np.ndarray],
         owner = model.get_submodule(owner_path) if owner_path else model
         w = _to_torch_layout(owner, name, np.asarray(w))
         p = params[key]
+        w_int = w.dtype.kind in "iub"
+        if w_int == p.is_floating_point() or (
+                w_int and w.dtype.itemsize != p.element_size()):
+            raise TypeError(f"dtype mismatch for {key}: model {p.dtype} vs "
+                            f"checkpoint {w.dtype}")
         if tuple(w.shape) != tuple(p.shape):
             raise ValueError(
                 f"Shape mismatch for {key}: model {tuple(p.shape)} vs "

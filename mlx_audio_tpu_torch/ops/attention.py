@@ -39,10 +39,7 @@ def scaled_dot_product_attention(
     B, H, T, D = q.shape
     H_kv, S = k.shape[1], k.shape[2]
 
-    if H_kv != H:
-        rep = H // H_kv
-        k = k.repeat_interleave(rep, dim=1)
-        v = v.repeat_interleave(rep, dim=1)
+    rep = H // H_kv
 
     # Long full attention on the card: the streaming-softmax kernel never
     # materialises the (T, S) score matrix. Decode-step queries (T ~ 1) and
@@ -58,12 +55,18 @@ def scaled_dot_product_attention(
     ):
         from .cuda import flash_attention
 
+        if rep != 1:
+            k = k.repeat_interleave(rep, dim=1)
+            v = v.repeat_interleave(rep, dim=1)
         return flash_attention(q, k, v, causal=causal_str, scale=scale)
 
-    # scores in float32 from the input-dtype operands (products of bf16
-    # values are exact in float32), as the JAX package's
-    # preferred_element_type=float32 einsum
-    scores = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
+    # GQA without copying k/v: the rep query heads that share a kv head are
+    # stacked along the rows, (B, H_kv, rep·T, D), so a cache is read as it
+    # lies. Scores in float32 from the input-dtype operands (products of
+    # bf16 values are exact in float32), as the JAX package's
+    # preferred_element_type=float32 einsum.
+    qg = (q * scale).float().reshape(B, H_kv, rep * T, D)
+    scores = torch.matmul(qg, k.float().transpose(-1, -2)).view(B, H, T, S)
     if isinstance(mask, str):
         if mask != "causal":
             raise ValueError(f"Unknown mask type: {mask}")
@@ -74,5 +77,11 @@ def scaled_dot_product_attention(
         else:
             scores = scores + mask.to(scores.dtype)
 
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.matmul(probs, v)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype).reshape(B, H_kv, rep * T, S)
+    if v.dtype != probs.dtype:
+        # a float32 cache under bf16 queries: the product runs in the wider
+        # type and returns the query's, as JAX promotes
+        out = torch.matmul(probs.to(v.dtype), v).to(q.dtype)
+    else:
+        out = torch.matmul(probs, v)
+    return out.view(B, H, T, D)

@@ -6,5 +6,10 @@ failed build or launch to the plain version.
 """
 
 from .flash_attention import flash_attention, flash_attention_reference
+from .quant_matmul import (quantized_matmul, quantized_matmul6,
+                           quantized_matmul_reference, quantized_mlp,
+                           quantized_mlp_reference)
 
-__all__ = ["flash_attention", "flash_attention_reference"]
+__all__ = ["flash_attention", "flash_attention_reference", "quantized_matmul",
+           "quantized_matmul6", "quantized_matmul_reference", "quantized_mlp",
+           "quantized_mlp_reference"]

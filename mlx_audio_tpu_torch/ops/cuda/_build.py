@@ -20,7 +20,7 @@ from typing import Optional
 __all__ = ["load_library", "build_dir", "last_build", "error_string"]
 
 _PKG = Path(__file__).resolve().parents[2]
-_SOURCES = [_PKG / "csrc" / "flash_attention.cu"]
+_SOURCES = [_PKG / "csrc" / "flash_attention.cu", _PKG / "csrc" / "quant_matmul.cu"]
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -82,6 +82,10 @@ def load_library() -> ctypes.CDLL:
         lib.flash_attention_fwd.argtypes = (
             [_P, _P, _P, _P] + [_I] * 5 + [_L] * 12 + [ctypes.c_float, _I, _I, _P])
         lib.flash_attention_fwd.restype = _I
+        lib.qmm_fwd.argtypes = [_P] * 5 + [_I] * 6 + [_L, _P]
+        lib.qmm_fwd.restype = _I
+        lib.qmlp_fwd.argtypes = [_P] * 10 + [_I] * 7 + [_L, _P]
+        lib.qmlp_fwd.restype = _I
         lib.cuda_error_string.argtypes = [_I]
         lib.cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib

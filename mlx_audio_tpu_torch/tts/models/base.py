@@ -1,0 +1,40 @@
+"""Shared TTS result type (counterpart of `mlx_audio_tpu/tts/models/base.py`)."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any
+
+import torch
+
+__all__ = ["GenerationResult", "format_duration"]
+
+
+@dataclass
+class GenerationResult:
+    audio: Any  # np.ndarray (samples,) float32
+    samples: int
+    sample_rate: int
+    segment_idx: int = 0
+    token_count: int = 0
+    audio_duration: str = ""
+    real_time_factor: float = 0.0
+    prompt: dict = field(default_factory=dict)
+    audio_samples: dict = field(default_factory=dict)
+    processing_time_seconds: float = 0.0
+    peak_memory_usage: float = 0.0
+    is_streaming_chunk: bool = False
+    is_final_chunk: bool = False
+
+    def __post_init__(self):
+        # 0.0 means "unknown": fill in the card's high-water mark (GB)
+        if not self.peak_memory_usage and torch.cuda.is_available():
+            self.peak_memory_usage = torch.cuda.max_memory_allocated() / 1e9
+
+
+def format_duration(seconds: float) -> str:
+    hours = int(seconds // 3600)
+    mins = int((seconds % 3600) // 60)
+    secs = int(seconds % 60)
+    ms = int((seconds % 1) * 1000)
+    return f"{hours:02d}:{mins:02d}:{secs:02d}.{ms:03d}"

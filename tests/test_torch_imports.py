@@ -62,3 +62,36 @@ def test_static_scan_of_imports():
             if top in ("jax", "jaxlib", "mlx_audio_tpu"):
                 bad.append(f"{path.relative_to(REPO)}:{line}: {name}")
     assert not bad, bad
+
+
+def _tiny_entry_points():
+    from mlx_audio_tpu_torch.stt.models.whisper import Model as Whisper
+    from mlx_audio_tpu_torch.tts.models.qwen3_tts import Model as Qwen3TTS
+
+    whisper = dict(n_mels=80, n_audio_ctx=8, n_audio_state=16, n_audio_head=2,
+                   n_audio_layer=1, n_vocab=64, n_text_ctx=8, n_text_state=16,
+                   n_text_head=2, n_text_layer=1)
+    qwen3 = dict(talker_config=dict(
+        hidden_size=16, intermediate_size=32, num_hidden_layers=1, num_attention_heads=2,
+        num_key_value_heads=1, head_dim=8, text_hidden_size=16, text_vocab_size=8,
+        vocab_size=16, num_code_groups=2, code_predictor_config=dict(
+            hidden_size=16, intermediate_size=32, num_hidden_layers=1, num_attention_heads=2,
+            num_key_value_heads=1, head_dim=8, vocab_size=16, num_code_groups=2)),
+        tokenizer_config=dict(decoder_config=dict(
+            latent_dim=16, codebook_dim=8, codebook_size=16, decoder_dim=16, hidden_size=16,
+            intermediate_size=32, head_dim=8, num_attention_heads=2, num_key_value_heads=2,
+            num_hidden_layers=1, num_quantizers=2, upsample_rates=[2], upsampling_ratios=[2])))
+    return [(Whisper, whisper), (Qwen3TTS, qwen3)]
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Without a device argument every entry point asks for `cuda`, and
+    raises rather than run on the host when there is no card."""
+    import pytest
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for cls, cfg in _tiny_entry_points():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cls(cfg)
+        assert cls(cfg, device="cpu").device.type == "cpu"
