@@ -17,7 +17,13 @@ Phases, each printing its own lines:
   5. Qwen3-TTS 0.6B int4 at full width (bf16, seeded random weights):
      256 frames of synthesis through `Model.generate`, with launch counts
      read around each run and held to the routing table's;
-  6. the same model at 6 bits, 32 frames.
+  6. the same model at 6 bits, 32 frames;
+  7. MossFormer2-SE 48 kHz at full width (f32, 24 blocks, seeded random
+     weights): 20 s in one shot, 30 s segmented and 90 s chunked through
+     `Model.enhance`, with the ReLU² kernel's launches held to 2 per FLASH
+     layer per chunk.
+Phase 2 also holds the ReLU² attention kernel to its plain version, and
+phase 3 a one-block MossFormer2-SE on the card to the CPU.
 The line before the last holds the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero. It
 needs one CUDA card and the checkout's `mlx_audio_tpu_torch/` package.
@@ -28,6 +34,7 @@ runs all of them.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import statistics
@@ -89,6 +96,40 @@ QWEN_FRAMES, QWEN_FRAMES_6BIT, QWEN_PROFILE_FRAMES = 256, 32, 16
 QWEN_WARMUP, QWEN_TIMED = 1, 3
 # card (kernels) against CPU (dequantize + matmul), float32, TF32 off
 QWEN_CARD_VS_CPU_ATOL = 1e-4
+
+# ReLU² attention against its plain version (cuBLAS, TF32 off), with the
+# quantized kernels' bars (compare_q): float32 max|d| <= 1e-4 max|ref| and
+# ||d||/||ref|| <= 1e-5, since both sum the same float32 products in other
+# orders (~1e-6 relative); bf16 within R2_BF16_ULPS ulp at max|ref| and
+# rel 1e-3: both round the weights to bf16 from float32 scores that differ
+# only in summation order, and the float32 sums once, so a weight that
+# rounds the other way can add a second ulp to one output. A kernel that
+# squares negative scores, or skips the last, ragged key tile, is off by
+# rel >= 1e-2; `planted_relu2_check` shows the bars reject both.
+R2_BF16_ULPS = 2
+R2_CASES = [  # name, B, G, N, D, E, dtype, v a split half (row stride 2E)
+    ("chunk20s_f32", 1, 10, 256, 128, 1024, torch.float32, True),
+    ("chunk20s_bf16", 1, 10, 256, 128, 1024, torch.bfloat16, True),
+    ("chunk4s_f32", 1, 2, 256, 128, 1024, torch.float32, True),
+    ("chunk4s_bf16", 1, 2, 256, 128, 1024, torch.bfloat16, True),
+    ("contiguous_v_f32", 1, 2, 256, 128, 1024, torch.float32, False),
+    ("ragged200_f32", 2, 3, 200, 128, 64, torch.float32, False),
+    ("ragged200_bf16", 2, 3, 200, 128, 64, torch.bfloat16, True),
+    ("ragged13_d64_f32", 1, 4, 13, 64, 40, torch.float32, False),
+    ("ragged13_d64_bf16", 1, 4, 13, 64, 40, torch.bfloat16, True),
+    ("n2500_f32", 1, 1, 2500, 128, 200, torch.float32, True),
+    ("n2500_bf16", 1, 1, 2500, 128, 200, torch.bfloat16, False),
+]
+# MossFormer2-SE, card against CPU: one block at full width, f32, TF32 off,
+# the same dither draw on both. Mask and waveform within this share of their
+# peak: cuFFT against pocketfft and other summation orders leave ~1e-6.
+MOSS_CARD_VS_CPU_REL = 1e-4
+# seconds, route, chunks: up to 20 s in one shot; to 60 s, 4 s windows at a
+# 3 s stride over the audio padded to whole strides (30 s → 31 s, 10
+# windows); from 60 s, 4 s chunks at a 3 s stride, the tail its own chunk
+# (90 s: 29 chunks and a 3 s one)
+MOSS_REQUESTS = [(20.0, "one shot", 1), (30.0, "segmented", 10), (90.0, "chunked", 30)]
+MOSS_WARMUP, MOSS_TIMED = 2, 5
 
 
 class AsciiTok:
@@ -182,16 +223,25 @@ def phase_device():
         f"capability {cap} count {torch.cuda.device_count()}")
     if cap != (9, 0):
         raise SystemExit(f"chip_smoke: capability {cap}, the kernels are built for sm_90a")
+    # float32 means float32 in every phase: no TF32 in cuBLAS or cuDNN
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     from mlx_audio_tpu_torch.ops.cuda import _build
 
     t0 = time.perf_counter()
     _build.load_library()
-    log(f"[build] {time.perf_counter() - t0:.1f} s (nvcc {_build.last_build['seconds']:.1f} s, "
+    wall = time.perf_counter() - t0
+    entry = "?"
+    for line in _build.last_build["log"].splitlines():  # one line per kernel
+        if "Compiling entry" in line:
+            entry = line.split("'")[1]
+        elif "registers" in line:
+            log(f"[ptxas] {entry}: {line.split(':', 1)[1].strip()}")
+        elif "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
+            log(f"[ptxas] {entry}: {line.strip()}")
+    log(f"[build] {wall:.1f} s (nvcc {_build.last_build['seconds']:.1f} s, "
         f"cached={_build.last_build['cached']}) -> {_build.last_build['path']}")
-    for line in _build.last_build["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log(f"[ptxas] {line.strip()}")
     return smi
 
 
@@ -199,8 +249,6 @@ def phase_kernels():
     from mlx_audio_tpu_torch.ops.cuda.flash_attention import (
         flash_attention, flash_attention_reference)
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [  # name, B, H, T, S, D, dtype, causal
         ("whisper_bf16", 4, 20, 1500, 1500, 64, bf16, False),
@@ -363,7 +411,7 @@ def profile_one_run(run, what: str = "one transcription") -> None:
         log(f"[profile]   {e.self_device_time_total / 1e3:8.2f} ms {e.count:6d}x  {e.key[:90]}")
 
 
-def compare_q(out, ref) -> tuple:
+def compare_q(out, ref, bf16_ulps: int = Q_BF16_ULPS) -> tuple:
     """(passes, max|d|, description) of a quantized kernel's output against
     its plain version, at the bars stated with the Q_* constants."""
     d = out.float() - ref.float()
@@ -375,9 +423,9 @@ def compare_q(out, ref) -> tuple:
         ok = err <= tol and rel <= Q_F32_REL
         return ok, err, (f"max|d|={err:.3e} (bar {tol:.3e} = {Q_F32_PEAK_REL:g} max|ref| "
                          f"{peak:.3f}), rel={rel:.3e} (bar {Q_F32_REL:g})")
-    tol = Q_BF16_ULPS * 2.0 ** (math.floor(math.log2(peak)) - 7)
+    tol = bf16_ulps * 2.0 ** (math.floor(math.log2(peak)) - 7)
     ok = err <= tol and rel <= Q_BF16_REL
-    return ok, err, (f"max|d|={err:.3e} (bar {tol:.3e} = {Q_BF16_ULPS} ulp at max|ref| "
+    return ok, err, (f"max|d|={err:.3e} (bar {tol:.3e} = {bf16_ulps} ulp at max|ref| "
                      f"{peak:.3f}), rel={rel:.3e} (bar {Q_BF16_REL:g})")
 
 
@@ -823,28 +871,240 @@ def phase_qwen_6bit():
     return got["qmm6"]
 
 
+def relu2_inputs(B, G, N, D, E, dtype, split_v, seed):
+    """q, k (B, G, N, D) and v (B, G, N, E); with `split_v`, v is the first
+    half of a (B, G, N, 2E) tensor, as MossFormer2 hands v and u over."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k = (torch.randn(B, G, N, D, generator=g, device="cuda").to(dtype) for _ in range(2))
+    if split_v:
+        v = torch.randn(B, G, N, 2 * E, generator=g, device="cuda").to(dtype)[..., :E]
+    else:
+        v = torch.randn(B, G, N, E, generator=g, device="cuda").to(dtype)
+    return q, k, v
+
+
+def planted_relu2_check(name, q, k, v, ref) -> None:
+    """What a kernel without the ReLU (negative scores squared too), or one
+    that skips the last, ragged key tile of 64, returns; the bars must
+    reject both."""
+    from mlx_audio_tpu_torch.ops.cuda.relu2_attention import relu2_attention_reference
+
+    N = q.shape[2]
+    sim = torch.matmul(q.float(), k.float().transpose(-1, -2)) / N
+    faults = [("ReLU dropped", torch.matmul(sim.square().to(v.dtype).float(),
+                                            v.float()).to(v.dtype))]
+    if N % 64:
+        n0 = N - N % 64
+        faults.append((f"last key tile ({N % 64} keys) skipped",
+                       relu2_attention_reference(q, k[..., :n0, :], v[..., :n0, :], N)))
+    for fault, planted in faults:
+        ok, _, desc = compare_q(planted, ref, R2_BF16_ULPS)
+        log(f"[kernel] planted fault in relu2 {name} ({fault}): {desc} -> "
+            f"{'passes: the bar is too loose' if ok else 'rejected'}")
+        if ok:
+            raise SystemExit(f"chip_smoke: the relu2 bar accepts a kernel with the {fault}")
+
+
+def relu2_bound_ms(B, G, N, D, E, dtype) -> tuple:
+    flops = 2.0 * B * G * N * N * (D + E)
+    elem = torch.tensor([], dtype=dtype).element_size()
+    nbytes = elem * B * G * N * (2 * D + 2 * E)  # q, k, v read once; out written once
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_relu2_kernel():
+    """The ReLU² kernel against its plain version at the slice's shapes and
+    ragged ones, then timed at the 20 s and 4 s chunk shapes."""
+    from mlx_audio_tpu_torch.ops.cuda.relu2_attention import (
+        relu2_attention, relu2_attention_reference)
+
+    errs = {}
+    for i, (name, B, G, N, D, E, dtype, split_v) in enumerate(R2_CASES):
+        q, k, v = relu2_inputs(B, G, N, D, E, dtype, split_v, seed=600 + i)
+        out = relu2_attention(q, k, v)
+        torch.cuda.synchronize()
+        ref = relu2_attention_reference(q, k, v)
+        ok, err, desc = compare_q(out, ref, R2_BF16_ULPS)
+        log(f"[kernel] relu2 {name} B={B} G={G} N={N} D={D} E={E} v row stride "
+            f"{v.stride(2)}: {desc}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: relu2_attention {name} over its bar: {desc}")
+        errs[name] = err
+        if name in ("chunk20s_f32", "ragged200_f32", "ragged200_bf16"):
+            planted_relu2_check(name, q, k, v, ref)
+
+    timing = {}
+    for name, G, dtype in (("chunk20s_f32", 10, torch.float32),
+                           ("chunk20s_bf16", 10, torch.bfloat16),
+                           ("chunk4s_f32", 2, torch.float32)):
+        B, N, D, E = 1, 256, 128, 1024
+        q, k, v = relu2_inputs(B, G, N, D, E, dtype, True, seed=700)
+        ms, loop = device_ms([lambda: relu2_attention(q, k, v, N)], 200)
+        plain, _ = device_ms([lambda: relu2_attention_reference(q, k, v, N)], 50)
+        bound, by = relu2_bound_ms(B, G, N, D, E, dtype)
+        timing[name] = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound,
+                            bound_by=by, host_loop_ms=loop)
+        log(f"[time] relu2 {name} B={B} G={G} N={N} D={D} E={E} (v a split half), device "
+            f"time per call: kernel {ms:.4f} ms, plain (two cuBLAS matmuls) {plain:.4f} ms, "
+            f"no library call computes ReLU² attention, bound {bound:.4f} ms ({by}); kernel "
+            f"at {100 * bound / ms:.1f}% of bound; a Python loop of launches takes "
+            f"{loop:.4f} ms a call")
+    return errs, timing
+
+
+def fill_depthwise(model, seed: int) -> None:
+    """Seeded uniform values (bound K^-1/2) for the depthwise weights, which
+    the constructors leave at zero, so that no branch computes zeros."""
+    from mlx_audio_tpu_torch.sts.models.mossformer2_se.mossformer2 import (ConvModule,
+                                                                           UniDeepFsmn)
+
+    g = torch.Generator(device=model.device).manual_seed(seed)
+    for m in model.modules():
+        w = {ConvModule: "weight", UniDeepFsmn: "conv1"}.get(type(m))
+        if w:
+            p = getattr(m, w)
+            p.data.uniform_(-p.shape[1] ** -0.5, p.shape[1] ** -0.5, generator=g)
+
+
+def phase_moss_card_vs_cpu():
+    """A one-block MossFormer2-SE at full width, f32, TF32 off: the card
+    (ReLU² kernel, cuFFT, cuDNN, cuBLAS) against the CPU on one 4 s chunk of
+    seeded noise, the same dither draw fed to both."""
+    from mlx_audio_tpu_torch import dsp
+    from mlx_audio_tpu_torch.ops.cuda.relu2_attention import relu2_attention
+    from mlx_audio_tpu_torch.sts.models.mossformer2_se import Model, MossFormer2SEConfig
+    from mlx_audio_tpu_torch.sts.models.mossformer2_se.model import (
+        MAX_WAV_VALUE, _features, _process_chunk_core)
+
+    cfg = MossFormer2SEConfig(num_blocks=1)
+    cpu = Model(cfg, device="cpu", seed=1)
+    fill_depthwise(cpu, 2)
+    card = Model(cfg, device="cuda", seed=3)
+    card.load_state_dict(cpu.state_dict())
+    audio = torch.from_numpy((np.random.default_rng(4).standard_normal(4 * cfg.sample_rate)
+                              * 0.05 * MAX_WAV_VALUE).astype(np.float32))
+    frames = 1 + (audio.shape[0] - cfg.win_len) // cfg.win_inc
+    noise = dsp.kaldi_dither((frames, cfg.win_len), "cpu")
+    relu2_attention.launches = 0
+    out = {}
+    with torch.inference_mode():
+        for tag, m, dev in (("cpu", cpu, "cpu"), ("card", card, "cuda")):
+            x, n = audio.to(dev), noise.to(dev)
+            mask = m.net.model(_features(x, cfg, n))[-1][0]
+            wave = _process_chunk_core(m.net.model, x, cfg, n)
+            out[tag] = (mask.cpu(), wave.cpu())
+    launches = relu2_attention.launches
+    for i, what in enumerate(("mask", "waveform")):
+        ref, got = out["cpu"][i], out["card"][i]
+        err, peak = (got - ref).abs().max().item(), ref.abs().max().item()
+        log(f"[card-vs-cpu] MossFormer2-SE, 1 block at full width, f32, one 4 s chunk: "
+            f"{what} {tuple(got.shape)} max|d|={err:.3e}, max|ref|={peak:.3e} (bar "
+            f"{MOSS_CARD_VS_CPU_REL:g} of max|ref|)")
+        if not err <= MOSS_CARD_VS_CPU_REL * peak or not torch.isfinite(got).all():
+            raise SystemExit(f"chip_smoke: MossFormer2-SE card vs CPU {what} max|d| {err}")
+    log(f"[card-vs-cpu] MossFormer2-SE card launches: relu2 {launches}")
+    if launches != 4:  # one FLASH layer, v and u, two forward passes
+        raise SystemExit("chip_smoke: the card comparison did not go through the relu2 kernel")
+    del cpu, card
+    torch.cuda.empty_cache()
+
+
+def phase_moss_slice():
+    """MossFormer2-SE 48 kHz at full width, f32: three requests through
+    `Model.enhance`, 2 warm-ups and 5 timed runs each; the ReLU² kernel's
+    launches of one pass over the three held to the prediction."""
+    from mlx_audio_tpu_torch.ops.cuda.relu2_attention import relu2_attention
+    from mlx_audio_tpu_torch.sts.models.mossformer2_se import Model
+
+    gc.collect()  # the Qwen3-TTS models of phases 5-6 sit in reference cycles
+    torch.cuda.empty_cache()
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    model = Model(device="cuda", seed=0)
+    fill_depthwise(model, 1)
+    torch.cuda.synchronize()
+    cfg = model.config
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[moss] MossFormer2-SE 48 kHz widths ({cfg.in_channels} in, d_model "
+        f"{cfg.out_channels}, {cfg.num_blocks} blocks, {cfg.out_channels_final}-bin mask), f32, "
+        f"{n_params / 1e6:.1f} M params, built in {time.perf_counter() - t0:.1f} s")
+    chunks = [n for _, _, n in MOSS_REQUESTS]
+    predicted = 2 * cfg.num_blocks * sum(chunks)  # v and u, each FLASH layer, each chunk
+    audios = [(np.random.default_rng(10 + i).standard_normal(int(sec * cfg.sample_rate))
+               * 0.05).astype(np.float32) for i, (sec, _, _) in enumerate(MOSS_REQUESTS)]
+
+    def run(i):
+        t0 = time.perf_counter()
+        out = model.enhance(audios[i])  # returns numpy: synchronised
+        return out, time.perf_counter() - t0
+
+    for _ in range(MOSS_WARMUP):
+        log(f"[moss] warm-up walls {', '.join(f'{run(i)[1]:.4f}' for i in range(3))} s")
+    torch.cuda.reset_peak_memory_stats()
+    relu2_attention.launches = 0
+    firsts, walls = [], [[] for _ in MOSS_REQUESTS]
+    for i in range(3):
+        out, wall = run(i)
+        firsts.append(out)
+        walls[i].append(wall)
+    launches = relu2_attention.launches
+    log(f"[moss] relu2 launches over the three requests: {launches} (predicted 2 x "
+        f"{cfg.num_blocks} FLASH layers x {sum(chunks)} chunks {chunks} = {predicted})")
+    if launches != predicted:
+        raise SystemExit(f"chip_smoke: MossFormer2-SE launched relu2 {launches} times, "
+                         f"predicted {predicted}")
+    for _ in range(MOSS_TIMED - 1):
+        for i in range(3):
+            out, wall = run(i)
+            walls[i].append(wall)
+            if not np.array_equal(out, firsts[i]):
+                raise SystemExit("chip_smoke: MossFormer2-SE repeated runs disagree")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for i, ((sec, route, _), out) in enumerate(zip(MOSS_REQUESTS, firsts)):
+        if out.shape != audios[i].shape or not np.isfinite(out).all():
+            raise SystemExit(f"chip_smoke: MossFormer2-SE {sec} s output {out.shape} not finite")
+        med = statistics.median(walls[i])
+        log(f"[moss] {sec:.0f} s {route} ({chunks[i]} chunk{'s' * (chunks[i] > 1)}), "
+            f"{MOSS_TIMED} runs after {MOSS_WARMUP} warm-ups: walls "
+            f"{', '.join(f'{w:.4f}' for w in walls[i])} s; median {med:.4f} s = "
+            f"{sec / med:.1f}x real time; output max|y| {np.abs(out).max():.4f}, "
+            f"identical across runs")
+    log(f"[moss] peak memory {peak_gb:.2f} GB, of which {before_gb:.2f} GB was allocated "
+        f"before the model was built")
+    profile_one_run(lambda: run(0), "one 20 s enhancement")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
 QUANT_SOURCE = "mlx_audio_tpu_torch/csrc/quant_matmul.cu"
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
                     help="comma-separated subset to run; a subset prints no result")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
     smi = phase_device()
     if 2 in phases:
         errs, timing = phase_kernels()
         qerrs, qtiming = phase_quant_kernels()
+        rerrs, rtiming = phase_relu2_kernel()
     if 3 in phases:
         phase_card_vs_cpu()
         phase_qwen_card_vs_cpu()
+        phase_moss_card_vs_cpu()
     if 4 in phases:
         launches = phase_slice()
     if 5 in phases:
         qlaunches = phase_qwen_slice()
     if 6 in phases:
         q6_launches = phase_qwen_6bit()
-    if phases != {1, 2, 3, 4, 5, 6}:
+    if 7 in phases:
+        r2_launches = phase_moss_slice()
+    if phases != {1, 2, 3, 4, 5, 6, 7}:
         log(f"[device] {smi}")
         sys.exit(f"chip_smoke: ran phases {sorted(phases)} only; no result")
     t = timing["whisper_bf16"]
@@ -866,6 +1126,12 @@ def main():
         record["kernels"].append({"name": name, "route": "cuda", "source": QUANT_SOURCE,
                                   "replaces": replaces, "launches": n, "max_abs_err": err,
                                   **qtiming[name]})
+    record["kernels"].append({
+        "name": "relu2_attention", "route": "cuda",
+        "source": "mlx_audio_tpu_torch/csrc/relu2_attention.cu",
+        "replaces": "mlx_audio_tpu/ops/pallas/relu2_attention.py:33",
+        "launches": r2_launches, "max_abs_err": rerrs["chunk20s_f32"],
+        **rtiming["chunk20s_f32"]})
     log(f"[device] {smi}")
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

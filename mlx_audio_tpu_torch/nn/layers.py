@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["Linear", "Embedding", "Conv1d", "ConvTranspose1d", "LayerNorm",
-           "RMSNorm"]
+           "RMSNorm", "GroupNorm"]
 
 
 def _he_uniform_(w: torch.Tensor, fan_in: int, generator) -> None:
@@ -167,3 +167,30 @@ class RMSNorm(nn.Module):
         y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + self.eps)
         # a bf16 weight promotes inside the product, exactly, with no copy
         return (y * self.weight).to(x.dtype)
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm over channels-last input (N, ..., C): the statistics of
+    each group run over every spatial position and the group's C/G
+    contiguous channels, in float32, cast back to the input's dtype."""
+
+    def __init__(self, num_groups: int, dims: int, eps: float = 1e-5, device=None):
+        super().__init__()
+        if dims % num_groups:
+            raise ValueError(f"{dims} channels do not split into {num_groups} groups")
+        self.weight = nn.Parameter(torch.empty(dims, device=device))
+        self.bias = nn.Parameter(torch.empty(dims, device=device))
+        self.num_groups = num_groups
+        self.eps = eps
+
+    def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
+        self.weight.data.fill_(1.0)
+        self.bias.data.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, c, g = x.shape[0], x.shape[-1], self.num_groups
+        xf = x.float().reshape(n, -1, g, c // g)
+        mean = xf.mean(dim=(1, 3), keepdim=True)
+        var = (xf - mean).square().mean(dim=(1, 3), keepdim=True)
+        y = ((xf - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
+        return (y * self.weight.float() + self.bias.float()).to(x.dtype)

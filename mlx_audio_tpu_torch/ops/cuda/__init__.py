@@ -9,7 +9,8 @@ from .flash_attention import flash_attention, flash_attention_reference
 from .quant_matmul import (quantized_matmul, quantized_matmul6,
                            quantized_matmul_reference, quantized_mlp,
                            quantized_mlp_reference)
+from .relu2_attention import relu2_attention, relu2_attention_reference
 
 __all__ = ["flash_attention", "flash_attention_reference", "quantized_matmul",
            "quantized_matmul6", "quantized_matmul_reference", "quantized_mlp",
-           "quantized_mlp_reference"]
+           "quantized_mlp_reference", "relu2_attention", "relu2_attention_reference"]

@@ -2,8 +2,9 @@
 plain C interface and load it with ctypes.
 
 The library is built at first use into `build_dir()`, named by a hash of
-the sources and flags, so an unchanged tree reuses it. A failed build
-raises.
+the sources and flags, so an unchanged tree reuses it. Each source compiles
+in its own nvcc process, all started together, and one more links the
+objects. A failed build raises.
 """
 
 from __future__ import annotations
@@ -20,9 +21,10 @@ from typing import Optional
 __all__ = ["load_library", "build_dir", "last_build", "error_string"]
 
 _PKG = Path(__file__).resolve().parents[2]
-_SOURCES = [_PKG / "csrc" / "flash_attention.cu", _PKG / "csrc" / "quant_matmul.cu"]
+_SOURCES = [_PKG / "csrc" / name
+            for name in ("flash_attention.cu", "quant_matmul.cu", "relu2_attention.cu")]
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+          "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIB: Optional[ctypes.CDLL] = None
 # what the last build in this process did: seconds, path, ptxas report
@@ -62,16 +64,29 @@ def _build() -> Path:
         last_build.update(seconds=0.0, path=str(out), cached=True, log="")
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, _SOURCES)]
+    nvcc = _nvcc()
+    objs = [out.with_name(f"{out.stem}.{src.stem}.{os.getpid()}.o") for src in _SOURCES]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, out)
-    last_build.update(seconds=time.perf_counter() - t0, path=str(out),
-                      cached=False, log=res.stdout + res.stderr)
+    procs = [subprocess.Popen([nvcc, *_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(_SOURCES, objs)]
+    logs = [proc.communicate()[0] for proc in procs]  # waits for every process
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    try:
+        for src, proc, log in zip(_SOURCES, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}) on {src.name}:\n{log}")
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(link, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}): {' '.join(link)}\n"
+                               f"{res.stdout}\n{res.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    last_build.update(seconds=time.perf_counter() - t0, path=str(out), cached=False,
+                      log="".join(logs))
     return out
 
 
@@ -86,6 +101,9 @@ def load_library() -> ctypes.CDLL:
         lib.qmm_fwd.restype = _I
         lib.qmlp_fwd.argtypes = [_P] * 10 + [_I] * 7 + [_L, _P]
         lib.qmlp_fwd.restype = _I
+        lib.relu2_attention_fwd.argtypes = (
+            [_P, _P, _P, _P] + [_I] * 5 + [_L] * 12 + [ctypes.c_float, _I, _P])
+        lib.relu2_attention_fwd.restype = _I
         lib.cuda_error_string.argtypes = [_I]
         lib.cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib

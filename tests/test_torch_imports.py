@@ -65,6 +65,7 @@ def test_static_scan_of_imports():
 
 
 def _tiny_entry_points():
+    from mlx_audio_tpu_torch.sts.models.mossformer2_se import Model as MossFormer2SE
     from mlx_audio_tpu_torch.stt.models.whisper import Model as Whisper
     from mlx_audio_tpu_torch.tts.models.qwen3_tts import Model as Qwen3TTS
 
@@ -81,7 +82,8 @@ def _tiny_entry_points():
             latent_dim=16, codebook_dim=8, codebook_size=16, decoder_dim=16, hidden_size=16,
             intermediate_size=32, head_dim=8, num_attention_heads=2, num_key_value_heads=2,
             num_hidden_layers=1, num_quantizers=2, upsample_rates=[2], upsampling_ratios=[2])))
-    return [(Whisper, whisper), (Qwen3TTS, qwen3)]
+    mossformer2_se = dict(in_channels=12, out_channels=16, num_blocks=1, num_mels=4)
+    return [(Whisper, whisper), (Qwen3TTS, qwen3), (MossFormer2SE, mossformer2_se)]
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
