@@ -240,6 +240,8 @@ def phase_device():
             log(f"[ptxas] {entry}: {line.split(':', 1)[1].strip()}")
         elif "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
             log(f"[ptxas] {entry}: {line.strip()}")
+        elif "warning" in line:  # e.g. wgmma serialised, setmaxnreg ignored
+            log(f"[ptxas] {line.strip()}")
     log(f"[build] {wall:.1f} s (nvcc {_build.last_build['seconds']:.1f} s, "
         f"cached={_build.last_build['cached']}) -> {_build.last_build['path']}")
     return smi
@@ -260,6 +262,14 @@ def phase_kernels():
         ("d128_bf16", 2, 8, 1500, 1500, 128, bf16, False),
         ("d128_f32", 1, 8, 1300, 1333, 128, f32, False),
         ("d80_bf16", 1, 4, 1400, 1400, 80, bf16, False),
+        # the bf16 kernel's edges: fewer keys than one 128-key tile; a ragged
+        # diagonal tile; D = 128 at the Whisper shape; T not a multiple of
+        # the 128-query block; D below one 64-column box
+        ("s40_bf16", 2, 4, 300, 40, 64, bf16, False),
+        ("causal1300_bf16", 2, 8, 1300, 1300, 64, bf16, True),
+        ("d128_whisper_bf16", 4, 20, 1500, 1500, 128, bf16, False),
+        ("t777_bf16", 2, 6, 777, 1500, 64, bf16, False),
+        ("d40_bf16", 1, 4, 1300, 1333, 40, bf16, False),
     ]
     errs = {}
     for i, (name, B, H, T, S, D, dtype, causal) in enumerate(cases):
@@ -385,13 +395,24 @@ def phase_slice():
         f"{', '.join(f'{w:.4f}' for w in walls)} s; median {med:.4f} s = "
         f"{seconds / med:.1f}x real time (all runs {seconds * len(walls) / sum(walls):.1f}x, "
         f"best {seconds / min(walls):.1f}x); peak memory {peak_gb:.2f} GB")
-    profile_one_run(run)
+    seen = profile_one_run(run)
+    flash = {k: n for k, n in seen.items() if "flash_fwd_bf16" in k}
+    if seen and list(flash.values()) != [launches]:
+        raise SystemExit(f"chip_smoke: the profile shows flash kernels {flash}, not one kernel "
+                         f"launched {launches} times")
     return launches
 
 
-def profile_one_run(run, what: str = "one transcription") -> None:
+# the port's kernels, which every profile lists whether or not they rank
+# among the top eight
+PORT_KERNELS = ("flash_fwd", "qmm_kernel", "qmlp_kernel", "relu2_fwd")
+
+
+def profile_one_run(run, what: str = "one transcription") -> dict:
     """Device busy time and the top kernels of one run, from torch.profiler
-    (CUPTI). Prints "not measured" if it sees no device time."""
+    (CUPTI), with the port's own kernels listed too. Prints "not measured"
+    if it sees no device time. Returns {kernel name: launches} of the
+    port's kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -403,12 +424,17 @@ def profile_one_run(run, what: str = "one transcription") -> None:
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us <= 0:
         log("[profile] device time: not measured (the profiler saw no CUDA kernels)")
-        return
+        return {}
     log(f"[profile] {what} (profiled): wall {wall_us / 1e3:.1f} ms, device busy "
         f"{busy_us / 1e3:.1f} ms, idle share {100 * (1 - busy_us / wall_us):.1f}%, "
         f"{sum(e.count for e in kernels)} kernel launches")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"[profile]   {e.self_device_time_total / 1e3:8.2f} ms {e.count:6d}x  {e.key[:90]}")
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    port = [e for e in ranked[8:] if any(k in e.key for k in PORT_KERNELS)]
+    for e in ranked[:8] + port:
+        rank = f"#{ranked.index(e) + 1}"
+        log(f"[profile]   {rank:>4} {e.self_device_time_total / 1e3:8.2f} ms {e.count:6d}x  "
+            f"{e.key[:90]}")
+    return {e.key: e.count for e in kernels if any(k in e.key for k in PORT_KERNELS)}
 
 
 def compare_q(out, ref, bf16_ulps: int = Q_BF16_ULPS) -> tuple:
@@ -519,6 +545,11 @@ QMLP_CASES = [  # name, bits, M, K, I, N, dtype
     ("mlp_m16_bf16", 4, 16, 1024, 3072, 1024, torch.bfloat16),
     ("mlp_ragged_n1000_m2_f32", 4, 2, 1024, 3072, 1000, torch.float32),
     ("mlp_int8_m2_bf16", 8, 2, 1024, 3072, 1024, torch.bfloat16),
+    # a third x row (one 4-row pass), and a K of 34 16-byte units a row:
+    # a second, partial step of the 32 lanes
+    ("mlp_m3_f32", 4, 3, 1024, 3072, 1024, torch.float32),
+    ("mlp_k1088_m1_f32", 4, 1, 1088, 3072, 1024, torch.float32),
+    ("mlp_k1088_m2_bf16", 4, 2, 1088, 3072, 1024, torch.bfloat16),
 ]
 
 
@@ -624,7 +655,7 @@ def phase_quant_kernels():
     timing["qmlp"] = dict(ms=ms, plain_ms=plain, library_ms=None, yardstick_ms=yard,
                           bound_ms=bound, bound_by=by, host_loop_ms=loop)
     log(f"[time] qmlp int4 M=1 K={K} I={I} N={N} f32 x (weights cycled past L2), device time "
-        f"per call: kernel (with its barrier-count memset) {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"per call: kernel (its one launch, no memset) {ms:.4f} ms, plain {plain:.4f} ms, "
         f"yardstick bf16 F.linear gate_up, silu*mul, F.linear down {yard:.4f} ms, bound "
         f"{bound:.4f} ms ({by}); kernel at {100 * bound / ms:.1f}% of bound; a Python loop "
         f"of launches takes {loop:.4f} ms a call")

@@ -10,36 +10,49 @@
 // windows, H = 20, T = S = 1500, D = 64, bf16) the work is 4*B*H*T*S*D =
 // 4.6e10 FLOP (47 us at 989 TFLOP/s) against 61 MB of q, k, v and o (18 us
 // at 3.35 TB/s), so it is bound by compute: by the tensor cores for bf16,
-// by the CUDA cores (67 TFLOP/s) for float32.
+// by the CUDA cores (67 TFLOP/s) for float32. At D = 64 the exponentials
+// weigh as much as the products: the card's 16 ex2 a clock per SM match its
+// tensor cores' 16 scores a clock (4*D FLOP each).
 //
 // What the design does about it:
-// - bf16 runs both products on the tensor cores with mma.sync m16n8k16
-//   (float32 accumulators). A block of 4 warps owns 64 queries, each warp
-//   16 rows; q fragments stay in registers for the whole key loop, and the
-//   probabilities go from the score accumulators straight into the A
-//   operand of the PV product without touching shared memory.
-// - float32 uses CUDA-core FMAs on 64 x 64 tiles staged in shared memory,
-//   each thread a 4 x 4 block of scores and a 4 x (D/16) block of the
-//   output.
-// - Both walk the keys in tiles of 64 with a float32 running max, sum and
-//   accumulator, mask the ragged edge (key >= S) inside the kernel, and in
-//   the causal case stop at the diagonal tile.
-// A later version can overlap loads with compute (TMA, cp.async) and move
-// to wgmma; this one is the simple, correct baseline.
+// - bf16 (`flash_fwd_bf16`): a block of one producer warpgroup and NC
+//   consumer warpgroups of 64 queries each: NC = 3 (192 queries) for
+//   D <= 64, 2 for D <= 128, where the output needs twice the registers.
+//   One producer thread keeps TMA loads in flight: the Q tile once, then
+//   the K and V tiles of 128 keys through a ring of 4 (D <= 64) or 3
+//   (D <= 128) slots guarded by mbarriers, each tile in 64-column boxes with
+//   128-byte swizzle, read straight from the (B, H, L, D) view through a 4-d
+//   tensor map (any strides; rows past L and columns past D arrive as
+//   zeros). The consumers run S = Q K^T on wgmma m64n128k16 from shared
+//   memory and the online softmax in registers with ex2; p, rounded to
+//   bf16, stays in registers as the A operand of the PV wgmma, whose B
+//   operand is the V tile read transposed by the descriptor, so nothing is
+//   transposed by hand. Tile j's scores are computed while tile j - 1's PV
+//   product runs, and the warpgroups take turns on the tensor cores (one's
+//   products under another's softmax). setmaxnreg moves registers from the
+//   producer to the consumers. Only the tiles at the end are masked: the
+//   ragged edge of S, and past the diagonal when causal (the causal case
+//   stops at the diagonal). At the Whisper shape 192-query blocks make 640
+//   blocks, 4.8 waves of 132.
+// - float32 (`flash_fwd_f32`) uses CUDA-core FMAs on 64 x 64 tiles staged
+//   in shared memory, each thread a 4 x 4 block of scores and a 4 x (D/16)
+//   block of the output; it masks the ragged edge per element.
 //
-// Semantics that match the TPU kernel exactly: q is multiplied by `scale`
-// in the input dtype before the first product; masked scores are -1e30, not
-// -inf; p is rounded to v's dtype before the PV product while the row sum
-// uses the unrounded p; the output is acc / max(l, 1e-30).
+// Semantics that match the TPU kernel: q is multiplied by `scale` in the
+// input dtype before the first product; masked scores are -1e30, not -inf
+// (TMA's zero fill of the ragged key tile is masked like any key >= S); p
+// is rounded to v's dtype before the PV product while the row sum uses the
+// unrounded p; the output is acc / max(l, 1e-30).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64;  // queries per block
-constexpr int BK = 64;  // keys per tile
+constexpr int BQ = 64;  // float32: queries per block
+constexpr int BK = 64;  // float32: keys per tile
 constexpr float MASKED = -1e30f;
 
 struct Params {
@@ -228,11 +241,117 @@ __global__ void __launch_bounds__(256) flash_fwd_f32(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores, mma.sync m16n8k16
+// bf16: TMA, mbarriers and wgmma, one producer warp and two consumer
+// warpgroups
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* ptr) {
-  return *reinterpret_cast<const uint32_t*>(ptr);
+constexpr int FA_WG = 128;       // threads of a warpgroup
+constexpr int FA_BN = 128;       // keys per tile
+constexpr int FA_ROW = 128;      // bytes of one 64-column row of a tile box
+constexpr float LOG2E = 1.4426950408889634f;
+
+// A block of NC consumer warpgroups (64 queries each) and one producer
+// warpgroup. Its shared memory: the Q tile, then STAGES ring slots of a K
+// and a V tile, then the barriers. Every tile is stored as DMAX / 64 boxes
+// of 64 columns (128 bytes a row, 128-byte swizzle), each box 1024-byte
+// aligned. Registers a thread: 40 or 32 for the producer, 232 or 160 for
+// the consumers (NC = 2 or 3), 64K in all.
+template <int DMAX>
+struct Fa {
+  static constexpr int NC = DMAX == 64 ? 3 : 2;
+  static constexpr int BM = 64 * NC;  // queries per block
+  static constexpr int THREADS = FA_WG * (NC + 1);
+  static constexpr int PRODUCER_REGS = NC == 2 ? 40 : 32;
+  static constexpr int CONSUMER_REGS = NC == 2 ? 232 : 160;
+  static constexpr int BOXES = DMAX / 64;
+  static constexpr int STAGES = DMAX == 64 ? 4 : 3;
+  static constexpr int Q_BYTES = BM * DMAX * 2;
+  static constexpr int KV_BYTES = FA_BN * DMAX * 2;  // one K or V tile
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr int BAR_OFFSET = Q_BYTES + STAGES * STAGE_BYTES;
+  // 1024 bytes of slack to align the base; full[STAGES], empty[STAGES], q
+  static constexpr size_t SMEM = 1024 + BAR_OFFSET + 8 * (2 * STAGES + 1);
+};
+
+struct FaOut {
+  void* o;
+  long long so[3];  // batch, head, row strides (elements)
+  int H, T, S, D;
+  float scale;
+  int causal;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// returns once the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of a (D, L, H, B) tensor map into shared memory; rows past L and
+// columns past D arrive as zeros
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int col, int row, int head, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(head), "r"(batch), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((saddr & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous product's issue and wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -240,187 +359,373 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// d += a (16x16 row-major bf16) * b (16x8 col-major bf16), float32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// d (64 x 128, f32) = A (64 x 16) * B (16 x 128) [+ d if accumulate]; A and B are
+// K-major tiles in shared memory (128-byte swizzle), read through descriptors
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                             int accumulate) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, f32) += A (64 x 16, bf16 in registers) * B (16 x 64); B is an
+// MN-major tile in shared memory (128-byte swizzle), read transposed
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128, f32) += A (64 x 16, bf16 in registers) * B (16 x 128); B is an
+// MN-major tile in shared memory (128-byte swizzle), read transposed
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 template <int DMAX>
-__global__ void __launch_bounds__(128) flash_fwd_bf16(Params p) {
-  constexpr int RS = DMAX + 8;   // padded smem row of Qs/Ks (bf16)
-  constexpr int VS = BK + 8;     // padded smem row of Vt (bf16)
-  constexpr int KC = DMAX / 16;  // k-chunks of the QK^T product
-  constexpr int NO = DMAX / 8;   // n-tiles of the output
-  constexpr int VPR = DMAX / 8;  // 16-byte vectors per row
-  extern __shared__ uint4 smem_u4[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_u4);  // [BQ][RS]
-  __nv_bfloat16* Ks = Qs + BQ * RS;                               // [BK][RS]
-  __nv_bfloat16* Vt = Ks + BK * RS;                               // [DMAX][VS], V transposed
+__device__ __forceinline__ void wgmma_pv(float (&o)[DMAX / 2], const uint32_t* a, uint64_t db) {
+  if constexpr (DMAX == 64) {
+    wgmma_rs_n64(o, a, db);
+  } else {
+    wgmma_rs_n128(o, a, db);
+  }
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * BQ;
+template <int DMAX>
+__global__ void __launch_bounds__(Fa<DMAX>::THREADS, 1)
+    flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const FaOut p) {
+  using C = Fa<DMAX>;
+  extern __shared__ uint8_t fa_raw[];
+  uint8_t* smem = fa_raw + ((1024u - (smem_addr(fa_raw) & 1023u)) & 1023u);
+  const uint32_t sq = smem_addr(smem), skv = sq + C::Q_BYTES, bars = sq + C::BAR_OFFSET;
+  const uint32_t qbar = bars + 16 * C::STAGES;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (C::STAGES + s); };
+
+  const int q0 = blockIdx.x * C::BM;
   const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) + b * p.sq[0] + h * p.sq[1];
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) + b * p.sk[0] + h * p.sk[1];
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) + b * p.sv[0] + h * p.sv[1];
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.so[0] + h * p.so[1];
+  int n_tiles = (p.S + FA_BN - 1) / FA_BN;
+  if (p.causal) n_tiles = min(n_tiles, (q0 + C::BM - 1) / FA_BN + 1);
 
-  // q * scale, rounded to bf16 as the input-dtype multiply does
-  for (int idx = tid; idx < BQ * VPR; idx += 128) {
-    const int r = idx / VPR, c = (idx % VPR) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < p.T && c < p.D) {
-      val = *reinterpret_cast<const uint4*>(qg + (q0 + r) * p.sq[2] + c);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4 * C::NC);  // one arrival per consumer warp
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / FA_WG;
+  if (wg == 0) {
+    // producer: one thread keeps the ring of K/V tiles full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(C::PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(qbar, C::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < C::BOXES; ++c)
+        tma_load(sq + c * C::BM * FA_ROW, &tq, qbar, c * 64, q0, h, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % C::STAGES;
+        mbar_wait(empty(s), ((j / C::STAGES) & 1) ^ 1);
+        mbar_expect_tx(full(s), C::STAGE_BYTES);
+        const uint32_t kdst = skv + s * C::STAGE_BYTES, vdst = kdst + C::KV_BYTES;
+#pragma unroll
+        for (int c = 0; c < C::BOXES; ++c) {
+          tma_load(kdst + c * FA_BN * FA_ROW, &tk, full(s), c * 64, j * FA_BN, h, b);
+          tma_load(vdst + c * FA_BN * FA_ROW, &tv, full(s), c * 64, j * FA_BN, h, b);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup cw owns query rows q0 + 64 cw .. + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::CONSUMER_REGS));
+    const int cw = wg - 1, t = threadIdx.x % FA_WG, lane = t & 31;
+    const int g = lane >> 2, tq4 = lane & 3;
+    const int r0 = q0 + cw * 64 + (t >> 5) * 16 + g, r1 = r0 + 8;  // this thread's rows
+    const uint32_t sq_wg = sq + cw * 64 * FA_ROW;
+
+    // q * scale, rounded to bf16 as the input-dtype multiply does, in place
+    mbar_wait(qbar, 0);
+    for (int i = t; i < C::BOXES * 512; i += FA_WG) {
+      uint4* ptr = reinterpret_cast<uint4*>(smem + (i >> 9) * C::BM * FA_ROW + cw * 64 * FA_ROW +
+                                            (i & 511) * 16);
+      uint4 val = *ptr;
       __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&val);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float2 f = __bfloat1622float2(h2[e]);
         h2[e] = __floats2bfloat162_rn(f.x * p.scale, f.y * p.scale);
       }
+      *ptr = val;
     }
-    *reinterpret_cast<uint4*>(Qs + r * RS + c) = val;
-  }
-  __syncthreads();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + cw), "n"(FA_WG) : "memory");
 
-  const int qr = warp * 16 + g;  // this thread's rows in the tile: qr, qr + 8
-  uint32_t qf[KC][4];
+    float o[DMAX / 2], s[FA_BN / 2];
+    uint32_t pr[FA_BN / 4];  // p as the A operand of the PV product
 #pragma unroll
-  for (int kc = 0; kc < KC; ++kc) {
-    qf[kc][0] = ld32(Qs + qr * RS + kc * 16 + t * 2);
-    qf[kc][1] = ld32(Qs + (qr + 8) * RS + kc * 16 + t * 2);
-    qf[kc][2] = ld32(Qs + qr * RS + kc * 16 + 8 + t * 2);
-    qf[kc][3] = ld32(Qs + (qr + 8) * RS + kc * 16 + 8 + t * 2);
-  }
+    for (int i = 0; i < DMAX / 2; ++i) o[i] = 0.f;
+    float m0 = MASKED, m1 = MASKED, l0 = 0.f, l1 = 0.f, a0 = 1.f, a1 = 1.f;
 
-  float o[NO][4];
+    // s = (q * scale) k^T over the tile in ring slot `slot`
+    auto qk = [&](int slot) {
+      const uint32_t kt = skv + slot * C::STAGE_BYTES;
 #pragma unroll
-  for (int dn = 0; dn < NO; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[dn][e] = 0.f;
-  float m0 = MASKED, m1 = MASKED, l0 = 0.f, l1 = 0.f;
-  const int qrow0 = q0 + qr, qrow1 = qrow0 + 8;
-
-  const int nkb = num_key_tiles(p, q0);
-  for (int kb = 0; kb < nkb; ++kb) {
-    const int k0 = kb * BK;
-    __syncthreads();  // every warp is done with the previous Ks / Vt
-    for (int idx = tid; idx < BK * VPR; idx += 128) {
-      const int r = idx / VPR, c = (idx % VPR) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (k0 + r < p.S && c < p.D) {
-        kv = *reinterpret_cast<const uint4*>(kg + (k0 + r) * p.sk[2] + c);
-        vv = *reinterpret_cast<const uint4*>(vg + (k0 + r) * p.sv[2] + c);
+      for (int kc = 0; kc < DMAX / 16; ++kc) {
+        const uint32_t col = (kc & 3) * 32;  // 16 columns of a 128-byte row
+        wgmma_ss_n128(s, gmma_desc(sq_wg + (kc >> 2) * C::BM * FA_ROW + col, 16, 1024),
+                      gmma_desc(kt + (kc >> 2) * FA_BN * FA_ROW + col, 16, 1024), kc > 0);
       }
-      *reinterpret_cast<uint4*>(Ks + r * RS + c) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
+    };
+    // o += p v over the tile in ring slot `slot`; v is read transposed
+    auto pv = [&](int slot) {
+      const uint32_t vt = skv + slot * C::STAGE_BYTES + C::KV_BYTES;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) Vt[(c + e) * VS + r] = ve[e];
-    }
-    __syncthreads();
+      for (int kc = 0; kc < FA_BN / 16; ++kc)
+        wgmma_pv<DMAX>(o, pr + 4 * kc, gmma_desc(vt + kc * 16 * FA_ROW, FA_BN * FA_ROW, 1024));
+    };
+    // online softmax of s in place: s becomes p (float32), the running max
+    // and sum move on, and a0/a1 say how much the old accumulator shrinks.
+    // Only the tiles at the end can hold masked keys: the ragged edge of S,
+    // and in the causal case those past this warpgroup's first row.
+    auto softmax = [&](int k0) {
+      if (k0 + FA_BN > p.S || (p.causal && k0 + FA_BN - 1 > q0 + 64 * cw)) {
+#pragma unroll
+        for (int e = 0; e < FA_BN / 2; ++e) {
+          const int key = k0 + (e >> 2) * 8 + tq4 * 2 + (e & 1);
+          const int row = (e & 2) ? r1 : r0;
+          if (key >= p.S || (p.causal && key > row)) s[e] = MASKED;
+        }
+      }
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int j = 0; j < FA_BN / 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+      // a row's scores live in the 4 lanes sharing g
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      a0 = ex2((m0 - mx0) * LOG2E);
+      a1 = ex2((m1 - mx1) * LOG2E);
+      m0 = mx0;
+      m1 = mx1;
+      const float b0 = mx0 * LOG2E, b1 = mx1 * LOG2E;
+      float rs0 = 0.f, rs1 = 0.f;  // this thread's share of the row sums
+#pragma unroll
+      for (int j = 0; j < FA_BN / 8; ++j) {
+        s[4 * j] = ex2(fmaf(s[4 * j], LOG2E, -b0));
+        s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], LOG2E, -b0));
+        s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], LOG2E, -b1));
+        s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], LOG2E, -b1));
+        rs0 += s[4 * j] + s[4 * j + 1];
+        rs1 += s[4 * j + 2] + s[4 * j + 3];
+      }
+      l0 = l0 * a0 + rs0;
+      l1 = l1 * a1 + rs1;
+    };
+    // p rounded to bf16: the accumulator layout of s is the A-fragment
+    // layout of the PV product, two keys a register
+    auto pack = [&]() {
+#pragma unroll
+      for (int i = 0; i < FA_BN / 4; ++i) pr[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+    };
+    auto release = [&](int slot) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(slot));
+    };
+    // The warpgroups take turns issuing their products, in a ring (named
+    // barriers 4 ..), so that one's products run while another's softmax
+    // does: left alone they fall into step and wait on the tensor cores
+    // together. Warpgroup 0 goes first; each hands the turn on after
+    // issuing, except the last warpgroup after its last products, whose
+    // turn nobody takes.
+    const int next = cw + 1 == C::NC ? 0 : cw + 1;
+    auto turn_begin = [&]() { asm volatile("bar.sync %0, %1;\n" ::"r"(4 + cw), "n"(2 * FA_WG)); };
+    auto turn_end = [&](bool last) {
+      if (next != 0 || !last) asm volatile("bar.arrive %0, %1;\n" ::"r"(4 + next), "n"(2 * FA_WG));
+    };
+    if (next == 0) asm volatile("bar.arrive %0, %1;\n" ::"r"(4), "n"(2 * FA_WG));
 
-    // s[nt]: rows (qr, qr, qr+8, qr+8), keys k0 + nt*8 + t*2 + (0, 1, 0, 1)
-    float s[BK / 8][4];
+    mbar_wait(full(0), 0);
+    turn_begin();
+    wgmma_fence();
+    qk(0);
+    wgmma_commit();
+    turn_end(false);
+    wgmma_wait<0>();
+    fence_regs(s);
+    softmax(0);
+    pack();
+    // tile j's scores are computed while tile j - 1's PV product runs
+    for (int j = 1; j < n_tiles; ++j) {
+      const int slot = j % C::STAGES, prev = (j - 1) % C::STAGES;
+      mbar_wait(full(slot), (j / C::STAGES) & 1);
+      fence_regs(o);
+      turn_begin();
+      wgmma_fence();
+      qk(slot);
+      wgmma_commit();
+      pv(prev);
+      wgmma_commit();
+      turn_end(false);
+      wgmma_wait<1>();
+      fence_regs(s);
+      softmax(j * FA_BN);
+      wgmma_wait<0>();
+      fence_regs(o);
+      release(prev);
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < KC; ++kc)
-        mma_bf16(s[nt], qf[kc], ld32(Ks + (nt * 8 + g) * RS + kc * 16 + t * 2),
-                 ld32(Ks + (nt * 8 + g) * RS + kc * 16 + 8 + t * 2));
+      for (int j2 = 0; j2 < DMAX / 8; ++j2) {
+        o[4 * j2] *= a0;
+        o[4 * j2 + 1] *= a0;
+        o[4 * j2 + 2] *= a1;
+        o[4 * j2 + 3] *= a1;
+      }
+      pack();
     }
+    fence_regs(o);
+    turn_begin();
+    wgmma_fence();
+    pv((n_tiles - 1) % C::STAGES);
+    wgmma_commit();
+    turn_end(true);
+    wgmma_wait<0>();
+    fence_regs(o);
+    release((n_tiles - 1) % C::STAGES);
 
-    float mx0 = MASKED, mx1 = MASKED;
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (masked(p, e < 2 ? qrow0 : qrow1, k0 + nt * 8 + t * 2 + (e & 1)))
-          s[nt][e] = MASKED;
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-    }
-    // a row's scores live in the 4 lanes sharing g
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
-
-    // p in the A-operand layout of the PV product: chunk kc covers key
-    // n-tiles 2kc (registers 0, 1) and 2kc + 1 (registers 2, 3)
-    uint32_t pf[BK / 16][4];
-    float rs0 = 0.f, rs1 = 0.f;
+    const float L0 = fmaxf(l0, 1e-30f), L1 = fmaxf(l1, 1e-30f);
+    __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.so[0] + h * p.so[1];
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      const float p0 = expf(s[nt][0] - mn0), p1 = expf(s[nt][1] - mn0);
-      const float p2 = expf(s[nt][2] - mn1), p3 = expf(s[nt][3] - mn1);
-      rs0 += p0 + p1;
-      rs1 += p2 + p3;
-      pf[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(p0, p1);
-      pf[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
+    for (int j = 0; j < DMAX / 8; ++j) {
+      const int d = j * 8 + tq4 * 2;
+      if (d >= p.D) continue;
+      if (r0 < p.T)
+        *reinterpret_cast<__nv_bfloat162*>(og + r0 * p.so[2] + d) =
+            __floats2bfloat162_rn(o[4 * j] / L0, o[4 * j + 1] / L0);
+      if (r1 < p.T)
+        *reinterpret_cast<__nv_bfloat162*>(og + r1 * p.so[2] + d) =
+            __floats2bfloat162_rn(o[4 * j + 2] / L1, o[4 * j + 3] / L1);
     }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      rs0 += __shfl_xor_sync(0xffffffffu, rs0, off);
-      rs1 += __shfl_xor_sync(0xffffffffu, rs1, off);
-    }
-    l0 = l0 * a0 + rs0;
-    l1 = l1 * a1 + rs1;
-    m0 = mn0;
-    m1 = mn1;
-
-#pragma unroll
-    for (int dn = 0; dn < NO; ++dn) {
-      o[dn][0] *= a0; o[dn][1] *= a0;
-      o[dn][2] *= a1; o[dn][3] *= a1;
-#pragma unroll
-      for (int kc = 0; kc < BK / 16; ++kc)
-        mma_bf16(o[dn], pf[kc], ld32(Vt + (dn * 8 + g) * VS + kc * 16 + t * 2),
-                 ld32(Vt + (dn * 8 + g) * VS + kc * 16 + 8 + t * 2));
-    }
-  }
-
-  const float L0 = fmaxf(l0, 1e-30f), L1 = fmaxf(l1, 1e-30f);
-#pragma unroll
-  for (int dn = 0; dn < NO; ++dn) {
-    const int d = dn * 8 + t * 2;
-    if (d >= p.D) continue;
-    if (qrow0 < p.T)
-      *reinterpret_cast<__nv_bfloat162*>(og + qrow0 * p.so[2] + d) =
-          __floats2bfloat162_rn(o[dn][0] / L0, o[dn][1] / L0);
-    if (qrow1 < p.T)
-      *reinterpret_cast<__nv_bfloat162*>(og + qrow1 * p.so[2] + d) =
-          __floats2bfloat162_rn(o[dn][2] / L1, o[dn][3] / L1);
   }
 }
 
-template <typename Kernel>
-int launch(Kernel kernel, const Params& p, int threads, size_t smem, cudaStream_t stream) {
+// cuTensorMapEncodeTiled, a driver-API function, fetched through the
+// runtime so that the library needs no link against libcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult res = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &res);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
+                                              &res);
+#endif
+    return err == cudaSuccess && res == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(ptr)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// (B, H, L, D) bf16 with element strides st[0..2] as a (D, L, H, B) map read
+// in boxes of 64 columns x `rows` rows, 128-byte swizzle
+bool encode(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B, int H, int L, int D,
+            const long long (&st)[3], int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(L),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  // a dim of size 1 is never stepped over; give it a stride TMA accepts
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(L > 1 ? st[2] * 2 : 16),
+                                 static_cast<cuuint64_t>(H > 1 ? st[1] * 2 : 16),
+                                 static_cast<cuuint64_t>(B > 1 ? st[0] * 2 : 16)};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+template <int DMAX>
+int launch_bf16(const Params& p, cudaStream_t stream) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  CUtensorMap tq, tk, tv;
+  if (!encode(enc, &tq, p.q, p.B, p.H, p.T, p.D, p.sq, Fa<DMAX>::BM) ||
+      !encode(enc, &tk, p.k, p.B, p.H, p.S, p.D, p.sk, FA_BN) ||
+      !encode(enc, &tv, p.v, p.B, p.H, p.S, p.D, p.sv, FA_BN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = Fa<DMAX>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16<DMAX>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const FaOut out{p.o, {p.so[0], p.so[1], p.so[2]}, p.H, p.T, p.S, p.D, p.scale, p.causal};
+  const dim3 grid((p.T + Fa<DMAX>::BM - 1) / Fa<DMAX>::BM, p.B * p.H);
+  flash_fwd_bf16<DMAX><<<grid, Fa<DMAX>::THREADS, smem, stream>>>(tq, tk, tv, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_f32(const Params& p, cudaStream_t stream) {
+  auto kernel = p.D <= 64 ? flash_fwd_f32<64> : flash_fwd_f32<128>;
+  const int dmax = p.D <= 64 ? 64 : 128;
+  const size_t smem = sizeof(float) * (2 * BQ * (dmax + 4) + BK * dmax + BQ * (BK + 4));
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.T + BQ - 1) / BQ, p.B * p.H);
-  kernel<<<grid, threads, smem, stream>>>(p);
+  kernel<<<grid, 256, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <int DMAX>
-size_t smem_f32() {
-  return sizeof(float) * (2 * BQ * (DMAX + 4) + BK * DMAX + BQ * (BK + 4));
-}
-
-template <int DMAX>
-size_t smem_bf16() {
-  return sizeof(__nv_bfloat16) * (2 * BQ * (DMAX + 8) + DMAX * (BK + 8));
 }
 
 }  // namespace
@@ -441,12 +746,8 @@ extern "C" int flash_attention_fwd(
     return static_cast<int>(cudaErrorInvalidValue);
   if (B * H == 0 || T == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return D <= 64 ? launch(flash_fwd_f32<64>, p, 256, smem_f32<64>(), st)
-                   : launch(flash_fwd_f32<128>, p, 256, smem_f32<128>(), st);
-  if (dtype == 1)
-    return D <= 64 ? launch(flash_fwd_bf16<64>, p, 128, smem_bf16<64>(), st)
-                   : launch(flash_fwd_bf16<128>, p, 128, smem_bf16<128>(), st);
+  if (dtype == 0) return launch_f32(p, st);
+  if (dtype == 1) return D <= 64 ? launch_bf16<64>(p, st) : launch_bf16<128>(p, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

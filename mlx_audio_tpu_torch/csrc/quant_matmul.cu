@@ -24,27 +24,35 @@
 // 1.8 us. A launch costs more than that, so at these shapes launch latency
 // and the loop around them set the time, not this kernel's inner loop.
 //
-// What the design does about it (a simple, correct first version):
-// - One warp owns one weight row; a block of 8 warps owns 8 rows and a tile
-//   of up to BM = 8 rows of x, staged as float32 in shared memory 1024
-//   columns at a time. Each weight chunk is unpacked once into registers
-//   (w = q*s + b, one FMA per value) and serves every x row of the tile.
-//   Lanes walk consecutive chunks, so a warp's word loads are coalesced.
-// - M is tiled as well as N: the codec decoder routes M up to several
-//   hundred rows. The ragged N edge is masked per warp.
-// - The fused MLP runs as one cooperative launch: phase A writes
-//   h = silu(g)*u (float32, M*I*4 bytes, <= 196 KB at M = 16, I = 3072) to a
-//   scratch the wrapper allocates, which stays in L2; a grid-wide barrier
-//   (all blocks are co-resident, which the cooperative launch guarantees);
-//   phase B contracts h with the down weight, reading it through L2. The TPU
-//   kernel relies on its sequential grid for the same hand-over.
-// Later versions can load 16 bytes a lane, hold several rows per warp, and
-// keep the staged tile free of bank conflicts; CUDA graphs around the decode
-// loop are what the launch-bound shapes need first.
+// What the design does about it:
+// - qmm: one warp owns one weight row; a block of 8 warps owns 8 rows and
+//   a tile of up to BM = 8 rows of x, staged as float32 in shared memory
+//   1024 columns at a time. Each weight chunk is unpacked once into
+//   registers (w = q*s + b, one FMA per value) and serves every x row of
+//   the tile. Lanes walk consecutive chunks, so a warp's word loads are
+//   coalesced. M is tiled as well as N: the codec decoder routes M up to
+//   several hundred rows. The ragged N edge is masked per warp.
+// - qmlp is one cooperative launch, bound by latency more than by its
+//   bytes: phase A writes h = silu(g)*u (float32, M*I*4 bytes) to a scratch
+//   in L2, a grid barrier hands it over (the TPU kernel relies on its
+//   sequential grid for that), phase B contracts h with the down weight.
+//   Each lane reads 16 bytes of a row at a time (32 int4 or 16 int8
+//   values) and a warp keeps four rows in flight, gate and up of two
+//   pairs, sent before x is staged; gate and up share one pass over x,
+//   staged once per block; phase B's rows are asked of L2 as the kernel
+//   starts, split into (row, segment) tasks over every warp of every block,
+//   their units loaded while the barrier waits, and the segments' partial
+//   sums added in a fixed order in shared memory (the same codes on every
+//   run). The barrier resets itself (a generation and two counts), so a
+//   call launches one kernel and no memset, and its launch plan is cached.
+// CUDA graphs around the decode loop are what the launch-bound shapes need
+// next.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace {
 
@@ -199,65 +207,393 @@ __global__ void __launch_bounds__(THREADS) qmm_kernel(QmmParams p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// fused quantized SwiGLU
+// ---------------------------------------------------------------------------
+
+// The block of a fused-MLP kernel serving BM rows of x: one block a SM of
+// 16 warps for the decode path's single row; for more rows, whose
+// accumulators need twice the registers, two blocks a SM of 8 warps.
+template <int BM>
+struct QmlpBlock {
+  static constexpr int WARPS = BM == 1 ? 16 : 8;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int PER_SM = BM == 1 ? 1 : 2;
+};
+
+// A lane's unit of a packed row: VEC words (16 bytes when VEC = 4), V values.
+// Its x values sit in shared memory as V floats and 4 of padding, so that
+// the 8 lanes of a 16-byte shared load hit 8 distinct bank groups.
+template <int BITS, int VEC>
+struct Lane {
+  static constexpr int V = VEC * 32 / BITS;
+  static constexpr int XS = V + 4;
+};
+
+template <int VEC>
+struct Words {
+  uint32_t w[VEC];
+};
+
+template <int VEC>
+__device__ __forceinline__ Words<VEC> load_words(const uint8_t* row, int c) {
+  Words<VEC> r;
+  if constexpr (VEC == 4) {
+    // read once: through the non-coherent path, without taking L1 lines
+    asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r.w[0]), "=r"(r.w[1]), "=r"(r.w[2]), "=r"(r.w[3])
+                 : "l"(reinterpret_cast<const uint4*>(row) + c));
+  } else {
+    r.w[0] = __ldg(reinterpret_cast<const uint32_t*>(row) + c);
+  }
+  return r;
+}
+
+// acc[r][m] += sum_j x[m, j] * (q[r]_j * s[r] + b[r]) over one lane unit of
+// the first R rows; xc points at the unit's x values of row 0 in shared
+// memory, rows xs_row floats apart, each read once for all R rows.
+//
+// A value's bits are or-ed under the float32 exponent of 2^23 where they lie
+// in the word, at bit 4j (or 8j), so that f - 2^23 = q 16^j (or q 256^j)
+// exactly, and fmaf(q 16^j, s 16^-j, b) rounds the same exact q s + b as
+// fmaf(q, s, b): one LOP3 and one FADD a value, no conversion. The bits
+// must stay below bit 20: values 5-7 of a 4-bit word (2-3 of an 8-bit one)
+// are read from the word shifted right by 12 (16), one shift a word.
+template <int BITS, int VEC, int BM, int R, int RA>
+__device__ __forceinline__ void unit_dot(const Words<VEC>* q, const float* s, const float* b,
+                                         const float* xc, int xs_row, float (&acc)[RA][BM]) {
+  static_assert(R <= RA, "more rows than accumulators");
+  constexpr int VPW = 32 / BITS;
+  constexpr int LOW = BITS == 4 ? 5 : 2;   // values read from the word as it is
+  constexpr int SHIFT = BITS == 4 ? 12 : 16;
+  constexpr uint32_t MASK = (1u << BITS) - 1u;
+  // s / 2^(BITS j) for the positions the values take
+  float sj[R][LOW];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    sj[r][0] = s[r];
+#pragma unroll
+    for (int j = 1; j < LOW; ++j) sj[r][j] = sj[r][j - 1] * (1.f / (1u << BITS));
+  }
+#pragma unroll
+  for (int wi = 0; wi < VEC; ++wi) {
+    float w[R][VPW];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const uint32_t lo = q[r].w[wi], hi = lo >> SHIFT;
+#pragma unroll
+      for (int j = 0; j < VPW; ++j) {
+        const int pos = j < LOW ? j : j - SHIFT / BITS;  // value position in lo or hi
+        const uint32_t bits = (j < LOW ? lo : hi) & (MASK << (BITS * pos));
+        w[r][j] = fmaf(__uint_as_float(0x4B000000u | bits) - 8388608.f, sj[r][pos], b[r]);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < BM; ++m) {
+      const float4* xv = reinterpret_cast<const float4*>(xc + m * xs_row + wi * VPW);
+#pragma unroll
+      for (int j = 0; j < VPW / 4; ++j) {
+        const float4 t = xv[j];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float a = acc[r][m];
+          a = fmaf(w[r][4 * j], t.x, a);
+          a = fmaf(w[r][4 * j + 1], t.y, a);
+          a = fmaf(w[r][4 * j + 2], t.z, a);
+          a = fmaf(w[r][4 * j + 3], t.w, a);
+          acc[r][m] = a;
+        }
+      }
+    }
+  }
+}
+
+template <int BM>
+__device__ __forceinline__ void warp_sum(float (&acc)[BM]) {
+#pragma unroll
+  for (int m = 0; m < BM; ++m) {
+    float a = acc[m];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+    acc[m] = a;
+  }
+}
+
+// Rows m0 .. m0 + BM - 1 of x (K columns, row stride ldx) into the padded
+// lane-unit layout, columns from k_begin on; rows past M are zeros. Each
+// thread sends its loads in batches of U before it stores any, so staging
+// costs a round trip to memory a batch, not one per element. With U = 4,
+// `x_load` and `x_store` split the first batch (columns below 4 NT),
+// so that other loads can be sent while its own are in flight.
+template <int BM, int U>
+struct XBatch {
+  float v[BM][U];
+};
+
+template <int BM, int NT, int U, typename T, bool CG>
+__device__ __forceinline__ void x_load(XBatch<BM, U>& r, const T* x, long long ldx, int M,
+                                       int m0, int K, int k0) {
+#pragma unroll
+  for (int m = 0; m < BM; ++m)
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int k = k0 + u * NT;
+      r.v[m][u] = m0 + m < M && k < K ? load_x<T, CG>(x + (m0 + m) * ldx + k) : 0.f;
+    }
+}
+
+template <int BITS, int VEC, int BM, int NT, int U>
+__device__ __forceinline__ void x_store(float* xs, const XBatch<BM, U>& r, int K, int k0) {
+  using L = Lane<BITS, VEC>;
+  const int xs_row = K / L::V * L::XS;
+#pragma unroll
+  for (int m = 0; m < BM; ++m)
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int k = k0 + u * NT;
+      if (k < K) xs[m * xs_row + k / L::V * L::XS + k % L::V] = r.v[m][u];
+    }
+}
+
+template <int BITS, int VEC, int BM, int NT, typename T, bool CG>
+__device__ void stage_x(float* xs, const T* x, long long ldx, int M, int m0, int K,
+                        int k_begin) {
+  constexpr int U = 16 / BM;
+  for (int k0 = k_begin + threadIdx.x; k0 < K; k0 += U * NT) {
+    XBatch<BM, U> r;
+    x_load<BM, NT, U, T, CG>(r, x, ldx, M, m0, K, k0);
+    x_store<BITS, VEC, BM, NT, U>(xs, r, K, k0);
+  }
+}
+
 struct QmlpParams {
   const void* x;
   Rows gu;  // 2I rows: gate then up
   Rows d;   // N rows over I
   void* y;
-  float* h;                // (M, I) scratch
-  unsigned int* arrived;   // zeroed before the launch
+  float* h;            // (M, I) scratch
+  unsigned int* bar;   // grid barrier state, 64 words, zeroed once
   int M, K, I, N;
   long long ldx;
+  int part_stride;     // floats per x row of the down product's partial sums
 };
 
-__device__ void grid_barrier(unsigned int* arrived) {
-  __threadfence();  // each thread's h stores, before the block arrives
-  __syncthreads();
+// The grid barrier; all blocks are resident (cooperative launch). Its state
+// is a generation (word 0) and two arrival counts on another 128-byte line
+// (words 32 and 33). A call reads the generation g as it starts and counts
+// its arrivals in count[g & 1]; the last block to arrive bumps the
+// generation, which releases the others. Block 0 zeroes the other count
+// for the next call, which no block of this call touches, so the state
+// needs no memset. Calls on one stream run one after another and share it.
+// Arrival and wait are split so that a block can send loads between them:
+// sent before the arrival's release, they would hold it up, and through it
+// every block.
+__device__ __forceinline__ bool grid_arrive(unsigned int* bar, unsigned int gen) {
+  __syncthreads();  // every h store of the block, before it arrives
+  bool last = false;
   if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(arrived, 1u);
-    while (*reinterpret_cast<volatile unsigned int*>(arrived) < gridDim.x) __nanosleep(64);
-    __threadfence();
+    // a release at GPU scope publishes the block's h stores with the arrival
+    unsigned int old;
+    asm volatile("atom.add.acq_rel.gpu.global.u32 %0, [%1], 1;\n"
+                 : "=r"(old) : "l"(bar + 32 + (gen & 1)) : "memory");
+    last = old == gridDim.x - 1;
+    if (last) asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(bar) : "memory");
   }
-  __syncthreads();
+  return last;
 }
 
-template <int BITS, int BM, typename TX>
-__global__ void __launch_bounds__(THREADS) qmlp_kernel(QmlpParams p) {
+__device__ __forceinline__ void grid_wait(unsigned int* bar, unsigned int gen, bool last) {
+  if (threadIdx.x == 0 && !last) {
+    unsigned int g = gen;
+    while (g == gen) {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(g) : "l"(bar) : "memory");
+      if (g == gen) __nanosleep(32);
+    }
+  }
+  __syncthreads();  // the acquire, passed on to the block
+}
+
+// asks L2 for the lines of [ptr, ptr + bytes), spread over the block
+template <int NT>
+__device__ __forceinline__ void prefetch_l2(const void* ptr, long long bytes) {
+  const uintptr_t end = reinterpret_cast<uintptr_t>(ptr) + bytes;
+  for (uintptr_t a = (reinterpret_cast<uintptr_t>(ptr) & ~uintptr_t(127)) + threadIdx.x * 128;
+       a < end; a += NT * 128)
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(a));
+}
+
+// a lane's unit of one down-product task (row n0 + t / segs, segment
+// t % segs of 32 units), loaded ahead of its use
+template <int VEC>
+struct DownLoad {
+  Words<VEC> w;
+  float s, b;
+  int c;
+  bool ok;
+};
+
+template <int BITS, int VEC>
+__device__ __forceinline__ void load_down(const QmlpParams& p, int n0, int tasks, int segs, int t,
+                                          DownLoad<VEC>& r) {
+  using L = Lane<BITS, VEC>;
+  const int n = n0 + t / segs;
+  r.c = (t % segs) * 32 + (threadIdx.x & 31);
+  r.ok = t < tasks && r.c < p.I / L::V;
+  if (r.ok) {
+    const int grp = r.c * L::V / p.d.group_size;
+    r.w = load_words<VEC>(p.d.w + n * p.d.row_bytes, r.c);
+    r.s = __ldg(p.d.s + n * p.d.G + grp);
+    r.b = __ldg(p.d.b + n * p.d.G + grp);
+  }
+}
+
+// the lane unit c of gate and up rows i0 and, if it is this block's,
+// i0 + warps: four 16-byte loads a lane in flight
+template <int VEC>
+struct GateUp {
+  Words<VEC> w[4];
+  float s[4], b[4];
+};
+
+template <int BITS, int VEC, int NW>
+__device__ __forceinline__ void load_gate_up(const QmlpParams& p, int i0, int a1, int c,
+                                             GateUp<VEC>& r) {
+  using L = Lane<BITS, VEC>;
+  if (i0 >= a1 || c >= p.K / L::V) return;
+  const int i1 = i0 + NW < a1 ? i0 + NW : i0;
+  const int rows[4] = {i0, p.I + i0, i1, p.I + i1};
+  const int grp = c * L::V / p.gu.group_size;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    r.w[q] = load_words<VEC>(p.gu.w + rows[q] * p.gu.row_bytes, c);
+    r.s[q] = __ldg(p.gu.s + rows[q] * p.gu.G + grp);
+    r.b[q] = __ldg(p.gu.b + rows[q] * p.gu.G + grp);
+  }
+}
+
+// Phase A: block b owns gate/up pairs [b I / grid, (b + 1) I / grid); each
+// warp takes two pairs at a time, four rows' 16-byte units in flight a lane
+// (the first sent while x is staged), and x is staged once per block.
+// Phase B: block b owns down rows [b N / grid, (b + 1) N / grid), each cut
+// into segments of 32 lane units, its bytes sent toward L2 as the kernel
+// starts; warps take (row, segment) tasks two at a time, loading their
+// first two while the grid barrier waits, and the segments' partial sums
+// are added in segment order in shared memory.
+template <int BITS, int BM, int VEC, typename TX>
+__global__ void __launch_bounds__(QmlpBlock<BM>::THREADS) qmlp_kernel(QmlpParams p) {
+  using L = Lane<BITS, VEC>;
+  constexpr int QWARPS = QmlpBlock<BM>::WARPS, QTHREADS = QmlpBlock<BM>::THREADS;
   extern __shared__ float4 smem_f4[];
   float* xs = reinterpret_cast<float*>(smem_f4);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ncK = p.K / L::V, ncI = p.I / L::V;
+  const int xs_k = ncK * L::XS, xs_i = ncI * L::XS;
+  float* part = xs + BM * max(xs_k, xs_i);
   const int mtiles = (p.M + BM - 1) / BM;
+  const long long grid = gridDim.x;
+  unsigned int gen = 0;
+  if (threadIdx.x == 0) {
+    gen = *reinterpret_cast<volatile unsigned int*>(p.bar);
+    if (blockIdx.x == 0) p.bar[32 + ((gen + 1) & 1)] = 0u;
+  }
+
+  // phase B's rows of the down weight, with their scales and biases, go
+  // toward L2 now: their DRAM traffic overlaps phase A, and phase B's loads
+  // after the barrier find them there
+  const int n0 = static_cast<int>(blockIdx.x * static_cast<long long>(p.N) / grid);
+  const int n1 = static_cast<int>((blockIdx.x + 1) * static_cast<long long>(p.N) / grid);
+  prefetch_l2<QTHREADS>(p.d.w + n0 * p.d.row_bytes, (n1 - n0) * p.d.row_bytes);
+  prefetch_l2<QTHREADS>(p.d.s + n0 * p.d.G, (n1 - n0) * p.d.G * 4LL);
+  prefetch_l2<QTHREADS>(p.d.b + n0 * p.d.G, (n1 - n0) * p.d.G * 4LL);
 
   // phase A: h[m, i] = silu(x . gate_i) * (x . up_i)
-  const int groups_a = (p.I + WARPS - 1) / WARPS;
-  for (int t = blockIdx.x; t < groups_a * mtiles; t += gridDim.x) {
-    const int i = (t % groups_a) * WARPS + warp, m0 = (t / groups_a) * BM;
-    float g[BM], u[BM];
-    row_dot<BITS, BM, TX, false>(static_cast<const TX*>(p.x), p.ldx, p.M, p.K, m0,
-                                 p.gu, i, i < p.I, xs, g);
-    row_dot<BITS, BM, TX, false>(static_cast<const TX*>(p.x), p.ldx, p.M, p.K, m0,
-                                 p.gu, p.I + i, i < p.I, xs, u);
-    if (lane == 0 && i < p.I) {
+  const int a0 = static_cast<int>(blockIdx.x * static_cast<long long>(p.I) / grid);
+  const int a1 = static_cast<int>((blockIdx.x + 1) * static_cast<long long>(p.I) / grid);
+  for (int mt = 0; mt < mtiles; ++mt) {
+    const int m0 = mt * BM;
+    // x's first loads, then the first weight units', then x's stores
+    const TX* x = static_cast<const TX*>(p.x);
+    XBatch<BM, 4> xb;
+    x_load<BM, QTHREADS, 4, TX, false>(xb, x, p.ldx, p.M, m0, p.K, threadIdx.x);
+    GateUp<VEC> gl;
+    load_gate_up<BITS, VEC, QWARPS>(p, a0 + warp, a1, lane, gl);
+    if (mt) __syncthreads();
+    x_store<BITS, VEC, BM, QTHREADS, 4>(xs, xb, p.K, threadIdx.x);
+    stage_x<BITS, VEC, BM, QTHREADS, TX, false>(xs, x, p.ldx, p.M, m0, p.K, 4 * QTHREADS);
+    __syncthreads();
+    for (int i0 = a0 + warp; i0 < a1; i0 += 2 * QWARPS) {
+      const int i1 = i0 + QWARPS;
+      const bool two = i1 < a1;
+      float acc[4][BM];  // gate and up of pair i0, then of pair i1
 #pragma unroll
-      for (int m = 0; m < BM; ++m)
-        if (m0 + m < p.M) p.h[(m0 + m) * p.I + i] = g[m] / (1.f + expf(-g[m])) * u[m];
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int m = 0; m < BM; ++m) acc[r][m] = 0.f;
+      for (int c = lane; c < ncK; c += 32) {
+        if (i0 != a0 + warp || c != lane) load_gate_up<BITS, VEC, QWARPS>(p, i0, a1, c, gl);
+        const float* xc = xs + c * L::XS;
+        if (two)
+          unit_dot<BITS, VEC, BM, 4>(gl.w, gl.s, gl.b, xc, xs_k, acc);
+        else
+          unit_dot<BITS, VEC, BM, 2>(gl.w, gl.s, gl.b, xc, xs_k, acc);
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) warp_sum(acc[r]);
+      if (lane == 0) {
+#pragma unroll
+        for (int m = 0; m < BM; ++m) {
+          if (m0 + m >= p.M) break;
+          const float g0 = acc[0][m], g1 = acc[2][m];
+          p.h[(m0 + m) * p.I + i0] = g0 / (1.f + expf(-g0)) * acc[1][m];
+          if (two) p.h[(m0 + m) * p.I + i1] = g1 / (1.f + expf(-g1)) * acc[3][m];
+        }
+      }
     }
   }
 
-  grid_barrier(p.arrived);
-
   // phase B: y = h . down^T
-  const int groups_b = (p.N + WARPS - 1) / WARPS;
-  for (int t = blockIdx.x; t < groups_b * mtiles; t += gridDim.x) {
-    const int n = (t % groups_b) * WARPS + warp, m0 = (t / groups_b) * BM;
-    float acc[BM];
-    row_dot<BITS, BM, float, true>(p.h, p.I, p.M, p.I, m0, p.d, n, n < p.N, xs, acc);
-    if (lane == 0 && n < p.N) {
-      TX* y = static_cast<TX*>(p.y);
+  const int segs = (ncI + 31) / 32, tasks = (n1 - n0) * segs;
+  const bool last = grid_arrive(p.bar, gen);
+  DownLoad<VEC> dl[2];
+  load_down<BITS, VEC>(p, n0, tasks, segs, warp, dl[0]);
+  load_down<BITS, VEC>(p, n0, tasks, segs, warp + QWARPS, dl[1]);
+  grid_wait(p.bar, gen, last);
+
+  for (int mt = 0; mt < mtiles; ++mt) {
+    const int m0 = mt * BM;
+    if (mt) __syncthreads();
+    stage_x<BITS, VEC, BM, QTHREADS, float, true>(xs, p.h, p.I, p.M, m0, p.I, 0);
+    __syncthreads();
+    for (int t0 = warp; t0 < tasks; t0 += 2 * QWARPS) {
+      if (mt > 0 || t0 != warp) {
+        load_down<BITS, VEC>(p, n0, tasks, segs, t0, dl[0]);
+        load_down<BITS, VEC>(p, n0, tasks, segs, t0 + QWARPS, dl[1]);
+      }
 #pragma unroll
-      for (int m = 0; m < BM; ++m)
-        if (m0 + m < p.M) y[(m0 + m) * p.N + n] = from_float<TX>(acc[m]);
+      for (int q = 0; q < 2; ++q) {
+        const int t = t0 + q * QWARPS;
+        if (t >= tasks) break;
+        float acc[1][BM];
+#pragma unroll
+        for (int m = 0; m < BM; ++m) acc[0][m] = 0.f;
+        if (dl[q].ok)
+          unit_dot<BITS, VEC, BM, 1>(&dl[q].w, &dl[q].s, &dl[q].b, xs + dl[q].c * L::XS, xs_i,
+                                     acc);
+        warp_sum(acc[0]);
+        if (lane == 0) {
+#pragma unroll
+          for (int m = 0; m < BM; ++m) part[m * p.part_stride + t] = acc[0][m];
+        }
+      }
+    }
+    __syncthreads();
+    TX* y = static_cast<TX*>(p.y);
+    for (int i = threadIdx.x; i < (n1 - n0) * BM; i += QTHREADS) {
+      const int r = i / BM, m = i % BM;
+      if (m0 + m >= p.M) continue;
+      float sum = 0.f;
+      for (int sg = 0; sg < segs; ++sg) sum += part[m * p.part_stride + r * segs + sg];
+      y[(m0 + m) * p.N + n0 + r] = from_float<TX>(sum);
     }
   }
 }
@@ -289,42 +625,112 @@ int qmm_bits(const QmmParams& p, int bits, cudaStream_t st) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int BITS, int BM, typename TX>
-int launch_qmlp(QmlpParams p, cudaStream_t st) {
-  auto kernel = qmlp_kernel<BITS, BM, TX>;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+// Launch plans of the fused MLP, cached per (kernel, device, shared memory)
+// so that a call makes no attribute or occupancy query once its shape has
+// been seen: the grid is every block the card holds at once, up to the
+// kernel's QmlpBlock::PER_SM a SM.
+struct QmlpPlan {
+  const void* fn;
+  int dev;
+  size_t smem;
+  int grid;
+};
+std::mutex qmlp_mu;
+QmlpPlan qmlp_plans[64];
+int qmlp_nplans = 0;
+int sm_count[64];  // 0 = not read yet
+
+int qmlp_sms(int dev, int* sms) {
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  std::lock_guard<std::mutex> lock(qmlp_mu);
+  if (sm_count[dev] == 0) {
+    cudaError_t e = cudaDeviceGetAttribute(&sm_count[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  *sms = sm_count[dev];
+  return 0;
+}
+
+int qmlp_plan(const void* fn, int dev, size_t smem, int sms, int threads, int cap, int* grid) {
+  std::lock_guard<std::mutex> lock(qmlp_mu);
+  for (int i = 0; i < qmlp_nplans; ++i) {
+    const QmlpPlan& pl = qmlp_plans[i];
+    if (pl.fn == fn && pl.dev == dev && pl.smem == smem) {
+      *grid = pl.grid;
+      return 0;
+    }
+  }
+  int optin = 0, per_sm = 0;
+  cudaError_t e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess && smem > static_cast<size_t>(optin)) e = cudaErrorInvalidValue;
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem_bytes(BM));
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  const int mtiles = (p.M + BM - 1) / BM;
-  const int tasks = max((p.I + WARPS - 1) / WARPS, (p.N + WARPS - 1) / WARPS) * mtiles;
-  // every block must be resident at once for the barrier: at most what the
-  // card holds, and no more than there are tasks
-  const int grid = min(per_sm * sms, tasks);
-  e = cudaMemsetAsync(p.arrived, 0, sizeof(unsigned int), st);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  *grid = sms * min(per_sm, cap);
+  if (qmlp_nplans < 64) qmlp_plans[qmlp_nplans++] = {fn, dev, smem, *grid};
+  return 0;
+}
+
+// shared memory of one block: the staged x (or h) rows, then the down
+// product's partial sums for at most `rows` rows of `segs` segments
+template <int BITS, int VEC>
+size_t qmlp_smem(int bm, int K, int I, int rows, int segs) {
+  using L = Lane<BITS, VEC>;
+  const size_t staged = static_cast<size_t>(bm) * max(K, I) / L::V * L::XS;
+  return sizeof(float) * (staged + static_cast<size_t>(bm) * rows * segs);
+}
+
+template <int BITS, int BM, int VEC, typename TX>
+int launch_qmlp(QmlpParams p, int dev, int sms, cudaStream_t st) {
+  auto kernel = qmlp_kernel<BITS, BM, VEC, TX>;
+  // the grid is at least min(sms, N) blocks, so no block owns more rows
+  const int rows = (p.N + min(sms, p.N) - 1) / min(sms, p.N);
+  const int segs = (p.I / Lane<BITS, VEC>::V + 31) / 32;
+  p.part_stride = rows * segs;
+  const size_t smem = qmlp_smem<BITS, VEC>(BM, p.K, p.I, rows, segs);
+  int grid = 0;
+  using Blk = QmlpBlock<BM>;
+  int e = qmlp_plan(reinterpret_cast<const void*>(kernel), dev, smem, sms, Blk::THREADS,
+                    Blk::PER_SM, &grid);
+  if (e != 0) return e;
+  grid = min(grid, max(p.I, p.N));
   void* args[] = {&p};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(grid), dim3(THREADS),
-                                  args, smem_bytes(BM), st);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaError_t err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(grid),
+                                                dim3(Blk::THREADS), args, smem, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
+// rows of x a pass over the weights serves: 1, 2 or 4 (M = 1 and 2 are the
+// decode path's), fewer if the staged rows would pass ~112 KB (two blocks a
+// SM). More rows a pass spill the unrolled lane units out of registers.
+template <int BITS, int VEC>
+int qmlp_rows(int M, int K, int I) {
+  int bm = VEC == 1 || M > 2 ? 4 : M;
+  while (bm > 1 && qmlp_smem<BITS, VEC>(bm, K, I, 0, 0) > 112 * 1024) bm /= 2;
+  return bm;
+}
+
 template <int BITS, typename TX>
-int qmlp_bm(const QmlpParams& p, cudaStream_t st) {
-  if (p.M == 1) return launch_qmlp<BITS, 1, TX>(p, st);
-  if (p.M == 2) return launch_qmlp<BITS, 2, TX>(p, st);
-  if (p.M <= 4) return launch_qmlp<BITS, 4, TX>(p, st);
-  return launch_qmlp<BITS, 8, TX>(p, st);
+int qmlp_launch(const QmlpParams& p, bool vec4, int dev, int sms, cudaStream_t st) {
+  if (!vec4) {
+    return qmlp_rows<BITS, 1>(p.M, p.K, p.I) == 4 ? launch_qmlp<BITS, 4, 1, TX>(p, dev, sms, st)
+                                                  : launch_qmlp<BITS, 1, 1, TX>(p, dev, sms, st);
+  }
+  switch (qmlp_rows<BITS, 4>(p.M, p.K, p.I)) {
+    case 1: return launch_qmlp<BITS, 1, 4, TX>(p, dev, sms, st);
+    case 2: return launch_qmlp<BITS, 2, 4, TX>(p, dev, sms, st);
+    default: return launch_qmlp<BITS, 4, 4, TX>(p, dev, sms, st);
+  }
 }
 
 template <typename TX>
-int qmlp_bits(const QmlpParams& p, int bits, cudaStream_t st) {
-  if (bits == 4) return qmlp_bm<4, TX>(p, st);
-  if (bits == 8) return qmlp_bm<8, TX>(p, st);
+int qmlp_bits(const QmlpParams& p, int bits, bool vec4, int dev, int sms, cudaStream_t st) {
+  if (bits == 4) return qmlp_launch<4, TX>(p, vec4, dev, sms, st);
+  if (bits == 8) return qmlp_launch<8, TX>(p, vec4, dev, sms, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -351,14 +757,17 @@ extern "C" int qmm_fwd(const void* x, const void* w, const float* s, const float
 
 // y (M, N) = (silu(x . gate^T) * (x . up^T)) . down^T; w_gu holds 2I rows of
 // K (gate first), w_d N rows of I; bits 4 or 8. h is an (M, I) float32
-// scratch and `arrived` one unsigned int, both on the device; the call
-// zeroes `arrived` on the stream before the launch.
+// scratch and `bar` the grid barrier's 64 unsigned ints (see grid_arrive),
+// both on `device`, which must be the current device; `bar` starts zeroed
+// and every call leaves it ready for the next, so one serves every call on
+// one stream (calls on other streams need their own).
 extern "C" int qmlp_fwd(const void* x, const void* w_gu, const float* s_gu, const float* b_gu,
                         const void* w_d, const float* s_d, const float* b_d, void* y,
-                        float* h, unsigned int* arrived, int M, int K, int I, int N,
-                        int group_size, int bits, int dtype, long long ldx, void* stream) {
+                        float* h, unsigned int* bar, int M, int K, int I, int N,
+                        int group_size, int bits, int dtype, int device, long long ldx,
+                        void* stream) {
   if (M < 0 || K <= 0 || I <= 0 || N < 0 || group_size <= 0 || K % group_size ||
-      I % group_size) {
+      I % group_size || (bits != 4 && bits != 8)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (M == 0 || N == 0) return 0;
@@ -367,9 +776,17 @@ extern "C" int qmlp_fwd(const void* x, const void* w_gu, const float* s_gu, cons
                 b_gu, K / group_size, group_size},
                {static_cast<const uint8_t*>(w_d), static_cast<long long>(I) * bits / 8, s_d,
                 b_d, I / group_size, group_size},
-               y, h, arrived, M, K, I, N, ldx};
+               y, h, bar, M, K, I, N, ldx, 0};
+  // 16-byte lane units where rows, groups and pointers allow, else words
+  const int v4 = 4 * 32 / bits;
+  const bool vec4 = K % v4 == 0 && I % v4 == 0 && group_size % v4 == 0 &&
+                    reinterpret_cast<uintptr_t>(w_gu) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(w_d) % 16 == 0;
+  int sms = 0;
+  const int e = qmlp_sms(device, &sms);
+  if (e != 0) return e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return qmlp_bits<float>(p, bits, st);
-  if (dtype == 1) return qmlp_bits<__nv_bfloat16>(p, bits, st);
+  if (dtype == 0) return qmlp_bits<float>(p, bits, vec4, device, sms, st);
+  if (dtype == 1) return qmlp_bits<__nv_bfloat16>(p, bits, vec4, device, sms, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -18,7 +18,7 @@ import time
 from pathlib import Path
 from typing import Optional
 
-__all__ = ["load_library", "build_dir", "last_build", "error_string"]
+__all__ = ["load_library", "build_dir", "last_build", "error_string", "SIGNATURES"]
 
 _PKG = Path(__file__).resolve().parents[2]
 _SOURCES = [_PKG / "csrc" / name
@@ -33,6 +33,19 @@ last_build: dict = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
+
+# The C interface of csrc/*.cu: name -> (restype, argtypes). ctypes passes
+# an argument by the type given here, so a pointer typed as an int would be
+# cut to 32 bits; tests/test_torch_kernel_abi.py holds this table to the
+# `extern "C"` declarations in the sources.
+SIGNATURES = {
+    "flash_attention_fwd": (_I, [_P, _P, _P, _P] + [_I] * 5 + [_L] * 12 + [_F, _I, _I, _P]),
+    "qmm_fwd": (_I, [_P] * 5 + [_I] * 6 + [_L, _P]),
+    "qmlp_fwd": (_I, [_P] * 10 + [_I] * 8 + [_L, _P]),
+    "relu2_attention_fwd": (_I, [_P, _P, _P, _P] + [_I] * 5 + [_L] * 12 + [_F, _I, _P]),
+    "cuda_error_string": (ctypes.c_char_p, [_I]),
+}
 
 
 def build_dir() -> Path:
@@ -94,18 +107,9 @@ def load_library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(_build()))
-        lib.flash_attention_fwd.argtypes = (
-            [_P, _P, _P, _P] + [_I] * 5 + [_L] * 12 + [ctypes.c_float, _I, _I, _P])
-        lib.flash_attention_fwd.restype = _I
-        lib.qmm_fwd.argtypes = [_P] * 5 + [_I] * 6 + [_L, _P]
-        lib.qmm_fwd.restype = _I
-        lib.qmlp_fwd.argtypes = [_P] * 10 + [_I] * 7 + [_L, _P]
-        lib.qmlp_fwd.restype = _I
-        lib.relu2_attention_fwd.argtypes = (
-            [_P, _P, _P, _P] + [_I] * 5 + [_L] * 12 + [ctypes.c_float, _I, _P])
-        lib.relu2_attention_fwd.restype = _I
-        lib.cuda_error_string.argtypes = [_I]
-        lib.cuda_error_string.restype = ctypes.c_char_p
+        for name, (restype, argtypes) in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.restype, fn.argtypes = restype, argtypes
         _LIB = lib
     return _LIB
 

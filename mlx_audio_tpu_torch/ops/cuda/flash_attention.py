@@ -64,6 +64,8 @@ def _check(q, k, v, causal: bool) -> None:
         raise ValueError(f"head dim {D} > 128")
     if causal and T != k.shape[2]:
         raise ValueError("causal flash attention needs T == S")
+    if k.shape[2] == 0:
+        raise ValueError("flash attention needs at least one key")
     # 16-byte vector loads: rows must start on 16-byte boundaries
     vec = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -93,6 +95,11 @@ def flash_attention(q, k, v, *, causal: bool = False,
     S = k.shape[2]
     if scale is None:
         scale = D ** -0.5
+    if q.dtype == torch.bfloat16:
+        # the bf16 kernel reads through TMA tensor maps, which take no zero
+        # stride: a broadcast (expanded) operand is laid out first
+        q, k, v = (t if all(st or n == 1 for st, n in zip(t.stride(), t.shape)) else
+                   t.contiguous() for t in (q, k, v))
     out = torch.empty_like(q)  # preserves q's strides
     lib = _build.load_library()
     with torch.cuda.device(q.device):

@@ -180,9 +180,26 @@ def quantized_matmul6(x, w, scales, biases, *, group_size: int = 64) -> torch.Te
     return y
 
 
-# h is M·I·4 bytes and each m-tile of 8 rows is one pass over the weights;
-# the routing guard (`nn.quantized.fused_mlp_call`) admits M <= 16
+# h is M·I·4 bytes and each tile of up to 4 rows of x is one pass over the
+# weights; the routing guard (`nn.quantized.fused_mlp_call`) admits M <= 16
 QMLP_MAX_M = 16
+
+# per (device, stream): the grid barrier's state (64 words, see
+# `grid_arrive` in csrc/quant_matmul.cu), zeroed once and left ready by
+# every call, and the h scratch, grown as needed. Calls on one stream run
+# one after another, so they can share both; another stream gets its own.
+_QMLP_STATE: dict = {}
+_BAR_WORDS = 64
+
+
+def _qmlp_state(x, stream: int, n_h: int):
+    key = (x.device.index, stream)
+    state = _QMLP_STATE.get(key)
+    if state is None or state[1].numel() < n_h:
+        bar = state[0] if state else torch.zeros(_BAR_WORDS, dtype=torch.int32, device=x.device)
+        state = (bar, torch.empty(n_h, dtype=torch.float32, device=x.device))
+        _QMLP_STATE[key] = state
+    return state
 
 
 def quantized_mlp(x, w_gu, s_gu, b_gu, w_down, s_down, b_down, *,
@@ -209,13 +226,13 @@ def quantized_mlp(x, w_gu, s_gu, b_gu, w_down, s_down, b_down, *,
     if M > QMLP_MAX_M:
         raise ValueError(f"the fused MLP kernel takes M <= {QMLP_MAX_M}, got {M}")
     y = torch.empty(M, N, dtype=x.dtype, device=x.device)
-    # h (M, I) float32, then one word for the grid barrier's count
-    scratch = torch.empty(M * I + 1, dtype=torch.float32, device=x.device)
+    stream = _stream(x)
+    bar, h = _qmlp_state(x, stream, M * I)
     err = _build.load_library().qmlp_fwd(
         x2.data_ptr(), w_gu.data_ptr(), s_gu.data_ptr(), b_gu.data_ptr(),
         w_down.data_ptr(), s_down.data_ptr(), b_down.data_ptr(), y.data_ptr(),
-        scratch.data_ptr(), scratch.data_ptr() + 4 * M * I,
-        M, K, I, N, group_size, bits, _DTYPE_CODE[x.dtype], x2.stride(0), _stream(x))
+        h.data_ptr(), bar.data_ptr(), M, K, I, N, group_size, bits, _DTYPE_CODE[x.dtype],
+        x.device.index, x2.stride(0), stream)
     if err != 0:
         raise RuntimeError(f"qmlp_fwd launch failed: {_build.error_string(err)}")
     quantized_mlp.launches += 1
