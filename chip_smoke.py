@@ -20,8 +20,8 @@ Phases, each printing its own lines:
   6. the same model at 6 bits, 32 frames;
   7. MossFormer2-SE 48 kHz at full width (f32, 24 blocks, seeded random
      weights): 20 s in one shot, 30 s segmented and 90 s chunked through
-     `Model.enhance`, with the ReLU² kernel's launches held to 2 per FLASH
-     layer per chunk.
+     `Model.enhance`, with the ReLU² kernel's launches held to 1 per FLASH
+     layer per chunk (v and u in one call).
 Phase 2 also holds the ReLU² attention kernel to its plain version, and
 phase 3 a one-block MossFormer2-SE on the card to the CPU.
 The line before the last holds the kernels' JSON record; the last line is
@@ -113,6 +113,11 @@ R2_CASES = [  # name, B, G, N, D, E, dtype, v a split half (row stride 2E)
     ("chunk4s_f32", 1, 2, 256, 128, 1024, torch.float32, True),
     ("chunk4s_bf16", 1, 2, 256, 128, 1024, torch.bfloat16, True),
     ("contiguous_v_f32", 1, 2, 256, 128, 1024, torch.float32, False),
+    # MossFormer2's one call per FLASH layer: v;u whole (E = 2 x 1024)
+    ("merged20s_f32", 1, 10, 256, 128, 2048, torch.float32, False),
+    ("merged20s_bf16", 1, 10, 256, 128, 2048, torch.bfloat16, False),
+    ("merged4s_f32", 1, 2, 256, 128, 2048, torch.float32, False),
+    ("merged4s_bf16", 1, 2, 256, 128, 2048, torch.bfloat16, False),
     ("ragged200_f32", 2, 3, 200, 128, 64, torch.float32, False),
     ("ragged200_bf16", 2, 3, 200, 128, 64, torch.bfloat16, True),
     ("ragged13_d64_f32", 1, 4, 13, 64, 40, torch.float32, False),
@@ -405,7 +410,7 @@ def phase_slice():
 
 # the port's kernels, which every profile lists whether or not they rank
 # among the top eight
-PORT_KERNELS = ("flash_fwd", "qmm_kernel", "qmlp_kernel", "relu2_fwd")
+PORT_KERNELS = ("flash_fwd", "qmm_kernel", "qmm_gemv", "qmlp_kernel", "relu2_")
 
 
 def profile_one_run(run, what: str = "one transcription") -> dict:
@@ -524,6 +529,22 @@ QMM_CASES = [  # name, bits, M, N, K, dtype: the routed shapes of phases 5 and 6
     ("qkv_m1_f32", 4, 1, 4096, 1024, torch.float32),
     ("qkv_m1_bf16", 4, 1, 4096, 1024, torch.bfloat16),
     ("oproj_m2_f32", 4, 2, 1024, 2048, torch.float32),
+    # the GEMV (M <= 4, 4/8-bit): o_proj (K split over two warps), the codec
+    # head, the code predictor's two-token seed, M = 3 and 4, int8 (K split
+    # over two and four warps), a K of 96 units (three uneven segments),
+    # the ragged N edge; x at a 4-byte offset takes the tiled kernel
+    ("oproj_m1_f32", 4, 1, 1024, 2048, torch.float32),
+    ("oproj_m1_bf16", 4, 1, 1024, 2048, torch.bfloat16),
+    ("codec_head_m1_f32", 4, 1, 3072, 1024, torch.float32),
+    ("qkv_m2_f32", 4, 2, 4096, 1024, torch.float32),
+    ("qkv_m2_bf16", 4, 2, 4096, 1024, torch.bfloat16),
+    ("qkv_m3_f32", 4, 3, 4096, 1024, torch.float32),
+    ("oproj_m4_bf16", 4, 4, 1024, 2048, torch.bfloat16),
+    ("int8_m1_f32", 8, 1, 4096, 1024, torch.float32),
+    ("int8_oproj_m1_bf16", 8, 1, 1024, 2048, torch.bfloat16),
+    ("k3072_m1_f32", 4, 1, 1024, 3072, torch.float32),
+    ("ragged_n1000_m1_f32", 4, 1, 1000, 1024, torch.float32),
+    ("offset_x_m2_f32", 4, 2, 1024, 2048, torch.float32),
     ("codec_head_m16_bf16", 4, 16, 3072, 1024, torch.bfloat16),
     ("down_prefill_m32_f32", 4, 32, 1024, 3072, torch.float32),
     ("text_proj_m336_bf16", 4, 336, 2048, 2048, torch.bfloat16),
@@ -538,6 +559,10 @@ QMM_CASES = [  # name, bits, M, N, K, dtype: the routed shapes of phases 5 and 6
     ("q6_codec_qkv_m300_bf16", 6, 300, 3072, 512, torch.bfloat16),
     ("q6_ragged_n1000_m16_bf16", 6, 16, 1000, 1024, torch.bfloat16),
 ]
+# timed: name, bits, M, N, K (f32 x): the talker's fused q/k/v and o_proj
+# at M = 1, the code predictor's two-token seed, the 6-bit q/k/v
+QMM_TIMED = [("qmm", 4, 1, 4096, 1024), ("qmm_oproj", 4, 1, 1024, 2048),
+             ("qmm_m2", 4, 2, 4096, 1024), ("qmm6", 6, 1, 4096, 1024)]
 QMLP_CASES = [  # name, bits, M, K, I, N, dtype
     ("mlp_m1_f32", 4, 1, 1024, 3072, 1024, torch.float32),
     ("mlp_m1_bf16", 4, 1, 1024, 3072, 1024, torch.bfloat16),
@@ -566,6 +591,8 @@ def phase_quant_kernels():
         g = torch.Generator(device="cuda").manual_seed(200 + i)
         packed, scales, biases = quant_weights(N, K, bits, g)
         x = torch.randn(M, K, generator=g, device="cuda").to(dtype)
+        if name.startswith("offset_x"):  # rows 4 bytes past a 16-byte boundary
+            x = torch.cat([x[:, :1], x], dim=1)[:, 1:]
         out = quantized_matmul(x, packed, scales, biases, bits=bits, group_size=GROUP)
         torch.cuda.synchronize()
         ref = quantized_matmul_reference(x, packed, scales, biases, bits=bits,
@@ -600,8 +627,7 @@ def phase_quant_kernels():
 
     timing = {}
     f32 = torch.float32
-    for kname, bits in (("qmm", 4), ("qmm6", 6)):
-        M, N, K = 1, 4096, 1024
+    for kname, bits, M, N, K in QMM_TIMED:
         g = torch.Generator(device="cuda").manual_seed(400 + bits)
         sets = [quant_weights(N, K, bits, g)]
         wbytes = weight_bytes(*sets[0])
@@ -622,7 +648,7 @@ def phase_quant_kernels():
         bound, by = quant_bound_ms(wbytes, M, K, N, f32, 2.0 * M * N * K)
         timing[kname] = dict(ms=ms, plain_ms=plain, library_ms=None, yardstick_ms=yard,
                              bound_ms=bound, bound_by=by, host_loop_ms=loop)
-        log(f"[time] {kname} int{bits} M=1 N={N} K={K} f32 x (weights cycled past L2), device "
+        log(f"[time] {kname} int{bits} M={M} N={N} K={K} f32 x (weights cycled past L2), device "
             f"time per call: kernel {ms:.4f} ms, plain {plain:.4f} ms, yardstick F.linear on "
             f"the bf16 dequantized weight {yard:.4f} ms, bound {bound:.4f} ms ({by}); kernel "
             f"at {100 * bound / ms:.1f}% of bound; a Python loop of launches takes "
@@ -963,22 +989,24 @@ def phase_relu2_kernel():
         if not ok:
             raise SystemExit(f"chip_smoke: relu2_attention {name} over its bar: {desc}")
         errs[name] = err
-        if name in ("chunk20s_f32", "ragged200_f32", "ragged200_bf16"):
+        if name in ("chunk20s_f32", "merged20s_f32", "ragged200_f32", "ragged200_bf16"):
             planted_relu2_check(name, q, k, v, ref)
 
     timing = {}
-    for name, G, dtype in (("chunk20s_f32", 10, torch.float32),
-                           ("chunk20s_bf16", 10, torch.bfloat16),
-                           ("chunk4s_f32", 2, torch.float32)):
-        B, N, D, E = 1, 256, 128, 1024
-        q, k, v = relu2_inputs(B, G, N, D, E, dtype, True, seed=700)
+    for name, G, E, dtype, split_v in (
+            ("merged20s_f32", 10, 2048, torch.float32, False),
+            ("merged4s_f32", 2, 2048, torch.float32, False),
+            ("merged20s_bf16", 10, 2048, torch.bfloat16, False),
+            ("chunk20s_f32", 10, 1024, torch.float32, True)):
+        B, N, D = 1, 256, 128
+        q, k, v = relu2_inputs(B, G, N, D, E, dtype, split_v, seed=700)
         ms, loop = device_ms([lambda: relu2_attention(q, k, v, N)], 200)
         plain, _ = device_ms([lambda: relu2_attention_reference(q, k, v, N)], 50)
         bound, by = relu2_bound_ms(B, G, N, D, E, dtype)
         timing[name] = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound,
                             bound_by=by, host_loop_ms=loop)
-        log(f"[time] relu2 {name} B={B} G={G} N={N} D={D} E={E} (v a split half), device "
-            f"time per call: kernel {ms:.4f} ms, plain (two cuBLAS matmuls) {plain:.4f} ms, "
+        log(f"[time] relu2 {name} B={B} G={G} N={N} D={D} E={E} (v row stride {v.stride(2)}), "
+            f"device time per call: kernel {ms:.4f} ms, plain (two cuBLAS matmuls) {plain:.4f} ms, "
             f"no library call computes ReLU² attention, bound {bound:.4f} ms ({by}); kernel "
             f"at {100 * bound / ms:.1f}% of bound; a Python loop of launches takes "
             f"{loop:.4f} ms a call")
@@ -1036,7 +1064,7 @@ def phase_moss_card_vs_cpu():
         if not err <= MOSS_CARD_VS_CPU_REL * peak or not torch.isfinite(got).all():
             raise SystemExit(f"chip_smoke: MossFormer2-SE card vs CPU {what} max|d| {err}")
     log(f"[card-vs-cpu] MossFormer2-SE card launches: relu2 {launches}")
-    if launches != 4:  # one FLASH layer, v and u, two forward passes
+    if launches != 2:  # one FLASH layer (v and u in one call), two forward passes
         raise SystemExit("chip_smoke: the card comparison did not go through the relu2 kernel")
     del cpu, card
     torch.cuda.empty_cache()
@@ -1062,7 +1090,7 @@ def phase_moss_slice():
         f"{cfg.out_channels}, {cfg.num_blocks} blocks, {cfg.out_channels_final}-bin mask), f32, "
         f"{n_params / 1e6:.1f} M params, built in {time.perf_counter() - t0:.1f} s")
     chunks = [n for _, _, n in MOSS_REQUESTS]
-    predicted = 2 * cfg.num_blocks * sum(chunks)  # v and u, each FLASH layer, each chunk
+    predicted = cfg.num_blocks * sum(chunks)  # v;u in one call, each FLASH layer, each chunk
     audios = [(np.random.default_rng(10 + i).standard_normal(int(sec * cfg.sample_rate))
                * 0.05).astype(np.float32) for i, (sec, _, _) in enumerate(MOSS_REQUESTS)]
 
@@ -1081,7 +1109,7 @@ def phase_moss_slice():
         firsts.append(out)
         walls[i].append(wall)
     launches = relu2_attention.launches
-    log(f"[moss] relu2 launches over the three requests: {launches} (predicted 2 x "
+    log(f"[moss] relu2 launches over the three requests: {launches} (predicted "
         f"{cfg.num_blocks} FLASH layers x {sum(chunks)} chunks {chunks} = {predicted})")
     if launches != predicted:
         raise SystemExit(f"chip_smoke: MossFormer2-SE launched relu2 {launches} times, "
@@ -1161,8 +1189,8 @@ def main():
         "name": "relu2_attention", "route": "cuda",
         "source": "mlx_audio_tpu_torch/csrc/relu2_attention.cu",
         "replaces": "mlx_audio_tpu/ops/pallas/relu2_attention.py:33",
-        "launches": r2_launches, "max_abs_err": rerrs["chunk20s_f32"],
-        **rtiming["chunk20s_f32"]})
+        "launches": r2_launches, "max_abs_err": rerrs["merged20s_f32"],
+        **rtiming["merged20s_f32"]})
     log(f"[device] {smi}")
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -25,9 +25,20 @@
 // and the loop around them set the time, not this kernel's inner loop.
 //
 // What the design does about it:
-// - qmm: one warp owns one weight row; a block of 8 warps owns 8 rows and
-//   a tile of up to BM = 8 rows of x, staged as float32 in shared memory
-//   1024 columns at a time. Each weight chunk is unpacked once into
+// - qmm at M <= 4, 4 and 8 bits (the decode path: 55,000 of a 256-frame
+//   Qwen3-TTS synthesis's 55,705 launches) is a GEMV, `qmm_gemv`, built for
+//   latency: each lane reads 8-byte units (16 int4 or 8 int8 values, one
+//   scale and bias a unit) of four rows, all sent before any arithmetic and
+//   the next step's before this one's FMAs; x is read from L1, not staged,
+//   so no barrier precedes the weight loads; the warps of a block split K
+//   so that a lane holds one unit a row (two warps at the q/k/v's K 1024,
+//   four at o_proj's 2048) and add their partial sums in shared memory in a
+//   fixed order. Its dequantization and dot product are qmlp's (`unit_dot`).
+// - qmm otherwise (prefill, the codec decoder; every 6-bit call; rows or
+//   pointers that do not allow 8-byte units): one warp owns one weight
+//   row; a block of 8 warps owns 8 rows and a tile of up to BM = 8 rows of
+//   x, staged as float32 in shared memory 1024 columns at a time. Each
+//   weight chunk is unpacked once into
 //   registers (w = q*s + b, one FMA per value) and serves every x row of
 //   the tile. Lanes walk consecutive chunks, so a warp's word loads are
 //   coalesced. M is tiled as well as N: the codec decoder routes M up to
@@ -243,15 +254,32 @@ __device__ __forceinline__ Words<VEC> load_words(const uint8_t* row, int c) {
     asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
                  : "=r"(r.w[0]), "=r"(r.w[1]), "=r"(r.w[2]), "=r"(r.w[3])
                  : "l"(reinterpret_cast<const uint4*>(row) + c));
+  } else if constexpr (VEC == 2) {
+    asm volatile("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];\n"
+                 : "=r"(r.w[0]), "=r"(r.w[1])
+                 : "l"(reinterpret_cast<const uint2*>(row) + c));
   } else {
     r.w[0] = __ldg(reinterpret_cast<const uint32_t*>(row) + c);
   }
   return r;
 }
 
+// four x values as floats: float32 from shared or global memory; bfloat16
+// (8 bytes, through the read-only path) from global memory only
+__device__ __forceinline__ float4 load_x4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load_x4(const __nv_bfloat16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
 // acc[r][m] += sum_j x[m, j] * (q[r]_j * s[r] + b[r]) over one lane unit of
-// the first R rows; xc points at the unit's x values of row 0 in shared
-// memory, rows xs_row floats apart, each read once for all R rows.
+// the first R rows; xc points at the unit's x values of row 0 (in shared
+// memory, or x itself in global memory), rows xs_row elements apart, each
+// read once for all R rows.
 //
 // A value's bits are or-ed under the float32 exponent of 2^23 where they lie
 // in the word, at bit 4j (or 8j), so that f - 2^23 = q 16^j (or q 256^j)
@@ -259,9 +287,9 @@ __device__ __forceinline__ Words<VEC> load_words(const uint8_t* row, int c) {
 // fmaf(q, s, b): one LOP3 and one FADD a value, no conversion. The bits
 // must stay below bit 20: values 5-7 of a 4-bit word (2-3 of an 8-bit one)
 // are read from the word shifted right by 12 (16), one shift a word.
-template <int BITS, int VEC, int BM, int R, int RA>
+template <int BITS, int VEC, int BM, int R, int RA, typename XT = float>
 __device__ __forceinline__ void unit_dot(const Words<VEC>* q, const float* s, const float* b,
-                                         const float* xc, int xs_row, float (&acc)[RA][BM]) {
+                                         const XT* xc, int xs_row, float (&acc)[RA][BM]) {
   static_assert(R <= RA, "more rows than accumulators");
   constexpr int VPW = 32 / BITS;
   constexpr int LOW = BITS == 4 ? 5 : 2;   // values read from the word as it is
@@ -290,10 +318,10 @@ __device__ __forceinline__ void unit_dot(const Words<VEC>* q, const float* s, co
     }
 #pragma unroll
     for (int m = 0; m < BM; ++m) {
-      const float4* xv = reinterpret_cast<const float4*>(xc + m * xs_row + wi * VPW);
+      const XT* xv = xc + m * xs_row + wi * VPW;
 #pragma unroll
       for (int j = 0; j < VPW / 4; ++j) {
-        const float4 t = xv[j];
+        const float4 t = load_x4(xv + 4 * j);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           float a = acc[r][m];
@@ -316,6 +344,112 @@ __device__ __forceinline__ void warp_sum(float (&acc)[BM]) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
     acc[m] = a;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// qmm, decode path: the dequant-GEMV for M <= 4 at 4 and 8 bits
+// ---------------------------------------------------------------------------
+
+// A warp owns GEMV_R consecutive weight rows and one of `split` contiguous
+// segments of their lane units; a block is GEMV_RW such row groups times
+// `split` segments. Each lane sends the 8-byte units (16 int4 or 8 int8
+// values, inside one group) of its R rows, and their scales and biases,
+// before any arithmetic, and the next step's units before it computes
+// this one's. Past the load latency the time goes to each warp's chain of
+// unpacking, FMAs and its shuffle sums: 8-byte units with K split so that
+// a lane holds one unit a row give more, shorter chains than 16-byte units
+// (3.53 against 3.69 us at the talker's q/k/v on an H100). x (M rows of K) is read straight
+// from global memory through L1, four values at a time, inside `unit_dot`:
+// nothing is staged, so no barrier stands before the weight loads. The
+// segments' partial sums meet in shared memory and are added in segment
+// order (the same result on every run).
+constexpr int GEMV_VEC = 2;  // words a lane unit: 8 bytes
+constexpr int GEMV_R = 4;
+constexpr int GEMV_RW = 2;
+constexpr int GEMV_MAX_SPLIT = 8;
+
+template <int BITS, int BM, typename TX>
+__global__ void __launch_bounds__(32 * GEMV_RW * GEMV_MAX_SPLIT)
+    qmm_gemv(QmmParams p, int split) {
+  using L = Lane<BITS, GEMV_VEC>;
+  constexpr int R = GEMV_R;
+  __shared__ float part[GEMV_MAX_SPLIT][GEMV_RW * R][BM];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int sg = warp % split, rw = warp / split;
+  const int n0 = (blockIdx.x * GEMV_RW + rw) * R;
+  const int units = p.K / L::V;
+  const int c1 = (sg + 1) * units / split;
+  // rows past N read row N - 1 and are not stored
+  const uint8_t* rows[R];
+  int srow[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int n = min(n0 + r, p.N - 1);
+    rows[r] = p.w.w + n * p.w.row_bytes;
+    srow[r] = n * p.w.G;
+  }
+  auto load = [&](int c, Words<GEMV_VEC>(&w)[R], float(&s)[R], float(&b)[R]) {
+    const int grp = c * L::V / p.w.group_size;
+#pragma unroll
+    for (int r = 0; r < R; ++r) w[r] = load_words<GEMV_VEC>(rows[r], c);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      s[r] = __ldg(p.w.s + srow[r] + grp);
+      b[r] = __ldg(p.w.b + srow[r] + grp);
+    }
+  };
+
+  float acc[R][BM];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int m = 0; m < BM; ++m) acc[r][m] = 0.f;
+  Words<GEMV_VEC> w[R];
+  float s[R], b[R];
+  int c = sg * units / split + lane;
+  if (c < c1) load(c, w, s, b);
+  const TX* x = static_cast<const TX*>(p.x);
+  while (c < c1) {
+    Words<GEMV_VEC> wn[R];
+    float sn[R], bn[R];
+    if (c + 32 < c1) load(c + 32, wn, sn, bn);
+    unit_dot<BITS, GEMV_VEC, BM, R, R, TX>(w, s, b, x + c * L::V, static_cast<int>(p.ldx),
+                                           acc);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      w[r] = wn[r];
+      s[r] = sn[r];
+      b[r] = bn[r];
+    }
+    c += 32;
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) warp_sum(acc[r]);
+
+  TX* y = static_cast<TX*>(p.y);
+  if (split == 1) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int m = 0; m < BM; ++m)
+        if (lane == r * BM + m && n0 + r < p.N) y[m * p.ldy + n0 + r] = from_float<TX>(acc[r][m]);
+    return;
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int m = 0; m < BM; ++m) part[sg][rw * R + r][m] = acc[r][m];
+  }
+  __syncthreads();
+  const int nb = blockIdx.x * GEMV_RW * R;
+  for (int i = threadIdx.x; i < GEMV_RW * R * BM; i += blockDim.x) {
+    const int row = i / BM, m = i % BM;
+    if (nb + row >= p.N) continue;
+    float sum = 0.f;
+    for (int t = 0; t < split; ++t) sum += part[t][row][m];
+    y[m * p.ldy + nb + row] = from_float<TX>(sum);
   }
 }
 
@@ -609,8 +743,41 @@ int launch_qmm(const QmmParams& p, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// the GEMV takes M <= 4 at 4 and 8 bits where rows, groups and pointers
+// allow its weight units and 16-byte (f32) or 8-byte (bf16) x reads
+template <int BITS, typename TX>
+bool gemv_fits(const QmmParams& p) {
+  constexpr int V = Lane<BITS, GEMV_VEC>::V;
+  constexpr uintptr_t XALIGN = 4 * sizeof(TX);
+  return p.M <= 4 && p.K % V == 0 && p.w.group_size % V == 0 &&
+         reinterpret_cast<uintptr_t>(p.w.w) % (4 * GEMV_VEC) == 0 &&
+         reinterpret_cast<uintptr_t>(p.x) % XALIGN == 0 &&
+         (p.M == 1 || (p.ldx % 4 == 0 && p.ldx <= 0x7fffffffLL));
+}
+
+template <int BITS, int BM, typename TX>
+int launch_gemv(QmmParams p, cudaStream_t st) {
+  // enough segments that a lane holds one unit of each row where K allows
+  const int units = p.K / Lane<BITS, GEMV_VEC>::V;
+  const int split = min(GEMV_MAX_SPLIT, (units + 31) / 32);
+  const long long blocks = (p.N + GEMV_RW * GEMV_R - 1) / (GEMV_RW * GEMV_R);
+  if (p.M == 1) p.ldx = 0;
+  qmm_gemv<BITS, BM, TX><<<static_cast<unsigned>(blocks), 32 * GEMV_RW * split, 0, st>>>(p, split);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int BITS, typename TX>
 int qmm_bm(const QmmParams& p, cudaStream_t st) {
+  if constexpr (BITS != 6) {
+    if (gemv_fits<BITS, TX>(p)) {
+      switch (p.M) {
+        case 1: return launch_gemv<BITS, 1, TX>(p, st);
+        case 2: return launch_gemv<BITS, 2, TX>(p, st);
+        case 3: return launch_gemv<BITS, 3, TX>(p, st);
+        default: return launch_gemv<BITS, 4, TX>(p, st);
+      }
+    }
+  }
   if (p.M == 1) return launch_qmm<BITS, 1, TX>(p, st);
   if (p.M == 2) return launch_qmm<BITS, 2, TX>(p, st);
   if (p.M <= 4) return launch_qmm<BITS, 4, TX>(p, st);

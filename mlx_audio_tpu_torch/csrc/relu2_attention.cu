@@ -8,34 +8,36 @@
 // float32; the weights are rounded to v's dtype before the PV product; the
 // output is in v's dtype.
 //
-// What bounds it on this card: at MossFormer2-SE's 20 s shape (B = 1,
-// G = 10, N = 256, D = 128, E = 1024) the work is 2*B*G*N*N*(D+E) =
-// 1.51 GFLOP against 23.6 MB of q, k, v and out in float32. At the H100
-// SXM data sheet's peaks that is 22.5 us of CUDA-core FMAs (67 TFLOP/s)
-// against 7.0 us of memory (3.35 TB/s), so float32 is bound by operations;
-// bf16 (11.8 MB, 3.5 us; 1.5 us on the tensor cores) by bytes.
+// What bounds it on this card: MossFormer2-SE calls it once per FLASH layer
+// on v;u together (E = 2 x 1024). At the 20 s shape (B = 1, G = 10,
+// N = 256, D = 128, E = 2048) the work is 2*B*G*N*N*(D+E) = 2.85 GFLOP
+// against 44.6 MB of q, k, v and out in float32. At the H100 SXM data
+// sheet's peaks that is 42.6 us of CUDA-core FMAs (67 TFLOP/s) against
+// 13.3 us of memory (3.35 TB/s), so float32 is bound by operations; bf16
+// (22.3 MB, 6.7 us; 2.9 us on the tensor cores) by bytes.
 //
 // What the design does about it:
 // - The TPU kernel holds the whole (N, N) float32 score tile in VMEM; at
-//   N = 256 that is 256 KB, more than an SM's shared memory. This kernel
-//   streams key tiles of 64. With no softmax the partial products of the
-//   tiles simply add up: no running max, no rescale, no final divide.
-// - E = 1024 float32 accumulators for a block of queries do not fit in
-//   registers, so E is tiled over the grid: a block owns 64 queries and 128
-//   output columns and recomputes the 64 x N scores for its columns. That
-//   costs E/128 = 8 score passes (QK^T is 1/9 of the work, so the total is
-//   16/9 of it), but it gives every (batch, group) 32 blocks: MossFormer2's
-//   4 s chunks have only two groups, and holding p in shared memory for all
-//   of E would leave them 8 blocks for 132 SMs.
+//   N = 256 that is 256 KB, more than an SM's shared memory.
+// - float32 runs on CUDA cores (TF32 would break float32 parity) in two
+//   launches. The score pass computes each weight once, 32 x 32 tiles of
+//   relu(q k^T / g)^2, into a scratch (B*G*np*np floats, np = N rounded up
+//   to 64: 2.6 MB at G = 10) that stays in L2, transposed so the next pass
+//   reads it in 16-byte pieces. The PV pass is a register-blocked GEMM:
+//   8 x 8 outputs a thread (four 16-byte shared loads per 64 FMAs), 64
+//   queries by 64 columns a block of 64 threads (G = 2 and E = 2048: 256
+//   blocks; G = 10: 1,280, several a SM), with keys staged 16 at a time
+//   through a ring of three by cp.async under the FMAs. One launch that
+//   tiles E over the grid recomputes the scores for every column tile: at
+//   E = 1024 it spends as many FMAs on scores as on PV.
 // - bf16 runs both products on the tensor cores with mma.sync m16n8k16
-//   (float32 accumulators); the weights go from the score accumulators
-//   straight into the A operand of the PV product. float32 runs on CUDA
-//   cores (TF32 would break float32 parity) on 64 x 64 score tiles staged
-//   through shared memory.
+//   (float32 accumulators) in one launch: a block owns 64 queries and 128
+//   output columns, streams key tiles of 64 and recomputes its scores per
+//   column tile; the weights go from the score accumulators straight into
+//   the A operand of the PV product. With no softmax the partial products
+//   of the key tiles simply add up: no running max, no rescale.
 // - The ragged edges (query, key >= N; columns >= E) are zero-filled and
-//   masked in the kernel, so every N is taken.
-// A later version can hold p across several column tiles, overlap loads
-// with compute (cp.async, TMA) and move to wgmma.
+//   masked in the kernels, so every N is taken.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -43,9 +45,9 @@
 
 namespace {
 
-constexpr int BQ = 64;   // queries per block
-constexpr int BK = 64;   // keys per tile
-constexpr int BE = 128;  // output columns per block
+constexpr int BQ = 64;   // bf16: queries per block
+constexpr int BK = 64;   // bf16: keys per tile
+constexpr int BE = 128;  // bf16: output columns per block
 
 struct Params {
   const void* q;
@@ -64,138 +66,182 @@ __device__ __forceinline__ float relu2(float s, const Params& p, int key) {
 }
 
 // ---------------------------------------------------------------------------
-// float32: CUDA cores
+// float32: CUDA cores, a score pass and a PV pass
 // ---------------------------------------------------------------------------
 
-template <int DMAX>
-__global__ void __launch_bounds__(256) relu2_fwd_f32(Params p) {
-  constexpr int DP = DMAX + 4;  // padded smem row of Qs/Ks (floats)
-  constexpr int PP = BK + 4;    // padded smem row of Ps
-  constexpr int NG = BE / 64;   // float4 output column groups per thread
-  constexpr int VPR = DMAX / 4; // float4 vectors per q/k row
-  constexpr int EPR = BE / 4;   // float4 vectors per v row
-  extern __shared__ float4 smem_f4[];
-  float* Qs = reinterpret_cast<float*>(smem_f4);  // [BQ][DP]
-  float* Ks = Qs + BQ * DP;                       // [BK][DP]
-  float* Vs = Ks + BK * DP;                       // [BK][BE]
-  float* Ps = Vs + BK * BE;                       // [BQ][PP]
+constexpr int NPAD = 64;     // the scratch pads N to a multiple of this
+constexpr int ST = 32;       // queries and keys per score block
+constexpr int SI = 4;        // queries per score thread
+constexpr int SJ = 2;        // keys per score thread
+constexpr int PM = 64;       // queries per PV block
+constexpr int PN = 64;       // output columns per PV block, one thread each
+constexpr int PK = 16;       // keys per PV stage
+constexpr int PSTAGES = 3;   // the PV block's ring of (P, V) stages
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int e0 = blockIdx.x * BE;
-  const int q0 = blockIdx.y * BQ;
+// 16 bytes global -> shared without registers; with ok false it writes
+// zeros and reads nothing (src must still be a valid address)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Pass 1: the weights relu(q k^T / group_size)^2 of one (batch, group), ST
+// queries by ST keys a block, SI x SJ a thread, written transposed,
+// pt[key][query] with rows of np floats, so that the PV pass reads them in
+// 16-byte pieces. Keys past N get weight 0; queries past N read zero q rows.
+template <int DMAX>
+__global__ void __launch_bounds__(ST * ST / (SI * SJ))
+    relu2_scores_f32(Params p, float* pt, int np) {
+  constexpr int NT = ST * ST / (SI * SJ);  // threads
+  constexpr int TI = ST / SI, TJ = ST / SJ;  // threads along the queries, the keys
+  constexpr int DP = DMAX + 4;      // padded smem row of Qs/Ks (floats)
+  constexpr int TP = ST + 4;        // padded smem row of Ts
+  constexpr int VPR = DMAX / 4;     // float4 vectors per q/k row
+  static_assert(TP <= DP, "Ts reuses Ks");
+  extern __shared__ float4 smem_f4[];
+  float* Qs = reinterpret_cast<float*>(smem_f4);  // [ST][DP]
+  float* Ks = Qs + ST * DP;                       // [ST][DP]
+  float* Ts = Ks;                                 // [ST][TP], the tile transposed
+
+  const int tid = threadIdx.x, tx = tid % TJ, ty = tid / TJ;
+  const int q0 = blockIdx.x * ST, k0 = blockIdx.y * ST;
   const int b = blockIdx.z / p.G, g = blockIdx.z % p.G;
   const float* qg = static_cast<const float*>(p.q) + b * p.sq[0] + g * p.sq[1];
   const float* kg = static_cast<const float*>(p.k) + b * p.sk[0] + g * p.sk[1];
+
+  for (int idx = tid; idx < ST * VPR; idx += NT) {
+    const int r = idx / VPR, c = (idx % VPR) * 4;
+    const bool okq = q0 + r < p.N && c < p.D, okk = k0 + r < p.N && c < p.D;
+    cp_async16(Qs + r * DP + c, okq ? qg + (q0 + r) * p.sq[2] + c : qg, okq);
+    cp_async16(Ks + r * DP + c, okk ? kg + (k0 + r) * p.sk[2] + c : kg, okk);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // scores for queries ty + TI i, keys tx + TJ j
+  float s[SI][SJ];
+#pragma unroll
+  for (int i = 0; i < SI; ++i)
+#pragma unroll
+    for (int j = 0; j < SJ; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < DMAX; d += 4) {
+    float4 qa[SI], ka[SJ];
+#pragma unroll
+    for (int i = 0; i < SI; ++i)
+      qa[i] = *reinterpret_cast<const float4*>(Qs + (ty + TI * i) * DP + d);
+#pragma unroll
+    for (int j = 0; j < SJ; ++j)
+      ka[j] = *reinterpret_cast<const float4*>(Ks + (tx + TJ * j) * DP + d);
+#pragma unroll
+    for (int i = 0; i < SI; ++i)
+#pragma unroll
+      for (int j = 0; j < SJ; ++j) {
+        s[i][j] = fmaf(qa[i].x, ka[j].x, s[i][j]);
+        s[i][j] = fmaf(qa[i].y, ka[j].y, s[i][j]);
+        s[i][j] = fmaf(qa[i].z, ka[j].z, s[i][j]);
+        s[i][j] = fmaf(qa[i].w, ka[j].w, s[i][j]);
+      }
+  }
+  __syncthreads();  // every thread is done with Ks, which Ts reuses
+#pragma unroll
+  for (int i = 0; i < SI; ++i)
+#pragma unroll
+    for (int j = 0; j < SJ; ++j)
+      Ts[(tx + TJ * j) * TP + ty + TI * i] = relu2(s[i][j], p, k0 + tx + TJ * j);
+  __syncthreads();
+  float* out = pt + static_cast<long long>(blockIdx.z) * np * np;
+  for (int idx = tid; idx < ST * ST / 4; idx += NT) {
+    const int r = idx / (ST / 4), c = (idx % (ST / 4)) * 4;
+    *reinterpret_cast<float4*>(out + static_cast<long long>(k0 + r) * np + q0 + c) =
+        *reinterpret_cast<const float4*>(Ts + r * TP + c);
+  }
+}
+
+// Pass 2: out = P V for one (batch, group), a register-blocked GEMM: a block
+// of PN threads owns PM = 64 queries by PN columns, each thread 8 by 8 (rows
+// 4 ty .. +3 and 32 + 4 ty .. +3, columns 4 tx .. +3 and PN / 2 + 4 tx ..
+// +3), so that a key costs a thread four 16-byte shared loads for 64 FMAs.
+// Keys come in stages of 16 through a ring of three, copied with cp.async
+// while the FMAs of the stage before run. V rows past N and columns past E
+// are zero-filled; each output sums its keys in order.
+__global__ void __launch_bounds__(PN) relu2_pv_f32(Params p, const float* pt, int np) {
+  constexpr int TX = PN / 8;  // threads along the columns
+  __shared__ __align__(16) float As[PSTAGES][PK][PM];  // P^T stage: keys by queries
+  __shared__ __align__(16) float Bs[PSTAGES][PK][PN];  // V stage: keys by columns
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  const int e0 = blockIdx.x * PN, q0 = blockIdx.y * PM;
+  const int b = blockIdx.z / p.G, g = blockIdx.z % p.G;
+  const float* at = pt + static_cast<long long>(blockIdx.z) * np * np + q0;
   const float* vg = static_cast<const float*>(p.v) + b * p.sv[0] + g * p.sv[1] + e0;
   float* og = static_cast<float*>(p.o) + b * p.so[0] + g * p.so[1] + e0;
-  const int ne = min(BE, p.E - e0);  // this block's columns, a multiple of 4
+  const int ne = min(PN, p.E - e0);  // this block's columns, a multiple of 4
+  const int nk = np / PK;
 
-  for (int idx = tid; idx < BQ * VPR; idx += 256) {
-    const int r = idx / VPR, c = (idx % VPR) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < p.N && c < p.D)
-      val = *reinterpret_cast<const float4*>(qg + (q0 + r) * p.sq[2] + c);
-    *reinterpret_cast<float4*>(Qs + r * DP + c) = val;
+  auto load = [&](int kt) {
+    const int k0 = kt * PK, st = kt % PSTAGES;
+#pragma unroll
+    for (int i = 0; i < PK * PM / 4 / PN; ++i) {
+      const int idx = tid + PN * i, r = idx / (PM / 4), c = (idx % (PM / 4)) * 4;
+      cp_async16(&As[st][r][c], at + static_cast<long long>(k0 + r) * np + c, true);
+    }
+#pragma unroll
+    for (int i = 0; i < PK / 4; ++i) {
+      const int idx = tid + PN * i, r = idx / (PN / 4), c = (idx % (PN / 4)) * 4;
+      const bool ok = k0 + r < p.N && c < ne;
+      cp_async16(&Bs[st][r][c], ok ? vg + (k0 + r) * p.sv[2] + c : vg, ok);
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+#pragma unroll
+  for (int kt = 0; kt < PSTAGES - 1; ++kt) {
+    if (kt < nk) load(kt);
+    cp_async_commit();
   }
-
-  float acc[4][NG][4];
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<PSTAGES - 2>();  // stage kt has landed
+    __syncthreads();               // for every thread; stage kt - 1 is free
+    if (kt + PSTAGES - 1 < nk) load(kt + PSTAGES - 1);
+    cp_async_commit();
+    const int st = kt % PSTAGES;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int kk = 0; kk < PK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[st][kk][4 * ty]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[st][kk][32 + 4 * ty]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[st][kk][4 * tx]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[st][kk][PN / 2 + 4 * tx]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float w[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-    for (int gr = 0; gr < NG; ++gr)
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][gr][c] = 0.f;
-
-  const int nkb = (p.N + BK - 1) / BK;
-  for (int kb = 0; kb < nkb; ++kb) {
-    const int k0 = kb * BK;
-    __syncthreads();  // the previous tile's readers are done
-    for (int idx = tid; idx < BK * VPR; idx += 256) {
-      const int r = idx / VPR, c = (idx % VPR) * 4;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + r < p.N && c < p.D)
-        kv = *reinterpret_cast<const float4*>(kg + (k0 + r) * p.sk[2] + c);
-      *reinterpret_cast<float4*>(Ks + r * DP + c) = kv;
-    }
-    for (int idx = tid; idx < BK * EPR; idx += 256) {
-      const int r = idx / EPR, c = (idx % EPR) * 4;
-      float4 vv = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + r < p.N && c < ne)
-        vv = *reinterpret_cast<const float4*>(vg + (k0 + r) * p.sv[2] + c);
-      *reinterpret_cast<float4*>(Vs + r * BE + c) = vv;
-    }
-    __syncthreads();
-
-    // scores for rows ty + 16 i, keys tx + 16 j
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DMAX; d += 4) {
-      float4 qa[4], ka[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qa[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * DP + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        ka[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * DP + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qa[i].x, ka[j].x, s[i][j]);
-          s[i][j] = fmaf(qa[i].y, ka[j].y, s[i][j]);
-          s[i][j] = fmaf(qa[i].z, ka[j].z, s[i][j]);
-          s[i][j] = fmaf(qa[i].w, ka[j].w, s[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        Ps[(ty + 16 * i) * PP + tx + 16 * j] = relu2(s[i][j], p, k0 + tx + 16 * j);
-    __syncthreads();
-
-    // acc[rows ty + 16 i][cols gr*64 + tx*4 + c] += P V
-#pragma unroll 2
-    for (int kk = 0; kk < BK; kk += 4) {
-      float4 pr[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pr[i] = *reinterpret_cast<const float4*>(Ps + (ty + 16 * i) * PP + kk);
-#pragma unroll
-      for (int gr = 0; gr < NG; ++gr) {
-        float4 vr[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          vr[u] = *reinterpret_cast<const float4*>(Vs + (kk + u) * BE + gr * 64 + tx * 4);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float pw[4] = {pr[i].x, pr[i].y, pr[i].z, pr[i].w};
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            acc[i][gr][0] = fmaf(pw[u], vr[u].x, acc[i][gr][0]);
-            acc[i][gr][1] = fmaf(pw[u], vr[u].y, acc[i][gr][1]);
-            acc[i][gr][2] = fmaf(pw[u], vr[u].z, acc[i][gr][2]);
-            acc[i][gr][3] = fmaf(pw[u], vr[u].w, acc[i][gr][3]);
-          }
-        }
-      }
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qrow = q0 + ty + 16 * i;
-    if (qrow >= p.N) continue;
+  for (int i = 0; i < 8; ++i) {
+    const int q = q0 + (i < 4 ? 4 * ty + i : 32 + 4 * ty + i - 4);
+    if (q >= p.N) continue;
 #pragma unroll
-    for (int gr = 0; gr < NG; ++gr) {
-      const int c = gr * 64 + tx * 4;
+    for (int h = 0; h < 2; ++h) {
+      const int c = PN / 2 * h + 4 * tx;
       if (c < ne)
-        *reinterpret_cast<float4*>(og + qrow * p.so[2] + c) = make_float4(
-            acc[i][gr][0], acc[i][gr][1], acc[i][gr][2], acc[i][gr][3]);
+        *reinterpret_cast<float4*>(og + q * p.so[2] + c) = make_float4(
+            acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
     }
   }
 }
@@ -353,8 +399,8 @@ int launch(Kernel kernel, const Params& p, int BG, int threads, size_t smem,
 }
 
 template <int DMAX>
-size_t smem_f32() {
-  return sizeof(float) * ((BQ + BK) * (DMAX + 4) + BK * BE + BQ * (BK + 4));
+size_t smem_scores() {
+  return sizeof(float) * 2 * ST * (DMAX + 4);
 }
 
 template <int DMAX>
@@ -362,11 +408,31 @@ size_t smem_bf16() {
   return sizeof(__nv_bfloat16) * ((BQ + BK) * (DMAX + 8) + BE * (BK + 8));
 }
 
+// the score pass, then the PV pass, on one stream; pt holds the weights
+template <int DMAX>
+int launch_f32(const Params& p, int BG, float* pt, cudaStream_t stream) {
+  const int np = (p.N + NPAD - 1) / NPAD * NPAD;
+  const size_t smem = smem_scores<DMAX>();
+  cudaError_t err = cudaFuncSetAttribute(relu2_scores_f32<DMAX>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  relu2_scores_f32<DMAX><<<dim3(np / ST, np / ST, BG), ST * ST / (SI * SJ), smem, stream>>>(
+      p, pt, np);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  relu2_pv_f32<<<dim3((p.E + PN - 1) / PN, np / PM, BG), PN, 0, stream>>>(p, pt, np);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16. float32 needs `scratch`, room for
+// B*G*np*np floats with np = N rounded up to a multiple of 64 (the weights
+// between the two passes); bfloat16 takes none. Returns a cudaError_t
+// (0 = launched).
 extern "C" int relu2_attention_fwd(
-    const void* q, const void* k, const void* v, void* o,
+    const void* q, const void* k, const void* v, void* o, float* scratch,
     int B, int G, int N, int D, int E,
     long long sqb, long long sqg, long long sqn,
     long long skb, long long skg, long long skn,
@@ -377,13 +443,13 @@ extern "C" int relu2_attention_fwd(
            {sqb, sqg, sqn}, {skb, skg, skn}, {svb, svg, svn}, {sob, sog, son},
            group_size};
   if (D < 1 || D > 128 || B < 0 || G < 1 || N < 0 || E < 0 || B * G > 65535 ||
-      (N + BQ - 1) / BQ > 65535 || !(group_size > 0.f))
+      (N + ST - 1) / ST > 65535 || !(group_size > 0.f) || (dtype == 0 && !scratch))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0 || E == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return D <= 64 ? launch(relu2_fwd_f32<64>, p, B * G, 256, smem_f32<64>(), st)
-                   : launch(relu2_fwd_f32<128>, p, B * G, 256, smem_f32<128>(), st);
+    return D <= 64 ? launch_f32<64>(p, B * G, scratch, st)
+                   : launch_f32<128>(p, B * G, scratch, st);
   if (dtype == 1)
     return D <= 64 ? launch(relu2_fwd_bf16<64>, p, B * G, 128, smem_bf16<64>(), st)
                    : launch(relu2_fwd_bf16<128>, p, B * G, 128, smem_bf16<128>(), st);

@@ -6,9 +6,11 @@ Counterpart of the TPU kernel `mlx_audio_tpu/ops/pallas/relu2_attention.py`
 `_build.load_library`.
 
 `relu2_attention` takes the plain version for CPU tensors only; a CUDA
-tensor goes to the kernel or raises. The kernel streams key tiles, so it
-takes every N: the JAX package's N > 2048 detour to its einsum path, a VMEM
-limit of the TPU, has no counterpart here.
+tensor goes to the kernel or raises. The kernels take every N: the JAX
+package's N > 2048 detour to its einsum path, a VMEM limit of the TPU, has
+no counterpart here. float32 runs two launches, a score pass into a scratch
+of B·G·np² floats (np = N rounded up to `N_PAD`) and a PV pass; bf16
+runs one.
 """
 
 from __future__ import annotations
@@ -23,6 +25,15 @@ from . import _build
 __all__ = ["relu2_attention", "relu2_attention_reference"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the float32 passes' scratch pads N to a multiple of this (NPAD in
+# csrc/relu2_attention.cu)
+N_PAD = 64
+
+
+def scratch_elems(B: int, G: int, N: int) -> int:
+    """float32 elements of the weights the float32 passes hand over."""
+    np_ = -(-N // N_PAD) * N_PAD
+    return B * G * np_ * np_
 
 
 def relu2_attention_reference(q, k, v, group_size: Optional[int] = None) -> torch.Tensor:
@@ -73,9 +84,8 @@ def _check(q, k, v) -> None:
 
 def relu2_attention(q, k, v, group_size: Optional[int] = None) -> torch.Tensor:
     """q/k (B, G, N, D), v (B, G, N, E) → (B, G, N, E) in v's dtype, f32 or
-    bf16, D ≤ 128. Any strides with a unit last dim: MossFormer2's v and u,
-    `split` halves of one projection with a row stride of 2E, go in without
-    a copy. The output is contiguous."""
+    bf16, D ≤ 128. Any strides with a unit last dim: a `split` half of a
+    wider projection goes in without a copy. The output is contiguous."""
     if q.device.type == "cpu":
         return relu2_attention_reference(q, k, v, group_size)
     _check(q, k, v)
@@ -86,11 +96,14 @@ def relu2_attention(q, k, v, group_size: Optional[int] = None) -> torch.Tensor:
     out = torch.empty(B, G, N, E, dtype=v.dtype, device=v.device)
     if out.numel() == 0:
         return out
+    scratch = (torch.empty(scratch_elems(B, G, N), dtype=torch.float32, device=v.device)
+               if v.dtype == torch.float32 else None)
     lib = _build.load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.relu2_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
             B, G, N, D, E,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
             ctypes.c_float(group_size), _DTYPE_CODE[v.dtype], stream,

@@ -264,8 +264,10 @@ class FlashShareAFFConvM(nn.Module):
 
     def _attention(self, quad_q, lin_q, quad_k, lin_k, hidden):
         """`hidden` is to_hidden's output, v;u. It is padded to whole groups
-        once and split afterwards, so the kernel reads v and u as views
-        with a row stride of 2E, without a copy."""
+        once, and the quadratic branch takes v and u in one kernel call on
+        all of it (E = 2 × its half): per column that is the function the
+        JAX package computes in two calls, with q and k read and the
+        weights computed once. Its output is split into views."""
         B, n = hidden.shape[:2]
         g = self.group_size
         quad_q, lin_q, quad_k, lin_k = (_rope_rotate(t, self.rope_dims)
@@ -279,8 +281,7 @@ class FlashShareAFFConvM(nn.Module):
         grp = lambda t: t.view(B, G, g, t.shape[-1])  # noqa: E731
         gq, gk = grp(quad_q), grp(quad_k)
 
-        quad_v = relu2_attention(gq, gk, grp(v), g)
-        quad_u = relu2_attention(gq, gk, grp(u), g)
+        quad_v, quad_u = relu2_attention(gq, gk, grp(hidden), g).chunk(2, dim=-1)
 
         if self.causal:
             def linear(t):

@@ -1,19 +1,27 @@
 #!/usr/bin/env python3
 """Time edited copies of the port's redesigned kernels on one H100.
 
-    python3 scripts/torch_kernel_variants.py [--flash] [--qmlp]
+    python3 scripts/torch_kernel_variants.py [--flash] [--qmlp] [--qmm] [--relu2]
 
 Each variant is the kernel's source with a few lines replaced: a part of
 the kernel taken out (its output is then wrong, and only its time counts)
-or a design choice undone. Every variant is built with nvcc into its own
+or a design choice undone; or, for relu2, the earlier kernel kept in
+`scripts/baselines/`. Every variant is built with nvcc into its own
 library under `build/variants/` and timed beside the unchanged source on
-the same inputs, in two rounds taken in turns:
+the same inputs, in two rounds taken in turns (no flag: all four):
 
 - flash: B=4 H=20 T=S=1500 D=64 bf16 from (B, T, H, D) views, CUDA events
   over 50 launches, with F.scaled_dot_product_attention as the yardstick;
 - qmlp: M=1 K=1024 I=3072 N=1024 int4 with f32 x, device time per call
   from torch.profiler with the weights cycled past L2, and once with one
-  weight set every call (L2-hot).
+  weight set every call (L2-hot);
+- qmm: the GEMV at M=1 N=4096 K=1024 (the talker's q/k/v), M=1 N=1024
+  K=2048 (o_proj) and M=2 N=4096 K=1024 (the code predictor's seed), int4
+  with f32 x, device time per call with the weights cycled past L2; the
+  tiled kernel, which served M <= 4 before the GEMV, is one variant;
+- relu2: float32 B=1 N=256 D=128 E=2048 at G=10 (a 20 s request) and G=2
+  (a 4 s chunk), device time per call (both launches), beside the plain
+  version (two cuBLAS matmuls) and the earlier one-launch kernel.
 
 It needs the card, nvcc and the checkout's `mlx_audio_tpu_torch/`.
 """
@@ -35,9 +43,13 @@ sys.path.insert(0, str(REPO))
 import chip_smoke as cs  # noqa: E402
 from mlx_audio_tpu_torch.ops.cuda import _build  # noqa: E402
 from mlx_audio_tpu_torch.ops.cuda.flash_attention import flash_attention_reference  # noqa: E402
-from mlx_audio_tpu_torch.ops.cuda.quant_matmul import quantized_mlp_reference  # noqa: E402
+from mlx_audio_tpu_torch.ops.cuda.quant_matmul import (  # noqa: E402
+    quantized_matmul_reference, quantized_mlp_reference)
+from mlx_audio_tpu_torch.ops.cuda.relu2_attention import (  # noqa: E402
+    relu2_attention_reference, scratch_elems)
 
 CSRC = REPO / "mlx_audio_tpu_torch" / "csrc"
+BASELINES = REPO / "scripts" / "baselines"
 OUT = REPO / "build" / "variants"
 
 FLASH = {
@@ -75,17 +87,82 @@ QMLP = {
 }
 
 
-def build(kind: str, variants: dict) -> dict:
-    """Compile every variant of csrc/<kind> at once; name -> CDLL."""
+QMM = {
+    "as committed": [],
+    "tiled kernel at M <= 4": [("    if (gemv_fits<BITS, TX>(p)) {",
+                                "    if (false && gemv_fits<BITS, TX>(p)) {")],
+    "4-byte loads": [("constexpr int GEMV_VEC = 2;", "constexpr int GEMV_VEC = 1;")],
+    "16-byte loads": [("constexpr int GEMV_VEC = 2;", "constexpr int GEMV_VEC = 4;")],
+    "x staged in shared memory first": [
+        ("  int c = sg * units / split + lane;\n  if (c < c1) load(c, w, s, b);\n"
+         "  const TX* x = static_cast<const TX*>(p.x);\n",
+         "  __shared__ __align__(16) float xsm[4 * 2048];\n"
+         "  for (int i = threadIdx.x; i < BM * p.K; i += blockDim.x)\n"
+         "    xsm[i] = to_float(static_cast<const TX*>(p.x)[(i / p.K) * p.ldx + i % p.K]);\n"
+         "  __syncthreads();\n  const float* x = xsm;\n"
+         "  int c = sg * units / split + lane;\n  if (c < c1) load(c, w, s, b);\n"),
+        ("unit_dot<BITS, GEMV_VEC, BM, R, R, TX>(w, s, b, x + c * L::V, static_cast<int>(p.ldx),",
+         "unit_dot<BITS, GEMV_VEC, BM, R, R, float>(w, s, b, x + c * L::V, p.K,")],
+    "no split-K": [("  const int split = min(GEMV_MAX_SPLIT, (units + 31) / 32);",
+                    "  const int split = 1;")],
+    "R = 1": [("constexpr int GEMV_R = 4;", "constexpr int GEMV_R = 1;")],
+    "R = 2": [("constexpr int GEMV_R = 4;", "constexpr int GEMV_R = 2;")],
+    "4 row-warps a block": [("constexpr int GEMV_RW = 2;", "constexpr int GEMV_RW = 4;")],
+    "1 row-warp a block": [("constexpr int GEMV_RW = 2;", "constexpr int GEMV_RW = 1;")],
+    "empty kernel": [("  using L = Lane<BITS, GEMV_VEC>;\n",
+                      "  using L = Lane<BITS, GEMV_VEC>;\n  if (p.N > 0) return;\n")],
+    "no FMAs": [("    unit_dot<BITS, GEMV_VEC, BM, R, R, TX>(w, s, b, x + c * L::V, "
+                 "static_cast<int>(p.ldx),\n                                           acc);",
+                 "    acc[0][0] += __uint_as_float(w[0].w[0] ^ w[R - 1].w[GEMV_VEC - 1]) + s[0] "
+                 "+ b[R - 1] + static_cast<float>(x[c]);")],
+    "no weight loads": [("    for (int r = 0; r < R; ++r) w[r] = load_words<GEMV_VEC>(rows[r], c);",
+                         "    for (int r = 0; r < R; ++r) w[r] = Words<GEMV_VEC>{};")],
+}
+
+RELU2 = {
+    "as committed": [],
+    "earlier kernel (E tiled, scores per column tile)": BASELINES / "relu2_attention_tiled_e.cu",
+    "one launch, P of 64 queries in shared memory": BASELINES / "relu2_attention_p_in_smem.cu",
+    "no copy under the FMAs": [("    cp_async_commit();\n    const int st = kt % PSTAGES;",
+                                "    cp_async_commit();\n    cp_async_wait<0>();\n"
+                                "    const int st = kt % PSTAGES;")],
+    "2 stages": [("constexpr int PSTAGES = 3;", "constexpr int PSTAGES = 2;")],
+    "64 x 64 score tiles": [("constexpr int ST = 32;", "constexpr int ST = 64;")],
+    "4 x 4 scores a thread": [("constexpr int SJ = 2;", "constexpr int SJ = 4;")],
+    "2 x 2 scores a thread": [("constexpr int SI = 4;", "constexpr int SI = 2;")],
+    "PV 128 columns a block": [("constexpr int PN = 64;", "constexpr int PN = 128;")],
+    "PV 32 keys a stage": [("constexpr int PK = 16;", "constexpr int PK = 32;")],
+    "score pass only": [("  relu2_pv_f32<<<", "  if (p.N < 0) relu2_pv_f32<<<")],
+}
+# the earlier relu2 kernel's C interface: no scratch
+RELU2_EARLIER_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+
+def edited_sources(kind: str, variants: dict) -> dict:
+    """name -> the variant's source text; raises if an edit does not apply."""
     src = (CSRC / kind).read_text()
-    OUT.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for i, (name, edits) in enumerate(variants.items()):
+    texts = {}
+    for name, edits in variants.items():
         text = src
+        if isinstance(edits, Path):
+            text, edits = edits.read_text(), []
         for old, new in edits:
             if old not in text:
                 raise SystemExit(f"variant {name!r}: {old!r} is not in {kind}")
             text = text.replace(old, new)
+        texts[name] = text
+    return texts
+
+
+def build(kind: str, variants: dict) -> dict:
+    """Compile every variant of csrc/<kind> at once; name -> CDLL. A variant
+    is a list of (old, new) edits of the source, or the path of another
+    source with the same C interface names."""
+    texts = edited_sources(kind, variants)  # every edit checked before any build
+    OUT.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, (name, text) in enumerate(texts.items()):
         path = OUT / f"{Path(kind).stem}_{i}.cu"
         path.write_text(text)
         procs[name] = (path.with_suffix(".so"), subprocess.Popen(
@@ -102,6 +179,15 @@ def build(kind: str, variants: dict) -> dict:
                 getattr(libs[name], fn).restype = restype
                 getattr(libs[name], fn).argtypes = argtypes
     return libs
+
+
+def device_us(fns, iters: int) -> str:
+    """chip_smoke's device time per call in microseconds, or "not measured"
+    where the profiler saw no device time."""
+    try:
+        return f"{cs.device_ms(fns, iters)[0] * 1e3:.2f} us"
+    except SystemExit:
+        return "not measured"
 
 
 def time_flash() -> None:
@@ -172,10 +258,80 @@ def time_qmlp() -> None:
             print(line, flush=True)
 
 
+def time_qmm() -> None:
+    libs = build("quant_matmul.cu", QMM)
+    stream = torch.cuda.current_stream().cuda_stream
+    for M, N, K, what in ((1, 4096, 1024, "q/k/v"), (1, 1024, 2048, "o_proj"),
+                          (2, 4096, 1024, "code predictor seed")):
+        g = torch.Generator(device="cuda").manual_seed(404)
+        sets = [cs.quant_weights(N, K, 4, g)]
+        sets += [tuple(t.clone() for t in sets[0])
+                 for _ in range(int(2 * cs.L2_BYTES // cs.weight_bytes(*sets[0])))]
+        x = torch.randn(M, K, generator=g, device="cuda")
+        ref = quantized_matmul_reference(x, *sets[0])
+        y = torch.empty(M, N, device="cuda")
+
+        def call(name, w):
+            err = libs[name].qmm_fwd(x.data_ptr(), w[0].data_ptr(), w[1].data_ptr(),
+                                     w[2].data_ptr(), y.data_ptr(), M, N, K, cs.GROUP, 4, 0,
+                                     K, stream)
+            if err:
+                raise SystemExit(f"qmm launch failed: {err}")
+
+        for rnd in range(2):
+            for name in libs:
+                y.fill_(float("nan"))
+                call(name, sets[0])
+                torch.cuda.synchronize()
+                ok = cs.compare_q(y, ref)[0]
+                us = device_us([lambda w=w: call(name, w) for w in sets], 400)
+                print(f"[qmm] {what} M={M} N={N} K={K} round {rnd}: {name:34s} {us}  output "
+                      f"{'within its bar' if ok else 'wrong (timing only)'}", flush=True)
+
+
+def time_relu2() -> None:
+    libs = build("relu2_attention.cu", RELU2)
+    name0 = "earlier kernel (E tiled, scores per column tile)"
+    libs[name0].relu2_attention_fwd.argtypes = RELU2_EARLIER_ARGS
+    stream = torch.cuda.current_stream().cuda_stream
+    for G in (10, 2):
+        B, N, D, E = 1, 256, 128, 2048
+        q, k, v = cs.relu2_inputs(B, G, N, D, E, torch.float32, False, seed=700)
+        ref = relu2_attention_reference(q, k, v, N)
+        o = torch.empty_like(v)
+        scratch = torch.empty(scratch_elems(B, G, N), device="cuda")
+        strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3])
+
+        def call(name):
+            lead = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+            if name != name0:
+                lead += (scratch.data_ptr(),)
+            err = libs[name].relu2_attention_fwd(*lead, B, G, N, D, E, *strides,
+                                                 ctypes.c_float(N), 0, stream)
+            if err:
+                raise SystemExit(f"relu2 launch failed: {err}")
+
+        bound, _ = cs.relu2_bound_ms(B, G, N, D, E, torch.float32)
+        print(f"[relu2] G={G} E={E}: the f32 bound is {bound * 1e3:.2f} us", flush=True)
+        for rnd in range(2):
+            plain = device_us([lambda: relu2_attention_reference(q, k, v, N)], 50)
+            print(f"[relu2] G={G} E={E} round {rnd}: {'plain (two cuBLAS matmuls)':50s} "
+                  f"{plain}", flush=True)
+            for name in libs:
+                o.fill_(float("nan"))
+                call(name)
+                torch.cuda.synchronize()
+                ok = cs.compare_q(o, ref)[0]
+                us = device_us([lambda: call(name)], 200)
+                print(f"[relu2] G={G} E={E} round {rnd}: {name:50s} {us}  output "
+                      f"{'within its bar' if ok else 'wrong (timing only)'}", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--flash", action="store_true")
-    ap.add_argument("--qmlp", action="store_true")
+    kinds = ("flash", "qmlp", "qmm", "relu2")
+    for kind in kinds:
+        ap.add_argument(f"--{kind}", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_kernel_variants: needs a CUDA card")
@@ -183,10 +339,9 @@ def main():
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"[device] {smi}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    if args.flash or not args.qmlp:
-        time_flash()
-    if args.qmlp or not args.flash:
-        time_qmlp()
+    chosen = [kind for kind in kinds if getattr(args, kind)] or list(kinds)
+    for kind in chosen:
+        globals()[f"time_{kind}"]()
 
 
 if __name__ == "__main__":

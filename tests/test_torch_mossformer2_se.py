@@ -33,7 +33,8 @@ from mlx_audio_tpu.sts.models.mossformer2_se import mossformer2 as jm
 from mlx_audio_tpu_torch import dsp
 from mlx_audio_tpu_torch.nn import GroupNorm, load_jax_params
 from mlx_audio_tpu_torch.ops.cuda.relu2_attention import (relu2_attention,
-                                                          relu2_attention_reference)
+                                                          relu2_attention_reference,
+                                                          scratch_elems)
 from mlx_audio_tpu_torch.sts.models.mossformer2_se import Model
 from mlx_audio_tpu_torch.sts.models.mossformer2_se import mossformer2 as pm
 
@@ -184,6 +185,40 @@ def test_cpu_call_launches_no_kernel():
     out = relu2_attention(x, x, x, 16)
     assert relu2_attention.launches == before == 0
     np.testing.assert_array_equal(out.numpy(), relu2_attention_reference(x, x, x, 16).numpy())
+
+
+@pytest.mark.parametrize("n,causal", [(13, False), (24, True), (29, False)],
+                         ids=["ragged", "causal", "three_groups"])
+def test_one_call_attention_equals_two_calls(n, causal, monkeypatch):
+    """`_attention` takes v and u in one ReLU² call on the whole of v;u; per
+    column that is the JAX package's two calls, one on v and one on u."""
+    layer = pm.FlashShareAFFConvM(16, group_size=8, query_key_dim=8, causal=causal,
+                                  device="cpu")
+    rng = np.random.default_rng(40 + n)
+    quad_q, lin_q, quad_k, lin_k = (torch.from_numpy(_x(41 + i, 2, n, 8)) for i in range(4))
+    hidden = torch.from_numpy(rng.standard_normal((2, n, 64)).astype(np.float32))
+    one = layer._attention(quad_q, lin_q, quad_k, lin_k, hidden)
+    calls = []
+
+    def two_calls(q, k, vu, g):
+        calls.append(vu.shape[-1])
+        E = vu.shape[-1] // 2
+        return torch.cat([relu2_attention_reference(q, k, vu[..., :E], g),
+                          relu2_attention_reference(q, k, vu[..., E:], g)], dim=-1)
+
+    monkeypatch.setattr(pm, "relu2_attention", two_calls)
+    two = layer._attention(quad_q, lin_q, quad_k, lin_k, hidden)
+    assert calls == [64]
+    for a, b in zip(one, two):
+        assert a.shape == b.shape == (2, n, 32)
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6,
+                                   atol=1e-6 * b.abs().max().item())
+
+
+@pytest.mark.parametrize("B,G,N,want", [(1, 10, 256, 10 * 256 * 256), (1, 1, 2500, 2560 ** 2),
+                                        (2, 3, 13, 6 * 64 * 64)])
+def test_relu2_scratch_pads_n_to_64(B, G, N, want):
+    assert scratch_elems(B, G, N) == want
 
 
 # ---- the enhancer ----
