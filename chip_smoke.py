@@ -11,13 +11,16 @@ Phases, each printing its own lines:
      kernels, a bf16 yardstick);
   3. the card against the CPU on a two-layer Whisper and on a shallow
      Qwen3-TTS int4, both at full width (f32);
-  4. Whisper-large-v3-turbo at full width (bf16, seeded random weights):
+  4. Whisper-large-v3-turbo at full width (seeded random weights):
      chunked transcription of 120 s of seeded noise through the port's
-     entry point, with launch counts read around the run;
+     entry point in bf16, with launch counts read around the run, then
+     once in float32 (the model's default dtype), profiled, with the f32
+     flash kernel's launches held to one per encoder layer;
   5. Qwen3-TTS 0.6B int4 at full width (bf16, seeded random weights):
      256 frames of synthesis through `Model.generate`, with launch counts
      read around each run and held to the routing table's;
-  6. the same model at 6 bits, 32 frames;
+  6. the same model at 6 bits, 32 frames, then a profiled 16-frame run:
+     device time per frame and the 6-bit kernel's time per launch;
   7. MossFormer2-SE 48 kHz at full width (f32, 24 blocks, seeded random
      weights): 20 s in one shot, 30 s segmented and 90 s chunked through
      `Model.enhance`, with the ReLU² kernel's launches held to 1 per FLASH
@@ -37,6 +40,7 @@ import argparse
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -190,8 +194,8 @@ def compare(out, ref, dtype) -> tuple:
 
 def planted_mask_check(q, k, v, flash_attention_reference) -> None:
     """What a kernel without the ragged-key mask returns: every key tile of
-    64 read in full, the 36 keys past S = 1500 zero. The bf16 bar must
-    reject it, or it could not catch such a kernel."""
+    64 read in full, the 36 keys past S = 1500 zero. The bar of q's dtype
+    must reject it, or it could not catch such a kernel."""
     pad = -k.shape[-2] % 64
     assert pad, "the planted check needs S that is not a multiple of 64"
     kp, vp = (F.pad(t, (0, 0, 0, pad)) for t in (k, v))
@@ -200,7 +204,7 @@ def planted_mask_check(q, k, v, flash_attention_reference) -> None:
     log(f"[kernel] planted fault (no ragged-key mask, {pad} zero keys): {desc} -> "
         f"{'passes: the bar is too loose' if ok else 'rejected'}")
     if ok:
-        raise SystemExit("chip_smoke: the bf16 bar accepts a kernel without the key mask")
+        raise SystemExit(f"chip_smoke: the {q.dtype} bar accepts a kernel without the key mask")
 
 
 def attention_bound_ms(B, H, T, S, D, dtype, causal) -> tuple:
@@ -288,7 +292,7 @@ def phase_kernels():
         if not ok:
             raise SystemExit(f"chip_smoke: flash_attention {name} over its bar: {desc}")
         errs[name] = err
-        if name == "whisper_bf16":
+        if name in ("whisper_bf16", "whisper_f32"):
             planted_mask_check(q, k, v, flash_attention_reference)
 
     timing = {}
@@ -303,7 +307,8 @@ def phase_kernels():
                             bound_by=by)
         log(f"[time] flash_attention {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
             f"F.sdpa {lib:.4f} ms, bound {bound:.4f} ms ({by}); "
-            f"kernel at {100 * bound / ms:.1f}% of bound")
+            f"kernel at {100 * bound / ms:.1f}% of bound, "
+            f"{'faster' if ms < lib else 'slower'} than F.sdpa")
     return errs, timing
 
 
@@ -379,12 +384,33 @@ def phase_slice():
         walls.append(time.perf_counter() - t0)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    segs = first.segments
-    n_tok = [len(s["tokens"]) for s in segs]
-    log(f"[slice] {len(segs)} windows, tokens per window {n_tok}, "
+    n_tok = check_transcript(first, outs, sample_len)
+    log(f"[slice] {len(first.segments)} windows, tokens per window {n_tok}, "
         f"flash_attention launches in one transcription: {launches}")
     if launches <= 0:
         raise SystemExit("chip_smoke: the main path launched no flash_attention kernel")
+
+    med = statistics.median(walls)
+    log(f"[slice] 120 s audio, {TIMED_RUNS} runs after {WARMUP_RUNS} warm-up: walls "
+        f"{', '.join(f'{w:.4f}' for w in walls)} s; median {med:.4f} s = "
+        f"{seconds / med:.1f}x real time (all runs {seconds * len(walls) / sum(walls):.1f}x, "
+        f"best {seconds / min(walls):.1f}x); peak memory {peak_gb:.2f} GB")
+    _, seen = profile_one_run(run)
+    flash = {k: n for k, (n, _) in seen.items() if "flash_fwd_bf16" in k}
+    if seen and list(flash.values()) != [launches]:
+        raise SystemExit(f"chip_smoke: the profile shows flash kernels {flash}, not one kernel "
+                         f"launched {launches} times")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, whisper_f32(audio, tok, sample_len)
+
+
+def check_transcript(first, outs, sample_len) -> list:
+    """Four windows of 1 .. sample_len in-range tokens with finite scores,
+    the same tokens in every run; returns the tokens per window."""
+    segs = first.segments
+    n_tok = [len(s["tokens"]) for s in segs]
     if len(segs) != 4 or not all(0 < n <= sample_len for n in n_tok):
         raise SystemExit(f"chip_smoke: unexpected segments {n_tok}")
     for s in segs:
@@ -394,17 +420,53 @@ def phase_slice():
             raise SystemExit("chip_smoke: token id out of range")
     if any([s["tokens"] for s in o.segments] != [s["tokens"] for s in segs] for o in outs):
         raise SystemExit("chip_smoke: repeated runs disagree")
+    return n_tok
 
-    med = statistics.median(walls)
-    log(f"[slice] 120 s audio, {TIMED_RUNS} runs after {WARMUP_RUNS} warm-up: walls "
-        f"{', '.join(f'{w:.4f}' for w in walls)} s; median {med:.4f} s = "
-        f"{seconds / med:.1f}x real time (all runs {seconds * len(walls) / sum(walls):.1f}x, "
-        f"best {seconds / min(walls):.1f}x); peak memory {peak_gb:.2f} GB")
-    seen = profile_one_run(run)
-    flash = {k: n for k, n in seen.items() if "flash_fwd_bf16" in k}
-    if seen and list(flash.values()) != [launches]:
-        raise SystemExit(f"chip_smoke: the profile shows flash kernels {flash}, not one kernel "
-                         f"launched {launches} times")
+
+def whisper_f32(audio, tok, sample_len) -> int:
+    """The same 120 s transcription in float32, the Whisper model's default
+    dtype: the encoder's self-attention takes the f32 flash kernel, one
+    launch per encoder layer for the four windows together. A warm-up, a
+    counted run and a profiled run; tokens equal across the first two."""
+    from mlx_audio_tpu_torch.ops.cuda.flash_attention import flash_attention
+    from mlx_audio_tpu_torch.stt.models.whisper import Model, ModelDimensions
+
+    model = Model(ModelDimensions(**TURBO), seed=0)
+    if any(p.dtype != torch.float32 for p in model.parameters()):
+        raise SystemExit("chip_smoke: the default Whisper model is not float32")
+
+    def run():
+        out = model.generate_chunked(
+            audio, language="en", temperature=0.0, tokenizer=tok,
+            without_timestamps=True, sample_len=sample_len)
+        torch.cuda.synchronize()
+        return out
+
+    t0 = time.perf_counter()
+    warm = run()
+    warm_s = time.perf_counter() - t0
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    out = run()
+    wall = time.perf_counter() - t0
+    launches, predicted = flash_attention.launches, TURBO["n_audio_layer"]
+    n_tok = check_transcript(out, [warm], sample_len)
+    log(f"[slice-f32] whisper-large-v3-turbo dims, float32: warm-up wall {warm_s:.4f} s, "
+        f"counted wall {wall:.4f} s ({120.0 / wall:.1f}x real time), tokens per window "
+        f"{n_tok}, flash_attention launches {launches} (predicted {predicted}, one per "
+        f"encoder layer)")
+    if launches != predicted:
+        raise SystemExit(f"chip_smoke: the f32 transcription launched flash {launches} times, "
+                         f"predicted {predicted}")
+    _, seen = profile_one_run(run, "one f32 transcription")
+    flash = {k: n for k, (n, _) in seen.items() if "flash_fwd" in k}
+    if seen and (len(flash) != 1 or "flash_fwd_f32" not in next(iter(flash))
+                 or sum(flash.values()) != launches):
+        raise SystemExit(f"chip_smoke: the f32 profile shows flash kernels {flash}, not "
+                         f"flash_fwd_f32 launched {launches} times")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -413,11 +475,11 @@ def phase_slice():
 PORT_KERNELS = ("flash_fwd", "qmm_kernel", "qmm_gemv", "qmlp_kernel", "relu2_")
 
 
-def profile_one_run(run, what: str = "one transcription") -> dict:
+def profile_one_run(run, what: str = "one transcription") -> tuple:
     """Device busy time and the top kernels of one run, from torch.profiler
     (CUPTI), with the port's own kernels listed too. Prints "not measured"
-    if it sees no device time. Returns {kernel name: launches} of the
-    port's kernels."""
+    if it sees no device time. Returns the busy time (us) and {kernel name:
+    (launches, device us)} of the port's kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -429,7 +491,7 @@ def profile_one_run(run, what: str = "one transcription") -> dict:
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us <= 0:
         log("[profile] device time: not measured (the profiler saw no CUDA kernels)")
-        return {}
+        return 0.0, {}
     log(f"[profile] {what} (profiled): wall {wall_us / 1e3:.1f} ms, device busy "
         f"{busy_us / 1e3:.1f} ms, idle share {100 * (1 - busy_us / wall_us):.1f}%, "
         f"{sum(e.count for e in kernels)} kernel launches")
@@ -439,7 +501,8 @@ def profile_one_run(run, what: str = "one transcription") -> dict:
         rank = f"#{ranked.index(e) + 1}"
         log(f"[profile]   {rank:>4} {e.self_device_time_total / 1e3:8.2f} ms {e.count:6d}x  "
             f"{e.key[:90]}")
-    return {e.key: e.count for e in kernels if any(k in e.key for k in PORT_KERNELS)}
+    return busy_us, {e.key: (e.count, e.self_device_time_total) for e in kernels
+                     if any(k in e.key for k in PORT_KERNELS)}
 
 
 def compare_q(out, ref, bf16_ulps: int = Q_BF16_ULPS) -> tuple:
@@ -460,11 +523,11 @@ def compare_q(out, ref, bf16_ulps: int = Q_BF16_ULPS) -> tuple:
                      f"{peak:.3f}), rel={rel:.3e} (bar {Q_BF16_REL:g})")
 
 
-def quant_weights(N, K, bits, g):
+def quant_weights(N, K, bits, g, group=GROUP):
     from mlx_audio_tpu_torch.nn.quantized import quantize_arrays
 
     w = torch.randn(N, K, generator=g, device="cuda") * K ** -0.5
-    return quantize_arrays(w, GROUP, bits)
+    return quantize_arrays(w, group, bits)
 
 
 def weight_bytes(packed, scales, biases) -> int:
@@ -552,17 +615,37 @@ QMM_CASES = [  # name, bits, M, N, K, dtype: the routed shapes of phases 5 and 6
     ("convnext_m512_bf16", 4, 512, 4096, 1024, torch.bfloat16),
     ("ragged_n1000_m2_bf16", 4, 2, 1000, 1024, torch.bfloat16),
     ("int8_m2_bf16", 8, 2, 4096, 1024, torch.bfloat16),
+    # 6 bits: the GEMV at the talker's four shapes (q/k/v, o_proj, the
+    # fused gate/up in one segment, down; M = 1 and 2), M = 3 and 4, bf16 x,
+    # the ragged N edge, rows of 780 bytes (K = 1040 in groups of 16: 65
+    # units in three uneven segments); x at a 4-byte offset takes the tiled
+    # kernel, as does M > 4
     ("q6_qkv_m1_f32", 6, 1, 4096, 1024, torch.float32),
     ("q6_qkv_m1_bf16", 6, 1, 4096, 1024, torch.bfloat16),
+    ("q6_oproj_m1_f32", 6, 1, 1024, 2048, torch.float32),
+    ("q6_gateup_m1_f32", 6, 1, 6144, 1024, torch.float32),
+    ("q6_down_m1_f32", 6, 1, 1024, 3072, torch.float32),
     ("q6_oproj_m2_f32", 6, 2, 1024, 2048, torch.float32),
+    ("q6_qkv_m2_bf16", 6, 2, 4096, 1024, torch.bfloat16),
+    ("q6_down_m2_bf16", 6, 2, 1024, 3072, torch.bfloat16),
+    ("q6_qkv_m3_f32", 6, 3, 4096, 1024, torch.float32),
+    ("q6_oproj_m4_bf16", 6, 4, 1024, 2048, torch.bfloat16),
+    ("q6_ragged_n1000_m1_f32", 6, 1, 1000, 1024, torch.float32),
+    ("q6_k1040_m1_f32", 6, 1, 1024, 1040, torch.float32),
+    ("q6_offset_x_m2_f32", 6, 2, 1024, 2048, torch.float32),
     ("q6_down_prefill_m32_f32", 6, 32, 1024, 3072, torch.float32),
     ("q6_codec_qkv_m300_bf16", 6, 300, 3072, 512, torch.bfloat16),
     ("q6_ragged_n1000_m16_bf16", 6, 16, 1000, 1024, torch.bfloat16),
 ]
+# groups other than 64: K = 1040 is 65 groups of 16
+QMM_GROUP = {"q6_k1040_m1_f32": 16}
 # timed: name, bits, M, N, K (f32 x): the talker's fused q/k/v and o_proj
-# at M = 1, the code predictor's two-token seed, the 6-bit q/k/v
+# at M = 1, the code predictor's two-token seed; at 6 bits the talker's four
+# shapes, which each take about a quarter of the 6-bit path's launches
 QMM_TIMED = [("qmm", 4, 1, 4096, 1024), ("qmm_oproj", 4, 1, 1024, 2048),
-             ("qmm_m2", 4, 2, 4096, 1024), ("qmm6", 6, 1, 4096, 1024)]
+             ("qmm_m2", 4, 2, 4096, 1024), ("qmm6", 6, 1, 4096, 1024),
+             ("qmm6_oproj", 6, 1, 1024, 2048), ("qmm6_gateup", 6, 1, 6144, 1024),
+             ("qmm6_down", 6, 1, 1024, 3072)]
 QMLP_CASES = [  # name, bits, M, K, I, N, dtype
     ("mlp_m1_f32", 4, 1, 1024, 3072, 1024, torch.float32),
     ("mlp_m1_bf16", 4, 1, 1024, 3072, 1024, torch.bfloat16),
@@ -578,6 +661,26 @@ QMLP_CASES = [  # name, bits, M, K, I, N, dtype
 ]
 
 
+def qmm_route(name, M) -> str:
+    """The kernel a QMM_CASES case must take: the GEMV at M <= 4, unless its
+    rows or x do not allow the GEMV's loads."""
+    return "qmm_kernel" if M > 4 or "offset_x" in name else "qmm_gemv"
+
+
+def launched_kernels(fn, calls: int = 3) -> list:
+    """The port's kernels that `calls` calls of fn launch, from
+    torch.profiler, which can drop the record of a launch now and then."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+            and any(k in e.key for k in PORT_KERNELS)]
+
+
 def phase_quant_kernels():
     """qmm, qmm6 and qmlp against their plain versions, then timed at the
     decode path's M = 1 shapes in float32 (the talker's residual stream is
@@ -589,23 +692,31 @@ def phase_quant_kernels():
     errs = {}
     for i, (name, bits, M, N, K, dtype) in enumerate(QMM_CASES):
         g = torch.Generator(device="cuda").manual_seed(200 + i)
-        packed, scales, biases = quant_weights(N, K, bits, g)
+        group = QMM_GROUP.get(name, GROUP)
+        packed, scales, biases = quant_weights(N, K, bits, g, group)
         x = torch.randn(M, K, generator=g, device="cuda").to(dtype)
-        if name.startswith("offset_x"):  # rows 4 bytes past a 16-byte boundary
+        if "offset_x" in name:  # rows 4 bytes past a 16-byte boundary
             x = torch.cat([x[:, :1], x], dim=1)[:, 1:]
-        out = quantized_matmul(x, packed, scales, biases, bits=bits, group_size=GROUP)
+        out = quantized_matmul(x, packed, scales, biases, bits=bits, group_size=group)
         torch.cuda.synchronize()
         ref = quantized_matmul_reference(x, packed, scales, biases, bits=bits,
-                                         group_size=GROUP)
+                                         group_size=group)
         ok, err, desc = compare_q(out, ref)
+        route = qmm_route(name, M)
+        took = launched_kernels(lambda: quantized_matmul(x, packed, scales, biases, bits=bits,
+                                                         group_size=group))
         log(f"[kernel] {'qmm6' if bits == 6 else 'qmm'} {name} bits={bits} M={M} N={N} "
-            f"K={K}: {desc}")
+            f"K={K} group {group}: {desc}; took "
+            f"{', '.join(re.sub(r'\(.*', '', k.split('::', 1)[-1]) for k in took) or 'no kernel'}")
         if not ok:
             raise SystemExit(f"chip_smoke: quantized_matmul {name} over its bar: {desc}")
+        if len(took) != 1 or route not in took[0] or f"<{bits}," not in took[0]:
+            raise SystemExit(f"chip_smoke: quantized_matmul {name} launched {took}, not one "
+                             f"{route}<{bits}, ...>")
         errs[name] = err
-        if name in ("qkv_m1_f32", "qkv_m1_bf16", "q6_qkv_m1_bf16"):
+        if name in ("qkv_m1_f32", "qkv_m1_bf16", "q6_qkv_m1_f32", "q6_qkv_m1_bf16"):
             planted_quant_check(
-                name, lambda *a: quantized_matmul_reference(*a, bits=bits, group_size=GROUP),
+                name, lambda *a: quantized_matmul_reference(*a, bits=bits, group_size=group),
                 (x, packed, scales, biases), (3,), (2,))
     for i, (name, bits, M, K, I, N, dtype) in enumerate(QMLP_CASES):
         g = torch.Generator(device="cuda").manual_seed(300 + i)
@@ -650,9 +761,10 @@ def phase_quant_kernels():
                              bound_ms=bound, bound_by=by, host_loop_ms=loop)
         log(f"[time] {kname} int{bits} M={M} N={N} K={K} f32 x (weights cycled past L2), device "
             f"time per call: kernel {ms:.4f} ms, plain {plain:.4f} ms, yardstick F.linear on "
-            f"the bf16 dequantized weight {yard:.4f} ms, bound {bound:.4f} ms ({by}); kernel "
-            f"at {100 * bound / ms:.1f}% of bound; a Python loop of launches takes "
-            f"{loop:.4f} ms a call")
+            f"the bf16 dequantized weight {yard:.4f} ms, bound {bound:.4f} ms ({by}, "
+            f"{wbytes / 1e6:.3f} MB of weights, scales and biases); kernel at "
+            f"{100 * bound / ms:.1f}% of bound; a Python loop of launches takes {loop:.4f} ms "
+            f"a call")
     M, K, I, N = 1, 1024, 3072, 1024
     g = torch.Generator(device="cuda").manual_seed(500)
     sets = [(quant_weights(2 * I, K, 4, g), quant_weights(N, I, 4, g))]
@@ -907,7 +1019,9 @@ def phase_qwen_slice():
 def phase_qwen_6bit():
     """The same model at 6 bits, 32 frames: the 6-bit kernel carries every
     routed projection, the MLPs included (the fused MLP kernel takes 4 and
-    8 bits)."""
+    8 bits). Then a profiled 16-frame run: device time per frame and the
+    6-bit GEMV's time per launch in the decode loop, with the run's 6-bit
+    launches held to the routing table's."""
     from mlx_audio_tpu_torch.ops.cuda import quant_matmul as qk
 
     model = qwen_model(6)
@@ -923,7 +1037,23 @@ def phase_qwen_6bit():
         check_synthesis(results, frames, codes_seen, model, "qwen3 6-bit")
     log(f"[qwen3-6bit] {frames} frames twice: walls {', '.join(f'{w:.4f}' for w in walls)} s, "
         f"codes identical")
-    del model, run
+    pframes = QWEN_PROFILE_FRAMES
+    short = qwen_run(model, pframes, [])
+    qk.quantized_matmul6.launches = 0
+    busy, seen = profile_one_run(short, f"one {pframes}-frame 6-bit synthesis")
+    counted, want = qk.quantized_matmul6.launches, predicted_launches(model, 6, pframes)["qmm"]
+    q6 = {k: v for k, v in seen.items() if "<6," in k and ("qmm_gemv" in k or "qmm_kernel" in k)}
+    n = sum(c for c, _ in q6.values())
+    gemv = [(c, us) for k, (c, us) in q6.items() if "qmm_gemv" in k]
+    n_gemv, us_gemv = sum(c for c, _ in gemv), sum(us for _, us in gemv)
+    log(f"[qwen3-6bit] profiled {pframes} frames: device time {busy / 1e3:.2f} ms, "
+        f"{busy / 1e3 / pframes:.3f} ms a frame; 6-bit launches counted {counted} (routing "
+        f"table {want}), {n} in the profile: the GEMV {n_gemv} at "
+        f"{us_gemv / max(n_gemv, 1):.2f} us a launch, {us_gemv / 1e3:.2f} ms in all")
+    if counted != want:
+        raise SystemExit(f"chip_smoke: the profiled 6-bit run launched qmm6 {counted} times, "
+                         f"the routing table says {want}")
+    del model, run, short
     torch.cuda.empty_cache()
     return got["qmm6"]
 
@@ -1156,7 +1286,7 @@ def main():
         phase_qwen_card_vs_cpu()
         phase_moss_card_vs_cpu()
     if 4 in phases:
-        launches = phase_slice()
+        launches, launches_f32 = phase_slice()
     if 5 in phases:
         qlaunches = phase_qwen_slice()
     if 6 in phases:
@@ -1166,15 +1296,13 @@ def main():
     if phases != {1, 2, 3, 4, 5, 6, 7}:
         log(f"[device] {smi}")
         sys.exit(f"chip_smoke: ran phases {sorted(phases)} only; no result")
-    t = timing["whisper_bf16"]
     record = {"kernels": [{
-        "name": "flash_attention", "route": "cuda",
+        "name": name, "route": "cuda",
         "source": "mlx_audio_tpu_torch/csrc/flash_attention.cu",
         "replaces": "mlx_audio_tpu/ops/pallas/flash_attention.py:22",
-        "launches": launches, "max_abs_err": errs["whisper_bf16"],
-        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-    }]}
+        "launches": n, "max_abs_err": errs[case], **timing[case],
+    } for name, case, n in (("flash_attention", "whisper_bf16", launches),
+                            ("flash_attention_f32", "whisper_f32", launches_f32))]}
     for name, replaces, n, err in (
             ("qmm", "mlx_audio_tpu/ops/pallas/quant_matmul.py:64", qlaunches["qmm"],
              qerrs["qkv_m1_f32"]),
@@ -1185,6 +1313,11 @@ def main():
         record["kernels"].append({"name": name, "route": "cuda", "source": QUANT_SOURCE,
                                   "replaces": replaces, "launches": n, "max_abs_err": err,
                                   **qtiming[name]})
+    qmm6 = next(k for k in record["kernels"] if k["name"] == "qmm6")
+    qmm6["shapes"] = {  # the talker's four 6-bit shapes, M = 1
+        shape: {k: qtiming[key][k] for k in ("ms", "bound_ms", "plain_ms")}
+        for shape, key in (("qkv", "qmm6"), ("o_proj", "qmm6_oproj"),
+                           ("gate_up", "qmm6_gateup"), ("down", "qmm6_down"))}
     record["kernels"].append({
         "name": "relu2_attention", "route": "cuda",
         "source": "mlx_audio_tpu_torch/csrc/relu2_attention.cu",

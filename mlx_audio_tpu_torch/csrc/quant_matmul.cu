@@ -20,22 +20,25 @@
 // What bounds them on this card: on the decode path (M = 1 or 2) the work
 // is ~2 FLOP per weight, so the packed weight read sets the time: the
 // talker's fused q/k/v int4 (N 4096, K 1024) is 2.1 MB of words plus 0.5 MB
-// of scales and biases, 0.8 us at 3.35 TB/s; one talker MLP reads ~5.9 MB,
-// 1.8 us. A launch costs more than that, so at these shapes launch latency
-// and the loop around them set the time, not this kernel's inner loop.
+// of scales and biases, 0.8 us at 3.35 TB/s (at 6 bits 3.1 MB and 0.5 MB,
+// 1.1 us); one talker MLP reads ~5.9 MB, 1.8 us. A launch costs more than
+// that, so at these shapes launch latency and the loop around them set the
+// time, not this kernel's inner loop.
 //
 // What the design does about it:
-// - qmm at M <= 4, 4 and 8 bits (the decode path: 55,000 of a 256-frame
-//   Qwen3-TTS synthesis's 55,705 launches) is a GEMV, `qmm_gemv`, built for
-//   latency: each lane reads 8-byte units (16 int4 or 8 int8 values, one
-//   scale and bias a unit) of four rows, all sent before any arithmetic and
-//   the next step's before this one's FMAs; x is read from L1, not staged,
-//   so no barrier precedes the weight loads; the warps of a block split K
-//   so that a lane holds one unit a row (two warps at the q/k/v's K 1024,
-//   four at o_proj's 2048) and add their partial sums in shared memory in a
-//   fixed order. Its dequantization and dot product are qmlp's (`unit_dot`).
-// - qmm otherwise (prefill, the codec decoder; every 6-bit call; rows or
-//   pointers that do not allow 8-byte units): one warp owns one weight
+// - qmm at M <= 4, 4, 6 and 8 bits (the decode path: 55,000 of a 256-frame
+//   Qwen3-TTS int4 synthesis's 55,705 launches, 13,800 of a 32-frame 6-bit
+//   one's 14,011) is a GEMV, `qmm_gemv`, built for latency: each lane reads
+//   units of 16 values (int4 and 6-bit; 8 at int8), one scale and bias a
+//   unit, of four rows, all sent before any arithmetic and the next step's
+//   before this one's FMAs; x is read from L1, not staged, so no barrier
+//   precedes the weight loads; the warps of a block split K so that a lane
+//   holds one unit a row (two warps at the q/k/v's K 1024, four at
+//   o_proj's 2048) and add their partial sums in shared memory in a fixed
+//   order. Its dequantization and dot product are qmlp's (`unit_dot`), and
+//   at 6 bits `unit_dot6`, which keeps it exact where values straddle words.
+// - qmm otherwise (prefill, the codec decoder; rows or pointers that do
+//   not allow the GEMV's units): one warp owns one weight
 //   row; a block of 8 warps owns 8 rows and a tile of up to BM = 8 rows of
 //   x, staged as float32 in shared memory 1024 columns at a time. Each
 //   weight chunk is unpacked once into
@@ -233,12 +236,17 @@ struct QmlpBlock {
 };
 
 // A lane's unit of a packed row: VEC words (16 bytes when VEC = 4), V values.
-// Its x values sit in shared memory as V floats and 4 of padding, so that
-// the 8 lanes of a 16-byte shared load hit 8 distinct bank groups.
 template <int BITS, int VEC>
 struct Lane {
   static constexpr int V = VEC * 32 / BITS;
-  static constexpr int XS = V + 4;
+};
+
+// Where x is staged (the fused MLP), a unit's x values sit in shared memory
+// as V floats and 4 of padding, so that the 8 lanes of a 16-byte shared
+// load hit 8 distinct bank groups.
+template <int BITS, int VEC>
+struct Staged : Lane<BITS, VEC> {
+  static constexpr int XS = Lane<BITS, VEC>::V + 4;
 };
 
 template <int VEC>
@@ -348,37 +356,155 @@ __device__ __forceinline__ void warp_sum(float (&acc)[BM]) {
 }
 
 // ---------------------------------------------------------------------------
-// qmm, decode path: the dequant-GEMV for M <= 4 at 4 and 8 bits
+// qmm, decode path: the dequant-GEMV for M <= 4 at 4, 6 and 8 bits
 // ---------------------------------------------------------------------------
+
+// 6-bit dequantization, exact as `unit_dot`'s. Value j of a 16-value chunk
+// (words w0, w1, w2) sits at bit 6 j of its 96 bits. Each is brought to bit
+// 0, 6 or 12 of a 32-bit source: a word, a word shifted right (w0 >> 18,
+// w1 >> 4, w1 >> 22, w2 >> 2, w2 >> 20), or for j = 5 and j = 10, which
+// straddle a word boundary, two words funnel-shifted into one. Or-ed under
+// the exponent of 2^23 there, its top bit is at most bit 17, inside the
+// mantissa: f - 2^23 = q 64^k exactly, and fmaf(q 64^k, s 64^-k, b) rounds
+// the same q s + b as fmaf(q, s, b). Seven shifts a chunk, then one LOP3,
+// FADD and FFMA a value, no conversion.
+__device__ __forceinline__ int q6_pos(int j) {  // k: the value sits at bit 6 k
+  return j < 3 ? j : j < 5 ? j - 3 : j < 6 ? 0 : j < 9 ? j - 6 : j < 11 ? 0 : j < 14 ? j - 11 : j - 14;
+}
+
+__device__ __forceinline__ uint32_t q6_bits(uint32_t w0, uint32_t w1, uint32_t w2, int j) {
+  uint32_t src;
+  if (j < 3) src = w0;
+  else if (j < 5) src = w0 >> 18;
+  else if (j == 5) src = __funnelshift_r(w0, w1, 30);
+  else if (j < 9) src = w1 >> 4;
+  else if (j == 9) src = w1 >> 22;
+  else if (j == 10) src = __funnelshift_r(w1, w2, 28);
+  else if (j < 14) src = w2 >> 2;
+  else src = w2 >> 20;
+  return src & (63u << (6 * q6_pos(j)));
+}
+
+// acc[r][m] += sum_j x[m, j] * (q[r]_j * s[r] + b[r]) over the 16 values of
+// chunk `ch` (words 3 ch .. 3 ch + 2) of R rows' units; xc points at the
+// chunk's x values of row 0, rows xs_row elements apart, each read once for
+// all R rows.
+template <int BM, int R, int W, typename XT>
+__device__ __forceinline__ void unit_dot6(const Words<W>* q, int ch, const float* s,
+                                          const float* b, const XT* xc, int xs_row,
+                                          float (&acc)[R][BM]) {
+  float sk[R][3];  // s / 64^k
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    sk[r][0] = s[r];
+    sk[r][1] = s[r] * (1.f / 64.f);
+    sk[r][2] = s[r] * (1.f / 4096.f);
+  }
+#pragma unroll
+  for (int jq = 0; jq < 4; ++jq) {
+    float w[R][4];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int j = 4 * jq + t;
+        const uint32_t bits = q6_bits(q[r].w[3 * ch], q[r].w[3 * ch + 1], q[r].w[3 * ch + 2], j);
+        w[r][t] = fmaf(__uint_as_float(0x4B000000u | bits) - 8388608.f, sk[r][q6_pos(j)], b[r]);
+      }
+#pragma unroll
+    for (int m = 0; m < BM; ++m) {
+      const float4 t = load_x4(xc + m * xs_row + 4 * jq);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float a = acc[r][m];
+        a = fmaf(w[r][0], t.x, a);
+        a = fmaf(w[r][1], t.y, a);
+        a = fmaf(w[r][2], t.z, a);
+        a = fmaf(w[r][3], t.w, a);
+        acc[r][m] = a;
+      }
+    }
+  }
+}
 
 // A warp owns GEMV_R consecutive weight rows and one of `split` contiguous
 // segments of their lane units; a block is GEMV_RW such row groups times
-// `split` segments. Each lane sends the 8-byte units (16 int4 or 8 int8
-// values, inside one group) of its R rows, and their scales and biases,
-// before any arithmetic, and the next step's units before it computes
-// this one's. Past the load latency the time goes to each warp's chain of
-// unpacking, FMAs and its shuffle sums: 8-byte units with K split so that
-// a lane holds one unit a row give more, shorter chains than 16-byte units
-// (3.53 against 3.69 us at the talker's q/k/v on an H100). x (M rows of K) is read straight
-// from global memory through L1, four values at a time, inside `unit_dot`:
-// nothing is staged, so no barrier stands before the weight loads. The
-// segments' partial sums meet in shared memory and are added in segment
-// order (the same result on every run).
-constexpr int GEMV_VEC = 2;  // words a lane unit: 8 bytes
+// `split` segments. A lane unit holds 16 values (int4, 6-bit) or 8 (int8)
+// inside one group: 8 bytes at 4 and 8 bits, one 12-byte chunk at 6. Each
+// lane sends the units of its R rows, and their scales and biases, before
+// any arithmetic, and the next step's units before it computes this one's.
+// Past the load latency the time goes to each warp's chain of unpacking,
+// FMAs and its shuffle sums: 8-byte units with K split so that a lane holds
+// one unit a row give more, shorter chains than 16-byte units (3.53 against
+// 3.69 us at the talker's q/k/v on an H100). 16-value 6-bit units keep that
+// rule: a row of K = 1024 is 64 units, as at int4. Splitting stops at about
+// 16 warps a SM in all (GEMV_MAX_WARPS): past that more segments only add
+// blocks (the 6-bit gate/up, N = 6144: 4.88 us whole, 6.02 us in two
+// segments). x (M rows of K) is read straight from global memory through
+// L1, four values at a time, inside `unit_dot`: nothing is staged, so no
+// barrier stands before the weight loads. The segments' partial sums meet
+// in shared memory and are added in segment order (the same result on
+// every run). The launch bounds' floor of one block a SM lets ptxas take
+// the registers it needs: without it, ptxas held qmm_gemv<8, 2, bf16> to 64
+// registers and spilled 8 bytes.
+constexpr int GEMV_VEC = 2;  // words a lane unit at 4 and 8 bits: 8 bytes
 constexpr int GEMV_R = 4;
 constexpr int GEMV_RW = 2;
 constexpr int GEMV_MAX_SPLIT = 8;
+constexpr int GEMV_MAX_WARPS = 2048;
+
+template <int BITS>
+struct GemvUnit {
+  static constexpr int WORDS = BITS == 6 ? 3 : GEMV_VEC;
+  static constexpr int V = WORDS * 32 / BITS;
+  // the alignment, in bytes, that its loads need of a row and of the weight
+  static constexpr int ALIGN = BITS != 6 ? 4 * GEMV_VEC : 4;
+};
+
+// A 6-bit unit c: 12 bytes at 12 c, which are only 4-byte aligned, read as
+// three 4-byte loads through L1, where the three loads of a warp share their
+// sectors (4.03-4.09 us at the talker's q/k/v against 4.17 for an 8-byte
+// load where the unit's parity puts an 8-byte boundary and a 4-byte one,
+// 4.29 for the three kept out of L1, and 6.11 for 48-byte units of a whole
+// group, which spill).
+template <int BITS>
+__device__ __forceinline__ Words<GemvUnit<BITS>::WORDS> load_unit(const uint8_t* row, int c) {
+  if constexpr (BITS != 6) {
+    return load_words<GEMV_VEC>(row, c);
+  } else {
+    const uint32_t* wp = reinterpret_cast<const uint32_t*>(row) + 3 * c;
+    Words<3> r;
+    r.w[0] = __ldg(wp);
+    r.w[1] = __ldg(wp + 1);
+    r.w[2] = __ldg(wp + 2);
+    return r;
+  }
+}
+
+// one lane unit of R rows against x: `unit_dot` at 4 and 8 bits, `unit_dot6`
+// at 6
+template <int BITS, int BM, int R, typename TX>
+__device__ __forceinline__ void gemv_dot(const Words<GemvUnit<BITS>::WORDS>* w, const float* s,
+                                         const float* b, const TX* xc, int ldx,
+                                         float (&acc)[R][BM]) {
+  if constexpr (BITS == 6) {
+    unit_dot6<BM, R>(w, 0, s, b, xc, ldx, acc);
+  } else {
+    unit_dot<BITS, GEMV_VEC, BM, R, R, TX>(w, s, b, xc, ldx, acc);
+  }
+}
 
 template <int BITS, int BM, typename TX>
-__global__ void __launch_bounds__(32 * GEMV_RW * GEMV_MAX_SPLIT)
+__global__ void __launch_bounds__(32 * GEMV_RW * GEMV_MAX_SPLIT, 1)
     qmm_gemv(QmmParams p, int split) {
-  using L = Lane<BITS, GEMV_VEC>;
+  using U = GemvUnit<BITS>;
+  using W = Words<U::WORDS>;
   constexpr int R = GEMV_R;
   __shared__ float part[GEMV_MAX_SPLIT][GEMV_RW * R][BM];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int sg = warp % split, rw = warp / split;
   const int n0 = (blockIdx.x * GEMV_RW + rw) * R;
-  const int units = p.K / L::V;
+  const int units = p.K / U::V;
   const int c1 = (sg + 1) * units / split;
   // rows past N read row N - 1 and are not stored
   const uint8_t* rows[R];
@@ -389,10 +515,10 @@ __global__ void __launch_bounds__(32 * GEMV_RW * GEMV_MAX_SPLIT)
     rows[r] = p.w.w + n * p.w.row_bytes;
     srow[r] = n * p.w.G;
   }
-  auto load = [&](int c, Words<GEMV_VEC>(&w)[R], float(&s)[R], float(&b)[R]) {
-    const int grp = c * L::V / p.w.group_size;
+  auto load = [&](int c, W(&w)[R], float(&s)[R], float(&b)[R]) {
+    const int grp = c * U::V / p.w.group_size;
 #pragma unroll
-    for (int r = 0; r < R; ++r) w[r] = load_words<GEMV_VEC>(rows[r], c);
+    for (int r = 0; r < R; ++r) w[r] = load_unit<BITS>(rows[r], c);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       s[r] = __ldg(p.w.s + srow[r] + grp);
@@ -405,17 +531,16 @@ __global__ void __launch_bounds__(32 * GEMV_RW * GEMV_MAX_SPLIT)
   for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int m = 0; m < BM; ++m) acc[r][m] = 0.f;
-  Words<GEMV_VEC> w[R];
+  W w[R];
   float s[R], b[R];
   int c = sg * units / split + lane;
   if (c < c1) load(c, w, s, b);
   const TX* x = static_cast<const TX*>(p.x);
   while (c < c1) {
-    Words<GEMV_VEC> wn[R];
+    W wn[R];
     float sn[R], bn[R];
     if (c + 32 < c1) load(c + 32, wn, sn, bn);
-    unit_dot<BITS, GEMV_VEC, BM, R, R, TX>(w, s, b, x + c * L::V, static_cast<int>(p.ldx),
-                                           acc);
+    gemv_dot<BITS, BM, R, TX>(w, s, b, x + c * U::V, static_cast<int>(p.ldx), acc);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       w[r] = wn[r];
@@ -478,7 +603,7 @@ __device__ __forceinline__ void x_load(XBatch<BM, U>& r, const T* x, long long l
 
 template <int BITS, int VEC, int BM, int NT, int U>
 __device__ __forceinline__ void x_store(float* xs, const XBatch<BM, U>& r, int K, int k0) {
-  using L = Lane<BITS, VEC>;
+  using L = Staged<BITS, VEC>;
   const int xs_row = K / L::V * L::XS;
 #pragma unroll
   for (int m = 0; m < BM; ++m)
@@ -615,7 +740,7 @@ __device__ __forceinline__ void load_gate_up(const QmlpParams& p, int i0, int a1
 // are added in segment order in shared memory.
 template <int BITS, int BM, int VEC, typename TX>
 __global__ void __launch_bounds__(QmlpBlock<BM>::THREADS) qmlp_kernel(QmlpParams p) {
-  using L = Lane<BITS, VEC>;
+  using L = Staged<BITS, VEC>;
   constexpr int QWARPS = QmlpBlock<BM>::WARPS, QTHREADS = QmlpBlock<BM>::THREADS;
   extern __shared__ float4 smem_f4[];
   float* xs = reinterpret_cast<float*>(smem_f4);
@@ -743,23 +868,26 @@ int launch_qmm(const QmmParams& p, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// the GEMV takes M <= 4 at 4 and 8 bits where rows, groups and pointers
-// allow its weight units and 16-byte (f32) or 8-byte (bf16) x reads
+// the GEMV takes M <= 4 where rows, groups and pointers allow its weight
+// units (a 6-bit row of 16-value chunks is always a multiple of 4 bytes)
+// and 16-byte (f32) or 8-byte (bf16) x reads
 template <int BITS, typename TX>
 bool gemv_fits(const QmmParams& p) {
-  constexpr int V = Lane<BITS, GEMV_VEC>::V;
+  using U = GemvUnit<BITS>;
   constexpr uintptr_t XALIGN = 4 * sizeof(TX);
-  return p.M <= 4 && p.K % V == 0 && p.w.group_size % V == 0 &&
-         reinterpret_cast<uintptr_t>(p.w.w) % (4 * GEMV_VEC) == 0 &&
+  return p.M <= 4 && p.K % U::V == 0 && p.w.group_size % U::V == 0 &&
+         p.w.row_bytes % U::ALIGN == 0 && reinterpret_cast<uintptr_t>(p.w.w) % U::ALIGN == 0 &&
          reinterpret_cast<uintptr_t>(p.x) % XALIGN == 0 &&
          (p.M == 1 || (p.ldx % 4 == 0 && p.ldx <= 0x7fffffffLL));
 }
 
 template <int BITS, int BM, typename TX>
 int launch_gemv(QmmParams p, cudaStream_t st) {
-  // enough segments that a lane holds one unit of each row where K allows
-  const int units = p.K / Lane<BITS, GEMV_VEC>::V;
-  const int split = min(GEMV_MAX_SPLIT, (units + 31) / 32);
+  // enough segments that a lane holds one unit of each row where K allows,
+  // up to GEMV_MAX_WARPS warps in all
+  const int units = p.K / GemvUnit<BITS>::V;
+  const int split = max(1, min(min(GEMV_MAX_SPLIT, (units + 31) / 32),
+                               GEMV_MAX_WARPS * GEMV_R / max(p.N, 1)));
   const long long blocks = (p.N + GEMV_RW * GEMV_R - 1) / (GEMV_RW * GEMV_R);
   if (p.M == 1) p.ldx = 0;
   qmm_gemv<BITS, BM, TX><<<static_cast<unsigned>(blocks), 32 * GEMV_RW * split, 0, st>>>(p, split);
@@ -768,14 +896,12 @@ int launch_gemv(QmmParams p, cudaStream_t st) {
 
 template <int BITS, typename TX>
 int qmm_bm(const QmmParams& p, cudaStream_t st) {
-  if constexpr (BITS != 6) {
-    if (gemv_fits<BITS, TX>(p)) {
-      switch (p.M) {
-        case 1: return launch_gemv<BITS, 1, TX>(p, st);
-        case 2: return launch_gemv<BITS, 2, TX>(p, st);
-        case 3: return launch_gemv<BITS, 3, TX>(p, st);
-        default: return launch_gemv<BITS, 4, TX>(p, st);
-      }
+  if (gemv_fits<BITS, TX>(p)) {
+    switch (p.M) {
+      case 1: return launch_gemv<BITS, 1, TX>(p, st);
+      case 2: return launch_gemv<BITS, 2, TX>(p, st);
+      case 3: return launch_gemv<BITS, 3, TX>(p, st);
+      default: return launch_gemv<BITS, 4, TX>(p, st);
     }
   }
   if (p.M == 1) return launch_qmm<BITS, 1, TX>(p, st);
@@ -845,7 +971,7 @@ int qmlp_plan(const void* fn, int dev, size_t smem, int sms, int threads, int ca
 // product's partial sums for at most `rows` rows of `segs` segments
 template <int BITS, int VEC>
 size_t qmlp_smem(int bm, int K, int I, int rows, int segs) {
-  using L = Lane<BITS, VEC>;
+  using L = Staged<BITS, VEC>;
   const size_t staged = static_cast<size_t>(bm) * max(K, I) / L::V * L::XS;
   return sizeof(float) * (staged + static_cast<size_t>(bm) * rows * segs);
 }

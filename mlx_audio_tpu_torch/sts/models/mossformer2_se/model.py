@@ -169,9 +169,13 @@ class Model(nn.Module):
         init_weights(self, gen)
         self.processor = MossFormer2SEModel(self.net.model, self.config)
 
-    def enhance(self, audio: np.ndarray, chunked: Optional[bool] = None) -> np.ndarray:
+    def enhance(self, audio: Optional[np.ndarray] = None, chunked: Optional[bool] = None,
+                audio_input: Optional[np.ndarray] = None) -> np.ndarray:
         """Noisy waveform (T,) at 48 kHz → enhanced waveform (T,); `chunked`
-        None picks the chunked route from `auto_chunk_threshold` seconds."""
+        None picks the chunked route from `auto_chunk_threshold` seconds.
+        `audio_input` is the upstream name of `audio`."""
+        if audio is None:
+            audio = audio_input
         return self.processor.enhance(audio, chunked=chunked)
 
     def sanitize(self, weights: dict) -> dict:

@@ -384,6 +384,8 @@ class Model(nn.Module):
         initial_prompt: Optional[str] = None,
         without_timestamps: bool = False,
         word_timestamps: bool = False,
+        prepend_punctuations: str = "\"'“¿([{-",
+        append_punctuations: str = "\"'.。,，!！?？:：”)]}、",
         tokenizer=None,
         max_batch: int = 8,
         max_sweeps: int = 4,
@@ -404,7 +406,10 @@ class Model(nn.Module):
         current estimates and re-decodes only windows whose prompt changed.
         Window k's prompt depends only on windows < k, so the result is the
         sequential one; after ``max_sweeps`` sweeps a still-unstable tail is
-        finished window by window."""
+        finished window by window.
+
+        ``prepend_punctuations`` and ``append_punctuations`` serve word
+        timestamps, which are not ported yet; they are accepted and unused."""
         start_t = time.perf_counter()
         unknown = set(decode_options) - set(DecodingOptions.__dataclass_fields__)
         if unknown:

@@ -7,7 +7,13 @@ from typing import Any
 
 import torch
 
-__all__ = ["GenerationResult", "format_duration"]
+__all__ = ["GenerationResult", "format_duration", "peak_memory_gb"]
+
+
+def peak_memory_gb(peak_bytes: int) -> float:
+    """A byte count in GiB rounded to 3 places, the unit of the JAX
+    package's `profiling.peak_memory_gb`."""
+    return round(peak_bytes / 1024**3, 3)
 
 
 @dataclass
@@ -27,9 +33,9 @@ class GenerationResult:
     is_final_chunk: bool = False
 
     def __post_init__(self):
-        # 0.0 means "unknown": fill in the card's high-water mark (GB)
+        # 0.0 means "unknown": fill in the card's high-water mark (GiB)
         if not self.peak_memory_usage and torch.cuda.is_available():
-            self.peak_memory_usage = torch.cuda.max_memory_allocated() / 1e9
+            self.peak_memory_usage = peak_memory_gb(torch.cuda.max_memory_allocated())
 
 
 def format_duration(seconds: float) -> str:

@@ -113,6 +113,29 @@ class Model(nn.Module):
     def supported_speakers(self) -> List[str]:
         return sorted((self.config.talker_config.spk_id or {}).keys())
 
+    # speaker and language discovery, as in the JAX package
+
+    def load_generate_config(self, generate_config: dict) -> None:
+        self.config.generate_config = generate_config
+
+    @property
+    def generate_config(self) -> Optional[dict]:
+        return getattr(self.config, "generate_config", None)
+
+    @property
+    def supported_languages(self) -> List[str]:
+        langs = ["auto"]
+        for lang_id in (self.config.talker_config.codec_language_id or {}):
+            if "dialect" not in lang_id:
+                langs.append(lang_id)
+        return langs
+
+    def get_supported_speakers(self) -> List[str]:
+        return self.supported_speakers
+
+    def get_supported_languages(self) -> List[str]:
+        return self.supported_languages
+
     def sanitize(self, weights: dict) -> dict:
         """Checkpoint keys → this module's names, convolution weights turned
         into the port's layouts."""

@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
 """Time edited copies of the port's redesigned kernels on one H100.
 
-    python3 scripts/torch_kernel_variants.py [--flash] [--qmlp] [--qmm] [--relu2]
+    python3 scripts/torch_kernel_variants.py [--flash] [--flash32] [--qmlp] [--qmm]
+                                             [--qmm6] [--relu2]
 
 Each variant is the kernel's source with a few lines replaced: a part of
 the kernel taken out (its output is then wrong, and only its time counts)
-or a design choice undone; or, for relu2, the earlier kernel kept in
-`scripts/baselines/`. Every variant is built with nvcc into its own
-library under `build/variants/` and timed beside the unchanged source on
-the same inputs, in two rounds taken in turns (no flag: all four):
+or a design choice undone; or, for relu2 and flash32, the earlier kernel
+kept in `scripts/baselines/`. Every variant is built with nvcc into its own
+library under `build/variants/` (the ptxas registers and spills of the
+kernel timed are printed, one line a variant) and timed beside the
+unchanged source on the same inputs, in two rounds taken in turns (no
+flag: all six):
 
 - flash: B=4 H=20 T=S=1500 D=64 bf16 from (B, T, H, D) views, CUDA events
   over 50 launches, with F.scaled_dot_product_attention as the yardstick;
+- flash32: the same shape in float32, CUDA events over 20 launches, beside
+  F.scaled_dot_product_attention in float32 and the earlier 4 x 4 kernel;
 - qmlp: M=1 K=1024 I=3072 N=1024 int4 with f32 x, device time per call
   from torch.profiler with the weights cycled past L2, and once with one
   weight set every call (L2-hot);
@@ -19,6 +24,10 @@ the same inputs, in two rounds taken in turns (no flag: all four):
   K=2048 (o_proj) and M=2 N=4096 K=1024 (the code predictor's seed), int4
   with f32 x, device time per call with the weights cycled past L2; the
   tiled kernel, which served M <= 4 before the GEMV, is one variant;
+- qmm6: the 6-bit GEMV at M=1 at the talker's four shapes (q/k/v N=4096
+  K=1024, o_proj N=1024 K=2048, gate/up N=6144 K=1024, down N=1024
+  K=3072), f32 x, as qmm; the tiled kernel, which served every 6-bit call
+  before, is one variant (it stays in the source for M > 4);
 - relu2: float32 B=1 N=256 D=128 E=2048 at G=10 (a 20 s request) and G=2
   (a 4 s chunk), device time per call (both launches), beside the plain
   version (two cuBLAS matmuls) and the earlier one-launch kernel.
@@ -87,36 +96,146 @@ QMLP = {
 }
 
 
+# edits of the GEMV shared by the int4 and 6-bit sets
+GEMV_DOT = ("    gemv_dot<BITS, BM, R, TX>(w, s, b, x + c * U::V, static_cast<int>(p.ldx), acc);")
+X_STAGED = [
+    ("  int c = sg * units / split + lane;\n  if (c < c1) load(c, w, s, b);\n"
+     "  const TX* x = static_cast<const TX*>(p.x);\n",
+     "  __shared__ __align__(16) float xsm[4 * 2048];\n"
+     "  for (int i = threadIdx.x; i < BM * p.K; i += blockDim.x)\n"
+     "    xsm[i] = to_float(static_cast<const TX*>(p.x)[(i / p.K) * p.ldx + i % p.K]);\n"
+     "  __syncthreads();\n  const float* x = xsm;\n"
+     "  int c = sg * units / split + lane;\n  if (c < c1) load(c, w, s, b);\n"),
+    (GEMV_DOT, "    gemv_dot<BITS, BM, R, float>(w, s, b, x + c * U::V, p.K, acc);")]
+SPLIT = ("  const int split = max(1, min(min(GEMV_MAX_SPLIT, (units + 31) / 32),\n"
+         "                               GEMV_MAX_WARPS * GEMV_R / max(p.N, 1)));")
+NO_SPLIT = [(SPLIT, "  const int split = 1;")]
+SPLIT_ALWAYS = [(SPLIT, "  const int split = min(GEMV_MAX_SPLIT, (units + 31) / 32);")]
+DEFAULT_BOUNDS = [("__global__ void __launch_bounds__(32 * GEMV_RW * GEMV_MAX_SPLIT, 1)\n",
+                   "__global__ void __launch_bounds__(32 * GEMV_RW * GEMV_MAX_SPLIT)\n")]
+EMPTY_GEMV = [("  using W = Words<U::WORDS>;\n", "  using W = Words<U::WORDS>;\n  if (p.N > 0) return;\n")]
+
 QMM = {
     "as committed": [],
-    "tiled kernel at M <= 4": [("    if (gemv_fits<BITS, TX>(p)) {",
-                                "    if (false && gemv_fits<BITS, TX>(p)) {")],
+    "tiled kernel at M <= 4": [("  if (gemv_fits<BITS, TX>(p)) {",
+                                "  if (false && gemv_fits<BITS, TX>(p)) {")],
     "4-byte loads": [("constexpr int GEMV_VEC = 2;", "constexpr int GEMV_VEC = 1;")],
     "16-byte loads": [("constexpr int GEMV_VEC = 2;", "constexpr int GEMV_VEC = 4;")],
-    "x staged in shared memory first": [
-        ("  int c = sg * units / split + lane;\n  if (c < c1) load(c, w, s, b);\n"
-         "  const TX* x = static_cast<const TX*>(p.x);\n",
-         "  __shared__ __align__(16) float xsm[4 * 2048];\n"
-         "  for (int i = threadIdx.x; i < BM * p.K; i += blockDim.x)\n"
-         "    xsm[i] = to_float(static_cast<const TX*>(p.x)[(i / p.K) * p.ldx + i % p.K]);\n"
-         "  __syncthreads();\n  const float* x = xsm;\n"
-         "  int c = sg * units / split + lane;\n  if (c < c1) load(c, w, s, b);\n"),
-        ("unit_dot<BITS, GEMV_VEC, BM, R, R, TX>(w, s, b, x + c * L::V, static_cast<int>(p.ldx),",
-         "unit_dot<BITS, GEMV_VEC, BM, R, R, float>(w, s, b, x + c * L::V, p.K,")],
-    "no split-K": [("  const int split = min(GEMV_MAX_SPLIT, (units + 31) / 32);",
-                    "  const int split = 1;")],
+    "x staged in shared memory first": X_STAGED,
+    "no split-K": NO_SPLIT,
     "R = 1": [("constexpr int GEMV_R = 4;", "constexpr int GEMV_R = 1;")],
     "R = 2": [("constexpr int GEMV_R = 4;", "constexpr int GEMV_R = 2;")],
     "4 row-warps a block": [("constexpr int GEMV_RW = 2;", "constexpr int GEMV_RW = 4;")],
     "1 row-warp a block": [("constexpr int GEMV_RW = 2;", "constexpr int GEMV_RW = 1;")],
-    "empty kernel": [("  using L = Lane<BITS, GEMV_VEC>;\n",
-                      "  using L = Lane<BITS, GEMV_VEC>;\n  if (p.N > 0) return;\n")],
-    "no FMAs": [("    unit_dot<BITS, GEMV_VEC, BM, R, R, TX>(w, s, b, x + c * L::V, "
-                 "static_cast<int>(p.ldx),\n                                           acc);",
-                 "    acc[0][0] += __uint_as_float(w[0].w[0] ^ w[R - 1].w[GEMV_VEC - 1]) + s[0] "
+    "empty kernel": EMPTY_GEMV,
+    "launch bounds without the floor of one block a SM": DEFAULT_BOUNDS,
+    "no FMAs": [(GEMV_DOT,
+                 "    acc[0][0] += __uint_as_float(w[0].w[0] ^ w[R - 1].w[U::WORDS - 1]) + s[0] "
                  "+ b[R - 1] + static_cast<float>(x[c]);")],
-    "no weight loads": [("    for (int r = 0; r < R; ++r) w[r] = load_words<GEMV_VEC>(rows[r], c);",
-                         "    for (int r = 0; r < R; ++r) w[r] = Words<GEMV_VEC>{};")],
+    "no weight loads": [("    for (int r = 0; r < R; ++r) w[r] = load_unit<BITS>(rows[r], c);",
+                         "    for (int r = 0; r < R; ++r) w[r] = W{};")],
+}
+
+QMM6 = {
+    "as committed": [],
+    "tiled kernel at M <= 4": [("  if (gemv_fits<BITS, TX>(p)) {",
+                             "  if (BITS != 6 && gemv_fits<BITS, TX>(p)) {")],
+    "8 + 4 bytes by the unit's parity": [
+        ("    r.w[0] = __ldg(wp);\n    r.w[1] = __ldg(wp + 1);\n    r.w[2] = __ldg(wp + 2);\n",
+         "    const int odd = c & 1;\n"
+         "    const uint2 pair = __ldg(reinterpret_cast<const uint2*>(wp + odd));\n"
+         "    const uint32_t one = __ldg(wp + (odd ? 0 : 2));\n"
+         "    r.w[0] = odd ? one : pair.x;\n    r.w[1] = odd ? pair.x : pair.y;\n"
+         "    r.w[2] = odd ? pair.y : one;\n"),
+        ("static constexpr int ALIGN = BITS != 6 ? 4 * GEMV_VEC : 4;",
+         "static constexpr int ALIGN = BITS != 6 ? 4 * GEMV_VEC : 8;")],
+    "three 4-byte loads kept out of L1": [
+        ("    r.w[0] = __ldg(wp);\n    r.w[1] = __ldg(wp + 1);\n    r.w[2] = __ldg(wp + 2);\n",
+         "".join(f'    asm volatile("ld.global.nc.L1::no_allocate.u32 %0, [%1];" : "=r"(r.w[{i}]) '
+                 f': "l"(wp + {i}));\n' for i in range(3)))],
+    "48-byte units (a group of 64)": [
+        ("static constexpr int WORDS = BITS == 6 ? 3 : GEMV_VEC;",
+         "static constexpr int WORDS = BITS == 6 ? 12 : GEMV_VEC;"),
+        ("static constexpr int ALIGN = BITS != 6 ? 4 * GEMV_VEC : 4;",
+         "static constexpr int ALIGN = BITS != 6 ? 4 * GEMV_VEC : 16;"),
+        ("    const uint32_t* wp = reinterpret_cast<const uint32_t*>(row) + 3 * c;\n"
+         "    Words<3> r;\n"
+         "    r.w[0] = __ldg(wp);\n    r.w[1] = __ldg(wp + 1);\n    r.w[2] = __ldg(wp + 2);\n",
+         "    const uint4* vp = reinterpret_cast<const uint4*>(row) + 3 * c;\n"
+         "    Words<12> r;\n"
+         "    for (int i = 0; i < 3; ++i) {\n"
+         "      const uint4 t = __ldg(vp + i);\n"
+         "      r.w[4 * i] = t.x; r.w[4 * i + 1] = t.y; r.w[4 * i + 2] = t.z; r.w[4 * i + 3] = t.w;\n"
+         "    }\n"),
+        ("    unit_dot6<BM, R>(w, 0, s, b, xc, ldx, acc);",
+         "    for (int ch = 0; ch < 4; ++ch) unit_dot6<BM, R>(w, ch, s, b, xc + 16 * ch, ldx, acc);")],
+    "no split-K": NO_SPLIT,
+    "split-K at every N": SPLIT_ALWAYS,
+    "x staged in shared memory first": X_STAGED,
+    "launch bounds without the floor of one block a SM": DEFAULT_BOUNDS,
+    "empty kernel": EMPTY_GEMV,
+}
+
+FLASH32_SKIP = "    if (wr0 >= p.T || (p.causal && k0 > wr0 + C::WR - 1)) continue;\n"
+FLASH32 = {
+    "as committed": [],
+    "earlier kernel (4 x 4, expf, block barriers)": BASELINES / "flash_attention_f32_4x4.cu",
+    "4 x 4 register blocks": [
+        ("static constexpr int RI = DMAX == 64 ? 8 : 4;", "static constexpr int RI = 4;"),
+        ("static constexpr int KJ = 8; ", "static constexpr int KJ = 4; ")],
+    "no copy under the FMAs": [
+        ("    if (kt + 1 < n_tiles) load_kv(kt + 1);\n    cp_async_commit();\n",
+         "    if (kt + 1 < n_tiles) load_kv(kt + 1);\n    cp_async_commit();\n"
+         "    cp_async_wait<0>();\n")],
+    "block barriers for P, not __syncwarp": [
+        (FLASH32_SKIP, ""),
+        ("    __syncwarp();\n#pragma unroll\n    for (int j = 0; j < KJ; ++j)",
+         "    __syncthreads();\n#pragma unroll\n    for (int j = 0; j < KJ; ++j)"),
+        ("    __syncwarp();\n\n    // o = alpha o", "    __syncthreads();\n\n    // o = alpha o")],
+    "accurate exp2f for ex2.approx": [
+        ('  asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));', "  y = exp2f(x);")],
+    "no ex2 (an FFMA)": [('  asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
+                          "  y = fmaf(x, 1e-3f, 0.5f);")],
+    "no S product": [("    for (int d = 0; d < DMAX; d += 4) {",
+                      "    for (int d = 0; d < (p.S < 0 ? DMAX : 0); d += 4) {")],
+    "S: K read a key at a time": [(
+        "      float4 qa[RI], ka[KJ];\n"
+        "#pragma unroll\n"
+        "      for (int i = 0; i < RI; ++i) qa[i] = *reinterpret_cast<const float4*>(qs + i * DP + d);\n"
+        "#pragma unroll\n"
+        "      for (int j = 0; j < KJ; ++j)\n"
+        "        ka[j] = *reinterpret_cast<const float4*>(ks + (tx + 8 * j) * DP + d);\n"
+        "#pragma unroll\n"
+        "      for (int i = 0; i < RI; ++i)\n"
+        "#pragma unroll\n"
+        "        for (int j = 0; j < KJ; ++j) {\n"
+        "          s[i][j] = fmaf(qa[i].x, ka[j].x, s[i][j]);\n"
+        "          s[i][j] = fmaf(qa[i].y, ka[j].y, s[i][j]);\n"
+        "          s[i][j] = fmaf(qa[i].z, ka[j].z, s[i][j]);\n"
+        "          s[i][j] = fmaf(qa[i].w, ka[j].w, s[i][j]);\n"
+        "        }\n",
+        "      float4 qa[RI];\n"
+        "#pragma unroll\n"
+        "      for (int i = 0; i < RI; ++i) qa[i] = *reinterpret_cast<const float4*>(qs + i * DP + d);\n"
+        "#pragma unroll\n"
+        "      for (int j = 0; j < KJ; ++j) {\n"
+        "        const float4 kj = *reinterpret_cast<const float4*>(ks + (tx + 8 * j) * DP + d);\n"
+        "#pragma unroll\n"
+        "        for (int i = 0; i < RI; ++i) {\n"
+        "          s[i][j] = fmaf(qa[i].x, kj.x, s[i][j]);\n"
+        "          s[i][j] = fmaf(qa[i].y, kj.y, s[i][j]);\n"
+        "          s[i][j] = fmaf(qa[i].z, kj.z, s[i][j]);\n"
+        "          s[i][j] = fmaf(qa[i].w, kj.w, s[i][j]);\n"
+        "        }\n"
+        "      }\n")],
+    "PV loop unrolled 4": [("#pragma unroll 8\n    for (int kk = 0; kk < BK; ++kk) {",
+                            "#pragma unroll 4\n    for (int kk = 0; kk < BK; ++kk) {")],
+    "no PV product": [("    for (int kk = 0; kk < BK; ++kk) {",
+                       "    for (int kk = 0; kk < (p.S < 0 ? BK : 0); ++kk) {")],
+    "6 warps a block (192 queries)": [("static constexpr int WARPS = DMAX == 64 ? 8 : 4;",
+                                       "static constexpr int WARPS = DMAX == 64 ? 6 : 4;")],
+    "4 warps a block (128 queries)": [("static constexpr int WARPS = DMAX == 64 ? 8 : 4;",
+                                       "static constexpr int WARPS = 4;")],
 }
 
 RELU2 = {
@@ -155,15 +274,30 @@ def edited_sources(kind: str, variants: dict) -> dict:
     return texts
 
 
-def build(kind: str, variants: dict) -> dict:
+def ptxas_lines(log: str, kernel: str) -> list:
+    """ptxas's registers and spills of the entries whose name holds `kernel`."""
+    lines, entry = [], ""
+    for line in log.splitlines():
+        if "Compiling entry" in line:
+            entry = line.split("'")[1]
+        elif kernel in entry and ("registers" in line or ("spill" in line and
+                                  "0 bytes spill stores, 0 bytes spill loads" not in line)):
+            lines.append(f"{entry[:80]}: {line.split(':', 1)[-1].strip()}")
+    return lines
+
+
+def build(kind: str, variants: dict, tag: str, kernel: str = "") -> dict:
     """Compile every variant of csrc/<kind> at once; name -> CDLL. A variant
     is a list of (old, new) edits of the source, or the path of another
-    source with the same C interface names."""
+    source with the same C interface names. `tag` names the set in the
+    library paths (dlopen hands back a library already loaded from the same
+    path). With `kernel`, ptxas's report on the kernels of that name is
+    printed for each variant."""
     texts = edited_sources(kind, variants)  # every edit checked before any build
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
     for i, (name, text) in enumerate(texts.items()):
-        path = OUT / f"{Path(kind).stem}_{i}.cu"
+        path = OUT / f"{Path(kind).stem}_{tag}_{i}.cu"
         path.write_text(text)
         procs[name] = (path.with_suffix(".so"), subprocess.Popen(
             [_build._nvcc(), *_build._FLAGS, "-shared", "-o", str(path.with_suffix(".so")),
@@ -173,6 +307,8 @@ def build(kind: str, variants: dict) -> dict:
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise SystemExit(f"variant {name!r} failed to build:\n{log[-4000:]}")
+        for line in ptxas_lines(log, kernel) if kernel else []:
+            print(f"[ptxas] {name}: {line}", flush=True)
         libs[name] = ctypes.CDLL(str(so))
         for fn, (restype, argtypes) in _build.SIGNATURES.items():
             if hasattr(libs[name], fn):
@@ -191,7 +327,7 @@ def device_us(fns, iters: int) -> str:
 
 
 def time_flash() -> None:
-    libs = build("flash_attention.cu", FLASH)
+    libs = build("flash_attention.cu", FLASH, "flash")
     B, H, T, S, D = 4, 20, 1500, 1500, 64
     q, k, v = cs.attention_inputs(B, H, T, S, D, torch.bfloat16, seed=100)
     ref = flash_attention_reference(q, k, v)
@@ -219,8 +355,40 @@ def time_flash() -> None:
                   f"{'within its bar' if ok else 'wrong (timing only)'}", flush=True)
 
 
+def time_flash32() -> None:
+    libs = build("flash_attention.cu", FLASH32, "flash32", "flash_fwd_f32")
+    B, H, T, S, D = 4, 20, 1500, 1500, 64
+    q, k, v = cs.attention_inputs(B, H, T, S, D, torch.float32, seed=100)
+    ref = flash_attention_reference(q, k, v)
+    o = torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+    bound, _ = cs.attention_bound_ms(B, H, T, S, D, torch.float32, False)
+    print(f"[flash32] B={B} H={H} T=S={T} D={D}: the f32 bound is {bound:.4f} ms", flush=True)
+
+    def call(lib):
+        err = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, T, S, D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+            ctypes.c_float(D ** -0.5), 0, 0, stream)
+        if err:
+            raise SystemExit(f"flash launch failed: {err}")
+
+    for rnd in range(2):
+        sdpa = cs.time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        print(f"[flash32] round {rnd}: {'F.sdpa, float32':46s} {sdpa:.4f} ms", flush=True)
+        for name, lib in libs.items():
+            o.fill_(float("nan"))  # no output left over from the last variant
+            call(lib)
+            torch.cuda.synchronize()
+            ok = cs.compare(o, ref, torch.float32)[0]
+            ms = cs.time_ms(lambda: call(lib))
+            print(f"[flash32] round {rnd}: {name:46s} {ms:.4f} ms ({100 * bound / ms:.1f}% of "
+                  f"bound)  output {'within its bar' if ok else 'wrong (timing only)'}",
+                  flush=True)
+
+
 def time_qmlp() -> None:
-    libs = build("quant_matmul.cu", QMLP)
+    libs = build("quant_matmul.cu", QMLP, "qmlp")
     M, K, I, N = 1, 1024, 3072, 1024
     g = torch.Generator(device="cuda").manual_seed(500)
     sets = [(cs.quant_weights(2 * I, K, 4, g), cs.quant_weights(N, I, 4, g))]
@@ -259,7 +427,7 @@ def time_qmlp() -> None:
 
 
 def time_qmm() -> None:
-    libs = build("quant_matmul.cu", QMM)
+    libs = build("quant_matmul.cu", QMM, "qmm", "qmm_gemv")
     stream = torch.cuda.current_stream().cuda_stream
     for M, N, K, what in ((1, 4096, 1024, "q/k/v"), (1, 1024, 2048, "o_proj"),
                           (2, 4096, 1024, "code predictor seed")):
@@ -289,8 +457,42 @@ def time_qmm() -> None:
                       f"{'within its bar' if ok else 'wrong (timing only)'}", flush=True)
 
 
+def time_qmm6() -> None:
+    libs = build("quant_matmul.cu", QMM6, "qmm6", "qmm_gemv")
+    stream = torch.cuda.current_stream().cuda_stream
+    for M, N, K, what in ((1, 4096, 1024, "q/k/v"), (1, 1024, 2048, "o_proj"),
+                          (1, 6144, 1024, "gate/up"), (1, 1024, 3072, "down")):
+        g = torch.Generator(device="cuda").manual_seed(406)
+        sets = [cs.quant_weights(N, K, 6, g)]
+        wbytes = cs.weight_bytes(*sets[0])
+        sets += [tuple(t.clone() for t in sets[0]) for _ in range(int(2 * cs.L2_BYTES // wbytes))]
+        x = torch.randn(M, K, generator=g, device="cuda")
+        ref = quantized_matmul_reference(x, *sets[0], bits=6)
+        y = torch.empty(M, N, device="cuda")
+        bound, _ = cs.quant_bound_ms(wbytes, M, K, N, torch.float32, 2.0 * M * N * K)
+        print(f"[qmm6] {what} M={M} N={N} K={K}: the bytes bound is {bound * 1e3:.2f} us",
+              flush=True)
+
+        def call(name, w):
+            err = libs[name].qmm_fwd(x.data_ptr(), w[0].data_ptr(), w[1].data_ptr(),
+                                     w[2].data_ptr(), y.data_ptr(), M, N, K, cs.GROUP, 6, 0,
+                                     K, stream)
+            if err:
+                raise SystemExit(f"qmm6 launch failed: {err}")
+
+        for rnd in range(2):
+            for name in libs:
+                y.fill_(float("nan"))
+                call(name, sets[0])
+                torch.cuda.synchronize()
+                ok = cs.compare_q(y, ref)[0]
+                us = device_us([lambda w=w: call(name, w) for w in sets], 400)
+                print(f"[qmm6] {what} M={M} N={N} K={K} round {rnd}: {name:34s} {us}  output "
+                      f"{'within its bar' if ok else 'wrong (timing only)'}", flush=True)
+
+
 def time_relu2() -> None:
-    libs = build("relu2_attention.cu", RELU2)
+    libs = build("relu2_attention.cu", RELU2, "relu2")
     name0 = "earlier kernel (E tiled, scores per column tile)"
     libs[name0].relu2_attention_fwd.argtypes = RELU2_EARLIER_ARGS
     stream = torch.cuda.current_stream().cuda_stream
@@ -329,7 +531,7 @@ def time_relu2() -> None:
 
 def main():
     ap = argparse.ArgumentParser()
-    kinds = ("flash", "qmlp", "qmm", "relu2")
+    kinds = ("flash", "flash32", "qmlp", "qmm", "qmm6", "relu2")
     for kind in kinds:
         ap.add_argument(f"--{kind}", action="store_true")
     args = ap.parse_args()

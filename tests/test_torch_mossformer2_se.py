@@ -254,6 +254,20 @@ def test_enhance_matches_jax(tiny_weights, monkeypatch, seconds, extra, chunked)
     assert np.abs(ref - audio).max() > 10 * WAVE_REL * np.abs(ref).max()  # it did enhance
 
 
+def test_enhance_takes_audio_input(tiny_weights, monkeypatch):
+    """`enhance(audio_input=...)`, the upstream parameter name, as in the JAX
+    package, gives what `enhance(audio)` gives."""
+    jmodel = load_weights(JaxModel(JaxConfig(**TINY)),
+                          {k: jnp.asarray(v) for k, v in tiny_weights.items()})
+    pmodel = load_jax_params(Model(TINY, device="cpu"), tiny_weights)
+    monkeypatch.setattr(dsp, "kaldi_dither", _jax_dither)
+    audio = _x(23, 48000) * 0.05
+    ref = np.asarray(jmodel.enhance(audio_input=audio))
+    out = pmodel.enhance(audio_input=audio)
+    np.testing.assert_array_equal(out, pmodel.enhance(audio))
+    np.testing.assert_allclose(out, ref, atol=WAVE_REL * np.abs(ref).max())
+
+
 def test_sanitize_matches_jax():
     rng = np.random.default_rng(22)
     weights = {

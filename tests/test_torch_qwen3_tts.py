@@ -300,3 +300,46 @@ def test_unported_routes_raise(pair):
         list(pm.generate(TEXT, ref_audio=np.zeros(2400, np.float32), ref_text="hi"))
     with pytest.raises(NotImplementedError, match="speaker encoder"):
         list(pm.generate(TEXT, ref_audio=np.zeros(2400, np.float32)))
+
+
+# ---- the result type and the discovery API ----
+
+
+@pytest.mark.parametrize("peak", [3 * 2**30, 1_234_567_890])
+def test_peak_memory_reads_gib_as_jax_does(monkeypatch, peak):
+    """`GenerationResult` fills in the card's peak in GiB rounded to 3
+    places, as the JAX package's `profiling.peak_memory_gb` does: 3·2³⁰
+    bytes read 3.0 (1e9-byte GB would read 3.221)."""
+    from mlx_audio_tpu import profiling as jprof
+    from mlx_audio_tpu.tts.models.base import GenerationResult as JaxResult
+    from mlx_audio_tpu_torch.tts.models import base as pbase
+
+    monkeypatch.setattr(jprof, "memory_stats", lambda device=None: {"peak_bytes_in_use": peak})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda device=None: peak)
+    assert pbase.peak_memory_gb(peak) == jprof.peak_memory_gb()
+    kw = dict(audio=np.zeros(4, np.float32), samples=4, sample_rate=24000)
+    got = pbase.GenerationResult(**kw).peak_memory_usage
+    assert got == JaxResult(**kw).peak_memory_usage
+    if peak == 3 * 2**30:
+        assert got == 3.0
+
+
+def test_language_and_generate_config_match_jax():
+    """`supported_languages` leaves the dialect ids out in both packages;
+    `load_generate_config` stores the dict that `generate_config` reads."""
+    talker = dict(CFG["talker_config"],
+                  codec_language_id={"english": 220, "chinese": 221, "sichuan_dialect": 222},
+                  spk_id={"vivian": 230, "eric": 231}, spk_is_dialect={"eric": "sichuan_dialect"})
+    cfg = dict(CFG, talker_config=talker)
+    jcfg = JaxConfig.from_dict(cfg)
+    jcfg.tokenizer_config.encoder_config = None
+    jm, pm = JaxModel(jcfg), Model(cfg, device="cpu")
+    assert pm.supported_languages == jm.supported_languages == ["auto", "english", "chinese"]
+    assert pm.get_supported_languages() == jm.get_supported_languages()
+    assert pm.get_supported_speakers() == jm.get_supported_speakers() == ["eric", "vivian"]
+    assert pm.generate_config is None and jm.generate_config is None
+    gen = {"temperature": 0.9, "top_k": 50, "repetition_penalty": 1.05}
+    pm.load_generate_config(gen)
+    jm.load_generate_config(gen)
+    assert pm.generate_config == jm.generate_config == gen

@@ -116,6 +116,23 @@ def test_generate_chunked_matches_jax(pair, audio, kw):
         assert abs(s["no_speech_prob"] - r["no_speech_prob"]) < ATOL
 
 
+def test_generate_chunked_takes_punctuation_options(pair, audio):
+    """`prepend_punctuations` and `append_punctuations` are accepted with
+    word_timestamps=False, as in the JAX package, and change no token."""
+    jm, pm = pair
+    clip = audio[:16000 * 20]
+    common = dict(language="en", temperature=0.0, sample_len=8, without_timestamps=True)
+    punct = dict(prepend_punctuations="\"'(", append_punctuations="\"'.,!?)")
+    ref = jm.generate_chunked(clip, tokenizer=JaxTok(n_vocab=51866), word_timestamps=False,
+                              **punct, **common)
+    tok = DummyTokenizer(n_vocab=51866)
+    out = pm.generate_chunked(clip, tokenizer=tok, word_timestamps=False, **punct, **common)
+    plain = pm.generate_chunked(clip, tokenizer=tok, **common)
+    tokens = [s["tokens"] for s in out.segments]
+    assert tokens == [s["tokens"] for s in plain.segments] == [s["tokens"] for s in ref.segments]
+    assert len(tokens) == 1 and tokens[0]
+
+
 def test_sanitize_matches_jax_on_hf_names(pair):
     """An HF-named dict: both packages drop the encoder positions and
     proj_out and rename alike; the port keeps torch's (O, I, K) conv
