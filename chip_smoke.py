@@ -8,7 +8,10 @@ Phases, each printing its own lines:
   2. every kernel against its plain PyTorch version on the card, at the
      main paths' shapes and a few edge cases, then timed beside its bound,
      its plain version and one PyTorch library call (or, for the quantized
-     kernels, a bf16 yardstick);
+     kernels, a bf16 yardstick); the dequant-matmul's three routes (the
+     GEMV at M <= 4, the tensor-core GEMM above, the tiled CUDA-core kernel for
+     what neither takes) each held to the kernel the route names, and the
+     GEMM timed at the prefill shapes beside the tiled kernel;
   3. the card against the CPU on a two-layer Whisper and on a shallow
      Qwen3-TTS int4, both at full width (f32);
   4. Whisper-large-v3-turbo at full width (seeded random weights):
@@ -18,9 +21,11 @@ Phases, each printing its own lines:
      flash kernel's launches held to one per encoder layer;
   5. Qwen3-TTS 0.6B int4 at full width (bf16, seeded random weights):
      256 frames of synthesis through `Model.generate`, with launch counts
-     read around each run and held to the routing table's;
+     read around each run and held to the routing table's, the qmm
+     launches split by kernel;
   6. the same model at 6 bits, 32 frames, then a profiled 16-frame run:
-     device time per frame and the 6-bit kernel's time per launch;
+     device time per frame, the 6-bit GEMV's time per launch and the M > 4
+     kernel's device time;
   7. MossFormer2-SE 48 kHz at full width (f32, 24 blocks, seeded random
      weights): 20 s in one shot, 30 s segmented and 90 s chunked through
      `Model.enhance`, with the ReLU² kernel's launches held to 1 per FLASH
@@ -472,7 +477,7 @@ def whisper_f32(audio, tok, sample_len) -> int:
 
 # the port's kernels, which every profile lists whether or not they rank
 # among the top eight
-PORT_KERNELS = ("flash_fwd", "qmm_kernel", "qmm_gemv", "qmlp_kernel", "relu2_")
+PORT_KERNELS = ("flash_fwd", "qmm_kernel", "qmm_gemv", "qmm_mma", "qmlp_kernel", "relu2_")
 
 
 def profile_one_run(run, what: str = "one transcription") -> tuple:
@@ -636,9 +641,58 @@ QMM_CASES = [  # name, bits, M, N, K, dtype: the routed shapes of phases 5 and 6
     ("q6_down_prefill_m32_f32", 6, 32, 1024, 3072, torch.float32),
     ("q6_codec_qkv_m300_bf16", 6, 300, 3072, 512, torch.bfloat16),
     ("q6_ragged_n1000_m16_bf16", 6, 16, 1000, 1024, torch.bfloat16),
+    # the tensor-core GEMM (M > 4): the talker's four projections at the
+    # prefill bucket TP, int4 and 6-bit, bf16 and f32 x; ragged M (37) and N
+    # (1000); groups of 32, 128 and 16; int8; K = 1056 in groups of 32 (a
+    # last stage of 32 values); groups of 8 and x at an offset take the
+    # tiled kernel
+    ("qkv_prefill_bf16", 4, 32, 4096, 1024, torch.bfloat16),
+    ("oproj_prefill_bf16", 4, 32, 1024, 2048, torch.bfloat16),
+    ("gateup_prefill_bf16", 4, 32, 6144, 1024, torch.bfloat16),
+    ("down_prefill_bf16", 4, 32, 1024, 3072, torch.bfloat16),
+    ("qkv_prefill_f32", 4, 32, 4096, 1024, torch.float32),
+    ("down_prefill_f32", 4, 32, 1024, 3072, torch.float32),
+    ("q6_qkv_prefill_bf16", 6, 32, 4096, 1024, torch.bfloat16),
+    ("q6_oproj_prefill_bf16", 6, 32, 1024, 2048, torch.bfloat16),
+    ("q6_gateup_prefill_bf16", 6, 32, 6144, 1024, torch.bfloat16),
+    ("q6_down_prefill_bf16", 6, 32, 1024, 3072, torch.bfloat16),
+    ("q6_qkv_prefill_f32", 6, 32, 4096, 1024, torch.float32),
+    ("q6_oproj_prefill_f32", 6, 32, 1024, 2048, torch.float32),
+    ("ragged_m37_bf16", 4, 37, 4096, 1024, torch.bfloat16),
+    ("q6_ragged_m37_f32", 6, 37, 4096, 1024, torch.float32),
+    ("ragged_n1000_m336_bf16", 4, 336, 1000, 1024, torch.bfloat16),
+    ("q6_ragged_n1000_m37_f32", 6, 37, 1000, 2048, torch.float32),
+    ("g32_m64_bf16", 4, 64, 2048, 1024, torch.bfloat16),
+    ("q6_g128_m96_f32", 6, 96, 1024, 2048, torch.float32),
+    ("g128_m200_bf16", 4, 200, 3072, 1024, torch.bfloat16),
+    ("q6_g16_m20_bf16", 6, 20, 1024, 1024, torch.bfloat16),
+    ("int8_m40_bf16", 8, 40, 1024, 1024, torch.bfloat16),
+    ("int8_g128_m300_f32", 8, 300, 2048, 1024, torch.float32),
+    ("k1056_g32_m48_f32", 4, 48, 512, 1056, torch.float32),
+    ("g8_m24_f32", 4, 24, 512, 512, torch.float32),
+    ("q6_offset_x_m40_bf16", 6, 40, 1024, 2048, torch.bfloat16),
 ]
 # groups other than 64: K = 1040 is 65 groups of 16
-QMM_GROUP = {"q6_k1040_m1_f32": 16}
+QMM_GROUP = {"q6_k1040_m1_f32": 16, "g32_m64_bf16": 32, "q6_g128_m96_f32": 128,
+             "g128_m200_bf16": 128, "q6_g16_m20_bf16": 16, "int8_g128_m300_f32": 128,
+             "k1056_g32_m48_f32": 32, "g8_m24_f32": 8}
+# the planted faults run on these (each dtype and bits of the GEMV, and an
+# int4 and a 6-bit case of the tensor-core GEMM)
+QMM_PLANTED = ("qkv_m1_f32", "qkv_m1_bf16", "q6_qkv_m1_f32", "q6_qkv_m1_bf16",
+               "qkv_prefill_bf16", "q6_qkv_prefill_f32")
+# The talker's prefill bucket: bench.py's text gives the talker an
+# 8-position prompt (the text itself streams in a token a frame), which
+# `_prefill` pads to 32 rows; `phase_qwen_slice` checks it. The text
+# projection runs over the whole 336-token chat prompt.
+TP = 32
+TEXT_M = 336
+# timed, int4 and 6-bit: the talker's four projections at M = TP in bf16 x
+# and in f32 x (the talker's prefill runs f32: its residual stream is f32
+# after the first rope, as in the JAX package), and the text projection at
+# M = 336 in bf16
+QMM_PREFILL = [("qkv", TP, 4096, 1024), ("o_proj", TP, 1024, 2048),
+               ("gate_up", TP, 6144, 1024), ("down", TP, 1024, 3072),
+               ("text_proj", TEXT_M, 2048, 2048)]
 # timed: name, bits, M, N, K (f32 x): the talker's fused q/k/v and o_proj
 # at M = 1, the code predictor's two-token seed; at 6 bits the talker's four
 # shapes, which each take about a quarter of the 6-bit path's launches
@@ -661,24 +715,37 @@ QMLP_CASES = [  # name, bits, M, K, I, N, dtype
 ]
 
 
-def qmm_route(name, M) -> str:
-    """The kernel a QMM_CASES case must take: the GEMV at M <= 4, unless its
-    rows or x do not allow the GEMV's loads."""
-    return "qmm_kernel" if M > 4 or "offset_x" in name else "qmm_gemv"
+def qmm_route(name, M, bits, K, group) -> str:
+    """The kernel a call must take, the rule of `qmm_bm` in
+    csrc/quant_matmul.cu: x at an offset (the "offset_x" cases) takes the
+    tiled kernel; else the GEMV at M <= 4, and at M > 4 the tensor-core GEMM
+    where the groups are a multiple of 16 values and the packed rows of 16
+    bytes, else the tiled kernel."""
+    if "offset_x" in name:
+        return "qmm_kernel"
+    if M <= 4:
+        return "qmm_gemv"
+    return "qmm_mma" if group % 16 == 0 and K * bits // 8 % 16 == 0 else "qmm_kernel"
 
 
-def launched_kernels(fn, calls: int = 3) -> list:
+def launched_kernels(fn, calls: int = 3, sessions: int = 3) -> list:
     """The port's kernels that `calls` calls of fn launch, from
-    torch.profiler, which can drop the record of a launch now and then."""
+    torch.profiler, which can drop the record of a launch now and then (and
+    once in a while records no kernel in a whole session: then the calls
+    are profiled again, up to `sessions` times)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return [e.key for e in prof.key_averages()
-            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-            and any(k in e.key for k in PORT_KERNELS)]
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        keys = [e.key for e in prof.key_averages()
+                if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+                and any(k in e.key for k in PORT_KERNELS)]
+        if keys:
+            return keys
+    return keys
 
 
 def phase_quant_kernels():
@@ -702,7 +769,7 @@ def phase_quant_kernels():
         ref = quantized_matmul_reference(x, packed, scales, biases, bits=bits,
                                          group_size=group)
         ok, err, desc = compare_q(out, ref)
-        route = qmm_route(name, M)
+        route = qmm_route(name, M, bits, K, group)
         took = launched_kernels(lambda: quantized_matmul(x, packed, scales, biases, bits=bits,
                                                          group_size=group))
         log(f"[kernel] {'qmm6' if bits == 6 else 'qmm'} {name} bits={bits} M={M} N={N} "
@@ -714,7 +781,7 @@ def phase_quant_kernels():
             raise SystemExit(f"chip_smoke: quantized_matmul {name} launched {took}, not one "
                              f"{route}<{bits}, ...>")
         errs[name] = err
-        if name in ("qkv_m1_f32", "qkv_m1_bf16", "q6_qkv_m1_f32", "q6_qkv_m1_bf16"):
+        if name in QMM_PLANTED:
             planted_quant_check(
                 name, lambda *a: quantized_matmul_reference(*a, bits=bits, group_size=group),
                 (x, packed, scales, biases), (3,), (2,))
@@ -765,6 +832,7 @@ def phase_quant_kernels():
             f"{wbytes / 1e6:.3f} MB of weights, scales and biases); kernel at "
             f"{100 * bound / ms:.1f}% of bound; a Python loop of launches takes {loop:.4f} ms "
             f"a call")
+    timing.update(time_prefill())
     M, K, I, N = 1, 1024, 3072, 1024
     g = torch.Generator(device="cuda").manual_seed(500)
     sets = [(quant_weights(2 * I, K, 4, g), quant_weights(N, I, 4, g))]
@@ -798,6 +866,64 @@ def phase_quant_kernels():
         f"{bound:.4f} ms ({by}); kernel at {100 * bound / ms:.1f}% of bound; a Python loop "
         f"of launches takes {loop:.4f} ms a call")
     return errs, timing
+
+
+def time_prefill() -> dict:
+    """The tensor-core GEMM at QMM_PREFILL's shapes, int4 and 6-bit, bf16 x
+    (and f32 x at the talker's four), device time per call with the weights
+    cycled past L2, beside the tiled CUDA-core kernel in the same call (x at a
+    2-byte offset, which the tiled kernel takes and the GEMM does not), the
+    plain version, bf16 `F.linear` on the dequantized weight (a yardstick,
+    never a route) and the bound: the operations at the bf16 tensor-core
+    peak (three times them for f32 x, split into three bf16 parts) against
+    the bytes."""
+    from mlx_audio_tpu_torch.ops.cuda.quant_matmul import (quantized_matmul,
+                                                           quantized_matmul_reference)
+
+    timing = {}
+    cases = [(bits, shape, M, N, K, dtype) for bits in (4, 6)
+             for dtype in (torch.bfloat16, torch.float32)
+             for shape, M, N, K in QMM_PREFILL if dtype == torch.bfloat16 or M == TP]
+    for bits, shape, M, N, K, dtype in cases:
+        key = f"{'qmm6' if bits == 6 else 'qmm'}_{shape}_m{M}" + ("_f32" if dtype != torch.bfloat16
+                                                                 else "")
+        g = torch.Generator(device="cuda").manual_seed(450 + bits)
+        sets = [quant_weights(N, K, bits, g)]
+        wbytes = weight_bytes(*sets[0])
+        sets += [tuple(t.clone() for t in sets[0]) for _ in range(int(2 * L2_BYTES // wbytes))]
+        x = torch.randn(M, K, generator=g, device="cuda").to(dtype)
+        x_off = torch.cat([x[:, :1], x], dim=1)[:, 1:]  # not 16-byte aligned
+        w_dense = quantized_matmul_reference(torch.eye(K, device="cuda"), *sets[0], bits=bits,
+                                             group_size=GROUP).T.contiguous().bfloat16()
+        dense = [w_dense] + [w_dense.clone() for _ in range(int(2 * L2_BYTES // (2 * N * K)))]
+        xb = x.bfloat16()
+
+        def qmm(xx, w):
+            return quantized_matmul(xx, *w, bits=bits, group_size=GROUP)
+
+        for xx, want in ((x, "qmm_mma"), (x_off, "qmm_kernel")):
+            took = launched_kernels(lambda: qmm(xx, sets[0]))
+            if len(took) != 1 or want not in took[0]:
+                raise SystemExit(f"chip_smoke: {key} launched {took}, not {want}")
+        ms, loop = device_ms([lambda w=w: qmm(x, w) for w in sets], 400)
+        tiled, _ = device_ms([lambda w=w: qmm(x_off, w) for w in sets], 100)
+        plain, _ = device_ms([lambda w=w: quantized_matmul_reference(
+            x, *w, bits=bits, group_size=GROUP) for w in sets], 20)
+        yard, _ = device_ms([lambda d=d: F.linear(xb, d) for d in dense], 400)
+        flops = 2.0 * M * N * K * (3 if dtype == torch.float32 else 1)
+        elem = torch.tensor([], dtype=dtype).element_size()
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, (wbytes + elem * M * (K + N)) / PEAK_BYTES
+        bound, by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+        timing[key] = dict(ms=ms, plain_ms=plain, library_ms=None, yardstick_ms=yard,
+                           tiled_ms=tiled, bound_ms=bound, bound_by=by, host_loop_ms=loop)
+        log(f"[time] {key}: {bits}-bit M={M} N={N} K={K} {str(dtype)[6:]} x (weights cycled "
+            f"past L2), device time per call: qmm_mma {ms:.4f} ms, the tiled qmm_kernel "
+            f"{tiled:.4f} ms ({tiled / ms:.2f}x), plain {plain:.4f} ms, yardstick F.linear on "
+            f"the bf16 dequantized weight {yard:.4f} ms ({ms / yard:.2f}x of it), bound "
+            f"{bound:.4f} ms ({by}); qmm_mma at {100 * bound / ms:.1f}% of bound")
+        del sets, dense
+    torch.cuda.empty_cache()
+    return timing
 
 
 def qwen_predicate(path, m):
@@ -837,7 +963,7 @@ def phase_qwen_card_vs_cpu():
     cpu = qwen_model(4, device="cpu", dtype=torch.float32, seed=1, **depth)
     card = qwen_model(4, device="cuda", dtype=torch.float32, seed=2, **depth)
     card.load_state_dict(cpu.state_dict())
-    qk.quantized_matmul.launches = qk.quantized_mlp.launches = 0
+    qk.reset_launches()
     errs = {}
     with torch.inference_mode():
         out = {}
@@ -855,15 +981,16 @@ def phase_qwen_card_vs_cpu():
             out[tag] = dict(inputs=embeds, prefill=logits, step=step, wave=wav)
     for what in ("inputs", "prefill", "step", "wave"):
         errs[what] = (out["card"][what].cpu() - out["cpu"][what]).abs().max().item()
-    launches = (qk.quantized_matmul.launches, qk.quantized_mlp.launches)
+    counts = quant_counts(4)
     log(f"[card-vs-cpu] Qwen3-TTS 2+1+1 layers at full width, int4, f32: prompt embeds "
         f"max|d|={errs['inputs']:.3e}, prefill logits {errs['prefill']:.3e}, decode step "
         f"logits {errs['step']:.3e}, codec waveform {errs['wave']:.3e} (atol "
-        f"{QWEN_CARD_VS_CPU_ATOL:g}); card launches qmm {launches[0]}, qmlp {launches[1]}")
+        f"{QWEN_CARD_VS_CPU_ATOL:g}); card launches {counts}")
     for what, err in errs.items():
         if not err <= QWEN_CARD_VS_CPU_ATOL:
             raise SystemExit(f"chip_smoke: Qwen3-TTS card vs CPU {what} max|d| {err}")
-    if min(launches) <= 0:
+    # the f32 prefill at M = 32 takes the tensor-core GEMM's split route
+    if min(counts[k] for k in ("qmm_gemv", "qmm_mma", "qmlp")) <= 0:
         raise SystemExit("chip_smoke: the card comparison did not go through the kernels")
     del cpu, card
     torch.cuda.empty_cache()
@@ -872,17 +999,21 @@ def phase_qwen_card_vs_cpu():
 def predicted_launches(model, bits, frames) -> dict:
     """Kernel launches of one `generate` of `frames` frames of QWEN_TEXT,
     from the routing guards (`nn.quantized.qmm_routable`,
-    `fused_mlp_routable`) applied to every quantized call the path makes."""
+    `fused_mlp_routable`) applied to every quantized call the path makes:
+    "qmm" and "qmlp" by wrapper, and the qmm launches by kernel
+    (`qmm_route`)."""
     from mlx_audio_tpu_torch.nn.quantized import fused_mlp_routable, qmm_routable
 
     cfg = model.config
     tk = cfg.talker_config
     cp = tk.code_predictor_config
     dc = cfg.tokenizer_config.decoder_config
-    n = {"qmm": 0, "qmlp": 0}
+    n = {"qmm": 0, "qmlp": 0, "qmm_gemv": 0, "qmm_mma": 0, "qmm_kernel": 0}
 
     def proj(N, K, M, times=1):
-        n["qmm"] += times * qmm_routable(bits, GROUP, N, K, M)
+        if qmm_routable(bits, GROUP, N, K, M):
+            n["qmm"] += times
+            n[qmm_route("", M, bits, K, GROUP)] += times
 
     def layer(c, M, times=1):
         q, kv = c.num_attention_heads * c.head_dim, c.num_key_value_heads * c.head_dim
@@ -901,6 +1032,8 @@ def predicted_launches(model, bits, frames) -> dict:
         proj(tk.hidden_size, tk.text_hidden_size, M)
     prompt = model._prepare_generation_inputs(QWEN_TEXT)[0].shape[1]
     Tp = -(-prompt // 32) * 32  # the prefill bucket, codec head over all of it
+    if Tp != TP:
+        raise SystemExit(f"chip_smoke: the prefill bucket is {Tp}, phase 2 timed TP = {TP}")
     layer(tk, Tp, tk.num_hidden_layers)
     proj(tk.vocab_size, tk.hidden_size, Tp)
     # each frame: one talker step and its head; 16 code predictor calls, the
@@ -940,18 +1073,35 @@ def qwen_run(model, frames, codes_seen):
     return run
 
 
-def counted_run(run, counters, predicted, label):
-    for c in counters.values():
-        c.launches = 0
+def quant_counts(bits) -> dict:
+    """The quantized wrappers' launch counts, the qmm ones by kernel."""
+    from mlx_audio_tpu_torch.ops.cuda import quant_matmul as qk
+
+    if bits == 6:
+        return {"qmm6": qk.quantized_matmul6.launches, **qk.quantized_matmul6.kernels}
+    return {"qmm": qk.quantized_matmul.launches, "qmlp": qk.quantized_mlp.launches,
+            **qk.quantized_matmul.kernels}
+
+
+def counted_run(run, bits, predicted, label):
+    """One run with the quantized counts set to 0 just before it and read
+    just after, each held to the routing table's; the kernels the path must
+    take (the GEMV, the tensor-core GEMM, and qmlp at 4 bits) at least once."""
+    from mlx_audio_tpu_torch.ops.cuda import quant_matmul as qk
+
+    qk.reset_launches()
     t0 = time.perf_counter()
     results = run()
     wall = time.perf_counter() - t0
-    got = {k: c.launches for k, c in counters.items()}
+    got = quant_counts(bits)
     log(f"[{label}] launches {got}, routing table {predicted}")
     for k, want in predicted.items():
-        if got[k] != want or want <= 0:
+        if got[k] != want:
             raise SystemExit(f"chip_smoke: {label} launched {k} {got[k]} times, the routing "
                              f"table says {want}")
+    for k in ("qmm_gemv", "qmm_mma") + (("qmlp",) if bits != 6 else ()):
+        if got[k] <= 0:
+            raise SystemExit(f"chip_smoke: {label} launched no {k}")
     return results, wall, got
 
 
@@ -984,7 +1134,6 @@ def phase_qwen_slice():
         f"built in {time.perf_counter() - t0:.1f} s")
     frames = QWEN_FRAMES
     predicted = predicted_launches(model, 4, frames)
-    counters = {"qmm": qk.quantized_matmul, "qmlp": qk.quantized_mlp}
     codes_seen = []
     run = qwen_run(model, frames, codes_seen)
     for _ in range(QWEN_WARMUP):
@@ -992,15 +1141,14 @@ def phase_qwen_slice():
         run()
         log(f"[qwen3] warm-up wall {time.perf_counter() - t0:.4f} s")
     torch.cuda.reset_peak_memory_stats()
-    qk.quantized_matmul6.launches = 0
     walls, launches = [], None
     for _ in range(QWEN_TIMED):
-        results, wall, got = counted_run(run, counters, predicted, "qwen3")
+        results, wall, got = counted_run(run, 4, predicted, "qwen3")
         walls.append(wall)
         launches = launches or got
         check_synthesis(results, frames, codes_seen, model, "qwen3 int4")
-    if qk.quantized_matmul6.launches:
-        raise SystemExit("chip_smoke: the int4 path launched the 6-bit kernel")
+        if qk.quantized_matmul6.launches:
+            raise SystemExit("chip_smoke: the int4 path launched the 6-bit kernel")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     audio_s = results[0].samples / model.sample_rate
     med = statistics.median(walls)
@@ -1010,7 +1158,9 @@ def phase_qwen_slice():
         f"{audio_s / med:.2f}x real time; peak memory {peak_gb:.2f} GB; codes identical "
         f"across {len(codes_seen)} runs")
     short = qwen_run(model, QWEN_PROFILE_FRAMES, [])
-    profile_one_run(short, f"one {QWEN_PROFILE_FRAMES}-frame synthesis")
+    pred16 = predicted_launches(model, 4, QWEN_PROFILE_FRAMES)
+    _, seen = profile_one_run(short, f"one {QWEN_PROFILE_FRAMES}-frame synthesis")
+    log_m_gt_4(seen, 4, pred16, "qwen3")
     del model, run, short
     torch.cuda.empty_cache()
     return launches
@@ -1026,22 +1176,22 @@ def phase_qwen_6bit():
 
     model = qwen_model(6)
     frames = QWEN_FRAMES_6BIT
-    predicted = predicted_launches(model, 6, frames)
-    counters = {"qmm6": qk.quantized_matmul6}
+    predicted = six_bit(predicted_launches(model, 6, frames))
     codes_seen = []
     run = qwen_run(model, frames, codes_seen)
     walls = []
     for _ in range(2):
-        results, wall, got = counted_run(run, counters, {"qmm6": predicted["qmm"]}, "qwen3-6bit")
+        results, wall, got = counted_run(run, 6, predicted, "qwen3-6bit")
         walls.append(wall)
         check_synthesis(results, frames, codes_seen, model, "qwen3 6-bit")
     log(f"[qwen3-6bit] {frames} frames twice: walls {', '.join(f'{w:.4f}' for w in walls)} s, "
         f"codes identical")
     pframes = QWEN_PROFILE_FRAMES
     short = qwen_run(model, pframes, [])
-    qk.quantized_matmul6.launches = 0
+    pred16 = six_bit(predicted_launches(model, 6, pframes))  # runs projections itself
+    qk.reset_launches()
     busy, seen = profile_one_run(short, f"one {pframes}-frame 6-bit synthesis")
-    counted, want = qk.quantized_matmul6.launches, predicted_launches(model, 6, pframes)["qmm"]
+    counted, want = quant_counts(6), pred16
     q6 = {k: v for k, v in seen.items() if "<6," in k and ("qmm_gemv" in k or "qmm_kernel" in k)}
     n = sum(c for c, _ in q6.values())
     gemv = [(c, us) for k, (c, us) in q6.items() if "qmm_gemv" in k]
@@ -1050,12 +1200,30 @@ def phase_qwen_6bit():
         f"{busy / 1e3 / pframes:.3f} ms a frame; 6-bit launches counted {counted} (routing "
         f"table {want}), {n} in the profile: the GEMV {n_gemv} at "
         f"{us_gemv / max(n_gemv, 1):.2f} us a launch, {us_gemv / 1e3:.2f} ms in all")
+    log_m_gt_4(seen, 6, pred16, "qwen3-6bit")
     if counted != want:
-        raise SystemExit(f"chip_smoke: the profiled 6-bit run launched qmm6 {counted} times, "
-                         f"the routing table says {want}")
+        raise SystemExit(f"chip_smoke: the profiled 6-bit run launched {counted}, the routing "
+                         f"table says {want}")
     del model, run, short
     torch.cuda.empty_cache()
-    return got["qmm6"]
+    return got
+
+
+def six_bit(predicted) -> dict:
+    """A routing table's counts under the 6-bit wrapper's names."""
+    return {"qmm6": predicted["qmm"],
+            **{k: predicted[k] for k in ("qmm_gemv", "qmm_mma", "qmm_kernel")}}
+
+
+def log_m_gt_4(seen, bits, predicted, label) -> None:
+    """The M > 4 kernels' device time and launches in a profiled run, beside
+    the routing table's count."""
+    for kernel in ("qmm_mma", "qmm_kernel"):
+        hits = [(c, us) for k, (c, us) in seen.items() if kernel in k and f"<{bits}," in k]
+        n, us = sum(c for c, _ in hits), sum(us for _, us in hits)
+        log(f"[{label}] profiled: {kernel} (M > 4) {n} launches (routing table "
+            f"{predicted[kernel]}), {us / 1e3:.2f} ms of device time"
+            + (f", {us / n:.2f} us a launch" if n else ""))
 
 
 def relu2_inputs(B, G, N, D, E, dtype, split_v, seed):
@@ -1127,6 +1295,7 @@ def phase_relu2_kernel():
             ("merged20s_f32", 10, 2048, torch.float32, False),
             ("merged4s_f32", 2, 2048, torch.float32, False),
             ("merged20s_bf16", 10, 2048, torch.bfloat16, False),
+            ("merged4s_bf16", 2, 2048, torch.bfloat16, False),
             ("chunk20s_f32", 10, 1024, torch.float32, True)):
         B, N, D = 1, 256, 128
         q, k, v = relu2_inputs(B, G, N, D, E, dtype, split_v, seed=700)
@@ -1308,7 +1477,7 @@ def main():
              qerrs["qkv_m1_f32"]),
             ("qmlp", "mlx_audio_tpu/ops/pallas/quant_matmul.py:72", qlaunches["qmlp"],
              qerrs["mlp_m1_f32"]),
-            ("qmm6", "mlx_audio_tpu/ops/pallas/quant_matmul.py:126", q6_launches,
+            ("qmm6", "mlx_audio_tpu/ops/pallas/quant_matmul.py:126", q6_launches["qmm6"],
              qerrs["q6_qkv_m1_f32"])):
         record["kernels"].append({"name": name, "route": "cuda", "source": QUANT_SOURCE,
                                   "replaces": replaces, "launches": n, "max_abs_err": err,
@@ -1318,12 +1487,26 @@ def main():
         shape: {k: qtiming[key][k] for k in ("ms", "bound_ms", "plain_ms")}
         for shape, key in (("qkv", "qmm6"), ("o_proj", "qmm6_oproj"),
                            ("gate_up", "qmm6_gateup"), ("down", "qmm6_down"))}
+    # the M > 4 route, the tensor-core GEMM: its launches per run of phases
+    # 5 and 6 and its times at the prefill shapes (bf16 x)
+    for name, counts, tag, case in (("qmm", qlaunches, "qmm", "qkv_prefill_bf16"),
+                                    ("qmm6", q6_launches, "qmm6", "q6_qkv_prefill_bf16")):
+        entry = next(k for k in record["kernels"] if k["name"] == name)
+        entry["m_gt_4"] = {
+            "kernel": "qmm_mma", "launches": counts["qmm_mma"], "max_abs_err": qerrs[case],
+            "shapes": {key[len(tag) + 1:]: {k: qtiming[key][k] for k in (
+                "ms", "bound_ms", "bound_by", "plain_ms", "tiled_ms", "yardstick_ms")}
+                for key in qtiming if key.startswith(f"{tag}_") and "_m" in key
+                and "tiled_ms" in qtiming[key]}}
     record["kernels"].append({
         "name": "relu2_attention", "route": "cuda",
         "source": "mlx_audio_tpu_torch/csrc/relu2_attention.cu",
         "replaces": "mlx_audio_tpu/ops/pallas/relu2_attention.py:33",
         "launches": r2_launches, "max_abs_err": rerrs["merged20s_f32"],
-        **rtiming["merged20s_f32"]})
+        **rtiming["merged20s_f32"],
+        "bf16": {"max_abs_err": rerrs["merged20s_bf16"],
+                 **{f"G{G}": {k: rtiming[case][k] for k in ("ms", "bound_ms", "plain_ms")}
+                    for G, case in ((10, "merged20s_bf16"), (2, "merged4s_bf16"))}}})
     log(f"[device] {smi}")
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

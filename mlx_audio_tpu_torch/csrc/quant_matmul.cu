@@ -37,15 +37,26 @@
 //   o_proj's 2048) and add their partial sums in shared memory in a fixed
 //   order. Its dequantization and dot product are qmlp's (`unit_dot`), and
 //   at 6 bits `unit_dot6`, which keeps it exact where values straddle words.
-// - qmm otherwise (prefill, the codec decoder; rows or pointers that do
-//   not allow the GEMV's units): one warp owns one weight
+// - qmm at M > 4 (the talker's 32-row prefill, the 336-row text
+//   projection, the codec decoder), 4, 6 and 8 bits, is a GEMM on the
+//   tensor cores, `qmm_mma`. At the prefill's fused q/k/v (N 4096, K 1024)
+//   the 6-bit weights and scales bound it (3.6 MB, 1.1 us), at the text
+//   projection its operations (2.8 GFLOP, 2.8 us at the bf16 peak); in
+//   practice the latency of each block's chain of stages sets the time
+//   (see the section's note). mma.sync m16n8k16 takes the integer codes as
+//   its B operand (exact in bf16) and each group's sum is scaled once; a
+//   block owns 32 or 64 rows of x and 64 or 128 weight rows, and a
+//   cp.async ring brings the next stage in under the products.
+// - qmm otherwise (rows or pointers that allow neither: x at an address
+//   the 16-byte copies cannot take, groups not a multiple of 16, packed
+//   rows not a multiple of 16 bytes), `qmm_kernel`: one warp owns one weight
 //   row; a block of 8 warps owns 8 rows and a tile of up to BM = 8 rows of
 //   x, staged as float32 in shared memory 1024 columns at a time. Each
 //   weight chunk is unpacked once into
 //   registers (w = q*s + b, one FMA per value) and serves every x row of
 //   the tile. Lanes walk consecutive chunks, so a warp's word loads are
-//   coalesced. M is tiled as well as N: the codec decoder routes M up to
-//   several hundred rows. The ragged N edge is masked per warp.
+//   coalesced. M is tiled as well as N; the ragged N edge is masked per
+//   warp.
 // - qmlp is one cooperative launch, bound by latency more than by its
 //   bytes: phase A writes h = silu(g)*u (float32, M*I*4 bytes) to a scratch
 //   in L2, a grid barrier hands it over (the TPU kernel relies on its
@@ -65,6 +76,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cooperative_groups.h>
 
 #include <mutex>
 
@@ -201,6 +214,7 @@ struct QmmParams {
   void* y;
   int M, N, K;
   long long ldx, ldy;
+  int splits;  // qmm_mma: splits of K, the blocks of a cluster
 };
 
 template <int BITS, int BM, typename TX>
@@ -578,6 +592,473 @@ __global__ void __launch_bounds__(32 * GEMV_RW * GEMV_MAX_SPLIT, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// qmm, M > 4: the dequant-GEMM on the tensor cores
+// ---------------------------------------------------------------------------
+
+// Every 4-, 6- and 8-bit code (0..255) is exact in bf16, so the B operand of
+// the products is the integer codes q themselves, never w rounded to bf16:
+// mma.sync m16n8k16 (bf16 in, float32 accumulators) sums x q over one
+// group into `gacc`, and at the group's end the fold adds s[n, g] gacc +
+// b[n, g] sum_g x into the output's accumulators, the TPU body's split of
+// the sum (sum x q s, plus the per-group sums of x times the biases). For
+// bf16 x every product is exact and only the order of the float32 sums
+// differs from the plain version. float32 x is split into three bf16 parts,
+// hi + mid + lo = x (exact for |x| >= 2^-110; below, the parts lose what
+// lies under bf16's smallest step, 2^-133), and the three products run
+// against the same codes.
+//
+// A block owns BM = 64 rows of x (32 where M <= 32) and BN = 32 WN weight
+// rows, so each weight row is read and unpacked once per 64 rows of x, not
+// once per 8. K
+// goes in stages of 64 values through a ring of MMA_STAGES: x, the packed
+// words, and the scales and biases of the groups the stage touches, all
+// brought in by cp.async while the products of the stage before run. Each
+// stage's words are unpacked once per block into a bf16 tile of codes (and
+// float32 x into its three bf16 tiles), in the row layout ldmatrix reads,
+// double-buffered, so one block barrier a stage separates the unpacking of
+// stage k + 1 from the products of stage k. The block's warps are KG
+// groups of WM x WN warps of 32 x 32 outputs, each group taking every
+// KG-th mma step of a stage (two groups for float32 x, one for bf16): at
+// the prefill's 32 rows the time is the
+// latency of each stage's chain of instructions, not the tensor cores, so
+// more warps on shorter chains. The sums of x come from the tensor cores
+// too, as products with a B operand of ones. Where a few rows of x meet a
+// narrow weight (o_proj and down at the 32-row prefill: 16 tiles) K is
+// split over up to 8 blocks that form a cluster; each adds its share of
+// the tile's rows over the splits' tiles through distributed shared memory,
+// in split order. The ragged M, N and K edges are zero-filled and the
+// stores masked.
+constexpr int MMA_MT = 2;        // m16 tiles a warp
+constexpr int MMA_BK = 64;       // values of K a stage
+constexpr int MMA_STAGES = 3;
+constexpr int MMA_XS = MMA_BK + 8;  // padded row of a bf16 tile: 144 bytes
+constexpr int MMA_XF = MMA_BK + 8;  // padded row of the float32 x tile
+constexpr int MMA_KC = MMA_BK / 16;  // mma steps of 16 values a stage
+constexpr int MMA_GPS = MMA_KC;  // groups a stage can touch (group_size >= 16)
+constexpr int MMA_MAX_SPLITS = 8;  // splits of K: blocks of a cluster
+
+// WM warps of MMA_MT m16 tiles along M (BM rows of x), WN warps of 32
+// weight rows along N
+template <int BITS, int WM, int WN, typename TX>
+struct MmaTile {
+  static constexpr int BM = 16 * MMA_MT * WM;
+  static constexpr int BN = 32 * WN;
+  // groups of warps that share a stage's mma steps: two for float32 x,
+  // whose steps are three products each
+  static constexpr int KG = sizeof(TX) == 4 ? 2 : 1;
+  static constexpr int THREADS = 32 * KG * WM * WN;
+  static constexpr int NSPLIT = sizeof(TX) == 4 ? 3 : 1;
+  static constexpr int RB = MMA_BK * BITS / 8;  // packed bytes of a row a stage
+  static constexpr int XROW = sizeof(TX) == 4 ? 4 * MMA_XF : 2 * MMA_XS;  // bytes
+  static constexpr int X_BYTES = BM * XROW;
+  static constexpr int W_BYTES = BN * RB;
+  static constexpr int SB_BYTES = 2 * MMA_GPS * BN * 4;  // scales, biases [2][GPS][BN]
+  static constexpr int STAGE = X_BYTES + W_BYTES + SB_BYTES;
+  static constexpr int Q_BYTES = BN * MMA_XS * 2;  // the codes
+  static constexpr int A_BYTES = NSPLIT == 3 ? 3 * BM * MMA_XS * 2 : 0;  // x's parts
+  static constexpr int BUF = Q_BYTES + A_BYTES;
+  static constexpr int PS = BN + 8;  // padded row of the output tile (floats)
+  static constexpr int OUT_BYTES = BM * PS * 4;  // in the ring, after the loop
+  static constexpr int SMEM = (MMA_STAGES * STAGE > OUT_BYTES ? MMA_STAGES * STAGE : OUT_BYTES) +
+                              2 * BUF;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// d += a (16 x 16, row-major bf16) b (16 x 8, column-major bf16), float32
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two codes (lo, hi < 2^BITS) as a bf16 pair, exactly. Below 128 they are
+// or-ed under the bf16 exponent of 128 (0x4300: 128 + q, mantissa step 1)
+// and 128 taken off; 8-bit codes go through float32. `s` and `b` are the
+// group's scale and bias, which the codes do not use.
+template <int BITS>
+__device__ __forceinline__ uint32_t codes_bf16x2(uint32_t lo, uint32_t hi, float s, float b) {
+  if constexpr (BITS == 8) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(static_cast<float>(lo), static_cast<float>(hi));
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    const uint32_t u = lo | (hi << 16) | 0x43004300u, c = 0x43004300u;
+    __nv_bfloat162 v = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&u),
+                               *reinterpret_cast<const __nv_bfloat162*>(&c));
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+
+// the end of a group: acc += s gacc + b xg (xg: the group's sum of x over
+// the accumulator's row), gacc = 0
+__device__ __forceinline__ void mma_fold(float& acc, float& gacc, float s, float b, float xg) {
+  acc = fmaf(s, gacc, fmaf(b, xg, acc));
+  gacc = 0.f;
+}
+
+// (a, b) = hi + mid + lo, three pairs of bf16 parts, each a bf16x2 word
+__device__ __forceinline__ void split3(float a, float b, uint32_t (&w)[3]) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  float2 f = __bfloat1622float2(h);
+  w[0] = *reinterpret_cast<uint32_t*>(&h);
+  a -= f.x;
+  b -= f.y;
+  h = __floats2bfloat162_rn(a, b);
+  f = __bfloat1622float2(h);
+  w[1] = *reinterpret_cast<uint32_t*>(&h);
+  h = __floats2bfloat162_rn(a - f.x, b - f.y);
+  w[2] = *reinterpret_cast<uint32_t*>(&h);
+}
+
+template <int BITS, int WM, int WN, typename TX>
+__global__ void __launch_bounds__(MmaTile<BITS, WM, WN, TX>::THREADS, sizeof(TX) == 2 ? 2 : 1)
+    qmm_mma(QmmParams p) {
+  using T = MmaTile<BITS, WM, WN, TX>;
+  constexpr int BM = T::BM, BN = T::BN, NTH = T::THREADS, NSPLIT = T::NSPLIT, KG = T::KG;
+  extern __shared__ uint4 smem_u4[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(smem_u4);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp % WM, wn = warp / WM % WN, kg = warp / (WM * WN);
+  const int gq = lane >> 2, tq = lane & 3;  // the mma fragments' row and column pair
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int rows = min(BM, p.M - m0);       // rows of x this block holds
+  const bool live = wm * 16 * MMA_MT < rows;  // this warp's rows hold any of x
+  const int gs = p.w.group_size, G = p.w.G;
+  // k / gs by a shift where the group is a power of two, as it is in practice
+  const bool gpow2 = (gs & (gs - 1)) == 0;
+  const int gshift = __ffs(gs) - 1;
+  auto gdiv = [&](int k) { return gpow2 ? k >> gshift : k / gs; };
+  // this block's split of K: stages kb .. ke - 1, values up to k_end
+  const int nk = (p.K + MMA_BK - 1) / MMA_BK;
+  const int kb = static_cast<int>(static_cast<long long>(blockIdx.z) * nk / p.splits);
+  const int ke = static_cast<int>(static_cast<long long>(blockIdx.z + 1) * nk / p.splits);
+  const int k_end = min(ke * MMA_BK, p.K);
+  const TX* x = static_cast<const TX*>(p.x);
+
+  auto stage_ptr = [&](int kt) { return smem + ((kt - kb) % MMA_STAGES) * T::STAGE; };
+  auto buf_ptr = [&](int kt) {
+    return smem + MMA_STAGES * T::STAGE + ((kt - kb) & 1) * T::BUF;
+  };
+
+  auto load_stage = [&](int kt) {
+    uint8_t* st = stage_ptr(kt);
+    const int k0 = kt * MMA_BK;
+    constexpr int XV = 16 / sizeof(TX), XP = MMA_BK / XV;  // values a piece, pieces a row
+    constexpr int XN = BM * XP;
+#pragma unroll
+    for (int it = 0; it < (XN + NTH - 1) / NTH; ++it) {
+      const int i = tid + it * NTH, r = i / XP, c = i % XP, k = k0 + c * XV;
+      const bool ok = r < rows && k < p.K;
+      if (XN % NTH == 0 || i < XN)
+        cp_async16(st + r * T::XROW + c * 16, ok ? x + (m0 + r) * p.ldx + k : x, ok);
+    }
+    constexpr int WP = T::RB / 16;
+    const long long byte0 = static_cast<long long>(k0) * BITS / 8;
+    uint8_t* wt = st + T::X_BYTES;
+#pragma unroll
+    for (int it = 0; it < (BN * WP + NTH - 1) / NTH; ++it) {
+      const int i = tid + it * NTH, r = i / WP, c = i % WP;
+      const long long off = byte0 + c * 16;
+      const bool ok = n0 + r < p.N && off < p.w.row_bytes;
+      if (i < BN * WP)
+        cp_async16(wt + r * T::RB + c * 16,
+                   ok ? p.w.w + (n0 + r) * p.w.row_bytes + off : p.w.w, ok);
+    }
+    const int g0 = gdiv(k0), ng = gdiv(min(k0 + MMA_BK, p.K) - 1) - g0 + 1;
+    float* sb = reinterpret_cast<float*>(wt + T::W_BYTES);
+    for (int r = tid; r < BN; r += NTH) {
+      const bool ok = n0 + r < p.N;
+      const long long row = ok ? static_cast<long long>(n0 + r) * G + g0 : 0;
+      for (int j = 0; j < ng; ++j) {
+        cp_async4(sb + j * BN + r, p.w.s + row + j, ok);
+        cp_async4(sb + (MMA_GPS + j) * BN + r, p.w.b + row + j, ok);
+      }
+    }
+  };
+
+  // stage kt's codes into its buffer's bf16 tile, and for float32 x its
+  // three bf16 parts
+  auto unpack = [&](int kt) {
+    const uint8_t* st = stage_ptr(kt);
+    uint8_t* bf = buf_ptr(kt);
+    const uint8_t* wt = st + T::X_BYTES;
+    const float* sb = reinterpret_cast<const float*>(wt + T::W_BYTES);
+    const int k0 = kt * MMA_BK, g0 = gdiv(k0);
+    __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(bf);
+    // a unit: one word (4/8-bit) or a 16-value chunk of three (6-bit)
+    constexpr int UV = BITS == 6 ? 16 : 32 / BITS, UNITS = MMA_BK / UV;
+    constexpr int UN = BN * UNITS;
+#pragma unroll
+    for (int it = 0; it < (UN + NTH - 1) / NTH; ++it) {
+      const int i = tid + it * NTH, r = i / UNITS, u = i % UNITS;
+      if (UN % NTH != 0 && i >= UN) break;
+      const int jg = gdiv(k0 + u * UV) - g0;
+      const float s = sb[jg * BN + r], b = sb[(MMA_GPS + jg) * BN + r];
+      const uint32_t* wp = reinterpret_cast<const uint32_t*>(wt + r * T::RB);
+      uint32_t out[UV / 2];
+      if constexpr (BITS == 6) {
+        const uint32_t w0 = wp[3 * u], w1 = wp[3 * u + 1], w2 = wp[3 * u + 2];
+#pragma unroll
+        for (int j = 0; j < 16; j += 2)
+          out[j / 2] = codes_bf16x2<6>(q6_bits(w0, w1, w2, j) >> (6 * q6_pos(j)),
+                                       q6_bits(w0, w1, w2, j + 1) >> (6 * q6_pos(j + 1)), s, b);
+      } else {
+        const uint32_t w = wp[u];
+        constexpr uint32_t MASK = (1u << BITS) - 1u;
+#pragma unroll
+        for (int j = 0; j < UV; j += 2)
+          out[j / 2] = codes_bf16x2<BITS>((w >> (BITS * j)) & MASK,
+                                          (w >> (BITS * (j + 1))) & MASK, s, b);
+      }
+      uint32_t* dst = reinterpret_cast<uint32_t*>(qs + r * MMA_XS + u * UV);
+      if constexpr (UV / 2 == 2) {
+        *reinterpret_cast<uint2*>(dst) = make_uint2(out[0], out[1]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < UV / 2; j += 4)
+          *reinterpret_cast<uint4*>(dst + j) = make_uint4(out[j], out[j + 1], out[j + 2], out[j + 3]);
+      }
+    }
+    if constexpr (NSPLIT == 3) {
+      __nv_bfloat16* at = reinterpret_cast<__nv_bfloat16*>(bf + T::Q_BYTES);
+      constexpr int XN = BM * MMA_KC;
+#pragma unroll
+      for (int it = 0; it < (XN + NTH - 1) / NTH; ++it) {
+        const int i = tid + it * NTH, r = i / MMA_KC, c = i % MMA_KC;
+        // rows past M stay as they are: an mma row meets only its own row
+        // of the output, which is not stored
+        if ((XN % NTH != 0 && i >= XN) || r >= rows) break;
+        const float4* xr = reinterpret_cast<const float4*>(st + r * T::XROW + 64 * c);
+        uint32_t part[3][8];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float4 v = xr[q];
+          uint32_t lo[3], hi[3];
+          split3(v.x, v.y, lo);
+          split3(v.z, v.w, hi);
+#pragma unroll
+          for (int sp = 0; sp < 3; ++sp) {
+            part[sp][2 * q] = lo[sp];
+            part[sp][2 * q + 1] = hi[sp];
+          }
+        }
+#pragma unroll
+        for (int sp = 0; sp < 3; ++sp) {
+          uint4* dst = reinterpret_cast<uint4*>(at + (sp * BM + r) * MMA_XS + 16 * c);
+          dst[0] = make_uint4(part[sp][0], part[sp][1], part[sp][2], part[sp][3]);
+          dst[1] = make_uint4(part[sp][4], part[sp][5], part[sp][6], part[sp][7]);
+        }
+      }
+    }
+  };
+
+  // gacc: the open group's sums of x q; xacc: its sums of x (a product with
+  // a B operand of ones, every column the same), both folded into acc when
+  // the group or the split ends
+  float acc[MMA_MT][4][4], gacc[MMA_MT][4][4], xacc[MMA_MT][4];
+#pragma unroll
+  for (int i = 0; i < MMA_MT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      xacc[i][e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j][e] = gacc[i][j][e] = 0.f;
+    }
+  constexpr uint32_t ONES = 0x3F803F80u;  // two bf16 1.0
+  // k-group kg takes the mma steps kg, kg + KG, ... of every stage; its
+  // share of a group ends where its next step lies in another group or
+  // past this split
+  const int gc = gs / 16;  // mma steps a group
+  const bool cpow2 = (gc & (gc - 1)) == 0;
+  const int cshift = __ffs(gc) - 1;
+  auto cgroup = [&](int step) { return cpow2 ? step >> cshift : step / gc; };
+  const int step_end = k_end / 16;
+
+  auto compute = [&](int kt) {
+    const uint8_t* st = stage_ptr(kt);
+    const uint8_t* bf = buf_ptr(kt);
+    const __nv_bfloat16* qs = reinterpret_cast<const __nv_bfloat16*>(bf);
+    const __nv_bfloat16* at = NSPLIT == 3
+                                  ? reinterpret_cast<const __nv_bfloat16*>(bf + T::Q_BYTES)
+                                  : reinterpret_cast<const __nv_bfloat16*>(st);
+    const float* sb = reinterpret_cast<const float*>(st + T::X_BYTES + T::W_BYTES);
+    const int g0 = gdiv(kt * MMA_BK);
+#pragma unroll
+    for (int c0 = 0; c0 < MMA_KC; c0 += KG) {
+      const int c = c0 + kg, step = kt * MMA_KC + c;
+      if (step >= step_end) break;
+      if (live) {
+        uint32_t bq[4][2];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          uint32_t r[4];
+          ldmatrix_x4(r, qs + (wn * 32 + jj * 16 + (lane >> 4) * 8 + (lane & 7)) * MMA_XS +
+                             16 * c + ((lane >> 3) & 1) * 8);
+          bq[2 * jj][0] = r[0];
+          bq[2 * jj][1] = r[1];
+          bq[2 * jj + 1][0] = r[2];
+          bq[2 * jj + 1][1] = r[3];
+        }
+#pragma unroll
+        for (int sp = 0; sp < NSPLIT; ++sp) {
+          uint32_t af[MMA_MT][4];
+#pragma unroll
+          for (int i = 0; i < MMA_MT; ++i)
+            ldmatrix_x4(af[i], at + (sp * BM + wm * 16 * MMA_MT + i * 16 + (lane & 15)) *
+                                        MMA_XS + 16 * c + (lane >> 4) * 8);
+#pragma unroll
+          for (int i = 0; i < MMA_MT; ++i) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) mma_bf16(gacc[i][j], af[i], bq[j][0], bq[j][1]);
+            mma_bf16(xacc[i], af[i], ONES, ONES);
+          }
+        }
+      }
+      // this k-group's share of the group ends: fold (s gacc and b xg are
+      // linear in the sums, so the shares and splits of a group add up)
+      const int grp = cgroup(step);
+      if (step + KG >= step_end || cgroup(step + KG) != grp) {
+        const int jg = grp - g0;
+        if (live) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int n = wn * 32 + j * 8 + 2 * tq;
+            const float s0 = sb[jg * BN + n], s1 = sb[jg * BN + n + 1];
+            const float b0 = sb[(MMA_GPS + jg) * BN + n], b1 = sb[(MMA_GPS + jg) * BN + n + 1];
+#pragma unroll
+            for (int i = 0; i < MMA_MT; ++i) {
+              mma_fold(acc[i][j][0], gacc[i][j][0], s0, b0, xacc[i][0]);
+              mma_fold(acc[i][j][1], gacc[i][j][1], s1, b1, xacc[i][0]);
+              mma_fold(acc[i][j][2], gacc[i][j][2], s0, b0, xacc[i][2]);
+              mma_fold(acc[i][j][3], gacc[i][j][3], s1, b1, xacc[i][2]);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < MMA_MT; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) xacc[i][e] = 0.f;
+        }
+      }
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < MMA_STAGES - 1; ++s) {
+    if (kb + s < ke) load_stage(kb + s);
+    cp_async_commit();
+  }
+  cp_async_wait<MMA_STAGES - 2>();  // stage kb
+  __syncthreads();
+  unpack(kb);
+  for (int kt = kb; kt < ke; ++kt) {
+    cp_async_wait<MMA_STAGES - 3>();  // stage kt + 1
+    // stage kt + 1 and buffer kt are ready for every thread; ring slot
+    // kt - 1 and buffer kt + 1 are free
+    __syncthreads();
+    if (kt + MMA_STAGES - 1 < ke) load_stage(kt + MMA_STAGES - 1);
+    cp_async_commit();
+    if (kt + 1 < ke) unpack(kt + 1);
+    compute(kt);
+  }
+
+  // The block's sums into an output tile in shared memory (the ring's
+  // space, now free), the k-groups added in order; then each block of the
+  // cluster (the splits of K of this tile) adds up its share of the rows
+  // over every split's tile, in split order, and stores them: the same sums
+  // on every run, and y written once, four columns a thread.
+  cp_async_wait<0>();
+  __syncthreads();
+  float* out = reinterpret_cast<float*>(smem);
+  constexpr int PS = T::PS;
+#pragma unroll
+  for (int g = KG - 1; g >= 0; --g) {
+    if (kg == g && live) {
+#pragma unroll
+      for (int i = 0; i < MMA_MT; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = wm * 16 * MMA_MT + i * 16 + gq + 8 * h;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float2* o = reinterpret_cast<float2*>(out + r * PS + wn * 32 + j * 8 + 2 * tq);
+            float2 v = make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+            if (g < KG - 1) {
+              const float2 u = *o;
+              v = make_float2(v.x + u.x, v.y + u.y);
+            }
+            *o = v;
+          }
+        }
+    }
+    __syncthreads();
+  }
+  namespace cgr = cooperative_groups;
+  const int S = p.splits;
+  int r0 = 0, r1 = rows;
+  if (S > 1) {
+    cgr::this_cluster().sync();  // every split's tile is written
+    const int rank = static_cast<int>(cgr::this_cluster().block_rank());
+    r0 = rank * rows / S;
+    r1 = (rank + 1) * rows / S;
+  }
+  TX* y = static_cast<TX*>(p.y);
+  const bool vec = (p.N & 3) == 0 && (p.ldy & 3) == 0;
+  for (int i = tid; i < (r1 - r0) * (BN / 4); i += NTH) {
+    const int r = r0 + i / (BN / 4), c = i % (BN / 4) * 4, n = n0 + c;
+    if (n >= p.N) continue;
+    const float4* src = reinterpret_cast<const float4*>(out + r * PS + c);
+    float4 v = S > 1 ? *cgr::this_cluster().map_shared_rank(src, 0) : *src;
+    for (int z = 1; z < S; ++z) {
+      const float4 u = *cgr::this_cluster().map_shared_rank(src, z);
+      v.x += u.x;
+      v.y += u.y;
+      v.z += u.z;
+      v.w += u.w;
+    }
+    TX* yp = y + (m0 + r) * p.ldy + n;
+    if (vec) {
+      if constexpr (sizeof(TX) == 4) {
+        *reinterpret_cast<float4*>(yp) = v;
+      } else {
+        __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+        __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+        *reinterpret_cast<uint2*>(yp) = make_uint2(*reinterpret_cast<uint32_t*>(&lo),
+                                                   *reinterpret_cast<uint32_t*>(&hi));
+      }
+    } else {
+      const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (n + q < p.N) yp[q] = from_float<TX>(e[q]);
+    }
+  }
+  if (S > 1) cgr::this_cluster().sync();  // no block leaves while another reads it
+}
+
 // Rows m0 .. m0 + BM - 1 of x (K columns, row stride ldx) into the padded
 // lane-unit layout, columns from k_begin on; rows past M are zeros. Each
 // thread sends its loads in batches of U before it stores any, so staging
@@ -894,9 +1375,87 @@ int launch_gemv(QmmParams p, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The tensor-core GEMM takes M > 4 where its 16-byte copies can: x 16-byte
+// aligned with rows a multiple of 16 bytes apart, packed rows a multiple of
+// 16 bytes long (K a multiple of 32 at int4, 64 at 6 bits, 16 at int8) from
+// a 16-byte aligned weight, and groups of a multiple of 16 values (an mma
+// step of 16 values lies in one group).
 template <int BITS, typename TX>
-int qmm_bm(const QmmParams& p, cudaStream_t st) {
+bool mma_fits(const QmmParams& p) {
+  return p.M > 4 && p.w.group_size % 16 == 0 && p.w.row_bytes % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(p.w.w) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(p.x) % 16 == 0 &&
+         (p.ldx * static_cast<long long>(sizeof(TX))) % 16 == 0 && p.ldx <= 0x7fffffffLL;
+}
+
+template <int BITS, int WM, int WN, typename TX>
+int launch_mma(QmmParams p, int sms, cudaStream_t st) {
+  using T = MmaTile<BITS, WM, WN, TX>;
+  auto kernel = qmm_mma<BITS, WM, WN, TX>;
+  // the attributes are set, and the blocks a SM holds read, once per device
+  // this process launches on (a race only repeats the same work)
+  static int per_sm[64];  // 0 = not read yet
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (per_sm[dev] == 0) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    // all of the SM's unified memory as shared memory, so that as many
+    // blocks as the registers allow fit beside each other
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+    int n = 0;
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, T::THREADS, T::SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    per_sm[dev] = max(n, 1);
+  }
+  const long long nt = (p.N + T::BN - 1) / T::BN, mt = (p.M + T::BM - 1) / T::BM;
+  if (mt > 65535 || nt > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  // K is split (in powers of two, at least four stages a split, at most
+  // MMA_MAX_SPLITS, the blocks of a cluster) while the grid stays within
+  // the blocks the card holds at once: a few rows of x over a narrow weight
+  // (o_proj, down at a 32-row prefill) make 16 tiles. Splits of two stages
+  // cost more in their sums than they save.
+  const int nk = (p.K + MMA_BK - 1) / MMA_BK;
+  p.splits = 1;
+  while (nt * mt * 2 * p.splits <= static_cast<long long>(per_sm[dev]) * sms &&
+         2 * p.splits <= MMA_MAX_SPLITS && 8 * p.splits <= nk)
+    p.splits *= 2;
+  const dim3 grid(static_cast<unsigned>(nt), static_cast<unsigned>(mt),
+                  static_cast<unsigned>(p.splits));
+  if (p.splits == 1) {
+    kernel<<<grid, T::THREADS, T::SMEM, st>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // the splits of a tile form a cluster, so they can add their tiles
+  // through each other's shared memory
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(T::THREADS);
+  cfg.dynamicSmemBytes = T::SMEM;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = static_cast<unsigned>(p.splits);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Which kernel qmm_fwd launches (its `kernel` out-parameter): the one rule
+// of the three routes.
+enum QmmRoute { QMM_TILED = 0, QMM_GEMV = 1, QMM_MMA = 2 };
+
+template <int BITS, typename TX>
+int qmm_bm(const QmmParams& p, int sms, cudaStream_t st, int* route) {
   if (gemv_fits<BITS, TX>(p)) {
+    *route = QMM_GEMV;
     switch (p.M) {
       case 1: return launch_gemv<BITS, 1, TX>(p, st);
       case 2: return launch_gemv<BITS, 2, TX>(p, st);
@@ -904,6 +1463,23 @@ int qmm_bm(const QmmParams& p, cudaStream_t st) {
       default: return launch_gemv<BITS, 4, TX>(p, st);
     }
   }
+  if (mma_fits<BITS, TX>(p)) {
+    *route = QMM_MMA;
+    // A block of 32 rows of x and 128 weight rows up to 32 rows (the
+    // talker's prefill) where the weight is wide enough for a block a SM
+    // with K split up to MMA_MAX_SPLITS ways; else 64 rows and 128 weight
+    // rows where that gives two blocks a SM unsplit, or 64 (more, smaller
+    // blocks).
+    const long long wide = (p.N + 127) / 128;
+    if (p.M <= 32 && wide * MMA_MAX_SPLITS >= sms) return launch_mma<BITS, 1, 4, TX>(p, sms, st);
+    // float32 x at up to 32 rows: 32 rows a block whatever the width (its
+    // two groups of warps keep a block of 64 x 32 at four warps)
+    if (sizeof(TX) == 4 && p.M <= 32) return launch_mma<BITS, 1, 2, TX>(p, sms, st);
+    return p.M > 32 && wide * ((p.M + 63) / 64) >= 2LL * sms
+               ? launch_mma<BITS, 2, 4, TX>(p, sms, st)
+               : launch_mma<BITS, 2, 2, TX>(p, sms, st);
+  }
+  *route = QMM_TILED;
   if (p.M == 1) return launch_qmm<BITS, 1, TX>(p, st);
   if (p.M == 2) return launch_qmm<BITS, 2, TX>(p, st);
   if (p.M <= 4) return launch_qmm<BITS, 4, TX>(p, st);
@@ -911,10 +1487,10 @@ int qmm_bm(const QmmParams& p, cudaStream_t st) {
 }
 
 template <typename TX>
-int qmm_bits(const QmmParams& p, int bits, cudaStream_t st) {
-  if (bits == 4) return qmm_bm<4, TX>(p, st);
-  if (bits == 8) return qmm_bm<8, TX>(p, st);
-  if (bits == 6) return qmm_bm<6, TX>(p, st);
+int qmm_bits(const QmmParams& p, int bits, int sms, cudaStream_t st, int* route) {
+  if (bits == 4) return qmm_bm<4, TX>(p, sms, st, route);
+  if (bits == 8) return qmm_bm<8, TX>(p, sms, st, route);
+  if (bits == 6) return qmm_bm<6, TX>(p, sms, st, route);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1031,10 +1607,13 @@ int qmlp_bits(const QmlpParams& p, int bits, bool vec4, int dev, int sms, cudaSt
 
 // y (M, N) = x (M, K; row stride ldx) . dequant(w)^T. bits 4, 8 (int32 words)
 // or 6 (uint8 stream); dtype 0 = float32, 1 = bfloat16 (x and y). Scales and
-// biases are float32 (N, K / group_size). Returns a cudaError_t (0 = launched).
+// biases are float32 (N, K / group_size). `device` is the current device.
+// `kernel` receives the kernel launched (QmmRoute: 0 the tiled qmm_kernel,
+// 1 qmm_gemv, 2 qmm_mma; -1 for none). Returns a cudaError_t (0 = launched).
 extern "C" int qmm_fwd(const void* x, const void* w, const float* s, const float* b, void* y,
                        int M, int N, int K, int group_size, int bits, int dtype,
-                       long long ldx, void* stream) {
+                       long long ldx, int device, int* kernel, void* stream) {
+  *kernel = -1;
   if (M < 0 || N < 0 || K <= 0 || group_size <= 0 || K % group_size) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1042,9 +1621,14 @@ extern "C" int qmm_fwd(const void* x, const void* w, const float* s, const float
   const long long row_bytes = static_cast<long long>(K) * bits / 8;
   QmmParams p{x, {static_cast<const uint8_t*>(w), row_bytes, s, b, K / group_size, group_size},
               y, M, N, K, ldx, N};
+  int sms = 0;
+  if (M > 4) {
+    const int e = qmlp_sms(device, &sms);
+    if (e != 0) return e;
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return qmm_bits<float>(p, bits, st);
-  if (dtype == 1) return qmm_bits<__nv_bfloat16>(p, bits, st);
+  if (dtype == 0) return qmm_bits<float>(p, bits, sms, st, kernel);
+  if (dtype == 1) return qmm_bits<__nv_bfloat16>(p, bits, sms, st, kernel);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -41,7 +41,7 @@ _F = ctypes.c_float
 # `extern "C"` declarations in the sources.
 SIGNATURES = {
     "flash_attention_fwd": (_I, [_P, _P, _P, _P] + [_I] * 5 + [_L] * 12 + [_F, _I, _I, _P]),
-    "qmm_fwd": (_I, [_P] * 5 + [_I] * 6 + [_L, _P]),
+    "qmm_fwd": (_I, [_P] * 5 + [_I] * 6 + [_L, _I, _P, _P]),
     "qmlp_fwd": (_I, [_P] * 10 + [_I] * 8 + [_L, _P]),
     "relu2_attention_fwd": (_I, [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _I, _P]),
     "cuda_error_string": (ctypes.c_char_p, [_I]),

@@ -15,6 +15,8 @@ only; a CUDA tensor goes to the kernel or raises.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _build
@@ -139,7 +141,15 @@ def _x2d(x):
     return x2
 
 
-def _launch_qmm(x, w, scales, biases, bits, group_size):
+# the kernels `qmm_fwd` chooses from, by the code it reports (QmmRoute in
+# csrc/quant_matmul.cu): the tiled CUDA-core kernel (x at an address or
+# rows the others cannot take), the GEMV (M <= 4) and the tensor-core GEMM
+# (M > 4)
+QMM_KERNELS = ("qmm_kernel", "qmm_gemv", "qmm_mma")
+_ROUTE = ctypes.c_int(-1)
+
+def _launch_qmm(fn, x, w, scales, biases, bits, group_size):
+    """Launch qmm_fwd and count it on `fn` (its total and its kernel)."""
     _check_card(x)
     K = x.shape[-1]
     _check_weight(x, w, scales, biases, bits, group_size, K)
@@ -148,9 +158,13 @@ def _launch_qmm(x, w, scales, biases, bits, group_size):
     y = torch.empty(M, N, dtype=x.dtype, device=x.device)
     err = _build.load_library().qmm_fwd(
         x2.data_ptr(), w.data_ptr(), scales.data_ptr(), biases.data_ptr(), y.data_ptr(),
-        M, N, K, group_size, bits, _DTYPE_CODE[x.dtype], x2.stride(0), _stream(x))
+        M, N, K, group_size, bits, _DTYPE_CODE[x.dtype], x2.stride(0), x.device.index,
+        ctypes.addressof(_ROUTE), _stream(x))
     if err != 0:
         raise RuntimeError(f"qmm_fwd ({bits}-bit) launch failed: {_build.error_string(err)}")
+    if _ROUTE.value >= 0:
+        fn.launches += 1
+        fn.kernels[QMM_KERNELS[_ROUTE.value]] += 1
     return y.reshape(*x.shape[:-1], N)
 
 
@@ -165,9 +179,7 @@ def quantized_matmul(x, w, scales, biases, *, bits: int = 4,
                                           group_size=group_size)
     if bits not in (4, 8):
         raise ValueError(f"no kernel for bits={bits}")
-    y = _launch_qmm(x, w, scales, biases, bits, group_size)
-    quantized_matmul.launches += 1
-    return y
+    return _launch_qmm(quantized_matmul, x, w, scales, biases, bits, group_size)
 
 
 def quantized_matmul6(x, w, scales, biases, *, group_size: int = 64) -> torch.Tensor:
@@ -175,9 +187,15 @@ def quantized_matmul6(x, w, scales, biases, *, group_size: int = 64) -> torch.Te
     if x.device.type == "cpu":
         return quantized_matmul_reference(x, w, scales, biases, bits=6,
                                           group_size=group_size)
-    y = _launch_qmm(x, w, scales, biases, 6, group_size)
-    quantized_matmul6.launches += 1
-    return y
+    return _launch_qmm(quantized_matmul6, x, w, scales, biases, 6, group_size)
+
+
+def reset_launches(*fns) -> None:
+    """Zero the launch counts of `fns` (default: all three wrappers)."""
+    for fn in fns or (quantized_matmul, quantized_matmul6, quantized_mlp):
+        fn.launches = 0
+        if hasattr(fn, "kernels"):
+            fn.kernels = dict.fromkeys(QMM_KERNELS, 0)
 
 
 # h is M·I·4 bytes and each tile of up to 4 rows of x is one pass over the
@@ -239,6 +257,6 @@ def quantized_mlp(x, w_gu, s_gu, b_gu, w_down, s_down, b_down, *,
     return y.reshape(*x.shape[:-1], N)
 
 
-quantized_matmul.launches = 0
-quantized_matmul6.launches = 0
-quantized_mlp.launches = 0
+quantized_matmul.kernels = dict.fromkeys(QMM_KERNELS, 0)
+quantized_matmul6.kernels = dict.fromkeys(QMM_KERNELS, 0)
+reset_launches()

@@ -8,9 +8,9 @@ Counterpart of the TPU kernel `mlx_audio_tpu/ops/pallas/relu2_attention.py`
 `relu2_attention` takes the plain version for CPU tensors only; a CUDA
 tensor goes to the kernel or raises. The kernels take every N: the JAX
 package's N > 2048 detour to its einsum path, a VMEM limit of the TPU, has
-no counterpart here. float32 runs two launches, a score pass into a scratch
-of B·G·np² floats (np = N rounded up to `N_PAD`) and a PV pass; bf16
-runs one.
+no counterpart here. Each dtype runs two launches, a score pass into a
+scratch of B·G·np² weights in v's dtype (np = N rounded up to `N_PAD`) and
+a PV pass.
 """
 
 from __future__ import annotations
@@ -25,13 +25,13 @@ from . import _build
 __all__ = ["relu2_attention", "relu2_attention_reference"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# the float32 passes' scratch pads N to a multiple of this (NPAD in
+# the two passes' scratch pads N to a multiple of this (NPAD in
 # csrc/relu2_attention.cu)
 N_PAD = 64
 
 
 def scratch_elems(B: int, G: int, N: int) -> int:
-    """float32 elements of the weights the float32 passes hand over."""
+    """Elements (of v's dtype) of the weights the two passes hand over."""
     np_ = -(-N // N_PAD) * N_PAD
     return B * G * np_ * np_
 
@@ -96,14 +96,13 @@ def relu2_attention(q, k, v, group_size: Optional[int] = None) -> torch.Tensor:
     out = torch.empty(B, G, N, E, dtype=v.dtype, device=v.device)
     if out.numel() == 0:
         return out
-    scratch = (torch.empty(scratch_elems(B, G, N), dtype=torch.float32, device=v.device)
-               if v.dtype == torch.float32 else None)
+    scratch = torch.empty(scratch_elems(B, G, N), dtype=v.dtype, device=v.device)
     lib = _build.load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.relu2_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
+            scratch.data_ptr(),
             B, G, N, D, E,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
             ctypes.c_float(group_size), _DTYPE_CODE[v.dtype], stream,

@@ -2,7 +2,7 @@
 """Time edited copies of the port's redesigned kernels on one H100.
 
     python3 scripts/torch_kernel_variants.py [--flash] [--flash32] [--qmlp] [--qmm]
-                                             [--qmm6] [--relu2]
+                                             [--qmm6] [--qmm_tiled] [--relu2]
 
 Each variant is the kernel's source with a few lines replaced: a part of
 the kernel taken out (its output is then wrong, and only its time counts)
@@ -11,7 +11,7 @@ kept in `scripts/baselines/`. Every variant is built with nvcc into its own
 library under `build/variants/` (the ptxas registers and spills of the
 kernel timed are printed, one line a variant) and timed beside the
 unchanged source on the same inputs, in two rounds taken in turns (no
-flag: all six):
+flag: all seven):
 
 - flash: B=4 H=20 T=S=1500 D=64 bf16 from (B, T, H, D) views, CUDA events
   over 50 launches, with F.scaled_dot_product_attention as the yardstick;
@@ -28,9 +28,16 @@ flag: all six):
   K=1024, o_proj N=1024 K=2048, gate/up N=6144 K=1024, down N=1024
   K=3072), f32 x, as qmm; the tiled kernel, which served every 6-bit call
   before, is one variant (it stays in the source for M > 4);
-- relu2: float32 B=1 N=256 D=128 E=2048 at G=10 (a 20 s request) and G=2
-  (a 4 s chunk), device time per call (both launches), beside the plain
-  version (two cuBLAS matmuls) and the earlier one-launch kernel.
+- qmm_tiled: the tensor-core GEMM (M > 4) at the talker's four
+  projections at the 32-row prefill bucket and the text projection at
+  M=336, int4 and 6-bit, bf16 x (and f32 x at the 6-bit q/k/v and
+  o_proj), device time per call with the weights
+  cycled past L2; the tiled CUDA-core kernel (BM = 8), which served
+  M > 4 before, is one variant;
+- relu2: float32 and bf16, B=1 N=256 D=128 E=2048 at G=10 (a 20 s request)
+  and G=2 (a 4 s chunk), device time per call (both launches), beside the
+  plain version (two cuBLAS matmuls) and the earlier kernels (float32: the
+  one-launch kernel; bf16: the one-launch kernel that tiles E).
 
 It needs the card, nvcc and the checkout's `mlx_audio_tpu_torch/`.
 """
@@ -253,6 +260,84 @@ RELU2 = {
     "PV 32 keys a stage": [("constexpr int PK = 16;", "constexpr int PK = 32;")],
     "score pass only": [("  relu2_pv_f32<<<", "  if (p.N < 0) relu2_pv_f32<<<")],
 }
+MMA_LOOP_COMMIT = ("    if (kt + MMA_STAGES - 1 < ke) load_stage(kt + MMA_STAGES - 1);\n"
+                   "    cp_async_commit();\n")
+QMM_TILED = {
+    "as committed": [],
+    "the tiled CUDA-core kernel (qmm_kernel, BM = 8)": [("  if (mma_fits<BITS, TX>(p)) {",
+                                                  "  if (false && mma_fits<BITS, TX>(p)) {")],
+    "codes rounded as w = q s + b": [
+        ("__device__ __forceinline__ uint32_t codes_bf16x2(uint32_t lo, uint32_t hi, float s, "
+         "float b) {\n",
+         "__device__ __forceinline__ uint32_t codes_bf16x2(uint32_t lo, uint32_t hi, float s, "
+         "float b) {\n  if (s == s) {\n    __nv_bfloat162 w = __floats2bfloat162_rn("
+         "fmaf(static_cast<float>(lo), s, b), fmaf(static_cast<float>(hi), s, b));\n"
+         "    return *reinterpret_cast<uint32_t*>(&w);\n  }\n"),
+        ("  acc = fmaf(s, gacc, fmaf(b, xg, acc));", "  acc += gacc;")],
+    "64 rows of x a block at M <= 32": [
+        ("    if (p.M <= 32 && wide * MMA_MAX_SPLITS >= sms) return launch_mma<BITS, 1, 4, TX>",
+         "    if (p.M <= 32 && wide * MMA_MAX_SPLITS >= sms) return launch_mma<BITS, 2, 4, TX>")],
+    "no copy in flight under the products": [
+        (MMA_LOOP_COMMIT, MMA_LOOP_COMMIT + "    cp_async_wait<0>();\n")],
+    "4 ring stages": [("constexpr int MMA_STAGES = 3;", "constexpr int MMA_STAGES = 4;")],
+    "no products": [
+        ("            for (int j = 0; j < 4; ++j) mma_bf16(gacc[i][j], af[i], bq[j][0], bq[j][1]);\n"
+         "            mma_bf16(xacc[i], af[i], ONES, ONES);",
+         "            gacc[i][0][0] += __uint_as_float((af[i][0] ^ af[i][3]) & 0x3f800000u) "
+         "+ __uint_as_float((bq[0][0] ^ bq[3][1]) & 0x3f800000u);")],
+    "one group of warps a stage for float32 x": [
+        ("  static constexpr int KG = sizeof(TX) == 4 ? 2 : 1;", "  static constexpr int KG = 1;")],
+    "two groups of warps a stage for bf16 x": [
+        ("  static constexpr int KG = sizeof(TX) == 4 ? 2 : 1;", "  static constexpr int KG = 2;")],
+    "shared memory carveout left at its default": [
+        ("    if (e == cudaSuccess)\n      e = cudaFuncSetAttribute(kernel, "
+         "cudaFuncAttributePreferredSharedMemoryCarveout, 100);\n", "")],
+    "no unpacking of the codes": [
+        ("    for (int it = 0; it < (UN + NTH - 1) / NTH; ++it) {",
+         "    for (int it = 0; it < (p.M < 0 ? (UN + NTH - 1) / NTH : 0); ++it) {")],
+    "no copies after the first stage": [
+        ("    uint8_t* st = stage_ptr(kt);\n    const int k0 = kt * MMA_BK;\n",
+         "    uint8_t* st = stage_ptr(kt);\n    const int k0 = kt * MMA_BK;\n"
+         "    if (kt > kb) return;\n")],
+    "at most 4 splits": [("constexpr int MMA_MAX_SPLITS = 8;", "constexpr int MMA_MAX_SPLITS = 4;")],
+    "no split over K": [("  p.splits = 1;\n  while (", "  p.splits = 1;\n  while (false && ")],
+    "64 weight rows a block always": [
+        ("    if (p.M <= 32 && wide * MMA_MAX_SPLITS >= sms) return", "    if (false) return"),
+        ("    return p.M > 32 && wide * ((p.M + 63) / 64) >= 2LL * sms", "    return false")],
+    "128 weight rows a block always": [
+        ("    return p.M > 32 && wide * ((p.M + 63) / 64) >= 2LL * sms", "    return true")],
+    "K split while the grid stays within two blocks a SM": [
+        ("  while (nt * mt * 2 * p.splits <= static_cast<long long>(per_sm[dev]) * sms &&",
+         "  while (nt * mt * 2 * p.splits <= 2LL * sms &&")],
+    "splits of two stages allowed": [
+        ("         2 * p.splits <= MMA_MAX_SPLITS && 8 * p.splits <= nk)",
+         "         2 * p.splits <= MMA_MAX_SPLITS && 4 * p.splits <= nk)")],
+    "empty kernel": [("  constexpr int BM = T::BM, BN = T::BN, NTH = T::THREADS, NSPLIT = T::NSPLIT, KG = T::KG;\n",
+                      "  constexpr int BM = T::BM, BN = T::BN, NTH = T::THREADS, NSPLIT = T::NSPLIT, KG = T::KG;\n"
+                      "  if (p.N > 0) return;\n")],
+}
+
+PV16_LOOP_COMMIT = ("    if (kt + B16_STAGES - 1 < nk) load(kt + B16_STAGES - 1);\n"
+                    "    cp_async_commit();\n")
+RELU2_BF16 = {
+    "as committed": [],
+    "earlier kernel (one launch, E tiled, scores per column tile)":
+        BASELINES / "relu2_attention_bf16_tiled_e.cu",
+    "PV 64 columns a block always": [("  return wide >= 264 ? launch_pv_bf16<128>",
+                                      "  return false ? launch_pv_bf16<128>")],
+    "PV 128 columns a block always": [("  return wide >= 264 ? launch_pv_bf16<128>",
+                                       "  return true ? launch_pv_bf16<128>")],
+    "PV: no copy in flight under the products": [
+        (PV16_LOOP_COMMIT, PV16_LOOP_COMMIT + "    cp_async_wait<0>();\n")],
+    "PV 2 stages": [("constexpr int B16_STAGES = 3;", "constexpr int B16_STAGES = 2;")],
+    "PV 128 queries a block (8 warps)": [("constexpr int B16_BQ = 64; ", "constexpr int B16_BQ = 128; ")],
+    "PV 4 stages": [("constexpr int B16_STAGES = 3;", "constexpr int B16_STAGES = 4;")],
+    "shared memory carveout left at its default": [
+        ("  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);",
+         "  return err;")],
+    "score pass only": [("  return wide >= 264 ? launch_pv_bf16<128>",
+                         "  if (wide > 0) return 0;\n  return wide >= 264 ? launch_pv_bf16<128>")],
+}
 # the earlier relu2 kernel's C interface: no scratch
 RELU2_EARLIER_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
@@ -315,6 +400,24 @@ def build(kind: str, variants: dict, tag: str, kernel: str = "") -> dict:
                 getattr(libs[name], fn).restype = restype
                 getattr(libs[name], fn).argtypes = argtypes
     return libs
+
+
+class QmmCaller:
+    """qmm_fwd of one variant's library."""
+
+    def __init__(self, lib):
+        self.lib = lib
+        self.route = ctypes.c_int(-1)
+
+    def __call__(self, x, w, y, bits):
+        M, K = x.shape
+        err = self.lib.qmm_fwd(
+            x.data_ptr(), w[0].data_ptr(), w[1].data_ptr(), w[2].data_ptr(), y.data_ptr(), M,
+            w[0].shape[0], K, cs.GROUP, bits, 1 if x.dtype == torch.bfloat16 else 0,
+            x.stride(0), x.device.index, ctypes.addressof(self.route),
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"qmm launch failed: {err}")
 
 
 def device_us(fns, iters: int) -> str:
@@ -428,7 +531,7 @@ def time_qmlp() -> None:
 
 def time_qmm() -> None:
     libs = build("quant_matmul.cu", QMM, "qmm", "qmm_gemv")
-    stream = torch.cuda.current_stream().cuda_stream
+    calls = {name: QmmCaller(lib) for name, lib in libs.items()}
     for M, N, K, what in ((1, 4096, 1024, "q/k/v"), (1, 1024, 2048, "o_proj"),
                           (2, 4096, 1024, "code predictor seed")):
         g = torch.Generator(device="cuda").manual_seed(404)
@@ -440,11 +543,7 @@ def time_qmm() -> None:
         y = torch.empty(M, N, device="cuda")
 
         def call(name, w):
-            err = libs[name].qmm_fwd(x.data_ptr(), w[0].data_ptr(), w[1].data_ptr(),
-                                     w[2].data_ptr(), y.data_ptr(), M, N, K, cs.GROUP, 4, 0,
-                                     K, stream)
-            if err:
-                raise SystemExit(f"qmm launch failed: {err}")
+            calls[name](x, w, y, 4)
 
         for rnd in range(2):
             for name in libs:
@@ -459,7 +558,7 @@ def time_qmm() -> None:
 
 def time_qmm6() -> None:
     libs = build("quant_matmul.cu", QMM6, "qmm6", "qmm_gemv")
-    stream = torch.cuda.current_stream().cuda_stream
+    calls = {name: QmmCaller(lib) for name, lib in libs.items()}
     for M, N, K, what in ((1, 4096, 1024, "q/k/v"), (1, 1024, 2048, "o_proj"),
                           (1, 6144, 1024, "gate/up"), (1, 1024, 3072, "down")):
         g = torch.Generator(device="cuda").manual_seed(406)
@@ -474,11 +573,7 @@ def time_qmm6() -> None:
               flush=True)
 
         def call(name, w):
-            err = libs[name].qmm_fwd(x.data_ptr(), w[0].data_ptr(), w[1].data_ptr(),
-                                     w[2].data_ptr(), y.data_ptr(), M, N, K, cs.GROUP, 6, 0,
-                                     K, stream)
-            if err:
-                raise SystemExit(f"qmm6 launch failed: {err}")
+            calls[name](x, w, y, 6)
 
         for rnd in range(2):
             for name in libs:
@@ -488,6 +583,76 @@ def time_qmm6() -> None:
                 ok = cs.compare_q(y, ref)[0]
                 us = device_us([lambda w=w: call(name, w) for w in sets], 400)
                 print(f"[qmm6] {what} M={M} N={N} K={K} round {rnd}: {name:34s} {us}  output "
+                      f"{'within its bar' if ok else 'wrong (timing only)'}", flush=True)
+
+
+def time_qmm_tiled() -> None:
+    libs = build("quant_matmul.cu", QMM_TILED, "qmm_tiled", "qmm_mma")
+    calls = {name: QmmCaller(lib) for name, lib in libs.items()}
+    # bf16 x at every shape; f32 x (the talker's prefill) at 6-bit q/k/v and
+    # o_proj
+    cases = [(bits, shape, M, N, K, torch.bfloat16) for bits in (4, 6)
+             for shape, M, N, K in cs.QMM_PREFILL]
+    cases += [(6, shape, M, N, K, torch.float32) for shape, M, N, K in cs.QMM_PREFILL[:2]]
+    for bits, shape, M, N, K, dtype in cases:
+        g = torch.Generator(device="cuda").manual_seed(450 + bits)
+        sets = [cs.quant_weights(N, K, bits, g)]
+        wbytes = cs.weight_bytes(*sets[0])
+        sets += [tuple(t.clone() for t in sets[0])
+                 for _ in range(int(2 * cs.L2_BYTES // wbytes))]
+        x = torch.randn(M, K, generator=g, device="cuda").to(dtype)
+        ref = quantized_matmul_reference(x, *sets[0], bits=bits)
+        y = torch.empty(M, N, dtype=dtype, device="cuda")
+        elem, split = x.element_size(), 3 if dtype == torch.float32 else 1
+        t_ops, t_bytes = split * 2.0 * M * N * K / cs.PEAK_BF16_FLOPS, (
+            wbytes + elem * M * (K + N)) / cs.PEAK_BYTES
+        what = f"{bits}-bit {shape} M={M} N={N} K={K} {str(dtype)[6:]}"
+        print(f"[qmm_tiled] {what}: the bound is {max(t_ops, t_bytes) * 1e3:.2f} us "
+              f"({'operations' if t_ops >= t_bytes else 'bytes'})", flush=True)
+        for rnd in range(2):
+            for name, call in calls.items():
+                y.fill_(float("nan"))
+                call(x, sets[0], y, bits)
+                torch.cuda.synchronize()
+                ok = cs.compare_q(y, ref)[0]
+                us = device_us([lambda w=w: call(x, w, y, bits) for w in sets], 200)
+                print(f"[qmm_tiled] {what} round {rnd}: {name:42s} {us}  output "
+                      f"{'within its bar' if ok else 'wrong (timing only)'}", flush=True)
+        del sets
+        torch.cuda.empty_cache()
+
+
+def time_relu2_bf16() -> None:
+    libs = build("relu2_attention.cu", RELU2_BF16, "relu2b", "bf16")
+    stream = torch.cuda.current_stream().cuda_stream
+    for G in (10, 2):
+        B, N, D, E = 1, 256, 128, 2048
+        q, k, v = cs.relu2_inputs(B, G, N, D, E, torch.bfloat16, False, seed=700)
+        ref = relu2_attention_reference(q, k, v, N)
+        o = torch.empty_like(v)
+        scratch = torch.empty(scratch_elems(B, G, N), dtype=torch.bfloat16, device="cuda")
+        strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3])
+
+        def call(name):
+            err = libs[name].relu2_attention_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), scratch.data_ptr(),
+                B, G, N, D, E, *strides, ctypes.c_float(N), 1, stream)
+            if err:
+                raise SystemExit(f"relu2 launch failed: {err}")
+
+        bound, _ = cs.relu2_bound_ms(B, G, N, D, E, torch.bfloat16)
+        print(f"[relu2-bf16] G={G} E={E}: the bf16 bound is {bound * 1e3:.2f} us", flush=True)
+        for rnd in range(2):
+            plain = device_us([lambda: relu2_attention_reference(q, k, v, N)], 50)
+            print(f"[relu2-bf16] G={G} E={E} round {rnd}: {'plain (two cuBLAS matmuls)':60s} "
+                  f"{plain}", flush=True)
+            for name in libs:
+                o.fill_(float("nan"))
+                call(name)
+                torch.cuda.synchronize()
+                ok = cs.compare_q(o, ref, cs.R2_BF16_ULPS)[0]
+                us = device_us([lambda: call(name)], 200)
+                print(f"[relu2-bf16] G={G} E={E} round {rnd}: {name:60s} {us}  output "
                       f"{'within its bar' if ok else 'wrong (timing only)'}", flush=True)
 
 
@@ -527,11 +692,12 @@ def time_relu2() -> None:
                 us = device_us([lambda: call(name)], 200)
                 print(f"[relu2] G={G} E={E} round {rnd}: {name:50s} {us}  output "
                       f"{'within its bar' if ok else 'wrong (timing only)'}", flush=True)
+    time_relu2_bf16()
 
 
 def main():
     ap = argparse.ArgumentParser()
-    kinds = ("flash", "flash32", "qmlp", "qmm", "qmm6", "relu2")
+    kinds = ("flash", "flash32", "qmlp", "qmm", "qmm6", "qmm_tiled", "relu2")
     for kind in kinds:
         ap.add_argument(f"--{kind}", action="store_true")
     args = ap.parse_args()

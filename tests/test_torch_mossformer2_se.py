@@ -215,6 +215,44 @@ def test_one_call_attention_equals_two_calls(n, causal, monkeypatch):
                                    atol=1e-6 * b.abs().max().item())
 
 
+def _two_pass_bf16(q, k, v, group_size):
+    """The bf16 kernel's two passes in plain torch: the score pass writes
+    bf16(relu(q·kᵀ / g)²) into a scratch of np × np weights (np = N rounded
+    up to 64, zero past N), the PV pass sums the bf16 weights times v in
+    float32 over the padded keys (v zero past N) and rounds to bf16."""
+    B, G, N, _ = q.shape
+    np_ = -(-N // 64) * 64
+    sim = torch.matmul(q.float(), k.float().transpose(-1, -2)) / group_size
+    p = torch.zeros(B, G, np_, np_, dtype=torch.bfloat16)
+    p[:, :, :N, :N] = torch.relu(sim).square().to(torch.bfloat16)
+    vp = torch.zeros(B, G, np_, v.shape[-1], dtype=torch.bfloat16)
+    vp[:, :, :N] = v
+    assert p.numel() == scratch_elems(B, G, N)
+    return torch.matmul(p.float(), vp.float())[:, :, :N].to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("N,D,E,group_size", [(64, 32, 48, None), (200, 40, 24, None),
+                                              (70, 16, 8, 256), (13, 8, 24, 16)],
+                         ids=["n64", "ragged200_d40", "ragged70_g256", "ragged13"])
+def test_relu2_bf16_two_passes_match_jax(N, D, E, group_size):
+    """The bf16 path's arithmetic (weights rounded to bf16 before PV, the
+    scratch padded to 64 keys) and the plain version against the Pallas
+    kernel in interpret mode in bf16, within 2 bf16 ulp at max|ref| (JAX multiplies by
+    1/group_size where the port divides)."""
+    rng = np.random.default_rng(300 + N + D)
+    q, k = (rng.standard_normal((1, 2, N, D)).astype(np.float32) for _ in range(2))
+    v = rng.standard_normal((1, 2, N, E)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(jax_relu2(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                                   group_size).astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    g = N if group_size is None else group_size
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7)
+    for out in (_two_pass_bf16(tq, tk, tv, g), relu2_attention_reference(tq, tk, tv, group_size)):
+        assert out.dtype == torch.bfloat16 and out.shape == (1, 2, N, E)
+        np.testing.assert_allclose(out.float().numpy(), ref, atol=2 * ulp)
+
+
 @pytest.mark.parametrize("B,G,N,want", [(1, 10, 256, 10 * 256 * 256), (1, 1, 2500, 2560 ** 2),
                                         (2, 3, 13, 6 * 64 * 64)])
 def test_relu2_scratch_pads_n_to_64(B, G, N, want):

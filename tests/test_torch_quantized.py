@@ -254,3 +254,102 @@ def test_plain_versions_keep_bf16_output_and_f32_sums():
     ref = pk.quantized_matmul(x.float(), _port_w(packed), _t(scales), _t(biases))
     assert out.dtype == torch.bfloat16
     assert torch.equal(out, ref.bfloat16())
+
+
+# ---- the tensor-core GEMM's arithmetic (M > 4: qmm_mma) ----
+#
+# The kernel feeds the integer codes to bf16 tensor-core products, sums x·q
+# over each group, then folds y += s·Σ(x·q) + b·Σx; float32 x goes in as
+# three bf16 parts. These tests hold that arithmetic, written as plain torch,
+# to the JAX package's kernels.
+
+
+@pytest.mark.parametrize("bits", [4, 6, 8])
+def test_every_code_is_exact_in_bf16(bits):
+    q = torch.arange(2 ** bits, dtype=torch.int32)
+    assert torch.equal(q.to(torch.bfloat16).to(torch.int32), q)
+    if bits < 8:
+        # the kernel's conversion: the code or-ed under bf16's 128.0 (0x4300),
+        # less 128
+        magic = (q.to(torch.int16) | 0x4300).view(torch.bfloat16)
+        assert torch.equal((magic - 128).to(torch.int32), q)
+
+
+def _split3(x):
+    """float32 → three bf16 parts, as the kernel splits float32 x."""
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
+
+
+def test_three_way_bf16_split_sums_back_to_x():
+    """hi + mid + lo == x exactly for every float32 of magnitude at least
+    2^-110 (large, small and tiny values) and for subnormals on bf16's own
+    grid (multiples of 2^-133); below that the parts lose what lies under
+    bf16's smallest step, at most 2^-134."""
+    rng = np.random.default_rng(90)
+    mant = rng.uniform(1.0, 2.0, 4000)
+    exps = rng.integers(-110, 127, 4000)
+    normal = (rng.choice([-1.0, 1.0], 4000) * mant * np.exp2(exps.astype(np.float64)))
+    grid_sub = rng.integers(-(2 ** 7) + 1, 2 ** 7, 200) * 2.0 ** -133
+    x = torch.from_numpy(np.concatenate([normal, grid_sub, [0.0, 3.3e38, -3.3e38, 2.0 ** -110]])
+                         .astype(np.float32))
+    hi, mid, lo = _split3(x)
+    assert torch.equal((hi.float() + mid.float()) + lo.float(), x)
+    tiny = torch.from_numpy(rng.uniform(-2.0 ** -110, 2.0 ** -110, 1000).astype(np.float32))
+    tiny = torch.cat([tiny, torch.tensor([2.0 ** -149, 1e-40, -7e-45])])
+    hi, mid, lo = _split3(tiny)
+    err = ((hi.float() + mid.float()) + lo.float() - tiny).abs()
+    assert err.max().item() <= 2.0 ** -134
+
+
+def _mma_arithmetic(x, q, scales, biases, group_size):
+    """The kernel's factored sum in plain torch: per-group products of the
+    bf16 parts of x with the integer codes, scaled once a group, plus the
+    biases times the per-group sums of x."""
+    M, K = x.shape
+    N, G = scales.shape
+    parts = _split3(x) if x.dtype == torch.float32 else (x,)
+    qg = q.float().reshape(N, G, group_size)
+    gacc = sum(torch.einsum("mgk,ngk->mng", p.float().reshape(M, G, group_size), qg)
+               for p in parts)
+    xg = x.float().reshape(M, G, group_size).sum(-1)
+    return (gacc * scales[None]).sum(-1) + xg @ biases.T
+
+
+@pytest.mark.parametrize("bits,group_size", [(4, 32), (4, 64), (4, 128), (6, 32), (6, 64),
+                                             (6, 128), (8, 64), (8, 128)])
+def test_mma_arithmetic_matches_pallas(bits, group_size):
+    """M = 37 and N = 1000 (both ragged against the kernel's tiles), float32
+    x split three ways, against `quantized_matmul` in interpret mode, at the
+    kernel's float32 bar on the card: max|d| <= 1e-4 max|ref|, ||d|| <= 1e-5
+    ||ref||."""
+    rng = np.random.default_rng(100 + bits + group_size)
+    M, N, K = 37, 1000, 256
+    packed, scales, biases = _qweights(rng, N, K, bits, group_size)
+    x = (rng.standard_normal((M, K)) * np.exp2(rng.integers(-6, 6, (M, 1)))).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(jax_qmm.quantized_matmul(
+            jnp.asarray(x), jnp.asarray(packed), jnp.asarray(scales), jnp.asarray(biases),
+            bits=bits, group_size=group_size))
+    q = pk.unpack_rows(_port_w(packed), bits)
+    got = _mma_arithmetic(_t(x), q, _t(scales), _t(biases), group_size).numpy()
+    d = np.abs(got - ref)
+    assert d.max() <= 1e-4 * np.abs(ref).max()
+    assert np.linalg.norm(got - ref) <= 1e-5 * np.linalg.norm(ref)
+
+
+@pytest.mark.parametrize("bits", [4, 6])
+def test_mma_arithmetic_bf16_x_rounds_like_the_plain_version(bits):
+    """bf16 x: every product is exact, so the kernel's arithmetic rounds to
+    the plain version's bf16 output within one ulp of max|ref|."""
+    rng = np.random.default_rng(120 + bits)
+    M, N, K = 37, 1000, 256
+    packed, scales, biases = _qweights(rng, N, K, bits)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).bfloat16()
+    q = pk.unpack_rows(_port_w(packed), bits)
+    got = _mma_arithmetic(x, q, _t(scales), _t(biases), 64).bfloat16().float()
+    ref = pk.quantized_matmul(x, _port_w(packed), _t(scales), _t(biases), bits=bits)
+    ulp = 2.0 ** (np.floor(np.log2(ref.float().abs().max().item())) - 7)
+    assert (got - ref.float()).abs().max().item() <= ulp
