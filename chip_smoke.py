@@ -29,10 +29,18 @@ Phases, each printing its own lines:
   7. MossFormer2-SE 48 kHz at full width (f32, 24 blocks, seeded random
      weights): 20 s in one shot, 30 s segmented and 90 s chunked through
      `Model.enhance`, with the ReLU² kernel's launches held to 1 per FLASH
-     layer per chunk (v and u in one call).
+     layer per chunk (v and u in one call);
+  8. Kokoro-82M at bench.py's widths: the card against the CPU in float32
+     on ~40 phonemes (identical durations, audio within a stated bar),
+     then bf16 on bench.py's 508 phonemes through `Model.__call__` (RTF
+     over 5 runs, identical audio across runs, peak memory), one profiled
+     run (device time, launches, idle share, the LSTMs' share), and
+     `Model.generate` with a seeded voice pack. No kernel of the port is on
+     this path.
 Phase 2 also holds the ReLU² attention kernel to its plain version, and
 phase 3 a one-block MossFormer2-SE on the card to the CPU.
-The line before the last holds the kernels' JSON record; the last line is
+The line before the last holds the kernels' JSON record, the line before
+it phase 8's numbers ({"kokoro": ...}); the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero. It
 needs one CUDA card and the checkout's `mlx_audio_tpu_torch/` package.
 `--phases 1,2` runs a subset (a first check of new kernels); the default
@@ -144,6 +152,31 @@ MOSS_CARD_VS_CPU_REL = 1e-4
 # (90 s: 29 chunks and a 3 s one)
 MOSS_REQUESTS = [(20.0, "one shot", 1), (30.0, "segmented", 10), (90.0, "chunked", 30)]
 MOSS_WARMUP, MOSS_TIMED = 2, 5
+
+# Kokoro-82M: bench.py's configuration, vocabulary and phonemes (copied:
+# bench.py imports jax)
+KOKORO_82M_CONFIG = dict(
+    istftnet=dict(resblock_kernel_sizes=[3, 7, 11], upsample_rates=[10, 6],
+                  upsample_initial_channel=512,
+                  resblock_dilation_sizes=[[1, 3, 5], [1, 3, 5], [1, 3, 5]],
+                  upsample_kernel_sizes=[20, 12], gen_istft_n_fft=20, gen_istft_hop_size=5),
+    dim_in=64, dropout=0.2, hidden_dim=512, max_conv_dim=512, max_dur=50, multispeaker=True,
+    n_layer=3, n_mels=80, n_token=178, style_dim=128, text_encoder_kernel_size=5,
+    plbert=dict(hidden_size=768, num_attention_heads=12, intermediate_size=2048,
+                max_position_embeddings=512, num_hidden_layers=12, embedding_size=128,
+                dropout=0.1))
+KOKORO_VOCAB_CHARS = "abcdefghijklmnopqrstuvwxyzæɑɔɛɪʊʌəɹŋθðʃʒʧʤˈˌAIOWY ɡɜɾ.,!?;:\"'()…—"
+KOKORO_PHONEMES = ("ðə kwˈɪk bɹˈWn fˈɑks ʤˈʌmps ˈOvəɹ ðə lˈAzi dˈɔɡ, "
+                   "ænd ðə sˈɪnθəsɪs mˈɑdəl tˈɜɹnz tˈɛkst ˈɪntu spˈiʧ. ") * 5
+KOKORO_TIMED = 5
+# Card against CPU, float32 and TF32 off on both, the same noise draw: the
+# activations agree to float32 rounding, and the int16 output may round one
+# step (3.05e-5) either way; measured: one step on an H100 80GB HBM3 at
+# 700 W. The bar is phase 3's 1e-4 of the peak. (A voiced sine source
+# would need more: its phase is a float32 cumulative sum reaching 1e5 rad
+# over 25 s, summed in another order on the card; the port's generator
+# against the JAX package's needs 5e-3 for that in tests/test_torch_kokoro.py.)
+KOKORO_CARD_VS_CPU_REL = 1e-4
 
 
 class AsciiTok:
@@ -484,7 +517,8 @@ def profile_one_run(run, what: str = "one transcription") -> tuple:
     """Device busy time and the top kernels of one run, from torch.profiler
     (CUPTI), with the port's own kernels listed too. Prints "not measured"
     if it sees no device time. Returns the busy time (us) and {kernel name:
-    (launches, device us)} of the port's kernels."""
+    (launches, device us)} of the port's kernels; `profile_one_run.last`
+    keeps the run's wall, busy time, idle share and launches."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -494,6 +528,9 @@ def profile_one_run(run, what: str = "one transcription") -> tuple:
     kernels = [e for e in prof.key_averages()
                if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
+    profile_one_run.last = {"wall_ms": wall_us / 1e3, "device_ms": busy_us / 1e3,
+                            "idle_share": 1 - busy_us / wall_us,
+                            "launches": sum(e.count for e in kernels)}
     if busy_us <= 0:
         log("[profile] device time: not measured (the profiler saw no CUDA kernels)")
         return 0.0, {}
@@ -1437,12 +1474,153 @@ def phase_moss_slice():
     return launches
 
 
+def kokoro_model(device, dtype=torch.float32, seed=0):
+    """Kokoro-82M at bench.py's widths with seeded random weights."""
+    from mlx_audio_tpu_torch.nn import cast_floats
+    from mlx_audio_tpu_torch.tts.models.kokoro import Model, ModelConfig
+
+    vocab = {c: i + 1 for i, c in enumerate(dict.fromkeys(KOKORO_VOCAB_CHARS))}
+    model = Model(ModelConfig.from_dict({**KOKORO_82M_CONFIG, "vocab": vocab}),
+                  device=device, seed=seed)
+    return cast_floats(model, dtype) if dtype != torch.float32 else model
+
+
+def port_kernel_launches() -> dict:
+    from mlx_audio_tpu_torch.ops.cuda import quant_matmul as qk
+    from mlx_audio_tpu_torch.ops.cuda.flash_attention import flash_attention
+    from mlx_audio_tpu_torch.ops.cuda.relu2_attention import relu2_attention
+
+    return {"flash": flash_attention.launches, "qmm": qk.quantized_matmul.launches,
+            "qmm6": qk.quantized_matmul6.launches, "qmlp": qk.quantized_mlp.launches,
+            "relu2": relu2_attention.launches}
+
+
+def phase_kokoro_card_vs_cpu():
+    """Kokoro-82M at full width, float32, TF32 off: the card against the CPU
+    on ~40 phonemes, with one noise draw (made on the CPU) given to both."""
+    from mlx_audio_tpu_torch.tts.models.kokoro.kokoro import FRAME_BUCKETS, _bucket
+
+    cpu = kokoro_model("cpu", seed=1)
+    card = kokoro_model("cuda", seed=2)
+    card.load_state_dict(cpu.state_dict())
+    ps = KOKORO_PHONEMES[:40]
+    ref_s = (np.random.default_rng(3).standard_normal((1, 256)) * 0.1).astype(np.float32)
+    frames = _bucket(int(card(ps, ref_s, return_output=True).pred_dur.sum()), FRAME_BUCKETS)
+    L = frames * 2 * card.decoder.generator.total_upsample
+    g = torch.Generator().manual_seed(4)
+    noise = (torch.randn(1, 9, generator=g), torch.randn(1, L, 9, generator=g))
+    t0 = time.perf_counter()
+    ref = cpu(ps, ref_s, return_output=True, noise=noise)
+    cpu_s = time.perf_counter() - t0
+    got = card(ps, ref_s, return_output=True, noise=tuple(n.cuda() for n in noise))
+    if not np.array_equal(ref.pred_dur, got.pred_dur):
+        raise SystemExit(f"chip_smoke: Kokoro pred_dur card {got.pred_dur} vs CPU {ref.pred_dur}")
+    if got.audio.shape != ref.audio.shape or not np.isfinite(got.audio).all():
+        raise SystemExit(f"chip_smoke: Kokoro card audio {got.audio.shape} vs {ref.audio.shape}")
+    err, peak = np.abs(got.audio - ref.audio).max(), np.abs(ref.audio).max()
+    corr = np.corrcoef(got.audio, ref.audio)[0, 1]
+    log(f"[card-vs-cpu] Kokoro-82M at full width, f32, {len(ps)} phonemes, {frames}-frame "
+        f"bucket ({ref.pred_dur.sum()} frames, CPU {cpu_s:.1f} s): pred_dur identical; audio "
+        f"{got.audio.shape} max|d|={err:.3e} ({err * 32767:.1f} int16 steps), max|ref|="
+        f"{peak:.3e}, corr {corr:.6f} (bar {KOKORO_CARD_VS_CPU_REL:g} of max|ref|)")
+    if not err <= KOKORO_CARD_VS_CPU_REL * peak:
+        raise SystemExit(f"chip_smoke: Kokoro card vs CPU audio max|d| {err}")
+    del cpu, card
+    torch.cuda.empty_cache()
+    return {"phonemes": len(ps), "max_abs_err": float(err),
+            "bar": float(KOKORO_CARD_VS_CPU_REL * peak)}
+
+
+def phase_kokoro():
+    """Kokoro-82M at bench.py's widths in bf16 (seeded random weights):
+    bench.py's 508 phonemes through `Model.__call__`, one warm-up and 5 timed
+    runs (RTF = mean wall / audio seconds, as bench.py), one profiled run,
+    and `Model.generate` through the pipeline with a seeded voice pack."""
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = kokoro_model("cuda", torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[kokoro] Kokoro-82M (bench.py widths), bf16, {n_params:,} params, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ps = KOKORO_PHONEMES[:508]
+    ref_s = (np.random.default_rng(0).standard_normal((1, 256)) * 0.1).astype(np.float32)
+    sr = model.sample_rate
+    voiced = []  # the sine source's voiced share (F0 above its threshold)
+    hook = model.decoder.generator.m_source.l_sin_gen.register_forward_hook(
+        lambda mod, args, out: voiced.append(out[1].mean().item()))
+    t0 = time.perf_counter()
+    first = model(ps, ref_s, return_output=True)
+    log(f"[kokoro] warm-up {time.perf_counter() - t0:.2f} s; voiced share of the sine "
+        f"source's samples {voiced[0]:.4f}")
+    hook.remove()
+    frames = int(first.pred_dur.sum())
+    audio_s = first.audio.shape[0] / sr
+    torch.cuda.reset_peak_memory_stats()
+    before = port_kernel_launches()
+    walls = []
+    for _ in range(KOKORO_TIMED):
+        t0 = time.perf_counter()
+        audio = model(ps, ref_s)  # numpy: synchronised
+        walls.append(time.perf_counter() - t0)
+        if not np.array_equal(audio, first.audio):
+            raise SystemExit("chip_smoke: Kokoro repeated runs disagree")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    after = port_kernel_launches()
+    spf = 2 * model.decoder.generator.total_upsample
+    if not np.isfinite(first.audio).all() or first.audio.shape[0] != frames * spf:
+        raise SystemExit(f"chip_smoke: Kokoro audio {first.audio.shape} for {frames} frames")
+    wall = sum(walls) / len(walls)
+    from mlx_audio_tpu_torch.tts.models.kokoro.kokoro import FRAME_BUCKETS, _bucket
+
+    log(f"[kokoro] {len(ps)} phonemes -> {frames} frames ({_bucket(frames, FRAME_BUCKETS)}-frame "
+        f"bucket), {audio_s:.2f} s of audio; {KOKORO_TIMED} runs after 1 warm-up: walls "
+        f"{', '.join(f'{w:.4f}' for w in walls)} s; mean {wall:.4f} s, RTF {wall / audio_s:.6f}; "
+        f"audio identical across runs, max|y| {np.abs(first.audio).max():.4f}")
+    log(f"[kokoro] peak memory {peak_gb:.2f} GB; the port's kernels launched "
+        f"{ {k: after[k] - before[k] for k in after} } (none is on this path)")
+    profile_one_run(lambda: model(ps, ref_s), "one Kokoro-82M synthesis")
+    profiled = profile_one_run.last
+    # the frame-rate BiLSTM (predictor.shared) alone, at this run's bucket
+    bucket = _bucket(frames, FRAME_BUCKETS)
+    width = model.config.hidden_dim + model.config.style_dim
+    en = torch.randn(1, bucket, width, generator=torch.Generator().manual_seed(6)).to(
+        model.device, torch.bfloat16)
+    valid = torch.tensor([frames], device=model.device)
+    with torch.inference_mode():
+        profile_one_run(lambda: model.predictor.shared(en, valid_len=valid).sum().item(),
+                        f"the frame-rate BiLSTM ({bucket} steps forward, {frames} back)")
+    bilstm = profile_one_run.last
+    pack = (np.random.default_rng(5).standard_normal((510, 1, 256)) * 0.1).astype(np.float32)
+    with tempfile.TemporaryDirectory() as d:
+        (Path(d) / "voices").mkdir()
+        np.savez(Path(d) / "voices" / "af_smoke.npz", voice=pack)
+        model.repo_id = d
+        text = "The quick brown fox jumps over the lazy dog."
+        results = list(model.generate(text, voice="af_smoke"))
+    if len(results) != 1 or not np.isfinite(results[0].audio).all() or results[0].samples <= 0:
+        raise SystemExit(f"chip_smoke: Kokoro generate gave {len(results)} segments")
+    r = results[0]
+    log(f"[kokoro] generate({text!r}, voice=af_smoke): {r.token_count} phonemes, "
+        f"{r.samples} samples ({r.audio_duration}), {r.processing_time_seconds:.3f} s, "
+        f"RTF {r.real_time_factor}, peak memory {r.peak_memory_usage} GiB")
+    del model
+    torch.cuda.empty_cache()
+    return {"phonemes": len(ps), "frames": frames, "audio_s": audio_s, "voiced": voiced[0],
+            "walls_s": walls, "rtf": wall / audio_s, "peak_gb": peak_gb,
+            "profiled": profiled, "frame_rate_bilstm": bilstm,
+            "port_kernel_launches": {k: after[k] - before[k] for k in after}}
+
+
 QUANT_SOURCE = "mlx_audio_tpu_torch/csrc/quant_matmul.cu"
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
                     help="comma-separated subset to run; a subset prints no result")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
     smi = phase_device()
@@ -1462,7 +1640,9 @@ def main():
         q6_launches = phase_qwen_6bit()
     if 7 in phases:
         r2_launches = phase_moss_slice()
-    if phases != {1, 2, 3, 4, 5, 6, 7}:
+    if 8 in phases:
+        kokoro = {"card_vs_cpu_f32": phase_kokoro_card_vs_cpu(), "bf16": phase_kokoro()}
+    if phases != {1, 2, 3, 4, 5, 6, 7, 8}:
         log(f"[device] {smi}")
         sys.exit(f"chip_smoke: ran phases {sorted(phases)} only; no result")
     record = {"kernels": [{
@@ -1508,6 +1688,7 @@ def main():
                  **{f"G{G}": {k: rtiming[case][k] for k in ("ms", "bound_ms", "plain_ms")}
                     for G, case in ((10, "merged20s_bf16"), (2, "merged4s_bf16"))}}})
     log(f"[device] {smi}")
+    print(json.dumps({"kokoro": kokoro}), flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["Linear", "Embedding", "Conv1d", "ConvTranspose1d", "LayerNorm",
-           "RMSNorm", "GroupNorm"]
+           "RMSNorm", "GroupNorm", "InstanceNorm"]
 
 
 def _he_uniform_(w: torch.Tensor, fan_in: int, generator) -> None:
@@ -194,3 +194,44 @@ class GroupNorm(nn.Module):
         var = (xf - mean).square().mean(dim=(1, 3), keepdim=True)
         y = ((xf - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
         return (y * self.weight.float() + self.bias.float()).to(x.dtype)
+
+
+class InstanceNorm(nn.Module):
+    """InstanceNorm1d over (N, L, C): statistics per (N, C) across L, in
+    float32, cast back to the input's dtype.
+
+    `valid_len` (N,) restricts the statistics to each row's first valid_len
+    positions, so that the bucket padding does not change the output. The
+    statistics are single-pass E[x²]−E[x]², as in the JAX layer (not
+    `F.instance_norm`, which is two-pass and takes no length mask)."""
+
+    def __init__(self, dims: int, eps: float = 1e-5, affine: bool = True, device=None):
+        super().__init__()
+        if affine:
+            self.weight = nn.Parameter(torch.empty(dims, device=device))
+            self.bias = nn.Parameter(torch.empty(dims, device=device))
+        else:
+            self.weight = self.bias = None
+        self.eps = eps
+
+    def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
+        if self.weight is not None:
+            self.weight.data.fill_(1.0)
+            self.bias.data.zero_()
+
+    def forward(self, x: torch.Tensor, valid_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+        xf = x.float()
+        if valid_len is None:
+            s1 = xf.mean(dim=-2, keepdim=True)
+            s2 = (xf * xf).mean(dim=-2, keepdim=True)
+        else:
+            pos = torch.arange(x.shape[-2], device=x.device)
+            m = (pos[None, :] < valid_len[:, None])[..., None]
+            cnt = valid_len.clamp(min=1).float()[:, None, None]
+            s1 = torch.where(m, xf, 0.0).sum(dim=-2, keepdim=True) / cnt
+            s2 = torch.where(m, xf * xf, 0.0).sum(dim=-2, keepdim=True) / cnt
+        var = (s2 - s1 * s1).clamp(min=0.0)
+        y = (xf - s1) * torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            y = y * self.weight.float() + self.bias.float()
+        return y.to(x.dtype)

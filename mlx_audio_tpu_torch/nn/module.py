@@ -17,7 +17,7 @@ from torch import nn
 
 from .layers import Conv1d, ConvTranspose1d
 
-__all__ = ["cast_floats", "load_jax_params", "init_weights"]
+__all__ = ["cast_floats", "load_jax_params", "init_weights", "jax_param_shapes"]
 
 
 def cast_floats(module: nn.Module, dtype=torch.bfloat16) -> nn.Module:
@@ -42,11 +42,34 @@ def _to_torch_layout(owner: nn.Module, name: str, w: np.ndarray) -> np.ndarray:
         if isinstance(owner, Conv1d):
             return np.transpose(w, (0, 2, 1))  # JAX (O, K, I) -> torch (O, I, K)
         if isinstance(owner, ConvTranspose1d):
-            return np.transpose(w, (2, 0, 1))  # JAX (O, K, I) -> torch (I, O, K)
+            # JAX (O, K, I/g) -> torch (I, O/g, K): output channel o of group
+            # j is row j·O/g + o in JAX and column o of row block j in torch
+            o, k, i_g = w.shape
+            g = owner.groups
+            return (w.reshape(g, o // g, k, i_g).transpose(0, 3, 1, 2)
+                    .reshape(g * i_g, o // g, k))
     if w.dtype == np.uint32:
         # packed quantized words: the same 32 bits, as torch's int32
         return w.view(np.int32)
     return w
+
+
+def jax_param_shapes(model: nn.Module) -> dict:
+    """Each parameter's shape in the JAX package's layout, the layout
+    `load_jax_params` takes: convolutions (O, K, I/groups)."""
+    modules = dict(model.named_modules())
+    shapes = {}
+    for key, p in model.named_parameters():
+        owner = modules[key.rpartition(".")[0]]
+        shape = tuple(p.shape)
+        if key.endswith("weight") and p.ndim == 3:
+            if isinstance(owner, Conv1d):
+                shape = (shape[0], shape[2], shape[1])
+            elif isinstance(owner, ConvTranspose1d):
+                g = owner.groups
+                shape = (shape[1] * g, shape[2], shape[0] // g)
+        shapes[key] = shape
+    return shapes
 
 
 def load_jax_params(model: nn.Module, flat: Mapping[str, np.ndarray],
@@ -78,10 +101,13 @@ def load_jax_params(model: nn.Module, flat: Mapping[str, np.ndarray],
                 f"Model parameters missing from checkpoint ({len(missing)}): "
                 f"{missing[:10]}{'...' if len(missing) > 10 else ''}"
             )
+    # by registry name: `getattr` would find a method where a submodule is
+    # named `forward` (the JAX package's BiLSTM)
+    modules = dict(model.named_modules())
     converted = {}
     for key, w in flat.items():
         owner_path, _, name = key.rpartition(".")
-        owner = model.get_submodule(owner_path) if owner_path else model
+        owner = modules[owner_path]
         w = _to_torch_layout(owner, name, np.asarray(w))
         p = params[key]
         w_int = w.dtype.kind in "iub"

@@ -1,4 +1,5 @@
-"""Shared TTS result type (counterpart of `mlx_audio_tpu/tts/models/base.py`)."""
+"""Shared TTS result type and checkpoint helpers (counterpart of
+`mlx_audio_tpu/tts/models/base.py`)."""
 
 from __future__ import annotations
 
@@ -7,7 +8,10 @@ from typing import Any
 
 import torch
 
-__all__ = ["GenerationResult", "format_duration", "peak_memory_gb"]
+from ...nn.sanitize import orient_to  # re-export, as the JAX package's base
+
+__all__ = ["GenerationResult", "check_array_shape", "format_duration", "orient_to",
+           "peak_memory_gb"]
 
 
 def peak_memory_gb(peak_bytes: int) -> float:
@@ -44,3 +48,13 @@ def format_duration(seconds: float) -> str:
     secs = int(seconds % 60)
     ms = int((seconds % 1) * 1000)
     return f"{hours:02d}:{mins:02d}:{secs:02d}.{ms:03d}"
+
+
+def check_array_shape(arr) -> bool:
+    """Heuristic: is a conv weight already in (out, k, in) layout?
+    (The same check the reference uses for an idempotent sanitize.)"""
+    shape = arr.shape
+    if len(shape) != 3:
+        return False
+    out_channels, kH, kW = shape
+    return (out_channels >= kH) and (out_channels >= kW) and (kH == kW)

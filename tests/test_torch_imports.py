@@ -67,6 +67,7 @@ def test_static_scan_of_imports():
 def _tiny_entry_points():
     from mlx_audio_tpu_torch.sts.models.mossformer2_se import Model as MossFormer2SE
     from mlx_audio_tpu_torch.stt.models.whisper import Model as Whisper
+    from mlx_audio_tpu_torch.tts.models.kokoro import Model as Kokoro
     from mlx_audio_tpu_torch.tts.models.qwen3_tts import Model as Qwen3TTS
 
     whisper = dict(n_mels=80, n_audio_ctx=8, n_audio_state=16, n_audio_head=2,
@@ -83,7 +84,14 @@ def _tiny_entry_points():
             intermediate_size=32, head_dim=8, num_attention_heads=2, num_key_value_heads=2,
             num_hidden_layers=1, num_quantizers=2, upsample_rates=[2], upsampling_ratios=[2])))
     mossformer2_se = dict(in_channels=12, out_channels=16, num_blocks=1, num_mels=4)
-    return [(Whisper, whisper), (Qwen3TTS, qwen3), (MossFormer2SE, mossformer2_se)]
+    kokoro = dict(istftnet=dict(
+        resblock_kernel_sizes=[3], upsample_rates=[2], upsample_initial_channel=8,
+        resblock_dilation_sizes=[[1]], upsample_kernel_sizes=[4], gen_istft_n_fft=4,
+        gen_istft_hop_size=1), dim_in=8, hidden_dim=8, style_dim=4, n_layer=1, max_dur=4,
+        plbert=dict(hidden_size=8, num_attention_heads=2, intermediate_size=8,
+                    max_position_embeddings=16, num_hidden_layers=1, embedding_size=8))
+    return [(Whisper, whisper), (Qwen3TTS, qwen3), (MossFormer2SE, mossformer2_se),
+            (Kokoro, kokoro)]
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

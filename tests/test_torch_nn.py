@@ -12,7 +12,8 @@ import jax.numpy as jnp
 
 from mlx_audio_tpu.nn import layers as jl
 from mlx_audio_tpu.nn.module import flatten_params
-from mlx_audio_tpu_torch.nn import Conv1d, Embedding, LayerNorm, Linear, load_jax_params
+from mlx_audio_tpu_torch.nn import (Conv1d, ConvTranspose1d, Embedding, InstanceNorm, LayerNorm,
+                                    Linear, load_jax_params)
 from mlx_audio_tpu_torch.nn.module import cast_floats
 
 ATOL = 1e-5
@@ -66,6 +67,53 @@ def test_conv1d_nlc_strided():
                    Conv1d(12, 20, 3, stride=2, padding=1, device="cpu"), rng)
     assert tuple(p.weight.shape) == (20, 12, 3)
     _compare(j, p, rng.standard_normal((2, 31, 12)).astype(np.float32))
+
+
+@pytest.mark.parametrize("groups", [1, 2, 8])
+def test_conv_transpose1d_grouped(groups):
+    """k = 3, stride 2, padding 1 at groups 1, 2 and C (the depthwise pool of
+    Kokoro's upsampling AdainResBlk1d): the bridge turns the JAX (O, K, I/g)
+    weight into torch's (I, O/g, K) group by group. Same float32
+    operations on both sides, so 1e-6."""
+    rng = np.random.default_rng(10 + groups)
+    j, p = _bridge(jl.ConvTranspose1d(8, 8, 3, stride=2, padding=1, groups=groups),
+                   ConvTranspose1d(8, 8, 3, stride=2, padding=1, groups=groups,
+                                   device="cpu"), rng)
+    assert tuple(p.weight.shape) == (8, 8 // groups, 3)
+    x = rng.standard_normal((2, 9, 8)).astype(np.float32)
+    ref = np.asarray(j(jnp.asarray(x)))
+    with torch.no_grad():
+        out = p(torch.from_numpy(x)).numpy()
+    assert out.shape == ref.shape == (2, 17, 8)
+    np.testing.assert_allclose(out, ref, atol=1e-6)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_instance_norm(masked):
+    """Single-pass masked statistics in float32: with valid_len only the
+    first valid_len positions of each row count, as in the JAX layer."""
+    rng = np.random.default_rng(5)
+    j, p = _bridge(jl.InstanceNorm(12), InstanceNorm(12, device="cpu"), rng)
+    x = (rng.standard_normal((3, 20, 12)) * 2 + 0.5).astype(np.float32)
+    vl = np.array([20, 7, 1], np.int32) if masked else None
+    ref = np.asarray(j(jnp.asarray(x), None if vl is None else jnp.asarray(vl)))
+    with torch.no_grad():
+        out = p(torch.from_numpy(x), None if vl is None else torch.from_numpy(vl)).numpy()
+    np.testing.assert_allclose(out, ref, atol=ATOL)
+
+
+def test_instance_norm_bf16_without_affine():
+    rng = np.random.default_rng(6)
+    j, p = jl.InstanceNorm(16, affine=False), InstanceNorm(16, affine=False, device="cpu")
+    x = rng.standard_normal((2, 30, 16)).astype(np.float32)
+    vl = np.array([30, 11], np.int32)
+    ref = np.asarray(j(jnp.asarray(x, jnp.bfloat16), jnp.asarray(vl)).astype(jnp.float32))
+    with torch.no_grad():
+        out = p(torch.from_numpy(x).bfloat16(), torch.from_numpy(vl))
+    assert out.dtype == torch.bfloat16 and not list(p.parameters())
+    # float32 statistics on both sides, one bf16 rounding of the output:
+    # a summation-order difference may move it by one bf16 ulp (2^-7)
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=2 ** -7, atol=1e-6)
 
 
 def test_layernorm():
