@@ -36,12 +36,21 @@ Phases, each printing its own lines:
      over 5 runs, identical audio across runs, peak memory), one profiled
      run (device time, launches, idle share, the LSTMs' share), and
      `Model.generate` with a seeded voice pack. No kernel of the port is on
-     this path.
-Phase 2 also holds the ReLU² attention kernel to its plain version, and
-phase 3 a one-block MossFormer2-SE on the card to the CPU.
-The line before the last holds the kernels' JSON record, the line before
-it phase 8's numbers ({"kokoro": ...}); the last line is
-{"ok": true, "device": {...}}. Any failure raises and exits non-zero. It
+     this path;
+  9. the rest of Whisper on the phase 4 model in bf16: the seek loop
+     (`generate`) on 120 s at bench.py's serving settings and on 30 s at its
+     defaults, conditioned long-form on 600 s at bench.py's settings, beam
+     search (K = 5), word timing through `generate_chunked` and `generate`,
+     AlignAtt streaming in 1 s chunks, and the five writers; every step's
+     flash launches held to a count derived from the code.
+Phase 2 also holds the ReLU² attention kernel to its plain version and
+flash at B = 1; phase 3 a one-block MossFormer2-SE on the card to the CPU,
+and Whisper's score pass, seek loop and beam search card against CPU.
+Phase 5 ends with the unquantized bf16 Qwen3-TTS (bench.py's
+`bench_qwen3_tts()`). The lines before the last hold phase 8's numbers
+({"kokoro": ...}), the bf16 Qwen3-TTS step's ({"qwen3_bf16": ...}), phase
+9's ({"whisper_rest": ...}) and the kernels' JSON record, in that order;
+the last line is {"ok": true, "device": {...}}. Any failure raises and exits non-zero. It
 needs one CUDA card and the checkout's `mlx_audio_tpu_torch/` package.
 `--phases 1,2` runs a subset (a first check of new kernels); the default
 runs all of them.
@@ -89,6 +98,10 @@ BF16_REL = 5e-3
 # float32 on both sides, TF32 off; measured ~5e-6 on O(1) activations. A
 # card path that ran its matmuls in TF32 (~1e-3 relative) fails it.
 CARD_VS_CPU_ATOL = 1e-4
+# Tokens of a card and a CPU decode may part only at a near-tie: two runs
+# whose logits each lie within CARD_VS_CPU_ATOL of the exact ones can swap
+# two candidates closer than twice that, and no others.
+TOKEN_TIE_BAR = 2 * CARD_VS_CPU_ATOL
 WARMUP_RUNS, TIMED_RUNS = 3, 7
 
 # Quantized kernels against their plain versions. Both sum in float32 in
@@ -110,7 +123,7 @@ L2_BYTES = 50e6  # the H100's L2: timed weights cycle through twice this
 QWEN_TEXT = ("The quick brown fox jumps over the lazy dog while the "
              "synthesis model turns text into speech. " * 3).strip()
 QWEN_FRAMES, QWEN_FRAMES_6BIT, QWEN_PROFILE_FRAMES = 256, 32, 16
-QWEN_WARMUP, QWEN_TIMED = 1, 3
+QWEN_WARMUP, QWEN_TIMED = 1, 2
 # card (kernels) against CPU (dequantize + matmul), float32, TF32 off
 QWEN_CARD_VS_CPU_ATOL = 1e-4
 
@@ -151,7 +164,7 @@ MOSS_CARD_VS_CPU_REL = 1e-4
 # windows); from 60 s, 4 s chunks at a 3 s stride, the tail its own chunk
 # (90 s: 29 chunks and a 3 s one)
 MOSS_REQUESTS = [(20.0, "one shot", 1), (30.0, "segmented", 10), (90.0, "chunked", 30)]
-MOSS_WARMUP, MOSS_TIMED = 2, 5
+MOSS_WARMUP, MOSS_TIMED = 1, 3
 
 # Kokoro-82M: bench.py's configuration, vocabulary and phonemes (copied:
 # bench.py imports jax)
@@ -302,6 +315,10 @@ def phase_kernels():
     cases = [  # name, B, H, T, S, D, dtype, causal
         ("whisper_bf16", 4, 20, 1500, 1500, 64, bf16, False),
         ("whisper_f32", 4, 20, 1500, 1500, 64, f32, False),
+        # B = 1: one 30 s window, as the seek loop, streaming and word timing
+        # encode it
+        ("whisper_b1_bf16", 1, 20, 1500, 1500, 64, bf16, False),
+        ("whisper_b1_f32", 1, 20, 1500, 1500, 64, f32, False),
         ("ragged_bf16", 2, 20, 700, 1500, 64, bf16, False),
         ("ragged_f32", 1, 4, 700, 1500, 64, f32, False),
         ("causal_bf16", 2, 20, 1500, 1500, 64, bf16, True),
@@ -334,19 +351,24 @@ def phase_kernels():
             planted_mask_check(q, k, v, flash_attention_reference)
 
     timing = {}
-    for name, dtype in (("whisper_bf16", bf16), ("whisper_f32", f32)):
-        B, H, T, S, D = 4, 20, 1500, 1500, 64
+    for name, B, dtype in (("whisper_bf16", 4, bf16), ("whisper_f32", 4, f32),
+                           ("whisper_b1_bf16", 1, bf16), ("whisper_b1_f32", 1, f32)):
+        H, T, S, D = 20, 1500, 1500, 64
         q, k, v = attention_inputs(B, H, T, S, D, dtype, seed=100)
-        ms = time_ms(lambda: flash_attention(q, k, v))
+        # device time: at B = 1 the kernel is shorter than a Python launch
+        # (ctypes and the per-call tensor maps), which CUDA events around a
+        # loop of launches would measure instead
+        ms, loop = device_ms([lambda: flash_attention(q, k, v)], 40)
         plain = time_ms(lambda: flash_attention_reference(q, k, v), iters=5)
-        lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        lib, _ = device_ms([lambda: F.scaled_dot_product_attention(q, k, v)], 40)
         bound, by = attention_bound_ms(B, H, T, S, D, dtype, False)
         timing[name] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
-                            bound_by=by)
-        log(f"[time] flash_attention {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"F.sdpa {lib:.4f} ms, bound {bound:.4f} ms ({by}); "
+                            bound_by=by, host_loop_ms=loop)
+        log(f"[time] flash_attention {name} B={B}, device time per call: kernel {ms:.4f} ms, "
+            f"plain {plain:.4f} ms, F.sdpa {lib:.4f} ms, bound {bound:.4f} ms ({by}); "
             f"kernel at {100 * bound / ms:.1f}% of bound, "
-            f"{'faster' if ms < lib else 'slower'} than F.sdpa")
+            f"{'faster' if ms < lib else 'slower'} than F.sdpa; a Python loop of launches "
+            f"takes {loop:.4f} ms a call")
     return errs, timing
 
 
@@ -361,7 +383,7 @@ def phase_card_vs_cpu():
     mel, _ = cpu._mel_chunks_device(audio)
     mel_card, _ = card._mel_chunks_device(audio)
     mel_err = (mel_card.cpu() - mel).abs().max().item()
-    xa_c, kv_c = cpu._encode(mel[:1])
+    xa_c, kv_c = cpu._encode(mel[:1])  # the seek loop's first window
     xa_g, kv_g = card._encode(mel[:1].cuda())
     prompt = torch.tensor([[50258, 50259, 50360, 50364]])
     with torch.inference_mode():
@@ -372,11 +394,61 @@ def phase_card_vs_cpu():
     log(f"[card-vs-cpu] 2+2-layer Whisper at full width, f32: mel max|d|={mel_err:.3e}, "
         f"encoder max|d|={enc_err:.3e}, prefill logits max|d|={lg_err:.3e} "
         f"(atol {CARD_VS_CPU_ATOL:g})")
-    for what, err in (("mel", mel_err), ("encoder", enc_err), ("logits", lg_err)):
+    # the score-capturing pass word timing reads (B = 1, one flash per layer)
+    text = torch.tensor([[50258, 50259, 50360, 50364] + list(range(1000, 1040, 3))])
+    qlg_c, qks_c = cpu.forward_with_cross_qk(mel[:1], text)
+    qlg_g, qks_g = card.forward_with_cross_qk(mel[:1].cuda(), text.cuda())
+    qlg_err = (qlg_g.cpu() - qlg_c).abs().max().item()
+    qk_err = max((g.cpu() - c).abs().max().item() for g, c in zip(qks_g, qks_c))
+    log(f"[card-vs-cpu] forward_with_cross_qk over {text.shape[1]} tokens: logits "
+        f"max|d|={qlg_err:.3e}, cross-attention scores max|d|={qk_err:.3e} "
+        f"(atol {CARD_VS_CPU_ATOL:g})")
+    for what, err in (("mel", mel_err), ("encoder", enc_err), ("logits", lg_err),
+                      ("cross-qk logits", qlg_err), ("cross-qk scores", qk_err)):
         if not err <= CARD_VS_CPU_ATOL:
             raise SystemExit(f"chip_smoke: card vs CPU {what} max|d| {err}")
+    whisper_tokens_card_vs_cpu(cpu, card, audio, kv_c)
     del cpu, card
     torch.cuda.empty_cache()
+
+
+def whisper_tokens_card_vs_cpu(cpu, card, audio, kv_c) -> None:
+    """The seek loop (greedy) and beam search (K = 3) on one 30 s window at
+    sample_len=16, card against CPU. Where the tokens part, the CPU model's
+    logits after the common prefix show whether it was a near-tie: the
+    logits of the two tokens chosen must lie within TOKEN_TIE_BAR (beam
+    search: the two winners' summed log-probs)."""
+    from mlx_audio_tpu_torch.stt.models.whisper.tokenizer import DummyTokenizer
+
+    tok = DummyTokenizer(n_vocab=TURBO["n_vocab"])
+    kw = dict(language="en", temperature=0.0, sample_len=16, without_timestamps=True,
+              tokenizer=tok)
+    prompt = list(tok.sot_sequence_including_notimestamps)
+    for label, run in (
+            ("seek loop", lambda m: m.generate(audio, condition_on_previous_text=False, **kw)),
+            ("beam K=3", lambda m: m.generate_chunked(audio, beam_size=3, **kw))):
+        got, ref = run(card).segments, run(cpu).segments
+        a, b = got[0]["tokens"], ref[0]["tokens"]
+        if len(got) != 1 or len(ref) != 1 or len(b) != 16:
+            raise SystemExit(f"chip_smoke: {label} gave {len(got)} and {len(ref)} windows")
+        if a == b:
+            log(f"[card-vs-cpu] {label}: 16 tokens identical on the card and the CPU")
+            continue
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        with torch.inference_mode():
+            lg = cpu.decoder(torch.tensor([prompt + b[:i]]), 0, None, kv_c)[0][0, -1].float()
+        top = lg.topk(2).values
+        margin = (top[0] - top[1]).item()
+        if label == "seek loop":
+            gap = abs(lg[a[i]] - lg[b[i]]).item() if i < min(len(a), len(b)) else float("inf")
+        else:
+            gap = abs(got[0]["avg_logprob"] * (len(a) + 1) - ref[0]["avg_logprob"] * (len(b) + 1))
+        log(f"[card-vs-cpu] {label}: the card and the CPU part at step {i} (card {a[i:i + 3]}, "
+            f"CPU {b[i:i + 3]}); top-2 logit margin there {margin:.3e}, gap between the "
+            f"two choices {gap:.3e} (bar {TOKEN_TIE_BAR:g})")
+        if not gap <= TOKEN_TIE_BAR:
+            raise SystemExit(f"chip_smoke: {label} tokens part at step {i} with a gap of "
+                             f"{gap}, not a near-tie")
 
 
 def phase_slice():
@@ -973,8 +1045,9 @@ def qwen_predicate(path, m):
 
 def qwen_model(bits, device="cuda", dtype=torch.bfloat16, seed=0, **depth):
     """Qwen3-TTS at the published 0.6B widths (`ModelConfig.from_dict({})`),
-    quantized and row-stacked as bench.py builds it; `depth` may cut the
-    layer counts (talker, code_predictor, codec)."""
+    quantized and row-stacked as bench.py builds it (`bits=None`: not
+    quantized, as `bench_qwen3_tts()`); `depth` may cut the layer counts
+    (talker, code_predictor, codec)."""
     from mlx_audio_tpu_torch.nn.quantized import fuse_quantized_projections, quantize_module
     from mlx_audio_tpu_torch.tts.models.qwen3_tts import Model, ModelConfig
 
@@ -984,8 +1057,9 @@ def qwen_model(bits, device="cuda", dtype=torch.bfloat16, seed=0, **depth):
         cfg.talker_config.code_predictor_config.num_hidden_layers = depth["code_predictor"]
         cfg.tokenizer_config.decoder_config.num_hidden_layers = depth["codec"]
     model = Model(cfg, device=device, dtype=dtype, seed=seed)
-    quantize_module(model, bits=bits, predicate=qwen_predicate)
-    fuse_quantized_projections(model)
+    if bits is not None:
+        quantize_module(model, bits=bits, predicate=qwen_predicate)
+        fuse_quantized_projections(model)
     model.set_runtime(tokenizer=AsciiTok())
     return model
 
@@ -1158,7 +1232,7 @@ def check_synthesis(results, frames, codes_seen, model, label):
 
 
 def phase_qwen_slice():
-    """Qwen3-TTS 0.6B int4: 256 frames through `generate`, 1 warm-up and 3
+    """Qwen3-TTS 0.6B int4: 256 frames through `generate`, 1 warm-up and 2
     timed runs, launches held to the routing table's each run."""
     from mlx_audio_tpu_torch.ops.cuda import quant_matmul as qk
 
@@ -1201,6 +1275,49 @@ def phase_qwen_slice():
     del model, run, short
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_qwen_bf16():
+    """Qwen3-TTS 0.6B unquantized in bf16, as `bench_qwen3_tts()` runs it:
+    256 frames, temperature 0.9, top_k 50, seed 0; the median of
+    QWEN_TIMED runs after a warm-up, and no launch of any quantized kernel."""
+    from mlx_audio_tpu_torch.ops.cuda import quant_matmul as qk
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = qwen_model(None)
+    n_params = sum(p.numel() for p in model.parameters())
+    frames = QWEN_FRAMES
+    codes_seen = []
+    run = qwen_run(model, frames, codes_seen)
+    t0 = time.perf_counter()
+    run()
+    log(f"[qwen3-bf16] Qwen3-TTS 0.6B widths, bf16, not quantized, {n_params / 1e6:.1f} M "
+        f"params; warm-up wall {time.perf_counter() - t0:.4f} s")
+    torch.cuda.reset_peak_memory_stats()
+    qk.reset_launches()
+    walls = []
+    for _ in range(QWEN_TIMED):
+        t0 = time.perf_counter()
+        results = run()
+        walls.append(time.perf_counter() - t0)
+        check_synthesis(results, frames, codes_seen, model, "qwen3 bf16")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    quant = {"qmm_qmlp": quant_counts(4), "qmm6": quant_counts(6)}
+    if any(n for counts in quant.values() for n in counts.values()):
+        raise SystemExit(f"chip_smoke: the unquantized model launched quantized kernels {quant}")
+    audio_s = results[0].samples / model.sample_rate
+    med = statistics.median(walls)
+    log(f"[qwen3-bf16] {frames} frames = {audio_s:.2f} s of audio, {QWEN_TIMED} runs after "
+        f"{QWEN_WARMUP} warm-up: "
+        f"walls {', '.join(f'{w:.4f}' for w in walls)} s; median RTF {med / audio_s:.4f}, "
+        f"{frames / med:.1f} talker frames/s; peak memory {peak_gb:.2f} GB; quantized "
+        f"kernel launches {quant}; codes identical across {len(codes_seen)} runs")
+    del model, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"frames": frames, "audio_s": audio_s, "walls_s": walls, "rtf": med / audio_s,
+            "frames_per_s": frames / med, "peak_gb": peak_gb, "quantized_launches": quant}
 
 
 def phase_qwen_6bit():
@@ -1408,7 +1525,7 @@ def phase_moss_card_vs_cpu():
 
 def phase_moss_slice():
     """MossFormer2-SE 48 kHz at full width, f32: three requests through
-    `Model.enhance`, 2 warm-ups and 5 timed runs each; the ReLU² kernel's
+    `Model.enhance`, 1 warm-up and 3 timed runs each; the ReLU² kernel's
     launches of one pass over the three held to the prediction."""
     from mlx_audio_tpu_torch.ops.cuda.relu2_attention import relu2_attention
     from mlx_audio_tpu_torch.sts.models.mossformer2_se import Model
@@ -1615,12 +1732,267 @@ def phase_kokoro():
             "port_kernel_launches": {k: after[k] - before[k] for k in after}}
 
 
+# Phase 9: the rest of Whisper (the seek loop, beam search, word timing,
+# streaming, writers) at full width in bf16, on the phase 4 model
+REST_SEEK_S, REST_DEFAULTS_S, REST_LONG_S, REST_STREAM_S = 120.0, 30.0, 600.0, 10.0
+REST_TIMED = 3
+
+
+def noise(seconds, seed):
+    return (np.random.default_rng(seed).standard_normal(int(16000 * seconds)) * 0.05
+            ).astype(np.float32)
+
+
+def check_words(out, label) -> int:
+    """Every word has start <= end; within a segment the starts and the ends
+    do not decrease, and all lie inside the segment's 30 s window (to the
+    0.01 s the times are rounded to). Returns the number of words."""
+    n = 0
+    for s in out.segments:
+        lo = s["seek"] / 100.0
+        ws = s["words"]
+        n += len(ws)
+        for w in ws:
+            if not (w["start"] <= w["end"] and lo - 0.01 <= w["start"]
+                    and w["end"] <= lo + 30.0 + 0.01):
+                raise SystemExit(f"chip_smoke: {label} word {w} outside [{lo}, {lo + 30}]")
+        for a, b in zip(ws, ws[1:]):
+            if b["start"] < a["start"] or b["end"] < a["end"]:
+                raise SystemExit(f"chip_smoke: {label} word times decrease: {a}, {b}")
+    return n
+
+
+def phase_whisper_rest():
+    """Whisper-large-v3-turbo in bf16 (the phase 4 model, seeded weights) through
+    every route the port added after `generate_chunked`: the seek loop at
+    `bench_whisper_serving`'s settings and at its defaults, conditioned
+    long-form at `bench_whisper_conditioned`'s, beam search, word timing
+    through both entry points, AlignAtt streaming and the writers. Each
+    step's flash launches are held to a count derived from the code: one
+    launch per encoder layer per encoder pass, and one encoder pass per seek
+    window (two with word timing), per chunked group (word timing reuses
+    its K/V), per conditioned decode group, per streamed chunk."""
+    import tempfile
+
+    from mlx_audio_tpu_torch.ops.cuda.flash_attention import flash_attention
+    from mlx_audio_tpu_torch.stt.models.whisper import Model, ModelDimensions
+    from mlx_audio_tpu_torch.stt.models.whisper import streaming, whisper
+    from mlx_audio_tpu_torch.stt.models.whisper.tokenizer import DummyTokenizer
+    from mlx_audio_tpu_torch.stt.models.whisper.writers import get_writer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = Model(ModelDimensions(**TURBO), dtype=torch.bfloat16, seed=0)
+    tok = DummyTokenizer(n_vocab=TURBO["n_vocab"])
+    L = TURBO["n_audio_layer"]
+    rec = {}
+
+    # every decode call of the entry points, by its temperature: the seek
+    # loop makes one or more per window, the chunked path one per group
+    decodes = []
+
+    def spy(fn):
+        def wrapped(*args, **kw):
+            decodes.append(args[4].temperature)
+            return fn(*args, **kw)
+        return wrapped
+
+    decode_window, decode_window_batch = whisper.decode_window, whisper.decode_window_batch
+    whisper.decode_window = spy(decode_window)
+    whisper.decode_window_batch = spy(decode_window_batch)
+
+    def counted(run):
+        decodes.clear()
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, flash_attention.launches, list(decodes)
+
+    def hold(label, launches, predicted, why):
+        log(f"[rest] {label}: flash launches {launches}, predicted {predicted} ({why})")
+        if launches != predicted:
+            raise SystemExit(f"chip_smoke: {label} launched flash {launches} times, "
+                             f"predicted {predicted}")
+
+    def tokens(out):
+        return [s["tokens"] for s in out.segments]
+
+    def timed(label, run, seconds, predict, runs=REST_TIMED):
+        """1 warm-up and `runs` counted runs: launches held each run,
+        tokens equal across runs; returns (last output, walls)."""
+        counted(run)
+        outs, walls = [], []
+        for _ in range(runs):
+            out, wall, n, dec = counted(run)
+            hold(label, n, *predict(out, dec))
+            outs.append(out)
+            walls.append(wall)
+        if any(tokens(o) != tokens(outs[0]) for o in outs):
+            raise SystemExit(f"chip_smoke: {label}: repeated runs disagree")
+        med = statistics.median(walls)
+        log(f"[rest] {label}: {runs} runs after 1 warm-up, walls "
+            f"{', '.join(f'{w:.4f}' for w in walls)} s; median {med:.4f} s = "
+            f"{seconds / med:.1f}x real time; tokens identical across runs")
+        return outs[-1], walls
+
+    # 1. the seek loop at bench_whisper_serving's settings
+    a120 = noise(REST_SEEK_S, 0)
+    windows = -(-len(a120) // 160 // 3000)  # content frames / N_FRAMES, rounded up
+    seek_kw = dict(language="en", temperature=0.0, condition_on_previous_text=False,
+                   no_speech_threshold=None, without_timestamps=True, sample_len=96,
+                   tokenizer=tok)
+    seek, walls = timed(
+        f"seek loop, {REST_SEEK_S:g} s", lambda: model.generate(a120, **seek_kw), REST_SEEK_S,
+        lambda out, dec: (L * len(dec), f"{L} per window, {len(dec)} windows decoded, "
+                                        f"{windows} expected"))
+    if len(seek.segments) != windows or any(len(t) != 96 for t in tokens(seek)):
+        raise SystemExit(f"chip_smoke: seek loop gave {[len(t) for t in tokens(seek)]}")
+    med = statistics.median(walls)
+    _, seen = profile_one_run(lambda: model.generate(a120, **seek_kw),
+                              f"one {REST_SEEK_S:g} s seek-loop transcription")
+    flash = {k: n for k, (n, _) in seen.items() if "flash_fwd_bf16" in k}
+    if seen and list(flash.values()) != [L * windows]:
+        raise SystemExit(f"chip_smoke: the seek-loop profile shows flash kernels {flash}")
+    chunk_kw = dict(language="en", temperature=0.0, tokenizer=tok, without_timestamps=True,
+                    sample_len=96)
+    greedy, cwalls = timed(f"chunked, {REST_SEEK_S:g} s (same call)",
+                           lambda: model.generate_chunked(a120, **chunk_kw), REST_SEEK_S,
+                           lambda out, dec: (L, "one group of 4 windows"))
+    cmed = statistics.median(cwalls)
+    log(f"[rest] seek loop {REST_SEEK_S / med:.1f}x real time against chunked "
+        f"{REST_SEEK_S / cmed:.1f}x in this call: chunked is {med / cmed:.2f}x faster")
+    rec["seek_loop"] = {"audio_s": REST_SEEK_S, "walls_s": walls, "xrt": REST_SEEK_S / med,
+                        "flash_launches": L * windows, "profiled": profile_one_run.last,
+                        "chunked_walls_s": cwalls, "chunked_xrt": REST_SEEK_S / cmed}
+
+    # 2. the seek loop at its defaults: timestamps, conditioning, the
+    # six-temperature fallback
+    a30 = noise(REST_DEFAULTS_S, 2)
+    out, wall, n, dec = counted(lambda: model.generate(a30, language="en", tokenizer=tok,
+                                                        sample_len=96))
+    starts = [i for i, t in enumerate(dec) if t == 0.0]
+    tried = [dec[i:j] for i, j in zip(starts, starts[1:] + [len(dec)])]
+    hold("seek loop defaults, 30 s", n, L * len(starts),
+         f"{L} per window, {len(starts)} windows")
+    log(f"[rest] seek loop defaults, 30 s: wall {wall:.4f} s, {len(out.segments)} segments; "
+        f"temperatures tried per window {tried}, each window ended at "
+        f"{[t[-1] for t in tried]}")
+    rec["seek_defaults"] = {"audio_s": REST_DEFAULTS_S, "wall_s": wall, "windows": len(starts),
+                            "temperatures": tried, "segments": len(out.segments)}
+
+    # 3. conditioned long-form at bench_whisper_conditioned's settings
+    a600 = noise(REST_LONG_S, 1)
+    long_kw = dict(language="en", temperature=0.0, tokenizer=tok, without_timestamps=True,
+                   sample_len=96, condition_on_previous_text=True, max_sweeps=2,
+                   strict_conditioning=False)
+    long, lwalls = timed(
+        f"conditioned long-form, {REST_LONG_S:g} s",
+        lambda: model.generate_chunked(a600, **long_kw), REST_LONG_S,
+        lambda out, dec: (L * len(dec), f"{L} per decode group, {len(dec)} groups over "
+                                        f"{out.extra['sweeps']} sweeps"))
+    rec["conditioned"] = {"audio_s": REST_LONG_S, "walls_s": lwalls,
+                          "xrt": REST_LONG_S / statistics.median(lwalls),
+                          "sweeps": long.extra["sweeps"], "windows": len(long.segments)}
+
+    # 4. beam search
+    beam_runs = []
+    for _ in range(2):
+        out, wall, n, dec = counted(lambda: model.generate_chunked(a120, beam_size=5,
+                                                                    **chunk_kw))
+        hold("beam 5, 120 s", n, L, "one group of 4 windows x 5 beams")
+        beam_runs.append((out, wall))
+    if tokens(beam_runs[0][0]) != tokens(beam_runs[1][0]):
+        raise SystemExit("chip_smoke: beam search: repeated runs disagree")
+    beam1 = model.generate_chunked(a120, beam_size=1, **chunk_kw)
+    if tokens(beam1) != tokens(greedy):
+        raise SystemExit("chip_smoke: beam_size=1 does not give the greedy tokens")
+    log(f"[rest] beam 5, 120 s: walls {', '.join(f'{w:.4f}' for _, w in beam_runs)} s, "
+        f"tokens per window {[len(t) for t in tokens(beam_runs[0][0])]}, identical across "
+        f"the 2 runs; beam_size=1 gives the greedy tokens")
+    rec["beam5"] = {"audio_s": REST_SEEK_S, "walls_s": [w for _, w in beam_runs],
+                    "flash_launches": L}
+
+    # 5. word timing through both entry points
+    words_out, wall, n, dec = counted(lambda: model.generate_chunked(
+        a120, word_timestamps=True, **chunk_kw))
+    hold("chunked word timing, 120 s", n, L, "one group; DTW reuses its K/V")
+    n_words = check_words(words_out, "chunked word timing")
+    log(f"[rest] chunked word timing, 120 s: wall {wall:.4f} s, {n_words} words")
+    seek_words, swall, n, dec = counted(lambda: model.generate(
+        a30, word_timestamps=True, **seek_kw))
+    # without timestamps every window decodes text (EOT is never chosen), so
+    # every window takes an alignment pass
+    hold("seek-loop word timing, 30 s", n, 2 * L * len(dec),
+         f"{2 * L} per window: the window and its alignment pass, {len(dec)} windows")
+    n_seek_words = check_words(seek_words, "seek-loop word timing")
+    if not n_seek_words:
+        raise SystemExit("chip_smoke: the seek loop's word timing gave no words")
+    log(f"[rest] seek-loop word timing, 30 s: wall {swall:.4f} s, {len(dec)} windows, "
+        f"{n_seek_words} words")
+    rec["word_timing"] = {"chunked_wall_s": wall, "chunked_words": n_words,
+                          "seek_wall_s": swall, "seek_windows": len(dec),
+                          "seek_words": n_seek_words}
+
+    # 6. AlignAtt streaming, 1 s chunks
+    a10 = noise(REST_STREAM_S, 3)
+    chunk_walls = []
+    decode_chunk = streaming.StreamingDecoder.decode_chunk
+
+    def timed_chunk(self, *args, **kw):
+        t0 = time.perf_counter()
+        result = decode_chunk(self, *args, **kw)  # ends with a host read
+        chunk_walls.append(time.perf_counter() - t0)
+        return result
+
+    streaming.StreamingDecoder.decode_chunk = timed_chunk
+
+    def stream():
+        t0 = time.perf_counter()
+        first, results = None, []
+        for r in model.generate_streaming(a10, chunk_duration=1.0, language="en",
+                                          tokenizer=tok):
+            first = first if first is not None else time.perf_counter() - t0
+            results.append(r)
+        return results, first
+
+    stream()
+    chunk_walls.clear()
+    (results, first), wall, n, _ = counted(stream)
+    chunks = int(REST_STREAM_S)
+    hold("streaming, 10 s in 1 s chunks", n, L * chunks, f"{L} per chunk, {chunks} chunks")
+    if not results or not results[-1].is_final or len(chunk_walls) != chunks:
+        raise SystemExit(f"chip_smoke: streaming gave {len(results)} results over "
+                         f"{len(chunk_walls)} chunks")
+    log(f"[rest] streaming, 10 s: time to first result {first:.4f} s, wall {wall:.4f} s, "
+        f"per chunk {', '.join(f'{w:.4f}' for w in chunk_walls)} s; {len(results)} results, "
+        f"{sum(len(r.tokens) for r in results)} tokens")
+    rec["streaming"] = {"audio_s": REST_STREAM_S, "first_result_s": first, "wall_s": wall,
+                        "chunk_walls_s": list(chunk_walls), "results": len(results)}
+    streaming.StreamingDecoder.decode_chunk = decode_chunk
+    whisper.decode_window, whisper.decode_window_batch = decode_window, decode_window_batch
+
+    # 7. the writers, on step 5's chunked output
+    with tempfile.TemporaryDirectory() as d:
+        get_writer("all", d)(words_out, "phase9.wav")
+        sizes = {p.name: p.stat().st_size for p in sorted(Path(d).iterdir())}
+    if sorted(sizes) != [f"phase9.{e}" for e in ("json", "srt", "tsv", "txt", "vtt")] \
+            or not all(sizes.values()):
+        raise SystemExit(f"chip_smoke: the writers wrote {sizes}")
+    log(f"[rest] writers: {sizes} bytes")
+    rec["writers_bytes"] = sizes
+
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
 QUANT_SOURCE = "mlx_audio_tpu_torch/csrc/quant_matmul.cu"
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
                     help="comma-separated subset to run; a subset prints no result")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
     smi = phase_device()
@@ -1636,13 +2008,16 @@ def main():
         launches, launches_f32 = phase_slice()
     if 5 in phases:
         qlaunches = phase_qwen_slice()
+        qwen_bf16 = phase_qwen_bf16()
     if 6 in phases:
         q6_launches = phase_qwen_6bit()
     if 7 in phases:
         r2_launches = phase_moss_slice()
     if 8 in phases:
         kokoro = {"card_vs_cpu_f32": phase_kokoro_card_vs_cpu(), "bf16": phase_kokoro()}
-    if phases != {1, 2, 3, 4, 5, 6, 7, 8}:
+    if 9 in phases:
+        rest = phase_whisper_rest()
+    if phases != {1, 2, 3, 4, 5, 6, 7, 8, 9}:
         log(f"[device] {smi}")
         sys.exit(f"chip_smoke: ran phases {sorted(phases)} only; no result")
     record = {"kernels": [{
@@ -1652,6 +2027,14 @@ def main():
         "launches": n, "max_abs_err": errs[case], **timing[case],
     } for name, case, n in (("flash_attention", "whisper_bf16", launches),
                             ("flash_attention_f32", "whisper_f32", launches_f32))]}
+    # B = 1, one 30 s window: the seek loop's, streaming's and word timing's
+    # encoder passes (phase 9 runs them in bf16)
+    for entry, case in zip(record["kernels"], ("whisper_b1_bf16", "whisper_b1_f32")):
+        entry["b1"] = {"max_abs_err": errs[case], **timing[case]}
+    record["kernels"][0]["b1"]["launches"] = {
+        "seek_loop_120s": rest["seek_loop"]["flash_launches"],
+        "seek_word_timing_30s": 2 * TURBO["n_audio_layer"] * rest["word_timing"]["seek_windows"],
+        "streaming_10s": TURBO["n_audio_layer"] * int(REST_STREAM_S)}
     for name, replaces, n, err in (
             ("qmm", "mlx_audio_tpu/ops/pallas/quant_matmul.py:64", qlaunches["qmm"],
              qerrs["qkv_m1_f32"]),
@@ -1689,6 +2072,8 @@ def main():
                     for G, case in ((10, "merged20s_bf16"), (2, "merged4s_bf16"))}}})
     log(f"[device] {smi}")
     print(json.dumps({"kokoro": kokoro}), flush=True)
+    print(json.dumps({"qwen3_bf16": qwen_bf16}), flush=True)
+    print(json.dumps({"whisper_rest": rest}), flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

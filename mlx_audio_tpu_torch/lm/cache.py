@@ -40,6 +40,12 @@ class KVCache:
         self.pos += t
         return self.k, self.v, self
 
+    def reorder(self, idx: torch.Tensor) -> None:
+        """Gather batch rows in place (beam search): row b takes the
+        written part of row idx[b]. Every row shares `pos`."""
+        self.k[:, :, :self.pos] = self.k[idx, :, :self.pos]
+        self.v[:, :, :self.pos] = self.v[idx, :, :self.pos]
+
     def attention_mask(self, t: int) -> torch.Tensor:
         """Additive float32 mask (1, 1, t, max_len): causal within the new
         block and excluding not-yet-written positions."""

@@ -5,7 +5,8 @@ The JAX package compiles the autoregressive loop into one on-device
 `lax.while_loop`; here it is a plain Python loop over eager steps, with the
 same logit rules, the same greedy and sampled choices and the same
 bookkeeping. The stop test reads `done.all()` on the host once per step.
-Beam search (`_beam_decode_loop` / `_run_beam`) is not ported yet.
+Beam search (`_beam_decode_loop`) keeps its state on the device in the same
+way, with one host read a step for its own stop test.
 """
 
 from __future__ import annotations
@@ -16,10 +17,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-__all__ = ["DecodingOptions", "DecodingResult", "decode_window_batch"]
-
-_BEAM_TODO = ("beam search is not ported yet (ROADMAP Queue 1 item 6: "
-              "decoding.py _beam_decode_loop / _run_beam)")
+__all__ = ["DecodingOptions", "DecodingResult", "decode_window", "decode_window_batch"]
 
 
 @dataclass
@@ -206,6 +204,193 @@ def _decode_loop(
     return tokens_buf, step, sum_lp, no_speech_prob
 
 
+@torch.inference_mode()
+def _beam_decode_loop(
+    model,
+    caches,
+    cross_kv,
+    prompt,  # (G*K, Tp) int64: each window's prompt repeated K times
+    suppress_mask,  # (V,) bool
+    decoder_step,
+    sample_len: int,
+    n_ctx: int,
+    eot: int,
+    timestamp_begin: int,
+    no_timestamps: int,
+    blank: int,
+    no_speech: int,
+    without_timestamps: bool,
+    max_initial_ts_index: int,
+    beam_size: int,
+    max_candidates: int,  # round(beam_size * patience) finished hypotheses per group
+    sot_index: int = 0,
+):
+    """Beam search with its state on the device (openai-whisper's
+    BeamSearchDecoder semantics, as the JAX package's `_beam_decode_loop`).
+
+    Beams are extra batch rows: G windows × K beams, in contiguous blocks of
+    K. Each step scores all K×V continuations per group and takes the top
+    2K (EOT appears at most once per source beam, so at least K non-EOT
+    survive). EOT-ending candidates with a finite score are banked, in score
+    order, into fixed-capacity finished buffers; the first K non-EOT
+    candidates become the next beams, and tokens and KV caches are
+    reordered along the batch axis. A group is complete when
+    `max_candidates` hypotheses have finished; that test is the one host
+    read a step."""
+    GK, Tp = prompt.shape
+    K = beam_size
+    G = GK // K
+    C = max_candidates
+    dev = prompt.device
+    neg = float("-inf")
+
+    # ---- prefill (the K rows of a group are identical; only beam 0 is
+    # live at step 0, so the first expansion has no duplicates) ----
+    logits, caches = decoder_step(model, prompt, 0, caches, cross_kv)
+    last_logits = logits[:, -1, :].float()
+    sot_probs = torch.softmax(logits[:, sot_index, :].float(), dim=-1)
+    no_speech_prob = sot_probs[::K, no_speech]  # (G,)
+
+    tokens_buf = torch.full((GK, n_ctx), eot, dtype=torch.long, device=dev)
+    tokens_buf[:, :Tp] = prompt
+    cum_lp = torch.full((K,), neg, device=dev)
+    cum_lp[0] = 0.0
+    cum_lp = cum_lp.repeat(G)  # (GK,)
+    last_ts = torch.full((GK,), timestamp_begin, dtype=torch.long, device=dev)
+
+    # finished buffers with one dump column (index C) for writes past capacity
+    fin_lp = torch.full((G, C + 1), neg, device=dev)
+    fin_len = torch.zeros((G, C + 1), dtype=torch.long, device=dev)
+    fin_toks = torch.full((G, C + 1, n_ctx), eot, dtype=torch.long, device=dev)
+    fin_count = torch.zeros((G,), dtype=torch.long, device=dev)
+
+    group_off = torch.arange(G, device=dev)[:, None] * K  # (G, 1)
+    rows = torch.arange(G, device=dev)[:, None]
+    col = torch.arange(2 * K, device=dev).expand(G, 2 * K)
+
+    step = 0
+    while step < sample_len and not bool((fin_count >= C).all()):
+        pos = Tp + step
+        filtered = _apply_rules(
+            last_logits, step, tokens_buf[:, pos - 1], tokens_buf[:, pos - 2],
+            last_ts, suppress_mask=suppress_mask, eot=eot,
+            timestamp_begin=timestamp_begin, no_timestamps=no_timestamps,
+            blank=blank, without_timestamps=without_timestamps,
+            max_initial_ts_index=max_initial_ts_index,
+        )
+        logprobs = torch.log_softmax(filtered, dim=-1)  # (GK, V)
+        V = logprobs.shape[-1]
+        cand = (cum_lp[:, None] + logprobs).reshape(G, K * V)
+        # the top 2K, equal scores in index order, as jax.lax.top_k ranks
+        # them (torch.topk leaves their order open; bf16 logits tie often)
+        top_vals, top_idx = torch.sort(cand, dim=1, descending=True, stable=True)
+        top_vals, top_idx = top_vals[:, :2 * K], top_idx[:, :2 * K]  # (G, 2K)
+        tok = top_idx % V
+        src = top_idx // V  # source beam within the group
+        is_eot_c = tok == eot
+
+        # ---- bank EOT-ending candidates, in score order ----
+        slot = fin_count[:, None] + torch.cumsum(is_eot_c, dim=1) - 1
+        write = is_eot_c & (slot < C) & torch.isfinite(top_vals)
+        slot_c = torch.where(write, slot, C)
+        cand_toks = tokens_buf[group_off + src]  # (G, 2K, n_ctx); pos.. is EOT
+        fin_lp[rows, slot_c] = torch.where(write, top_vals, 0.0)
+        fin_len[rows, slot_c] = torch.where(write, step, 0)
+        fin_toks[rows, slot_c] = torch.where(write[:, :, None], cand_toks, eot)
+        fin_count = fin_count + write.sum(dim=1)
+
+        # ---- the first K non-EOT candidates become the next beams ----
+        noneot_rank = torch.cumsum(~is_eot_c, dim=1) - 1
+        slot_b = torch.where(~is_eot_c & (noneot_rank < K), noneot_rank, K)
+        choice = torch.zeros((G, K + 1), dtype=torch.long, device=dev)
+        choice[rows, slot_b] = col
+        choice = choice[:, :K]  # (G, K): index into the 2K candidates
+        flat_src = (group_off + src.gather(1, choice)).reshape(-1)  # (GK,)
+        next_tok = tok.gather(1, choice).reshape(-1)
+        cum_lp = top_vals.gather(1, choice).reshape(-1)
+
+        # ---- reorder the beam state by source beam ----
+        tokens_buf = tokens_buf[flat_src]
+        tokens_buf[:, pos] = next_tok
+        last_ts = torch.where(next_tok >= timestamp_begin, next_tok, last_ts[flat_src])
+        for c in caches:
+            c.reorder(flat_src)
+        logits, caches = decoder_step(model, next_tok[:, None], pos, caches, cross_kv)
+        last_logits = logits[:, -1, :].float()
+        step += 1
+    return (tokens_buf, step, cum_lp, fin_lp[:, :C], fin_len[:, :C], fin_toks[:, :C],
+            fin_count, no_speech_prob)
+
+
+def _run_beam(
+    model, caches, cross_kv, prompt, suppress, tokenizer, options,
+    decoder_step, *, sample_len, n_ctx, blank, max_init, sot_index,
+) -> List[DecodingResult]:
+    """`_beam_decode_loop`, one fetch, then openai-whisper's finalisation:
+    a group short of `beam_size` finished hypotheses is topped up with its
+    live beams (EOT appended, no extra logprob), and the winner is picked by
+    `rank_score`."""
+    K = int(options.beam_size)
+    patience = options.patience if options.patience is not None else 1.0
+    max_candidates = max(1, round(K * float(patience)))
+    GK, Tp = prompt.shape
+
+    state = _beam_decode_loop(
+        model, caches, cross_kv, prompt, suppress, decoder_step,
+        sample_len=sample_len, n_ctx=n_ctx, eot=tokenizer.eot,
+        timestamp_begin=tokenizer.timestamp_begin,
+        no_timestamps=tokenizer.no_timestamps, blank=blank,
+        no_speech=tokenizer.no_speech,
+        without_timestamps=options.without_timestamps,
+        max_initial_ts_index=max_init, beam_size=K,
+        max_candidates=max_candidates, sot_index=sot_index,
+    )
+    n_steps = state[1]
+    toks, _, cum_lp, fin_lp, fin_len, fin_toks, fin_count, nsp = (
+        x if isinstance(x, int) else x.cpu().numpy() for x in state)
+
+    results = []
+    for g in range(GK // K):
+        # (tokens, sum_logprob) candidates: the finished ones first
+        cands = []
+        for c in range(int(fin_count[g])):
+            ln = int(fin_len[g, c])
+            seq = [int(t) for t in fin_toks[g, c, Tp : Tp + ln]]
+            cands.append((seq, float(fin_lp[g, c])))
+        if len(cands) < K:
+            live = sorted(range(g * K, (g + 1) * K), key=lambda b: -float(cum_lp[b]))
+            for b in live:
+                if len(cands) >= K:
+                    break
+                if not np.isfinite(cum_lp[b]):
+                    continue
+                seq = []
+                for t in toks[b, Tp : Tp + n_steps]:
+                    if t == tokenizer.eot:
+                        break
+                    seq.append(int(t))
+                cands.append((seq, float(cum_lp[b])))
+        if not cands:  # degenerate (e.g. sample_len=0): empty result
+            cands = [([], 0.0)]
+        seq, lp = max(
+            cands,
+            key=lambda sl: rank_score(sl[1], len(sl[0]), options.length_penalty),
+        )
+        text = tokenizer.decode(seq).strip()
+        results.append(
+            DecodingResult(
+                tokens=seq,
+                text=text,
+                avg_logprob=lp / (len(seq) + 1),
+                no_speech_prob=float(nsp[g]),
+                temperature=0.0,
+                compression_ratio=compression_ratio(text),
+                language=options.language,
+            )
+        )
+    return results
+
+
 def _suppress_mask(tokenizer, options: DecodingOptions, n_vocab: int) -> np.ndarray:
     suppress = np.zeros((n_vocab,), bool)
     ids: List[int] = []
@@ -250,17 +435,22 @@ def decode_window_batch(
     With ``options.best_of=N`` (temperature > 0) each window is decoded as
     N sample rows in the same batch and the winner is picked by likelihood
     ranking with the length penalty. Sampling draws from a torch.Generator
-    seeded with `seed` on the decode's device."""
+    seeded with `seed` on the decode's device.
+
+    With ``options.beam_size=K`` (temperature 0) each window is decoded by
+    beam search (`_beam_decode_loop`), its K beams as K batch rows, and the
+    winner is picked by the same ranking over the finished hypotheses."""
     verify_options(options)
-    if options.beam_size is not None and options.temperature == 0:
-        raise NotImplementedError(_BEAM_TODO)
     rows = [list(p) for p in prompt_rows]
     assert len({len(r) for r in rows}) == 1, "prompt rows must share a length"
     dev = cross_kv[0][0].device
     prompt = torch.tensor(rows, dtype=torch.long, device=dev)
 
+    use_beam = options.beam_size is not None and options.temperature == 0
     n_group = 1
-    if options.best_of is not None and options.temperature > 0:
+    if use_beam:
+        n_group = int(options.beam_size)
+    elif options.best_of is not None and options.temperature > 0:
         n_group = int(options.best_of)
     if n_group > 1:
         prompt = prompt.repeat_interleave(n_group, dim=0)
@@ -286,6 +476,17 @@ def decode_window_batch(
     # bucketed by 64; per-step self-attention reads scale with capacity
     cap = min(n_ctx, -(-(Tp + sample_len + 1) // 64) * 64)
     caches = make_caches(len(rows) * n_group, cap)
+    # index of <|startoftranscript|> in the prompt: the sot sequence sits at
+    # the END (possibly followed by <|notimestamps|>)
+    sot_index = max(
+        0, Tp - len(list(tokenizer.sot_sequence)) - (1 if options.without_timestamps else 0))
+
+    if use_beam:
+        return _run_beam(
+            model, caches, cross_kv, prompt, suppress, tokenizer, options,
+            decoder_step, sample_len=sample_len, n_ctx=n_ctx, blank=blank,
+            max_init=max_init, sot_index=sot_index,
+        )
 
     generator = None
     if options.temperature > 0:
@@ -299,14 +500,7 @@ def decode_window_batch(
         no_speech=tokenizer.no_speech,
         without_timestamps=options.without_timestamps,
         max_initial_ts_index=max_init, temperature=float(options.temperature),
-        # index of <|startoftranscript|> in the prompt: the sot sequence
-        # sits at the END (possibly followed by <|notimestamps|>)
-        sot_index=max(
-            0,
-            Tp
-            - len(list(tokenizer.sot_sequence))
-            - (1 if options.without_timestamps else 0),
-        ),
+        sot_index=sot_index,
     )
     toks = tokens_buf.cpu().numpy()
     sum_lp = sum_lp.cpu().numpy()
@@ -343,3 +537,24 @@ def decode_window_batch(
         results.append(best)
     return results
 
+
+
+def decode_window(
+    model,
+    cross_kv,
+    tokenizer,
+    prompt_tokens: Sequence[int],
+    options: DecodingOptions,
+    n_ctx: int,
+    n_vocab: int,
+    decoder_step,
+    make_caches,
+    sample_len: int = 224,
+    seed: int = 0,
+) -> DecodingResult:
+    """Decode one 30 s window (the seek loop's call)."""
+    return decode_window_batch(
+        model, cross_kv, tokenizer, [list(prompt_tokens)], options,
+        n_ctx, n_vocab, decoder_step, make_caches,
+        sample_len=sample_len, seed=seed,
+    )[0]

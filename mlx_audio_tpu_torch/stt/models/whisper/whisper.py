@@ -6,9 +6,12 @@ Parameter names follow the JAX package (encoder.blocks.N.attn.query...), so
 self-attention (T = S = 1500) takes the hand-written flash kernel on the
 card through `ops.attention`; the decoder's steps take the matmul path.
 
-Ported here: `generate_chunked` (batched 30 s windows, with and without
-previous-text conditioning). Not yet: the sequential seek loop `generate`,
-streaming, word timestamps (DTW, `timing.py`) and beam search.
+Entry points: `generate` (the sequential 30 s seek loop), `generate_chunked`
+(batched 30 s windows, with and without previous-text conditioning) and
+`generate_streaming` (AlignAtt, `streaming.py`); beam search
+(`decoding.py`) and word timestamps (`timing.py`) serve the first two.
+Audio is a 16 kHz mono waveform: loading a file needs `utils.load_audio`,
+which is not ported yet.
 """
 
 from __future__ import annotations
@@ -32,12 +35,18 @@ from ....nn.module import cast_floats, init_weights
 from ....ops.attention import make_causal_mask, scaled_dot_product_attention
 from ..base import STTOutput
 from . import audio as A
-from .decoding import DecodingOptions, DecodingResult, decode_window_batch
+from .decoding import DecodingOptions, DecodingResult, decode_window, decode_window_batch
 
 __all__ = ["Model", "ModelConfig", "ModelDimensions"]
 
-_TIMING_TODO = ("word_timestamps needs timing.py (DTW alignment), which is "
-                "not ported yet (ROADMAP Queue 1 item 6)")
+
+def _waveform(audio) -> np.ndarray:
+    """The entry points' audio argument as float32 samples; a path raises."""
+    if isinstance(audio, str) or hasattr(audio, "__fspath__"):
+        raise NotImplementedError(
+            "loading audio from a path needs utils.load_audio, which is not "
+            "ported yet; pass a 16 kHz mono waveform")
+    return np.asarray(audio, np.float32).reshape(-1)
 
 
 @dataclass
@@ -116,6 +125,19 @@ class MultiHeadAttention(nn.Module):
     def cross_kv(self, xa):
         return self._split(self.key(xa)), self._split(self.value(xa))
 
+    def call_with_qk(self, x, cross_kv):
+        """Cross-attention returning (out, qk): qk are the pre-softmax scaled
+        scores in float32, the products of the operands in their own dtype
+        summed in float32 and then scaled, as the JAX package's einsum with
+        preferred_element_type=float32 (the word-alignment input)."""
+        q = self._split(self.query(x))
+        k, v = cross_kv
+        scale = q.shape[-1] ** -0.5
+        qk = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+        out = torch.matmul(torch.softmax(qk, dim=-1).to(v.dtype), v)
+        B, H, T, Dh = out.shape
+        return self.out(out.transpose(1, 2).reshape(B, T, H * Dh)), qk
+
 
 class ResidualAttentionBlock(nn.Module):
     def __init__(self, n_state: int, n_head: int, cross_attention: bool = False,
@@ -140,6 +162,13 @@ class ResidualAttentionBlock(nn.Module):
             x = x + c
         x = x + self.mlp2(F.gelu(self.mlp1(self.mlp_ln(x))))  # exact (erf) GELU
         return x, new_cache
+
+    def cross_mlp_with_qk(self, x, cross_kv):
+        """The cross-attention and MLP halves of the block, returning the
+        cross-attention scores too (the score-capturing decoder passes)."""
+        c, qk = self.cross_attn.call_with_qk(self.cross_attn_ln(x), cross_kv)
+        x = x + c
+        return x + self.mlp2(F.gelu(self.mlp1(self.mlp_ln(x)))), qk
 
 
 class AudioEncoder(nn.Module):
@@ -214,6 +243,96 @@ class TextDecoder(nn.Module):
         x = self.ln(x)
         return self.token_embedding.as_linear(x), new_caches
 
+    def step_with_qk(self, tokens, pos0: int, caches, cross_kv):
+        """Incremental decode step that also returns each layer's
+        cross-attention scores for the new tokens (AlignAtt streaming)."""
+        B, t = tokens.shape
+        x = self.token_embedding(tokens)
+        x = x + self.positional_embedding[pos0:pos0 + t].to(x.dtype)
+        mask = caches[0].attention_mask(t) if caches is not None else None
+        new_caches, qks = [], []
+        for i, blk in enumerate(self.blocks):
+            a, nc = blk.attn(blk.attn_ln(x), mask=mask,
+                             cache=caches[i] if caches is not None else None)
+            new_caches.append(nc)
+            x, qk = blk.cross_mlp_with_qk(x + a, cross_kv[i])
+            qks.append(qk)
+        x = self.ln(x)
+        return self.token_embedding.as_linear(x), new_caches, qks
+
+    def forward_with_cross_qk(self, tokens, cross_kv):
+        """Full-sequence decode capturing each layer's cross-attention
+        scores (word alignment)."""
+        B, t = tokens.shape
+        x = self.token_embedding(tokens)
+        x = x + self.positional_embedding[:t].to(x.dtype)
+        mask = make_causal_mask(t, t, device=x.device) if t > 1 else None
+        qks = []
+        for i, blk in enumerate(self.blocks):
+            a, _ = blk.attn(blk.attn_ln(x), mask=mask)
+            x, qk = blk.cross_mlp_with_qk(x + a, cross_kv[i])
+            qks.append(qk)
+        x = self.ln(x)
+        return self.token_embedding.as_linear(x), qks
+
+
+def _get_end(segments: List[dict]) -> Optional[float]:
+    """Last word-level end time across segments, falling back to the last
+    segment end."""
+    for s in reversed(segments):
+        for w in reversed(s.get("words") or []):
+            return w["end"]
+    return segments[-1]["end"] if segments else None
+
+
+# hallucination heuristics: anomalous words are very short, very long or
+# improbable; a segment whose first words are mostly anomalous is treated as
+# hallucinated when silence surrounds it
+_ANOMALY_PUNCTUATION = "\"'“¿([{-\"'.。,，!！?？:：”)]}、"
+
+
+def _word_anomaly_score(word: dict) -> float:
+    probability = word.get("probability", 0.0)
+    duration = word["end"] - word["start"]
+    score = 0.0
+    if probability < 0.15:
+        score += 1.0
+    if duration < 0.133:
+        score += (0.133 - duration) * 15
+    if duration > 2.0:
+        score += duration - 2.0
+    return score
+
+
+def _is_segment_anomaly(segment: Optional[dict]) -> bool:
+    if segment is None or not segment.get("words"):
+        return False
+    words = [
+        w for w in segment["words"] if w["word"] not in _ANOMALY_PUNCTUATION
+    ][:8]
+    score = sum(_word_anomaly_score(w) for w in words)
+    return score >= 3 or score + 0.01 >= len(words)
+
+
+def _next_words_segment(segments: List[dict]) -> Optional[dict]:
+    return next((s for s in segments if s.get("words")), None)
+
+
+def _result_ok(res, compression_ratio_threshold, logprob_threshold) -> bool:
+    """A decode passes the temperature fallback's thresholds (None turns
+    one off)."""
+    if (compression_ratio_threshold is not None
+            and res.compression_ratio > compression_ratio_threshold):
+        return False
+    return not (logprob_threshold is not None and res.avg_logprob < logprob_threshold)
+
+
+def _is_silent(res, no_speech_threshold, logprob_threshold) -> bool:
+    """The no-speech skip: such a window emits no segment."""
+    return (no_speech_threshold is not None
+            and res.no_speech_prob > no_speech_threshold
+            and (logprob_threshold is None or res.avg_logprob < logprob_threshold))
+
 
 def _hf_to_native(weights: dict) -> dict:
     """Map HF transformers whisper keys → native (openai/mlx) naming."""
@@ -247,14 +366,18 @@ def _hf_to_native(weights: dict) -> dict:
 class Model(nn.Module):
     """Whisper on an explicit device: `Model(dims)` builds on the card and
     raises when there is none; tests pass `device="cpu"`. Weights are drawn
-    from `seed` and then cast to `dtype`."""
+    from `seed` and then cast to `dtype`. A dict `dims` may carry
+    `alignment_heads` (the (layer, head) pairs word timing reads)."""
 
     PROMPT_BUCKETS = (8, 16, 32, 64, 128, 227)
 
     def __init__(self, dims: Union[ModelDimensions, dict], device=None,
                  dtype=torch.float32, seed: int = 0):
         super().__init__()
+        heads = None
         if isinstance(dims, dict):
+            dims = dict(dims)
+            heads = dims.pop("alignment_heads", None)
             dims = ModelDimensions.from_dict(dims)
         self.dims = dims
         self.device = resolve_device(device)
@@ -265,6 +388,8 @@ class Model(nn.Module):
         init_weights(self, gen)
         if dtype != torch.float32:
             cast_floats(self, dtype)
+        if heads:
+            self.set_alignment_heads(heads)
 
     # ---- loading ----
 
@@ -292,6 +417,52 @@ class Model(nn.Module):
     @property
     def is_multilingual(self) -> bool:
         return self.dims.n_vocab >= 51865
+
+    @property
+    def num_languages(self) -> int:
+        return self.dims.n_vocab - 51765 - int(self.is_multilingual)
+
+    # ---- word-alignment support ----
+
+    def set_alignment_heads(self, heads) -> None:
+        """heads: iterable of (layer, head) pairs used for DTW alignment."""
+        self.alignment_heads_static = tuple(tuple(int(i) for i in h) for h in heads)
+
+    @property
+    def alignment_heads(self):
+        """Configured heads, or every head of the top half of the decoder
+        layers."""
+        heads = getattr(self, "alignment_heads_static", None)
+        if heads:
+            return heads
+        d = self.dims
+        return tuple((l, h) for l in range(d.n_text_layer // 2, d.n_text_layer)
+                     for h in range(d.n_text_head))
+
+    def _tokens(self, tokens) -> torch.Tensor:
+        return torch.as_tensor(tokens, dtype=torch.long, device=self.device)
+
+    @torch.inference_mode()
+    def forward_with_cross_qk(self, mel, tokens):
+        """mel (B, 3000, n_mels), tokens (B, T) → (logits, [qk per layer])."""
+        _xa, cross_kv = self._encode(torch.as_tensor(mel, device=self.device))
+        return self.decoder.forward_with_cross_qk(self._tokens(tokens), cross_kv)
+
+    @torch.inference_mode()
+    def decoder_cross_qk(self, cross_kv, tokens):
+        """`forward_with_cross_qk` on already computed encoder K/V (chunked
+        mode: word timing reuses the batched encode's)."""
+        return self.decoder.forward_with_cross_qk(self._tokens(tokens), cross_kv)
+
+    def embed_audio(self, mel):
+        """mel (B, 3000, n_mels) → encoder features."""
+        return self._encode(torch.as_tensor(mel, device=self.device))[0]
+
+    @torch.inference_mode()
+    def logits(self, tokens, audio_features):
+        """Decoder logits over a token prefix given encoder features."""
+        cross_kv = self.decoder.cross_kv(torch.as_tensor(audio_features, device=self.device))
+        return self.decoder.forward_with_cross_qk(self._tokens(tokens), cross_kv)[0]
 
     # ---- pieces ----
 
@@ -332,6 +503,20 @@ class Model(nn.Module):
         chunks = chunks.to(self.device).float() / 32768.0
         return A.log_mel_spectrogram(chunks, n_mels=self.dims.n_mels), n_chunks
 
+    def _mel_chunk(self, audio_chunk) -> torch.Tensor:
+        """One fixed-length chunk of samples → (frames, n_mels) log-mel on
+        the model's device (normalised over the chunk)."""
+        x = torch.as_tensor(np.asarray(audio_chunk, np.float32)).to(self.device)
+        return A.log_mel_spectrogram(x, n_mels=self.dims.n_mels)
+
+    @staticmethod
+    def _window_slice(mel_flat: torch.Tensor, seek: int, seg: int) -> torch.Tensor:
+        """The N_FRAMES window at frame `seek` of the whole-audio mel, rows
+        >= `seg` zeroed, without the mel leaving the device."""
+        w = mel_flat[seek:seek + A.N_FRAMES]
+        keep = torch.arange(A.N_FRAMES, device=w.device) < seg
+        return w * keep[:, None].to(w.dtype)
+
     @torch.inference_mode()
     def detect_language(self, cross_kv, tokenizer) -> Tuple[str, dict]:
         tokens = torch.tensor([[tokenizer.sot]], dtype=torch.long, device=self.device)
@@ -368,6 +553,294 @@ class Model(nn.Module):
         )
 
     # ---- transcription ----
+
+    def _fallback_options(self, decode_options: dict, task: str, language,
+                          temperature: float, without_timestamps: bool) -> DecodingOptions:
+        """Options for one temperature of the fallback: beam options apply
+        only at t = 0, best_of only at t > 0."""
+        kw = {k: v for k, v in decode_options.items()
+              if k in DecodingOptions.__dataclass_fields__}
+        if temperature > 0:
+            kw.pop("beam_size", None)
+            kw.pop("patience", None)
+        else:
+            kw.pop("best_of", None)
+        return DecodingOptions(task=task, language=language, temperature=float(temperature),
+                               without_timestamps=without_timestamps, **kw)
+
+    @torch.inference_mode()
+    def generate(
+        self,
+        audio,
+        *,
+        language: Optional[str] = None,
+        task: str = "transcribe",
+        temperature: Union[float, Sequence[float]] = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0),
+        compression_ratio_threshold: Optional[float] = 2.4,
+        logprob_threshold: Optional[float] = -1.0,
+        no_speech_threshold: Optional[float] = 0.6,
+        condition_on_previous_text: bool = True,
+        initial_prompt: Optional[str] = None,
+        word_timestamps: bool = False,
+        prepend_punctuations: str = "\"'“¿([{-",
+        append_punctuations: str = "\"'.。,，!！?？:：”)]}、",
+        clip_timestamps: Union[str, Sequence[float]] = "0",
+        hallucination_silence_threshold: Optional[float] = None,
+        verbose: Optional[bool] = None,
+        without_timestamps: bool = False,
+        stream: bool = False,
+        chunk_duration: float = 1.0,
+        tokenizer=None,
+        on_segment=None,
+        **decode_options,
+    ):
+        """Sequential 30 s seek-loop transcription, the JAX package's default
+        entry point: each window is encoded (batch 1) and decoded with the
+        temperature fallback, segmented at its timestamps, and the seek
+        pointer moves to where the window's text ends.
+
+        ``stream=True`` hands off to `generate_streaming`. There is no
+        serving hook in the port yet, so every window is encoded and decoded
+        here (the JAX package's route without a hook)."""
+        if stream:
+            return self.generate_streaming(
+                audio, chunk_duration=chunk_duration, language=language,
+                task=task, tokenizer=tokenizer)
+        start_t = time.perf_counter()
+        decode_options.pop("max_tokens", None)
+        decode_options.pop("generation_stream", None)
+        unknown = set(decode_options) - set(DecodingOptions.__dataclass_fields__)
+        if unknown:
+            raise TypeError(f"unknown decode options: {sorted(unknown)}")
+        self._check_fp16_option(decode_options)
+        audio = _waveform(audio)
+
+        # the whole-audio mel stays on the device; each window is a slice
+        mel_dev, _ = self._mel_chunks_device(audio)
+        mel_flat = mel_dev.reshape(-1, mel_dev.shape[-1])
+        content_frames = (len(audio) + A.N_SAMPLES) // A.HOP_LENGTH - A.N_FRAMES
+        content_duration = content_frames * A.HOP_LENGTH / A.SAMPLE_RATE
+
+        if tokenizer is None:
+            tokenizer = self.get_tokenizer(language or "en", task)
+        temps = ([temperature] if isinstance(temperature, (int, float))
+                 else list(temperature))
+
+        all_tokens: List[int] = []
+        all_segments: List[dict] = []
+        prompt_reset_since = 0
+        detected_language = language
+        if initial_prompt:
+            all_tokens.extend(tokenizer.encode(" " + initial_prompt.strip()))
+        time_precision = 0.02
+        n_gen_tokens = 0
+        last_speech_timestamp = 0.0
+
+        # clip_timestamps → (start, end) frame ranges: comma-separated
+        # seconds, an odd count ends at the end of the audio, the last end
+        # clamped to the content length
+        if isinstance(clip_timestamps, str):
+            clip_timestamps = [float(ts) for ts in
+                               (clip_timestamps.split(",") if clip_timestamps else [])]
+        seek_points = [round(ts * A.FRAMES_PER_SECOND) for ts in clip_timestamps]
+        if not seek_points:
+            seek_points.append(0)
+        if len(seek_points) % 2 == 1:
+            seek_points.append(content_frames)
+        else:
+            seek_points[-1] = min(content_frames, seek_points[-1])
+        seek_clips = list(zip(seek_points[::2], seek_points[1::2]))
+        seek = seek_clips[0][0]
+        clip_idx = 0
+
+        while clip_idx < len(seek_clips):
+            clip_start, clip_end = seek_clips[clip_idx]
+            seek = max(seek, clip_start)
+            if seek >= clip_end:
+                clip_idx += 1
+                continue
+            segment_size = min(A.N_FRAMES, content_frames - seek, clip_end - seek)
+            window = self._window_slice(mel_flat, seek, segment_size)
+            seg_duration = segment_size * A.HOP_LENGTH / A.SAMPLE_RATE
+            time_offset = seek * A.HOP_LENGTH / A.SAMPLE_RATE
+            window_end_time = (seek + A.N_FRAMES) * A.HOP_LENGTH / A.SAMPLE_RATE
+            previous_seek = seek
+
+            _xa, cross_kv = self._encode(window[None])
+            if detected_language is None:
+                detected_language, _ = self.detect_language(cross_kv, tokenizer)
+                tokenizer.language = detected_language
+                if hasattr(tokenizer, "__dict__"):
+                    tokenizer.__dict__.pop("sot_sequence", None)
+
+            prev = all_tokens[prompt_reset_since:] if condition_on_previous_text else []
+            sot_seq = (tokenizer.sot_sequence_including_notimestamps
+                       if without_timestamps else tokenizer.sot_sequence)
+            prompt = self._build_prompt(prev, sot_seq, tokenizer)
+
+            result = None
+            for t in temps:
+                opts = self._fallback_options(decode_options, task, detected_language,
+                                              t, without_timestamps)
+                result = decode_window(
+                    self, cross_kv, tokenizer, prompt, opts,
+                    n_ctx=self.dims.n_text_ctx, n_vocab=self.dims.n_vocab,
+                    decoder_step=type(self)._decoder_step,
+                    make_caches=self._make_caches,
+                )
+                if _result_ok(result, compression_ratio_threshold, logprob_threshold):
+                    break
+
+            if _is_silent(result, no_speech_threshold, logprob_threshold):
+                seek += segment_size
+                continue
+
+            tokens = result.tokens
+            n_gen_tokens += len(tokens) + 1
+
+            # timestamp segmentation
+            ts = tokenizer.timestamp_begin
+            consecutive = [i + 1 for i in range(len(tokens) - 1)
+                           if tokens[i] >= ts and tokens[i + 1] >= ts]
+            # a lone timestamp at the very end means "no speech after it":
+            # keep the trailing segment and advance the full window
+            single_timestamp_ending = len(tokens) >= 2 and tokens[-2] < ts <= tokens[-1]
+            segments_here = []
+            if consecutive:
+                slices = list(consecutive)
+                if single_timestamp_ending:
+                    slices.append(len(tokens))
+                last_slice = 0
+                for cut in slices:
+                    seg = tokens[last_slice:cut]
+                    start_ts = (seg[0] - ts) * time_precision
+                    end_ts = (seg[-1] - ts) * time_precision
+                    segments_here.append(self._segment(
+                        time_offset + start_ts, time_offset + end_ts, seg,
+                        tokenizer, result))
+                    last_slice = cut
+                if single_timestamp_ending:
+                    seek += segment_size
+                else:
+                    last_ts_tok = tokens[last_slice - 1] - ts
+                    seek += max(1, round(last_ts_tok * time_precision * A.FRAMES_PER_SECOND))
+            else:
+                ts_tokens = [t for t in tokens if t >= ts]
+                end_ts = seg_duration
+                if ts_tokens and ts_tokens[-1] != ts:
+                    end_ts = (ts_tokens[-1] - ts) * time_precision
+                segments_here.append(self._segment(
+                    time_offset, time_offset + end_ts, tokens, tokenizer, result))
+                seek += segment_size
+
+            if word_timestamps:
+                from .timing import add_word_timestamps
+
+                for s in segments_here:
+                    s["seek"] = previous_seek
+                # a second encoder pass over the window, as the JAX package
+                add_word_timestamps(
+                    segments=segments_here, model=self, tokenizer=tokenizer,
+                    mel=window, num_frames=segment_size,
+                    prepend_punctuations=prepend_punctuations,
+                    append_punctuations=append_punctuations,
+                    last_speech_timestamp=last_speech_timestamp,
+                )
+                # the final timestamp may overshoot the last word: re-seek to
+                # the last attested word end
+                if not single_timestamp_ending:
+                    last_word_end = _get_end(segments_here)
+                    if last_word_end is not None and last_word_end > time_offset:
+                        seek = round(last_word_end * A.FRAMES_PER_SECOND)
+
+                # skip silence around likely hallucinations: a window whose
+                # words are anomalously short, long or improbable, with
+                # silence around it, is dropped and the seek jumps the gap
+                if hallucination_silence_threshold is not None:
+                    threshold = hallucination_silence_threshold
+                    if not single_timestamp_ending:
+                        last_word_end = _get_end(segments_here)
+                        if last_word_end is not None and last_word_end > time_offset:
+                            remaining = window_end_time - last_word_end
+                            if remaining > threshold:
+                                seek = round(last_word_end * A.FRAMES_PER_SECOND)
+                            else:
+                                seek = previous_seek + segment_size
+
+                    # a leading hallucination: decode again from past the gap
+                    first_segment = _next_words_segment(segments_here)
+                    if first_segment is not None and _is_segment_anomaly(first_segment):
+                        gap = first_segment["start"] - time_offset
+                        if gap > threshold:
+                            seek = previous_seek + round(gap * A.FRAMES_PER_SECOND)
+                            continue
+
+                    # a hallucination surrounded by silence (or by more of them)
+                    hal_last_end = last_speech_timestamp
+                    for si, segment in enumerate(segments_here):
+                        if not segment.get("words"):
+                            continue
+                        if _is_segment_anomaly(segment):
+                            next_segment = _next_words_segment(segments_here[si + 1:])
+                            if next_segment is not None:
+                                hal_next_start = next_segment["words"][0]["start"]
+                            else:
+                                hal_next_start = time_offset + seg_duration
+                            silence_before = (
+                                segment["start"] - hal_last_end > threshold
+                                or segment["start"] < threshold
+                                or segment["start"] - time_offset < 2.0
+                            )
+                            silence_after = (
+                                hal_next_start - segment["end"] > threshold
+                                or _is_segment_anomaly(next_segment)
+                                or window_end_time - segment["end"] < 2.0
+                            )
+                            if silence_before and silence_after:
+                                seek = round(max(time_offset + 1, segment["start"])
+                                             * A.FRAMES_PER_SECOND)
+                                if content_duration - segment["end"] < threshold:
+                                    seek = content_frames
+                                segments_here[si:] = []
+                                break
+                        hal_last_end = segment["end"]
+
+                last_word_end = _get_end(segments_here)
+                if last_word_end is not None:
+                    last_speech_timestamp = last_word_end
+
+            # instantaneous or text-free segments carry no content: blank them
+            for s in segments_here:
+                if s["start"] == s["end"] or not s["text"].strip():
+                    s["text"] = ""
+                    s["tokens"] = []
+                    s["words"] = []
+
+            for s in segments_here:
+                s["id"] = len(all_segments)
+                all_segments.append(s)
+                all_tokens.extend(s["tokens"])
+                if on_segment is not None:
+                    on_segment(s)
+            if not condition_on_previous_text or result.temperature > 0.5:
+                prompt_reset_since = len(all_tokens)
+
+            if verbose:
+                for s in segments_here:
+                    print(f"[{s['start']:.2f} → {s['end']:.2f}] {s['text']}")
+
+        wall = time.perf_counter() - start_t
+        text = "".join(s["text"] for s in all_segments).strip()
+        return STTOutput(
+            text=text,
+            segments=all_segments,
+            language=detected_language,
+            generation_tokens=n_gen_tokens,
+            generation_tps=n_gen_tokens / max(wall, 1e-9),
+            total_tps=n_gen_tokens / max(wall, 1e-9),
+            duration=content_duration,
+            extra={"wall_seconds": wall, "xrt": content_duration / max(wall, 1e-9)},
+        )
 
     @torch.inference_mode()
     def generate_chunked(
@@ -408,20 +881,15 @@ class Model(nn.Module):
         sequential one; after ``max_sweeps`` sweeps a still-unstable tail is
         finished window by window.
 
-        ``prepend_punctuations`` and ``append_punctuations`` serve word
-        timestamps, which are not ported yet; they are accepted and unused."""
+        ``word_timestamps=True`` aligns each window's words by DTW over its
+        cross-attention: unconditioned, on the slice of the batch's encoder
+        K/V; conditioned, after one more encoder pass per group."""
         start_t = time.perf_counter()
         unknown = set(decode_options) - set(DecodingOptions.__dataclass_fields__)
         if unknown:
             raise TypeError(f"unknown decode options: {sorted(unknown)}")
-        if word_timestamps:
-            raise NotImplementedError(_TIMING_TODO)
         self._check_fp16_option(decode_options)
-        if isinstance(audio, str) or hasattr(audio, "__fspath__"):
-            raise NotImplementedError(
-                "loading audio files is not ported yet (ROADMAP Queue 1 item 9); "
-                "pass a 16 kHz mono waveform")
-        audio = np.asarray(audio, np.float32).reshape(-1)
+        audio = _waveform(audio)
 
         mel_dev, _ = self._mel_chunks_device(audio)
         n_audio_frames = (len(audio) + A.N_SAMPLES) // A.HOP_LENGTH
@@ -458,31 +926,6 @@ class Model(nn.Module):
             else list(temperature)
         )
 
-        def group_opts(t: float) -> DecodingOptions:
-            kw = {
-                k: v for k, v in decode_options.items()
-                if k in DecodingOptions.__dataclass_fields__
-            }
-            # beam options apply only at t=0, best_of only at t>0
-            if t > 0:
-                kw.pop("beam_size", None)
-                kw.pop("patience", None)
-            else:
-                kw.pop("best_of", None)
-            return DecodingOptions(
-                task=task, language=language, temperature=float(t),
-                without_timestamps=without_timestamps, **kw,
-            )
-
-        def result_ok(res) -> bool:
-            if (compression_ratio_threshold is not None
-                    and res.compression_ratio > compression_ratio_threshold):
-                return False
-            if (logprob_threshold is not None
-                    and res.avg_logprob < logprob_threshold):
-                return False
-            return True
-
         all_segments: List[dict] = []
         n_gen = 0
         time_precision = 0.02
@@ -491,12 +934,7 @@ class Model(nn.Module):
 
         def is_silent(res) -> bool:
             # silent windows emit no segment (and no rolling context)
-            return (
-                no_speech_threshold is not None
-                and res.no_speech_prob > no_speech_threshold
-                and (logprob_threshold is None
-                     or res.avg_logprob < logprob_threshold)
-            )
+            return _is_silent(res, no_speech_threshold, logprob_threshold)
 
         def decode_idxs(idxs, rows):
             """Encode + temperature-fallback decode of the given windows as
@@ -509,20 +947,28 @@ class Model(nn.Module):
             got: List = [None] * len(idxs)
             for t in temps:
                 batch = decode_window_batch(
-                    self, cross_kv, tokenizer, rows, group_opts(t),
+                    self, cross_kv, tokenizer, rows,
+                    self._fallback_options(decode_options, task, language, t,
+                                           without_timestamps),
                     n_ctx=self.dims.n_text_ctx, n_vocab=self.dims.n_vocab,
                     decoder_step=type(self)._decoder_step,
                     make_caches=self._make_caches,
                 )
                 for j, res in enumerate(batch):
-                    if got[j] is None and (result_ok(res) or t == temps[-1]):
+                    if got[j] is None and (
+                            _result_ok(res, compression_ratio_threshold, logprob_threshold)
+                            or t == temps[-1]):
                         got[j] = res
                 if all(r is not None for r in got):
                     break
-            return got
+            return got, cross_kv
 
-        def assemble(seek, res) -> None:
-            """Silence skip + segment build for one window."""
+        def window_kv(cross_kv, j):
+            return [(k[j:j + 1], v[j:j + 1]) for k, v in cross_kv]
+
+        def assemble(seek, res, win_kv) -> None:
+            """Silence skip + segment build for one window, and its word
+            timing on `win_kv`, the window's encoder K/V, if given."""
             nonlocal n_gen
             if is_silent(res):
                 return
@@ -539,6 +985,16 @@ class Model(nn.Module):
             seg = self._segment(time_offset, time_offset + end_ts, tokens, tokenizer, res)
             seg["id"] = len(all_segments)
             seg["seek"] = seek
+            if win_kv is not None:
+                from .timing import add_word_timestamps
+
+                add_word_timestamps(
+                    segments=[seg], model=self, tokenizer=tokenizer, mel=None,
+                    num_frames=min(content_frames - seek, A.N_FRAMES),
+                    prepend_punctuations=prepend_punctuations,
+                    append_punctuations=append_punctuations,
+                    cross_kv=win_kv,
+                )
             all_segments.append(seg)
 
         if condition_on_previous_text:
@@ -575,7 +1031,7 @@ class Model(nn.Module):
                     n_tail += len(todo)
                     for k in todo:
                         row = desired_row(k, results)
-                        results[k], used[k] = decode_idxs([k], [row])[0], row
+                        results[k], used[k] = decode_idxs([k], [row])[0][0], row
                     continue
                 n_sweeps += 1
                 by_len: dict = {}
@@ -584,18 +1040,26 @@ class Model(nn.Module):
                 for _L, idxs in sorted(by_len.items()):
                     for g0 in range(0, len(idxs), max_batch):
                         sub = idxs[g0:g0 + max_batch]
-                        got = decode_idxs(sub, [desired[k] for k in sub])
+                        got, _ = decode_idxs(sub, [desired[k] for k in sub])
                         for k, r in zip(sub, got):
                             results[k], used[k] = r, desired[k]
 
-            for k in range(n_windows):
-                assemble(starts[k], results[k])
+            for i0 in range(0, n_windows, max_batch):
+                idxs = list(range(i0, min(i0 + max_batch, n_windows)))
+                win_kvs = [None] * len(idxs)
+                if word_timestamps:
+                    # one more encoder pass per group for the DTW K/V
+                    _xa, ckv = self._encode(mel_dev[i0:i0 + len(idxs)])
+                    win_kvs = [window_kv(ckv, j) for j in range(len(idxs))]
+                for j, k in enumerate(idxs):
+                    assemble(starts[k], results[k], win_kvs[j])
         else:
             for i0 in range(0, n_windows, max_batch):
                 idxs = list(range(i0, min(i0 + max_batch, n_windows)))
-                got = decode_idxs(idxs, [prompt_row] * len(idxs))
+                got, cross_kv = decode_idxs(idxs, [prompt_row] * len(idxs))
                 for j, k in enumerate(idxs):
-                    assemble(starts[k], got[j])
+                    assemble(starts[k], got[j],
+                             window_kv(cross_kv, j) if word_timestamps else None)
 
         wall = time.perf_counter() - start_t
         text = "".join(s["text"] for s in all_segments).strip()
@@ -614,6 +1078,56 @@ class Model(nn.Module):
                    **({"sweeps": n_sweeps, "tail_windows": n_tail}
                       if condition_on_previous_text else {})},
         )
+
+    def generate_streaming(
+        self,
+        audio,
+        *,
+        chunk_duration: float = 1.0,
+        language: Optional[str] = None,
+        task: str = "transcribe",
+        frame_threshold: int = 25,
+        tokenizer=None,
+    ):
+        """Streaming transcription with AlignAtt: yields a `StreamingResult`
+        per `chunk_duration` of audio that adds text, and one for the last
+        chunk. Each chunk encodes the audio heard so far (the last 30 s) as
+        one window. Without a language or a tokenizer, the language is
+        detected on the first 30 s first."""
+        from .streaming import StreamingConfig, StreamingDecoder
+
+        audio = _waveform(audio)
+        if language is None and tokenizer is None:
+            probe_tok = self.get_tokenizer("en", task)
+            first = np.zeros(A.N_SAMPLES, np.float32)
+            n0 = min(len(audio), A.N_SAMPLES)
+            first[:n0] = audio[:n0]
+            _, cross_kv = self._encode(self._mel_chunk(first)[None])
+            language, _ = self.detect_language(cross_kv, probe_tok)
+        language = language or "en"
+
+        decoder = StreamingDecoder(
+            self, StreamingConfig(frame_threshold=frame_threshold),
+            language=language, task=task, tokenizer=tokenizer,
+        )
+        chunk_samples = int(chunk_duration * A.SAMPLE_RATE)
+        total = len(audio)
+        duration = total / A.SAMPLE_RATE
+        for start in range(0, total, chunk_samples):
+            end = min(start + chunk_samples, total)
+            chunk = np.zeros(chunk_samples, np.float32)
+            chunk[: end - start] = audio[start:end]
+            mel = self._mel_chunk(chunk)[: (end - start) // A.HOP_LENGTH]
+            is_last = end >= total
+            result = decoder.decode_chunk(mel, is_last=is_last)
+            result.progress = end / total
+            result.audio_position = end / A.SAMPLE_RATE
+            result.audio_duration = duration
+            result.language = language
+            if result.text.strip() or is_last:
+                yield result
+            if is_last:
+                break
 
     def _build_prompt(self, prev_tokens, sot_seq, tokenizer):
         """Previous-context prompt with bucketed length (left-trim + left-pad

@@ -7,8 +7,14 @@ layers. f32 bar 1e-4 for activations and logits: the two packages run the
 same float32 math with other summation orders (the port's mel takes an FFT
 where the JAX package multiplies by a DFT matrix), which leaves ~1e-6.
 Greedy tokens and text must be identical.
+
+`jax_residual` gives the JAX package's two score-capturing decoder passes
+(`TextDecoder.step_with_qk`, `forward_with_cross_qk`) the cross-attention
+residual that they drop, so that they compute what the decoder's own forward
+does; the port's versions add it.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,6 +32,17 @@ ATOL = 1e-4
 DIMS = dict(n_mels=80, n_audio_ctx=1500, n_audio_state=64, n_audio_head=2,
             n_audio_layer=2, n_vocab=51866, n_text_ctx=448, n_text_state=64,
             n_text_head=2, n_text_layer=2)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tiny model's ops are too small to share out: one intra-op
+    thread per test process keeps parallel test workers from contending for
+    the cores (restored after the module)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -47,6 +64,57 @@ def pair():
     pm = Model(ModelDimensions(**DIMS), device="cpu")
     load_jax_params(pm, flat)
     return jm, pm
+
+
+def _jax_cross_block(blk, x, kv):
+    c, qk = blk.cross_attn.call_with_qk(blk.cross_attn_ln(x), kv)
+    x = x + c
+    return x + blk.mlp2(jax.nn.gelu(blk.mlp1(blk.mlp_ln(x)), approximate=False)), qk
+
+
+def _jax_step_with_qk(self, tokens, pos0, caches, cross_kv):
+    B, t = tokens.shape
+    x = self.token_embedding(tokens)
+    x = x + self.positional_embedding[pos0 + jnp.arange(t)].astype(x.dtype)
+    mask = caches[0].attention_mask(t) if caches is not None else None
+    new_caches, qks = [], []
+    for i, blk in enumerate(self.blocks):
+        a, nc = blk.attn(blk.attn_ln(x), mask=mask,
+                         cache=caches[i] if caches is not None else None)
+        new_caches.append(nc)
+        x, qk = _jax_cross_block(blk, x + a, cross_kv[i])
+        qks.append(qk)
+    return self.token_embedding.as_linear(self.ln(x)), new_caches, qks
+
+
+def _jax_forward_with_cross_qk(self, tokens, cross_kv):
+    from mlx_audio_tpu.ops.attention import make_causal_mask
+
+    B, t = tokens.shape
+    x = self.token_embedding(tokens)
+    x = x + self.positional_embedding[jnp.arange(t)].astype(x.dtype)
+    mask = make_causal_mask(t, t) if t > 1 else None
+    qks = []
+    for i, blk in enumerate(self.blocks):
+        a, _ = blk.attn(blk.attn_ln(x), mask=mask)
+        x, qk = _jax_cross_block(blk, x + a, cross_kv[i])
+        qks.append(qk)
+    return self.token_embedding.as_linear(self.ln(x)), qks
+
+
+@pytest.fixture(scope="module")
+def jax_residual():
+    """The JAX package's score-capturing passes with the cross-attention
+    residual put back, for the requesting module; jit caches are cleared on
+    the way in and out, so no trace of the other version is reused."""
+    from mlx_audio_tpu.stt.models.whisper.whisper import TextDecoder
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(TextDecoder, "step_with_qk", _jax_step_with_qk)
+        mp.setattr(TextDecoder, "forward_with_cross_qk", _jax_forward_with_cross_qk)
+        jax.clear_caches()
+        yield
+    jax.clear_caches()
 
 
 def _mel(rng, b=1):
@@ -170,14 +238,16 @@ def test_sanitize_matches_jax_on_hf_names(pair):
     assert pm.sanitize(mlx)["encoder.conv1.weight"].shape == (64, 80, 3)
 
 
-def test_unported_options_raise(pair, audio):
+@pytest.mark.parametrize("entry", ["generate", "generate_chunked", "generate_streaming"])
+def test_audio_path_raises(pair, tmp_path, entry):
+    """A path still raises from every entry point: loading audio needs
+    utils.load_audio, which the port does not have yet."""
     _, pm = pair
     tok = DummyTokenizer(n_vocab=51866)
-    with pytest.raises(NotImplementedError, match="timing.py"):
-        pm.generate_chunked(audio, language="en", tokenizer=tok, word_timestamps=True)
-    with pytest.raises(NotImplementedError, match="beam search"):
-        pm.generate_chunked(audio[:16000], language="en", tokenizer=tok,
-                            beam_size=2, sample_len=2)
+    for path in (str(tmp_path / "a.wav"), tmp_path / "a.wav"):
+        with pytest.raises(NotImplementedError, match="utils.load_audio"):
+            out = getattr(pm, entry)(path, language="en", tokenizer=tok)
+            list(out) if entry == "generate_streaming" else None
 
 
 def test_default_device_is_the_card():
