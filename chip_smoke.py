@@ -42,14 +42,26 @@ Phases, each printing its own lines:
      defaults, conditioned long-form on 600 s at bench.py's settings, beam
      search (K = 5), word timing through `generate_chunked` and `generate`,
      AlignAtt streaming in 1 s chunks, and the five writers; every step's
-     flash launches held to a count derived from the code.
+     flash launches held to a count derived from the code;
+ 10. the three models loaded from checkpoint directories written in the run
+     (into a temporary directory, removed after): Whisper-large-v3-turbo in
+     bf16 through `stt.generate.generate_transcription(model_path=...)` on a
+     120 s 44.1 kHz stereo wav (the tokens of the same model in memory, 32
+     flash launches, the five writers); Qwen3-TTS 0.6B converted to int4 by
+     `convert` through `tts.generate.generate_audio(model_path=...)` (the
+     codes of the in-memory model quantized alike, the wav equal to its
+     int16 samples, the quantized launches equal to the routing table's);
+     Kokoro-82M in the upstream torch layout with a voices/ pack (within one
+     int16 step of the in-memory model); the safetensors reader round-trips
+     every dtype.
 Phase 2 also holds the ReLU² attention kernel to its plain version and
 flash at B = 1; phase 3 a one-block MossFormer2-SE on the card to the CPU,
 and Whisper's score pass, seek loop and beam search card against CPU.
 Phase 5 ends with the unquantized bf16 Qwen3-TTS (bench.py's
 `bench_qwen3_tts()`). The lines before the last hold phase 8's numbers
 ({"kokoro": ...}), the bf16 Qwen3-TTS step's ({"qwen3_bf16": ...}), phase
-9's ({"whisper_rest": ...}) and the kernels' JSON record, in that order;
+9's ({"whisper_rest": ...}), phase 10's ({"loaded": ...}) and the kernels'
+JSON record, in that order;
 the last line is {"ok": true, "device": {...}}. Any failure raises and exits non-zero. It
 needs one CUDA card and the checkout's `mlx_audio_tpu_torch/` package.
 `--phases 1,2` runs a subset (a first check of new kernels); the default
@@ -63,6 +75,7 @@ import gc
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -358,10 +371,12 @@ def phase_kernels():
         # device time: at B = 1 the kernel is shorter than a Python launch
         # (ctypes and the per-call tensor maps), which CUDA events around a
         # loop of launches would measure instead
-        ms, loop = device_ms([lambda: flash_attention(q, k, v)], 40)
-        plain = time_ms(lambda: flash_attention_reference(q, k, v), iters=5)
-        lib, _ = device_ms([lambda: F.scaled_dot_product_attention(q, k, v)], 40)
         bound, by = attention_bound_ms(B, H, T, S, D, dtype, False)
+        ms, loop = device_ms([lambda: flash_attention(q, k, v)], 40)
+        ms = not_below_bound(f"flash {name}", ms, loop, bound)
+        plain = time_ms(lambda: flash_attention_reference(q, k, v), iters=5)
+        lib, lib_loop = device_ms([lambda: F.scaled_dot_product_attention(q, k, v)], 40)
+        lib = not_below_bound(f"F.sdpa {name}", lib, lib_loop, bound)
         timing[name] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
                             bound_by=by, host_loop_ms=loop)
         log(f"[time] flash_attention {name} B={B}, device time per call: kernel {ms:.4f} ms, "
@@ -692,6 +707,17 @@ def device_ms(fns, iters: int) -> tuple:
     if busy_us <= 0:
         raise SystemExit("chip_smoke: the profiler saw no device time for a timed kernel")
     return busy_us / iters / 1e3, loop_ms
+
+
+def not_below_bound(label, device, loop, bound) -> float:
+    """A profiler device time below the bound (no card does the work faster)
+    means records were lost; the CUDA events' loop time, an upper bound,
+    stands in for it, and the line says so."""
+    if device >= bound:
+        return device
+    log(f"[time] {label}: the profiler's {device:.4f} ms a call is below the {bound:.4f} ms "
+        f"bound (records lost); taking the CUDA events' loop time {loop:.4f} ms")
+    return loop
 
 
 def quant_bound_ms(wbytes, M, K, N, dtype, flops) -> tuple:
@@ -1107,12 +1133,14 @@ def phase_qwen_card_vs_cpu():
     torch.cuda.empty_cache()
 
 
-def predicted_launches(model, bits, frames) -> dict:
+def predicted_launches(model, bits, frames, layers_only=False) -> dict:
     """Kernel launches of one `generate` of `frames` frames of QWEN_TEXT,
     from the routing guards (`nn.quantized.qmm_routable`,
     `fused_mlp_routable`) applied to every quantized call the path makes:
     "qmm" and "qmlp" by wrapper, and the qmm launches by kernel
-    (`qmm_route`)."""
+    (`qmm_route`). `layers_only`: the model quantizes what the loader does
+    (`Model.model_quant_predicate`: the talker's and the code predictor's
+    transformer layers), not the text projection, codec head and codec."""
     from mlx_audio_tpu_torch.nn.quantized import fused_mlp_routable, qmm_routable
 
     cfg = model.config
@@ -1137,22 +1165,28 @@ def predicted_launches(model, bits, frames) -> dict:
             proj(2 * c.intermediate_size, c.hidden_size, M, times)  # fused gate/up
             proj(c.hidden_size, c.intermediate_size, M, times)  # down
 
+    def head(N, K, M, times=1):  # a projection outside the transformer layers
+        if not layers_only:
+            proj(N, K, M, times)
+
     chat = f"<|im_start|>assistant\n{QWEN_TEXT}<|im_end|>\n<|im_start|>assistant\n"
     for M in (len(AsciiTok().encode(chat)), 3):  # the prompt, then tts bos/eos/pad
-        proj(tk.text_hidden_size, tk.text_hidden_size, M)
-        proj(tk.hidden_size, tk.text_hidden_size, M)
+        head(tk.text_hidden_size, tk.text_hidden_size, M)
+        head(tk.hidden_size, tk.text_hidden_size, M)
     prompt = model._prepare_generation_inputs(QWEN_TEXT)[0].shape[1]
     Tp = -(-prompt // 32) * 32  # the prefill bucket, codec head over all of it
     if Tp != TP:
         raise SystemExit(f"chip_smoke: the prefill bucket is {Tp}, phase 2 timed TP = {TP}")
     layer(tk, Tp, tk.num_hidden_layers)
-    proj(tk.vocab_size, tk.hidden_size, Tp)
+    head(tk.vocab_size, tk.hidden_size, Tp)
     # each frame: one talker step and its head; 16 code predictor calls, the
     # two-token seed and 15 single tokens (the last one unused)
     layer(tk, 1, frames * tk.num_hidden_layers)
-    proj(tk.vocab_size, tk.hidden_size, 1, frames)
+    head(tk.vocab_size, tk.hidden_size, 1, frames)
     layer(cp, 2, frames * cp.num_hidden_layers)
     layer(cp, 1, frames * cp.num_hidden_layers * (tk.num_code_groups - 1))
+    if layers_only:
+        return n
     # the codec: one chunk (frames <= 300), B = 1, so M = frames, then the
     # ConvNeXt blocks after each upsampling
     assert frames <= 300
@@ -1987,12 +2021,357 @@ def phase_whisper_rest():
     torch.cuda.empty_cache()
     return rec
 
+
+# Phase 10: Whisper-large-v3-turbo, int4 Qwen3-TTS and Kokoro-82M loaded from
+# checkpoint directories written in the run, through the library calls of
+# the two generate CLIs, each held to the same seeded model in memory
+LOADED_WHISPER_S, LOADED_WAV_SR = 120.0, 44100
+LOADED_QWEN_FRAMES = 32
+LOADED_KOKORO_TEXT = "The quick brown fox jumps over the lazy dog."
+
+
+def same_parameters(a, b, label) -> None:
+    pa, pb = dict(a.named_parameters()), dict(b.named_parameters())
+    if sorted(pa) != sorted(pb):
+        raise SystemExit(f"chip_smoke: {label}: the loaded model's parameters are not the "
+                         f"in-memory model's: {sorted(set(pa) ^ set(pb))[:5]}")
+    bad = [k for k in pa if pa[k].dtype != pb[k].dtype or not torch.equal(pa[k], pb[k])]
+    if bad:
+        raise SystemExit(f"chip_smoke: {label}: loaded parameters differ: {bad[:5]}")
+
+
+def timed_load(path, **kw):
+    from mlx_audio_tpu_torch import utils
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = utils.load_model(path, **kw)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def checkpoint_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).glob("*.safetensors"))
+
+
+def loaded_safetensors(tmp: Path) -> dict:
+    """The reader on this machine (no `safetensors` package here): every
+    dtype written and read back bit for bit, a sharded checkpoint through
+    its index, and a file cut short rejected."""
+    from mlx_audio_tpu_torch import convert, safetensors_io, utils
+
+    rng = np.random.default_rng(11)
+    t = {f"x.{n}": rng.integers(0, 256, 96, dtype=np.uint8).view(d).reshape(-1, 2)
+         for n, d in (("f64", "<f8"), ("f32", "<f4"), ("f16", "<f2"), ("i64", "<i8"),
+                      ("u64", "<u8"), ("i32", "<i4"), ("u32", "<u4"), ("i16", "<i2"),
+                      ("u16", "<u2"), ("i8", "i1"), ("u8", "u1"))}
+    t["x.bool"] = rng.integers(0, 2, 10).astype(bool)
+    t["x.bf16"] = torch.from_numpy(rng.integers(-2**15, 2**15, 40, dtype=np.int16)).view(
+        torch.bfloat16).reshape(4, 10)
+    path = tmp / "dtypes.safetensors"
+    safetensors_io.save_file(t, path)
+    back = safetensors_io.load_file(path)
+    for k, v in t.items():
+        got = back[k]
+        same = (got.dtype == v.dtype and torch.equal(got.view(torch.int16), v.view(torch.int16))
+                if isinstance(v, torch.Tensor) else
+                got.dtype == v.dtype and got.shape == v.shape and got.tobytes() == v.tobytes())
+        if not same:
+            raise SystemExit(f"chip_smoke: safetensors round trip changed {k}")
+    saved = convert.MAX_FILE_SIZE_GB
+    convert.MAX_FILE_SIZE_GB = 200 / 1024**3  # a shard per tensor or two
+    try:
+        convert.save_model(tmp / "sharded", t, {"model_type": "none"})
+    finally:
+        convert.MAX_FILE_SIZE_GB = saved
+    shards = sorted(p.name for p in (tmp / "sharded").glob("*.safetensors"))
+    back = utils.load_weight_files(tmp / "sharded")
+    if len(shards) < 2 or sorted(back) != sorted(t):
+        raise SystemExit(f"chip_smoke: sharded checkpoint {shards} read back {sorted(back)}")
+    (tmp / "cut.safetensors").write_bytes(path.read_bytes()[:-5])
+    try:
+        safetensors_io.load_file(tmp / "cut.safetensors")
+    except ValueError as e:
+        if "cut.safetensors" not in str(e):
+            raise
+    else:
+        raise SystemExit("chip_smoke: a safetensors file cut short was read")
+    log(f"[loaded] safetensors: {len(t)} dtypes round-tripped bit for bit, {len(shards)} "
+        f"shards read through the index, a cut file rejected")
+    return {"dtypes": len(t), "shards": len(shards)}
+
+
+def loaded_whisper(tmp: Path, smi: str) -> dict:
+    """The phase 4 model (bf16) written by `flatten_params` + `save_model`,
+    loaded by `utils.load_model`, and run by `stt.generate.
+    generate_transcription(model_path=...)` on a 120 s 44.1 kHz stereo PCM-16
+    wav: the same tokens as the in-memory model on `utils.load_audio` of the
+    file, 32 flash launches, the five writers' files."""
+    from mlx_audio_tpu_torch import audio_io, convert, utils
+    from mlx_audio_tpu_torch.nn import flatten_params
+    from mlx_audio_tpu_torch.ops.cuda.flash_attention import flash_attention
+    from mlx_audio_tpu_torch.stt import generate as stt_generate
+    from mlx_audio_tpu_torch.stt.models.whisper import Model, ModelDimensions
+    from mlx_audio_tpu_torch.stt.models.whisper.tokenizer import DummyTokenizer
+
+    model = Model(ModelDimensions(**TURBO), dtype=torch.bfloat16, seed=0)
+    d = tmp / "whisper-large-v3-turbo"
+    t0 = time.perf_counter()
+    convert.save_model(d, flatten_params(model), dict(TURBO, model_type="whisper"))
+    save_s = time.perf_counter() - t0
+    nbytes = checkpoint_bytes(d)
+    loaded, load_s = timed_load(d)
+    same_parameters(loaded, model, "whisper")
+    if loaded.decoder.token_embedding.weight.dtype != torch.bfloat16:
+        raise SystemExit("chip_smoke: the bf16 Whisper checkpoint did not load in bf16")
+    log(f"[loaded] whisper: {nbytes / 1e9:.3f} GB bf16 in {len(list(d.glob('*.safetensors')))} "
+        f"shard(s), written in {save_s:.2f} s; load_model {load_s:.2f} s = "
+        f"{nbytes / load_s / 1e9:.2f} GB/s; parameters equal the in-memory model's "
+        f"({smi})")
+
+    n = int(LOADED_WAV_SR * LOADED_WHISPER_S)
+    x = (np.random.default_rng(10).standard_normal((n, 2)) * 0.05).astype(np.float32)
+    wav = tmp / "noise120_44k_stereo.wav"
+    audio_io.write(wav, x, LOADED_WAV_SR)  # PCM-16
+    tok = DummyTokenizer(n_vocab=TURBO["n_vocab"])
+    # without timestamps the seeded weights decode sample_len text tokens a
+    # window, as in phase 4
+    opts = dict(language="en", temperature=0.0, without_timestamps=True, tokenizer=tok)
+    audio16 = utils.load_audio(wav, sample_rate=16000)
+
+    def in_memory():
+        out = model.generate_chunked(audio16, sample_len=96, **opts)
+        torch.cuda.synchronize()
+        return out
+
+    def cli(**where):
+        out = stt_generate.generate_transcription(
+            audio=str(wav), chunked=True, verbose=False, gen_kwargs={"sample_len": 96},
+            **where, **opts)
+        torch.cuda.synchronize()
+        return out
+
+    in_memory()  # warm-up
+    t0 = time.perf_counter()
+    ref = in_memory()
+    mem_s = time.perf_counter() - t0
+    out_dir = tmp / "transcripts"
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    res = cli(model_path=str(d), output_path=str(out_dir), format="all")
+    cli_s = time.perf_counter() - t0
+    launches = flash_attention.launches
+    t0 = time.perf_counter()
+    res2 = cli(model=loaded)
+    cli_loaded_s = time.perf_counter() - t0
+    want = TURBO["n_audio_layer"]
+    if launches != want:
+        raise SystemExit(f"chip_smoke: the loaded Whisper launched flash {launches} times, "
+                         f"the code says {want} (one per encoder layer, B = 4)")
+    tokens = [[s["tokens"] for s in r.segments] for r in (ref, res, res2)]
+    if not tokens[0] or tokens[1] != tokens[0] or tokens[2] != tokens[0]:
+        raise SystemExit(f"chip_smoke: the loaded Whisper's tokens {tokens[1][:2]} are not "
+                         f"the in-memory model's {tokens[0][:2]}")
+    sizes = {p.name: p.stat().st_size for p in sorted(out_dir.iterdir())}
+    if sorted(sizes) != [f"noise120_44k_stereo.{e}" for e in ("json", "srt", "tsv", "txt",
+                                                              "vtt")] or not all(sizes.values()):
+        raise SystemExit(f"chip_smoke: the CLI route wrote {sizes}")
+    sec = LOADED_WHISPER_S
+    log(f"[loaded] whisper: generate_transcription(model_path=..., chunked) on {sec:.0f} s "
+        f"at 44.1 kHz stereo: {cli_s:.4f} s with the load = {sec / cli_s:.1f}x real time; "
+        f"on the loaded model (read, downmix, resample, transcribe) {cli_loaded_s:.4f} s = "
+        f"{sec / cli_loaded_s:.1f}x; the in-memory model on the same 16 kHz waveform "
+        f"{mem_s:.4f} s = {sec / mem_s:.1f}x; tokens identical ({len(tokens[0])} windows, "
+        f"{sum(len(t) for t in tokens[0])} tokens); flash launches {launches}; writers "
+        f"{sizes} bytes ({smi})")
+    del model, loaded
+    shutil.rmtree(d)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"checkpoint_bytes": nbytes, "save_s": save_s, "load_s": load_s,
+            "load_gb_per_s": nbytes / load_s / 1e9, "audio_s": sec, "cli_wall_s": cli_s,
+            "cli_loaded_wall_s": cli_loaded_s, "in_memory_wall_s": mem_s,
+            "flash_launches": launches}
+
+
+def loaded_qwen3(tmp: Path, smi: str) -> dict:
+    """Qwen3-TTS at the published widths in bf16, written unquantized,
+    converted to 4 bits by `convert` with `checkpoint_quant_predicate`,
+    loaded, and run by `tts.generate.generate_audio(model_path=...)`: the
+    codes of the in-memory model quantized with the loader's predicate and
+    row-stacked, the wav equal to the model's int16 samples, and the
+    quantized kernels' launches equal to the routing table's."""
+    from mlx_audio_tpu_torch import audio_io, convert
+    from mlx_audio_tpu_torch.nn import Linear, flatten_params
+    from mlx_audio_tpu_torch.nn.quantized import fuse_quantized_projections, quantize_module
+    from mlx_audio_tpu_torch.ops.cuda import quant_matmul as qk
+    from mlx_audio_tpu_torch.tts import generate as tts_generate
+    from mlx_audio_tpu_torch.tts.models.qwen3_tts import (Model, ModelConfig,
+                                                         checkpoint_quant_predicate)
+
+    model = Model(ModelConfig.from_dict({}), dtype=torch.bfloat16, seed=0)
+    src, q4 = tmp / "qwen3-tts-0.6b", tmp / "qwen3-tts-0.6b-4bit"
+    t0 = time.perf_counter()
+    convert.save_model(src, flatten_params(model), {"model_type": "qwen3_tts"})
+    save_s = time.perf_counter() - t0
+    src_bytes = checkpoint_bytes(src)
+    t0 = time.perf_counter()
+    convert.convert(str(src), str(q4), quantize=True, q_bits=4, q_group_size=GROUP,
+                    q_recipe=checkpoint_quant_predicate)
+    convert_s = time.perf_counter() - t0
+    shutil.rmtree(src)
+    nbytes = checkpoint_bytes(q4)
+    quantize_module(model, bits=4, group_size=GROUP,
+                    predicate=lambda p, m: isinstance(m, Linear) and Model.model_quant_predicate(p))
+    fuse_quantized_projections(model)
+    model.set_runtime(tokenizer=AsciiTok())  # the class's: the loaded models' too
+    loaded, load_s = timed_load(q4)
+    same_parameters(loaded, model, "qwen3 int4")
+    log(f"[loaded] qwen3: {src_bytes / 1e9:.3f} GB bf16 written in {save_s:.2f} s, converted "
+        f"to 4 bits in {convert_s:.2f} s ({nbytes / 1e9:.3f} GB); load_model {load_s:.2f} s = "
+        f"{nbytes / load_s / 1e9:.2f} GB/s; parameters equal the in-memory model's, "
+        f"quantized with the loader's predicate and row-stacked ({smi})")
+
+    frames = LOADED_QWEN_FRAMES
+    predicted = predicted_launches(loaded, 4, frames, layers_only=True)
+    seen = []
+    decode = Model._decode_codes
+
+    def spy(self, codes):
+        seen.append(np.array(codes))
+        return decode(self, codes)
+
+    kw = dict(max_tokens=frames, min_tokens=frames, temperature=0.9, top_k=50, seed=0,
+              verbose=False)
+    Model._decode_codes = spy
+    try:
+        t0 = time.perf_counter()
+        mem = tts_generate.generate_audio(QWEN_TEXT, model=model, output_path=str(tmp / "q_mem"),
+                                          **kw)
+        mem_s = time.perf_counter() - t0
+        qk.reset_launches()
+        t0 = time.perf_counter()
+        res = tts_generate.generate_audio(QWEN_TEXT, model_path=str(q4),
+                                          output_path=str(tmp / "q_cli"), **kw)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        got = quant_counts(4)
+    finally:
+        Model._decode_codes = decode
+    log(f"[loaded] qwen3: launches {got}, routing table {predicted}")
+    for k, want in predicted.items():
+        if got[k] != want:
+            raise SystemExit(f"chip_smoke: the loaded int4 Qwen3-TTS launched {k} {got[k]} "
+                             f"times, the routing table says {want}")
+    for k in ("qmm_gemv", "qmm_mma", "qmlp"):
+        if got[k] <= 0:
+            raise SystemExit(f"chip_smoke: the loaded int4 Qwen3-TTS launched no {k}")
+    G = model.config.talker_config.num_code_groups
+    if len(seen) != 2 or seen[0].shape != (frames, G) or not np.array_equal(seen[0], seen[1]):
+        raise SystemExit(f"chip_smoke: the loaded int4 Qwen3-TTS's codes are not the "
+                         f"in-memory model's ({[c.shape for c in seen]})")
+    pcm = np.clip(np.round(np.asarray(res[0].audio) * 32768.0), -32768, 32767).astype(np.int16)
+    wav, sr = audio_io.read(tmp / "q_cli" / "audio_000.wav", dtype="int16")
+    wav_mem, _ = audio_io.read(tmp / "q_mem" / "audio_000.wav", dtype="int16")
+    if len(res) != 1 or sr != model.sample_rate or not np.array_equal(wav, pcm) \
+            or not np.array_equal(wav, wav_mem):
+        raise SystemExit("chip_smoke: the loaded int4 Qwen3-TTS's wav is not the model's "
+                         "int16 samples or not the in-memory model's")
+    audio_s = pcm.shape[0] / sr
+    log(f"[loaded] qwen3: generate_audio(model_path=..., {frames} frames): {cli_s:.4f} s with "
+        f"the load; the in-memory model through generate_audio(model=...) {mem_s:.4f} s (its "
+        f"first run); {audio_s:.2f} s of audio; codes identical, wav = the model's int16 "
+        f"samples = the in-memory model's ({smi})")
+    del model, loaded
+    shutil.rmtree(q4)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"source_bytes": src_bytes, "checkpoint_bytes": nbytes, "save_s": save_s,
+            "convert_s": convert_s, "load_s": load_s, "load_gb_per_s": nbytes / load_s / 1e9,
+            "frames": frames, "cli_wall_s": cli_s, "in_memory_wall_s": mem_s,
+            "launches": {k: got[k] for k in ("qmm", "qmlp", "qmm_gemv", "qmm_mma",
+                                             "qmm_kernel")},
+            "predicted": predicted}
+
+
+def loaded_kokoro(tmp: Path, smi: str) -> dict:
+    """Kokoro-82M (bf16) written in the upstream torch layout (weight norm as
+    weight_g / weight_v, nn.LSTM names) with a seeded voices/ pack, loaded
+    in bf16 and run by `tts.generate.generate_audio(model_path=...)`: its
+    wav within one int16 step of the in-memory model's."""
+    from mlx_audio_tpu_torch import audio_io, convert, safetensors_io
+    from mlx_audio_tpu_torch.tts import generate as tts_generate
+    from mlx_audio_tpu_torch.tts.models.kokoro.kokoro import torch_checkpoint
+
+    model = kokoro_model("cuda", torch.bfloat16)
+    vocab = {c: i + 1 for i, c in enumerate(dict.fromkeys(KOKORO_VOCAB_CHARS))}
+    d = tmp / "kokoro-82m"
+    t0 = time.perf_counter()
+    convert.save_model(d, torch_checkpoint(model),
+                       {**KOKORO_82M_CONFIG, "vocab": vocab, "model_type": "kokoro"})
+    save_s = time.perf_counter() - t0
+    (d / "voices").mkdir()
+    pack = (np.random.default_rng(5).standard_normal((510, 1, 2 * model.config.style_dim))
+            * 0.1).astype(np.float32)
+    safetensors_io.save_file({"voice": pack}, d / "voices" / "af_smoke.safetensors")
+    nbytes = checkpoint_bytes(d)
+    loaded, load_s = timed_load(d, dtype=torch.bfloat16)
+    same_parameters(loaded, model, "kokoro")
+    del loaded
+    model.repo_id = str(d)
+    before = port_kernel_launches()
+    t0 = time.perf_counter()
+    mem = tts_generate.generate_audio(LOADED_KOKORO_TEXT, model=model, voice="af_smoke",
+                                      output_path=str(tmp / "k_mem"), verbose=False)
+    mem_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = tts_generate.generate_audio(LOADED_KOKORO_TEXT, model_path=str(d), voice="af_smoke",
+                                      dtype=torch.bfloat16, output_path=str(tmp / "k_cli"),
+                                      verbose=False)
+    cli_s = time.perf_counter() - t0
+    after = port_kernel_launches()
+    a, sr = audio_io.read(tmp / "k_cli" / "audio_000.wav", dtype="int16")
+    b, _ = audio_io.read(tmp / "k_mem" / "audio_000.wav", dtype="int16")
+    steps = int(np.abs(a.astype(np.int32) - b).max()) if a.shape == b.shape else None
+    if len(res) != 1 or len(mem) != 1 or steps is None or steps > 1 or a.size == 0:
+        raise SystemExit(f"chip_smoke: the loaded Kokoro's wav {a.shape} is not within one "
+                         f"int16 step of the in-memory model's {b.shape} ({steps})")
+    log(f"[loaded] kokoro: {nbytes / 1e6:.1f} MB float32 in the torch layout written in "
+        f"{save_s:.2f} s; load_model(dtype=bf16) {load_s:.2f} s = {nbytes / load_s / 1e9:.2f} "
+        f"GB/s, parameters equal the in-memory bf16 model's; generate_audio(model_path=..., "
+        f"voice=af_smoke) {cli_s:.4f} s with the load, the in-memory model {mem_s:.4f} s; "
+        f"{a.shape[0] / sr:.2f} s of audio, max |d| {steps} int16 step(s); the port's kernels "
+        f"launched { {k: after[k] - before[k] for k in after} } (none is on this path) ({smi})")
+    del model
+    shutil.rmtree(d)
+    torch.cuda.empty_cache()
+    return {"checkpoint_bytes": nbytes, "save_s": save_s, "load_s": load_s,
+            "load_gb_per_s": nbytes / load_s / 1e9, "cli_wall_s": cli_s,
+            "in_memory_wall_s": mem_s, "max_int16_steps": steps}
+
+
+def phase_loaded(smi: str) -> dict:
+    """Phase 10: every checkpoint in one temporary directory, removed after."""
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        rec = {"safetensors": loaded_safetensors(tmp), "whisper": loaded_whisper(tmp, smi),
+               "qwen3_int4": loaded_qwen3(tmp, smi), "kokoro": loaded_kokoro(tmp, smi)}
+    rec["wall_s"] = time.perf_counter() - t0
+    log(f"[loaded] phase 10 wall {rec['wall_s']:.1f} s")
+    return rec
+
+
 QUANT_SOURCE = "mlx_audio_tpu_torch/csrc/quant_matmul.cu"
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
                     help="comma-separated subset to run; a subset prints no result")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
     smi = phase_device()
@@ -2017,7 +2396,9 @@ def main():
         kokoro = {"card_vs_cpu_f32": phase_kokoro_card_vs_cpu(), "bf16": phase_kokoro()}
     if 9 in phases:
         rest = phase_whisper_rest()
-    if phases != {1, 2, 3, 4, 5, 6, 7, 8, 9}:
+    if 10 in phases:
+        loaded = phase_loaded(smi)
+    if phases != set(range(1, 11)):
         log(f"[device] {smi}")
         sys.exit(f"chip_smoke: ran phases {sorted(phases)} only; no result")
     record = {"kernels": [{
@@ -2074,6 +2455,7 @@ def main():
     print(json.dumps({"kokoro": kokoro}), flush=True)
     print(json.dumps({"qwen3_bf16": qwen_bf16}), flush=True)
     print(json.dumps({"whisper_rest": rest}), flush=True)
+    print(json.dumps({"loaded": loaded}), flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

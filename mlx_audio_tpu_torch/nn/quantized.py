@@ -57,12 +57,16 @@ def _pack_rows(q: torch.Tensor, bits: int) -> torch.Tensor:
 
 
 def quantize_arrays(w: torch.Tensor, group_size: int = 64, bits: int = 4):
-    """Quantize a float matrix (out, in) on its own device → (packed, scales,
-    biases), scales and biases float32: per-group min/max mapped onto
-    [0, 2^bits - 1], as MLX and the JAX package do."""
+    """Quantize a float matrix (out, in) → (packed, scales, biases) on `w`'s
+    device, scales and biases float32: per-group min/max mapped onto
+    [0, 2^bits - 1], as MLX and the JAX package do. Computed on the host in
+    float32, as the JAX package computes it in numpy, so that the words are
+    the same bits wherever the weight lies (the card divides by a scalar
+    through its reciprocal, which rounds otherwise)."""
     if bits not in SUPPORTED_BITS:
         raise ValueError(f"bits={bits} unsupported (supported: {SUPPORTED_BITS})")
-    w = w.detach().float()
+    dev = w.device
+    w = w.detach().to("cpu", torch.float32)
     wg = w.reshape(*w.shape[:-1], -1, group_size)
     w_min = wg.amin(-1)
     w_max = wg.amax(-1)
@@ -70,7 +74,7 @@ def quantize_arrays(w: torch.Tensor, group_size: int = 64, bits: int = 4):
     scales = torch.clamp((w_max - w_min) / n, min=1e-10)
     biases = w_min
     q = torch.clamp(torch.round((wg - biases[..., None]) / scales[..., None]), 0, n)
-    return _pack_rows(q.reshape(w.shape), bits), scales, biases
+    return _pack_rows(q.reshape(w.shape), bits).to(dev), scales.to(dev), biases.to(dev)
 
 
 def dequantize_arrays(w, scales, biases, group_size: int, bits: int,
@@ -131,15 +135,19 @@ class QuantizedLinear(nn.Module):
         self.bits = bits
 
     @classmethod
-    def from_linear(cls, lin: Linear, group_size: int = 64, bits: int = 4):
+    def from_linear(cls, lin: Linear, group_size: int = 64, bits: int = 4,
+                    quantize: bool = True):
+        """`lin` quantized; `quantize=False` gives the layout only (zero
+        words), for weights that a checkpoint fills in."""
         out_d, in_d = lin.weight.shape
         dev = lin.weight.device
         obj = cls(in_d, out_d, bias=lin.bias is not None, group_size=group_size,
                   bits=bits, device=dev)
-        packed, scales, biases = quantize_arrays(lin.weight, group_size, bits)
-        obj.weight = _param(packed)
-        obj.scales = _param(scales)
-        obj.biases = _param(biases)
+        if quantize:
+            packed, scales, biases = quantize_arrays(lin.weight, group_size, bits)
+            obj.weight = _param(packed)
+            obj.scales = _param(scales)
+            obj.biases = _param(biases)
         if lin.bias is not None:
             obj.bias = _param(lin.bias.detach().clone())
         return obj
@@ -278,13 +286,15 @@ class QuantizedEmbedding(nn.Module):
         self.bits = bits
 
     @classmethod
-    def from_embedding(cls, emb: Embedding, group_size: int = 64, bits: int = 4):
+    def from_embedding(cls, emb: Embedding, group_size: int = 64, bits: int = 4,
+                       quantize: bool = True):
         n, d = emb.weight.shape
         obj = cls(n, d, group_size=group_size, bits=bits, device=emb.weight.device)
-        packed, scales, biases = quantize_arrays(emb.weight, group_size, bits)
-        obj.weight = _param(packed)
-        obj.scales = _param(scales)
-        obj.biases = _param(biases)
+        if quantize:
+            packed, scales, biases = quantize_arrays(emb.weight, group_size, bits)
+            obj.weight = _param(packed)
+            obj.scales = _param(scales)
+            obj.biases = _param(biases)
         return obj
 
     def dequantized_weight(self, dtype=torch.bfloat16) -> torch.Tensor:
@@ -301,12 +311,14 @@ class QuantizedEmbedding(nn.Module):
 
 
 def quantize_module(model: nn.Module, group_size: int = 64, bits: int = 4,
-                    predicate=None) -> nn.Module:
+                    predicate=None, quantize: bool = True) -> nn.Module:
     """Replace Linear/Embedding submodules with quantized ones in place.
 
     `predicate(path, module)` may veto (False/None), accept (True) or
     override ({"group_size", "bits"}) per layer; `path` is the dotted name,
-    as the JAX package gives it."""
+    as the JAX package gives it. `quantize=False` swaps in the quantized
+    layout without quantizing the current weights (the loader's case: a
+    checkpoint fills them in)."""
 
     def maybe_swap(v, path):
         if not isinstance(v, (Linear, Embedding)):
@@ -322,8 +334,8 @@ def quantize_module(model: nn.Module, group_size: int = 64, bits: int = 4,
         if v.weight.shape[-1] % gs != 0 or b not in SUPPORTED_BITS:
             return None
         if isinstance(v, Linear):
-            return QuantizedLinear.from_linear(v, gs, b)
-        return QuantizedEmbedding.from_embedding(v, gs, b)
+            return QuantizedLinear.from_linear(v, gs, b, quantize=quantize)
+        return QuantizedEmbedding.from_embedding(v, gs, b, quantize=quantize)
 
     def visit(mod, prefix):
         for name, child in list(mod.named_children()):

@@ -2,7 +2,7 @@
 `mlx_audio_tpu/stt/models/whisper/whisper.py`).
 
 Parameter names follow the JAX package (encoder.blocks.N.attn.query...), so
-`nn.load_jax_params` carries its weights across. The encoder's
+`nn.load_weights` carries its weights and checkpoints across. The encoder's
 self-attention (T = S = 1500) takes the hand-written flash kernel on the
 card through `ops.attention`; the decoder's steps take the matmul path.
 
@@ -10,8 +10,8 @@ Entry points: `generate` (the sequential 30 s seek loop), `generate_chunked`
 (batched 30 s windows, with and without previous-text conditioning) and
 `generate_streaming` (AlignAtt, `streaming.py`); beam search
 (`decoding.py`) and word timestamps (`timing.py`) serve the first two.
-Audio is a 16 kHz mono waveform: loading a file needs `utils.load_audio`,
-which is not ported yet.
+Audio is a 16 kHz mono waveform, or a path that `utils.load_audio` reads,
+downmixes and resamples to one.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from ....device import resolve_device
 from ....lm.cache import KVCache
 from ....nn import Conv1d, Embedding, LayerNorm, Linear
 from ....nn.module import cast_floats, init_weights
+from ....nn.sanitize import permute
 from ....ops.attention import make_causal_mask, scaled_dot_product_attention
 from ..base import STTOutput
 from . import audio as A
@@ -41,11 +42,12 @@ __all__ = ["Model", "ModelConfig", "ModelDimensions"]
 
 
 def _waveform(audio) -> np.ndarray:
-    """The entry points' audio argument as float32 samples; a path raises."""
+    """The entry points' audio argument as float32 samples: a path is read
+    at 16 kHz mono, as the JAX package's entry points read it."""
     if isinstance(audio, str) or hasattr(audio, "__fspath__"):
-        raise NotImplementedError(
-            "loading audio from a path needs utils.load_audio, which is not "
-            "ported yet; pass a 16 kHz mono waveform")
+        from ....utils import load_audio
+
+        audio = load_audio(audio, sample_rate=A.SAMPLE_RATE)
     return np.asarray(audio, np.float32).reshape(-1)
 
 
@@ -394,8 +396,11 @@ class Model(nn.Module):
     # ---- loading ----
 
     def sanitize(self, weights: dict) -> dict:
-        """HF or MLX-converted checkpoint dict → this module's names and
-        layouts (convolution weights as torch's (O, I, K))."""
+        """HF or MLX-converted checkpoint dict → the JAX package's names and
+        layouts, which `nn.load_weights` takes: convolution weights
+        (O, K, I), turned from torch's (O, I, K) by shape, as there. A
+        convolution weight whose two inner axes have one length > 1 fits
+        both layouts and raises."""
         if any(k.startswith("model.") for k in weights):
             weights = _hf_to_native(weights)
         out = {}
@@ -404,10 +409,13 @@ class Model(nn.Module):
                 "positional_embedding" in k or "embed_positions" in k
             ):
                 continue  # encoder sinusoids are recomputed
-            if k.endswith("conv1.weight") or k.endswith("conv2.weight"):
-                v = np.asarray(v)
-                if v.ndim == 3 and v.shape[2] > v.shape[1]:
-                    v = v.transpose(0, 2, 1)  # MLX (O,K,I) -> torch (O,I,K)
+            if (k.endswith("conv1.weight") or k.endswith("conv2.weight")) and v.ndim == 3:
+                if v.shape[1] == v.shape[2] > 1:
+                    raise ValueError(
+                        f"{k} of shape {tuple(v.shape)} fits both (O, I, K) and (O, K, I): "
+                        f"its layout cannot be told from its shape")
+                if v.shape[1] > v.shape[2]:
+                    v = permute(v, (0, 2, 1))  # torch (O,I,K) -> (O,K,I)
             if k == "decoder.positional_embedding.weight":
                 k = "decoder.positional_embedding"
             out[k] = v

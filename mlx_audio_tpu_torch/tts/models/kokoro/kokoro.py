@@ -28,14 +28,15 @@ from torch import nn
 
 from ....base import BaseModelArgs
 from ....device import resolve_device
-from ....nn import Linear
+from ....nn import Conv1d, ConvTranspose1d, LayerNorm, Linear
 from ....nn.module import init_weights, jax_param_shapes
+from ....nn.sanitize import as_float32, readings_of
 from ..base import GenerationResult, format_duration, orient_to
 from .albert import AlbertModelArgs, CustomAlbert
 from .istftnet import Decoder, Noise
 from .modules import ProsodyPredictor, TextEncoder
 
-__all__ = ["Model", "ModelConfig"]
+__all__ = ["Model", "ModelConfig", "torch_checkpoint"]
 
 
 @dataclass
@@ -86,7 +87,7 @@ _LSTM_KEYS = {  # torch nn.LSTM names → the forward/backward submodules
 class Model(nn.Module):
     """Kokoro on an explicit device: `Model(config)` builds on the card and
     raises when there is none; tests pass `device="cpu"`. Weights are drawn
-    from `seed`; `load_jax_params` (after `sanitize` for a torch-layout
+    from `seed`; `nn.load_weights` (after `sanitize` for a torch-layout
     checkpoint) replaces them."""
 
     REPO_ID = "prince-canuma/Kokoro-82M"
@@ -280,21 +281,23 @@ class Model(nn.Module):
 
     def sanitize(self, weights: dict) -> dict:
         """A torch-layout Kokoro checkpoint → the JAX package's key names and
-        layouts (`load_jax_params` takes the result): weight_g / weight_v
+        layouts (`nn.load_weights` takes the result): weight_g / weight_v
         pairs folded, nn.LSTM keys and gamma / beta renamed, conv weights
         oriented by shape."""
         expected = jax_param_shapes(self)
+        modules = dict(self.named_modules())
         weights = dict(weights)
         for gkey in [k for k in weights if k.endswith("weight_g")]:
-            v = np.asarray(weights[gkey[:-1] + "v"], np.float32)
-            g = np.asarray(weights[gkey], np.float32)
+            v = as_float32(weights[gkey[:-1] + "v"])
+            g = as_float32(weights[gkey])
             norm = np.sqrt((v ** 2).sum(axis=tuple(range(1, v.ndim)), keepdims=True))
             weights[gkey.rsplit(".", 1)[0] + ".weight"] = g * v / np.maximum(norm, 1e-12)
         out = {}
         for key, w in weights.items():
             if "position_ids" in key or key.endswith(("weight_g", "weight_v")):
                 continue
-            w = np.asarray(w)
+            if not isinstance(w, torch.Tensor):
+                w = np.asarray(w)
             suffix = next((s for s in _LSTM_KEYS if key.endswith(s)), None)
             if suffix is not None:
                 out[key[: -len(suffix)] + _LSTM_KEYS[suffix]] = w
@@ -303,7 +306,36 @@ class Model(nn.Module):
             elif key.endswith(".beta"):
                 out[key[: -len(".beta")] + ".bias"] = w
             elif key.endswith(".weight") and w.ndim == 3 and key in expected:
-                out[key] = orient_to(w, expected[key])
+                out[key] = orient_to(w, expected[key],
+                                     readings_of(modules[key.rpartition(".")[0]]))
             else:
                 out[key] = w  # snake alphas keep their (1, C, 1) shape
         return out
+
+
+def torch_checkpoint(model: Model) -> dict:
+    """The model's weights as an upstream PyTorch Kokoro checkpoint holds
+    them, the inverse of `Model.sanitize`: float32 numpy arrays, every
+    convolution weight in torch's layout under weight norm (`weight_g` the
+    norm over all axes but the first, `weight_v` the weight, so that
+    sanitize's fold gives the weight back), nn.LSTM names, gamma / beta for
+    the text encoder's layer norms, and ALBERT's `position_ids`."""
+    to_torch = {v: k for k, v in _LSTM_KEYS.items()}
+    modules = dict(model.named_modules())
+    out = {"bert.embeddings.position_ids": np.arange(model.context_length)[None]}
+    for key, p in model.named_parameters():
+        owner, _, name = key.rpartition(".")
+        mod = modules[owner]
+        w = p.detach().to("cpu", torch.float32).numpy()
+        lstm = next((s for s in to_torch if key.endswith("." + s)), None)
+        if isinstance(mod, (Conv1d, ConvTranspose1d)) and name == "weight":
+            out[key + "_g"] = np.sqrt((w ** 2).sum(axis=tuple(range(1, w.ndim)),
+                                                   keepdims=True))
+            out[key + "_v"] = w
+        elif lstm is not None:
+            out[key[: -len(lstm)] + to_torch[lstm]] = w
+        elif isinstance(mod, LayerNorm) and owner.startswith("text_encoder."):
+            out[owner + (".gamma" if name == "weight" else ".beta")] = w
+        else:
+            out[key] = w
+    return out

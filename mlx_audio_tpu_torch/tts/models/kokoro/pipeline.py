@@ -4,8 +4,9 @@ timestamps. Contract of reference tts/models/kokoro/pipeline.py:47-460.
 Host-only; a copy of `mlx_audio_tpu/tts/models/kokoro/pipeline.py` without
 its serving hook (the port has no `serving.py` yet), kept here so that the
 port imports nothing of the JAX package. A voice is read from
-`<repo_id>/voices/` when it is there; `huggingface_hub` is tried only
-for a voice that is not."""
+`<repo_id>/voices/` (the checkpoint directory's, through
+`config.model_path`); a voice that is not there raises, since the port
+does not download."""
 
 from __future__ import annotations
 
@@ -16,7 +17,11 @@ from pathlib import Path
 from typing import Any, Generator, List, Optional, Tuple, Union
 
 import numpy as np
+import torch
 
+from ....nn.sanitize import as_float32
+from ....safetensors_io import load_file
+from ....utils import NO_DOWNLOAD
 from .g2p import PhonemeToken, get_g2p
 
 logger = logging.getLogger(__name__)
@@ -36,18 +41,15 @@ def load_voice_tensor(path: str) -> np.ndarray:
     """Load a voice pack (.safetensors `voice` tensor, or .npz/.npy/.pt)."""
     p = Path(path)
     if p.suffix == ".safetensors":
-        from safetensors.numpy import load_file
-
-        w = load_file(str(p))
-        return np.asarray(w.get("voice", next(iter(w.values()))))
+        w = load_file(p)
+        v = w.get("voice", next(iter(w.values())))
+        return as_float32(v) if isinstance(v, torch.Tensor) else np.array(v)
     if p.suffix == ".npz":
         with np.load(str(p)) as data:
             return np.asarray(data[data.files[0]])
     if p.suffix == ".npy":
         return np.load(str(p))
     if p.suffix in (".pt", ".pth", ".bin"):
-        import torch
-
         t = torch.load(str(p), map_location="cpu", weights_only=True)
         if isinstance(t, dict):
             t = next(iter(t.values()))
@@ -83,15 +85,9 @@ class KokoroPipeline:
                         cand = local / f"{voice}{ext}"
                         break
             if cand is None:
-                from huggingface_hub import snapshot_download
-
-                d = Path(
-                    snapshot_download(
-                        repo_id=self.repo_id,
-                        allow_patterns=[f"voices/{voice}.safetensors"],
-                    )
-                )
-                cand = d / "voices" / f"{voice}.safetensors"
+                raise ValueError(
+                    f"voice {voice!r} is not in {local}: "
+                    + NO_DOWNLOAD.format(f"{self.repo_id}/voices/{voice}.safetensors"))
             f = str(cand)
         pack = load_voice_tensor(f)
         self.voices[voice] = pack

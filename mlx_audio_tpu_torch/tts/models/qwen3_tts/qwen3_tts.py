@@ -18,7 +18,9 @@ and the serving batcher; they raise NotImplementedError.
 
 from __future__ import annotations
 
+import json
 import time
+from pathlib import Path
 from typing import List, Optional, Union
 
 import numpy as np
@@ -34,7 +36,7 @@ from .config import ModelConfig
 from .speech_tokenizer import Qwen3TTSSpeechTokenizer
 from .talker import Qwen3TTSTalkerForConditionalGeneration
 
-__all__ = ["Model", "ModelConfig"]
+__all__ = ["Model", "ModelConfig", "checkpoint_quant_predicate"]
 
 # JAX parameter prefixes of parts this port does not build yet
 NOT_BUILT = ("speech_tokenizer.encoder.", "speaker_encoder.")
@@ -42,6 +44,14 @@ NOT_BUILT = ("speech_tokenizer.encoder.", "speaker_encoder.")
 _ICL_TODO = ("ICL voice cloning (ref_audio + ref_text) needs the Mimi-based "
              "speech-tokenizer encoder, which is not ported yet")
 _SPK_TODO = "the speaker encoder (ref_audio without ref_text) is not ported yet"
+
+
+def checkpoint_quant_predicate(key: str, w=None) -> bool:
+    """`convert.quantize_weights`' predicate for Qwen3-TTS: a `.weight` key
+    is quantized iff the loader quantizes its layer
+    (`Model.model_quant_predicate`), so the checkpoint's `.scales` are
+    exactly where the loader looks for them."""
+    return key.endswith(".weight") and Model.model_quant_predicate(key[: -len(".weight")])
 
 
 def _sample(logits: torch.Tensor, generator: torch.Generator, temp: float,
@@ -90,10 +100,13 @@ class Model(nn.Module):
         init_weights(self, gen)
         if dtype != torch.float32:
             cast_floats(self, dtype)
-        self._tokenizer = None
         self._heads = (None, None)
 
     # ---- runtime ----
+
+    # the text tokenizer, shared by every instance as in the JAX package, so
+    # that one set before a loader call reaches the model it loads
+    _tokenizer = None
 
     @property
     def sample_rate(self) -> int:
@@ -101,13 +114,15 @@ class Model(nn.Module):
 
     @property
     def tokenizer(self):
-        if self._tokenizer is None:
-            raise RuntimeError("no text tokenizer: call set_runtime(tokenizer=...)")
-        return self._tokenizer
+        if Model._tokenizer is None:
+            raise RuntimeError(
+                "no text tokenizer: call set_runtime(tokenizer=...) (the port does not "
+                "read the checkpoint's tokenizer files, which need `transformers`)")
+        return Model._tokenizer
 
     def set_runtime(self, tokenizer=None):
         if tokenizer is not None:
-            self._tokenizer = tokenizer
+            Model._tokenizer = tokenizer
 
     @property
     def supported_speakers(self) -> List[str]:
@@ -136,9 +151,38 @@ class Model(nn.Module):
     def get_supported_languages(self) -> List[str]:
         return self.supported_languages
 
+    # ---- loading (utils.base_load_model) ----
+
+    NOT_BUILT = NOT_BUILT
+
+    @classmethod
+    def post_load_hook(cls, model, model_path):
+        """Record the checkpoint directory and read its
+        `generation_config.json`, as the JAX package's hook does."""
+        model.config.model_path = str(model_path)
+        gen_cfg = Path(model_path) / "generation_config.json"
+        if gen_cfg.exists():
+            model.load_generate_config(json.loads(gen_cfg.read_text()))
+        return model
+
+    @staticmethod
+    def model_quant_predicate(path: str, module=None) -> bool:
+        """The layers a quantized checkpoint may hold quantized: the talker's
+        and the code predictor's transformer layers. The JAX package's
+        predicate also admits the code predictor's embeddings and heads,
+        which its decode loop (and this port's) reads as raw float weights:
+        a checkpoint that holds them quantized does not run (ROADMAP,
+        Queue 3). Write a quantized checkpoint with
+        `convert(..., q_recipe=checkpoint_quant_predicate)`."""
+        if path.startswith("talker.model.layers"):
+            return True
+        return path.startswith("talker.code_predictor") and not (
+            ".lm_head" in path or ".codec_embedding" in path)
+
     def sanitize(self, weights: dict) -> dict:
-        """Checkpoint keys → this module's names, convolution weights turned
-        into the port's layouts."""
+        """Checkpoint keys → the JAX package's names, convolution weights
+        oriented to its layouts (what the JAX sanitize returns), for
+        `nn.load_weights`."""
         out = {}
         for k, v in weights.items():
             if k.startswith(("talker.", "speaker_encoder.", "speech_tokenizer.")):

@@ -1,6 +1,10 @@
 """The port imports neither jax nor anything of the JAX package, at run
 time (every module imported in a fresh interpreter) or in its source (a
-static scan of every import, chip_smoke.py included)."""
+static scan of every import, chip_smoke.py included). Nor does it import,
+at module level, a package the card's machine lacks (safetensors,
+tokenizers, transformers, ml_dtypes, huggingface_hub): only a function may
+import one, and raise where it is absent. The loader reads and writes
+checkpoints with those packages blocked."""
 
 import ast
 import subprocess
@@ -62,6 +66,89 @@ def test_static_scan_of_imports():
             if top in ("jax", "jaxlib", "mlx_audio_tpu"):
                 bad.append(f"{path.relative_to(REPO)}:{line}: {name}")
     assert not bad, bad
+
+
+# installed here, absent on the card's machine
+NOT_ON_THE_CARD = ("safetensors", "tokenizers", "transformers", "ml_dtypes", "huggingface_hub")
+
+
+def _module_level_imports(path: Path, module: str):
+    """The absolute imports outside any function body (a class body counts
+    as module level: it runs at import)."""
+    tree = ast.parse(path.read_text())
+    pkg_parts = module.split(".") if path.name == "__init__.py" else module.split(".")[:-1]
+    stack = list(tree.body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            continue
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield node.lineno, a.name
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                base = pkg_parts[: len(pkg_parts) - node.level + 1]
+                yield node.lineno, ".".join(base + ([node.module] if node.module else []))
+            else:
+                yield node.lineno, node.module
+        stack.extend(ast.iter_child_nodes(node))
+
+
+def test_static_scan_of_module_level_imports():
+    files = list(_modules()) + [(REPO / "chip_smoke.py", "chip_smoke")]
+    bad = []
+    for path, module in files:
+        for line, name in _module_level_imports(path, module):
+            if name.split(".")[0] in NOT_ON_THE_CARD:
+                bad.append(f"{path.relative_to(REPO)}:{line}: {name}")
+    assert not bad, bad
+
+
+def test_module_level_scan_sees_what_it_must():
+    """The scan flags a top-level and a class-level import of a blocked
+    package, and passes one inside a function."""
+    import tempfile
+
+    src = ("import numpy\nfrom safetensors.numpy import load_file\n"
+           "class A:\n    import tokenizers\n"
+           "def f():\n    import transformers\n")
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "m.py"
+        path.write_text(src)
+        names = [n for _, n in _module_level_imports(path, "pkg.m")]
+    assert sorted(n for n in names if n.split(".")[0] in NOT_ON_THE_CARD) == [
+        "safetensors.numpy", "tokenizers"]
+
+
+def test_loader_without_the_missing_packages(tmp_path):
+    """With safetensors, tokenizers, transformers, ml_dtypes and
+    huggingface_hub made unimportable, the port writes a bf16 and a uint32
+    checkpoint, reads it back bit for bit, and loads a Kokoro voice pack."""
+    code = (
+        "import sys\n"
+        f"for n in {NOT_ON_THE_CARD!r}:\n"
+        "    sys.modules[n] = None\n"
+        f"sys.path.insert(0, {str(REPO)!r})\n"
+        "import numpy as np, torch\n"
+        "from mlx_audio_tpu_torch import convert, utils\n"
+        "from mlx_audio_tpu_torch.tts.models.kokoro.pipeline import load_voice_tensor\n"
+        "from mlx_audio_tpu_torch.safetensors_io import save_file\n"
+        f"d = {str(tmp_path)!r}\n"
+        "w = {'a.weight': torch.randn(3, 4).bfloat16(),\n"
+        "     'b.weight': np.arange(6, dtype=np.uint32).reshape(2, 3)}\n"
+        "convert.save_model(__import__('pathlib').Path(d), w, {'model_type': 'x'})\n"
+        "got = utils.load_weight_files(d)\n"
+        "assert torch.equal(got['a.weight'], w['a.weight'])\n"
+        "assert got['b.weight'].dtype == np.uint32\n"
+        "assert np.array_equal(got['b.weight'], w['b.weight'])\n"
+        "save_file({'voice': np.ones((4, 1, 8), np.float32)}, d + '/v.safetensors')\n"
+        "assert load_voice_tensor(d + '/v.safetensors').shape == (4, 1, 8)\n"
+        "print('OK')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "OK"
 
 
 def _tiny_entry_points():

@@ -24,9 +24,12 @@ from mlx_audio_tpu.nn.module import flatten_params
 from mlx_audio_tpu.stt.models.whisper import Model as JaxModel
 from mlx_audio_tpu.stt.models.whisper import ModelDimensions as JaxDims
 from mlx_audio_tpu.stt.models.whisper.tokenizer import DummyTokenizer as JaxTok
+from mlx_audio_tpu_torch import audio_io
 from mlx_audio_tpu_torch.nn import load_jax_params
+from mlx_audio_tpu_torch.nn.module import jax_param_shapes
 from mlx_audio_tpu_torch.stt.models.whisper import Model, ModelDimensions
 from mlx_audio_tpu_torch.stt.models.whisper.tokenizer import DummyTokenizer
+from mlx_audio_tpu_torch.utils import load_audio
 
 ATOL = 1e-4
 DIMS = dict(n_mels=80, n_audio_ctx=1500, n_audio_state=64, n_audio_head=2,
@@ -203,8 +206,9 @@ def test_generate_chunked_takes_punctuation_options(pair, audio):
 
 def test_sanitize_matches_jax_on_hf_names(pair):
     """An HF-named dict: both packages drop the encoder positions and
-    proj_out and rename alike; the port keeps torch's (O, I, K) conv
-    layout where the JAX package turns it into (O, K, I)."""
+    proj_out, rename alike and turn torch's (O, I, K) conv weights into the
+    JAX package's (O, K, I), the layout `nn.load_weights` takes; a weight
+    whose shape fits both layouts raises."""
     jm, pm = pair
     rng = np.random.default_rng(4)
     hf = {
@@ -225,29 +229,37 @@ def test_sanitize_matches_jax_on_hf_names(pair):
     theirs = jm.sanitize(dict(hf))
     assert sorted(ours) == sorted(theirs)
     assert "encoder.positional_embedding" not in ours and "proj_out.weight" not in ours
-    params = dict(pm.named_parameters())
+    shapes = jax_param_shapes(pm)
     for k, v in ours.items():
-        assert tuple(np.shape(v)) == tuple(params[k].shape), k
-        if k.endswith(("conv1.weight", "conv2.weight")):
-            np.testing.assert_array_equal(np.asarray(v),
-                                          np.asarray(theirs[k]).transpose(0, 2, 1))
-        else:
-            np.testing.assert_array_equal(np.asarray(v), np.asarray(theirs[k]))
-    # MLX-layout (O, K, I) conv weights come back to torch's layout
+        assert tuple(np.shape(v)) == shapes[k], k
+        np.testing.assert_array_equal(np.asarray(v), np.asarray(theirs[k]))
+    # already (O, K, I): kept, as the JAX package keeps it
     mlx = {"encoder.conv1.weight": np.zeros((64, 3, 80))}
-    assert pm.sanitize(mlx)["encoder.conv1.weight"].shape == (64, 80, 3)
+    assert pm.sanitize(mlx)["encoder.conv1.weight"].shape == (64, 3, 80)
+    with pytest.raises(ValueError, match="cannot be told"):
+        pm.sanitize({"encoder.conv1.weight": np.zeros((64, 3, 3))})
 
 
 @pytest.mark.parametrize("entry", ["generate", "generate_chunked", "generate_streaming"])
 def test_audio_path_raises(pair, tmp_path, entry):
-    """A path still raises from every entry point: loading audio needs
-    utils.load_audio, which the port does not have yet."""
+    """A path (str or Path) no longer raises: every entry point reads it
+    through utils.load_audio at 16 kHz mono, as the JAX package's do, and
+    gives what it gives on the waveform read so (a 44.1 kHz stereo file)."""
     _, pm = pair
     tok = DummyTokenizer(n_vocab=51866)
+    rng = np.random.default_rng(7)
+    audio_io.write(tmp_path / "a.wav", rng.uniform(-0.3, 0.3, (44100 * 3, 2)), 44100)
+    wave = load_audio(tmp_path / "a.wav", sample_rate=16000)
+
+    def run(audio):
+        out = getattr(pm, entry)(audio, language="en", tokenizer=tok)
+        if entry == "generate_streaming":
+            return [(r.tokens, r.is_final) for r in out]
+        return [s["tokens"] for s in out.segments]
+
+    want = run(wave)
     for path in (str(tmp_path / "a.wav"), tmp_path / "a.wav"):
-        with pytest.raises(NotImplementedError, match="utils.load_audio"):
-            out = getattr(pm, entry)(path, language="en", tokenizer=tok)
-            list(out) if entry == "generate_streaming" else None
+        assert run(path) == want
 
 
 def test_default_device_is_the_card():
