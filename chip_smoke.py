@@ -20,7 +20,8 @@ Phases, each printing its own lines:
      once in float32 (the model's default dtype), profiled, with the f32
      flash kernel's launches held to one per encoder layer;
   5. Qwen3-TTS 0.6B int4 at full width (bf16, seeded random weights):
-     256 frames of synthesis through `Model.generate`, with launch counts
+     256 frames of synthesis through `Model.generate` (a warm-up and one
+     counted run), with launch counts
      read around each run and held to the routing table's, the qmm
      launches split by kernel;
   6. the same model at 6 bits, 32 frames, then a profiled 16-frame run:
@@ -53,15 +54,32 @@ Phases, each printing its own lines:
      int16 samples, the quantized launches equal to the routing table's);
      Kokoro-82M in the upstream torch layout with a voices/ pack (within one
      int16 step of the in-memory model); the safetensors reader round-trips
-     every dtype.
+     every dtype;
+ 11. serving, on the models of phases 5, 7, 8 and 9 (kept, not rebuilt):
+     `bench_whisper_serving` (8 x 30 s through `WhisperBatcher`, window 50
+     ms, sequential then the median of 3 concurrent trials; each trial's
+     flash launches held to 32 per batched encode, each stream's tokens to
+     its sequential tokens or a stated near-tie); `bench_qwen3_serving` on
+     the unquantized bf16 model (8 sampled streams x 64 frames, tick 8;
+     every request's codes equal to its one-slot codes); the int4 model
+     through the same batcher (8 x 16 frames, every quantized launch held to
+     the routing table at the pool's shapes, the one-slot gate, and greedy
+     codes against `_run_codes`); MossFormer2-SE's 90 s request through a
+     `StackBatcher` (relu2 launches one per FLASH layer per dispatch, the
+     output at phase 3's bar of the unbatched route); Kokoro-82M, 4
+     concurrent `generate` calls through `KokoroBatcher`, in float32 (each
+     within one int16 step of its sequential call) and in bf16 (each
+     correlated with its sequential call at the JAX package's bar).
 Phase 2 also holds the ReLU² attention kernel to its plain version and
-flash at B = 1; phase 3 a one-block MossFormer2-SE on the card to the CPU,
-and Whisper's score pass, seek loop and beam search card against CPU.
+flash at B = 1, and the serving shapes: flash bf16 at B = 8, `qmm_mma` and
+the fused MLP at M = 8 (the batcher's tick), ReLU² f32 at B = 8, G = 2;
+phase 3 a one-block MossFormer2-SE on the card to the CPU, and Whisper's
+score pass, seek loop and beam search card against CPU.
 Phase 5 ends with the unquantized bf16 Qwen3-TTS (bench.py's
 `bench_qwen3_tts()`). The lines before the last hold phase 8's numbers
 ({"kokoro": ...}), the bf16 Qwen3-TTS step's ({"qwen3_bf16": ...}), phase
-9's ({"whisper_rest": ...}), phase 10's ({"loaded": ...}) and the kernels'
-JSON record, in that order;
+9's ({"whisper_rest": ...}), phase 10's ({"loaded": ...}), phase 11's
+({"serving": ...}) and the kernels' JSON record, in that order;
 the last line is {"ok": true, "device": {...}}. Any failure raises and exits non-zero. It
 needs one CUDA card and the checkout's `mlx_audio_tpu_torch/` package.
 `--phases 1,2` runs a subset (a first check of new kernels); the default
@@ -136,7 +154,9 @@ L2_BYTES = 50e6  # the H100's L2: timed weights cycle through twice this
 QWEN_TEXT = ("The quick brown fox jumps over the lazy dog while the "
              "synthesis model turns text into speech. " * 3).strip()
 QWEN_FRAMES, QWEN_FRAMES_6BIT, QWEN_PROFILE_FRAMES = 256, 32, 16
-QWEN_WARMUP, QWEN_TIMED = 1, 2
+# one counted run after the warm-up (two until phase 11 came: the run
+# keeps its wall under ~900 s on a slow host)
+QWEN_WARMUP, QWEN_TIMED = 1, 1
 # card (kernels) against CPU (dequantize + matmul), float32, TF32 off
 QWEN_CARD_VS_CPU_ATOL = 1e-4
 
@@ -161,6 +181,8 @@ R2_CASES = [  # name, B, G, N, D, E, dtype, v a split half (row stride 2E)
     ("merged20s_bf16", 1, 10, 256, 128, 2048, torch.bfloat16, False),
     ("merged4s_f32", 1, 2, 256, 128, 2048, torch.float32, False),
     ("merged4s_bf16", 1, 2, 256, 128, 2048, torch.bfloat16, False),
+    # the serving batcher: eight 4 s chunks stacked into one forward
+    ("merged4s_b8_f32", 8, 2, 256, 128, 2048, torch.float32, False),
     ("ragged200_f32", 2, 3, 200, 128, 64, torch.float32, False),
     ("ragged200_bf16", 2, 3, 200, 128, 64, torch.bfloat16, True),
     ("ragged13_d64_f32", 1, 4, 13, 64, 40, torch.float32, False),
@@ -332,6 +354,8 @@ def phase_kernels():
         # encode it
         ("whisper_b1_bf16", 1, 20, 1500, 1500, 64, bf16, False),
         ("whisper_b1_f32", 1, 20, 1500, 1500, 64, f32, False),
+        # B = 8: eight 30 s windows in one encode, the serving batcher's
+        ("whisper_b8_bf16", 8, 20, 1500, 1500, 64, bf16, False),
         ("ragged_bf16", 2, 20, 700, 1500, 64, bf16, False),
         ("ragged_f32", 1, 4, 700, 1500, 64, f32, False),
         ("causal_bf16", 2, 20, 1500, 1500, 64, bf16, True),
@@ -365,7 +389,8 @@ def phase_kernels():
 
     timing = {}
     for name, B, dtype in (("whisper_bf16", 4, bf16), ("whisper_f32", 4, f32),
-                           ("whisper_b1_bf16", 1, bf16), ("whisper_b1_f32", 1, f32)):
+                           ("whisper_b1_bf16", 1, bf16), ("whisper_b1_f32", 1, f32),
+                           ("whisper_b8_bf16", 8, bf16)):
         H, T, S, D = 20, 1500, 1500, 64
         q, k, v = attention_inputs(B, H, T, S, D, dtype, seed=100)
         # device time: at B = 1 the kernel is shorter than a Python launch
@@ -698,14 +723,19 @@ def device_ms(fns, iters: int) -> tuple:
     end.record()
     torch.cuda.synchronize()
     loop_ms = start.elapsed_time(end) / iters
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fns[i % len(fns)]()
-        torch.cuda.synchronize()
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+    for _ in range(3):  # a session now and then records no kernel: profile it again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fns[i % len(fns)]()
+            torch.cuda.synchronize()
+        busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                      if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+        if busy_us > 0:
+            break
     if busy_us <= 0:
-        raise SystemExit("chip_smoke: the profiler saw no device time for a timed kernel")
+        log(f"[time] the profiler recorded no kernel in three sessions: the CUDA events' "
+            f"loop time {loop_ms:.4f} ms a call, an upper bound, stands for the device time")
+        return loop_ms, loop_ms
     return busy_us / iters / 1e3, loop_ms
 
 
@@ -806,6 +836,14 @@ QMM_CASES = [  # name, bits, M, N, K, dtype: the routed shapes of phases 5 and 6
     ("k1056_g32_m48_f32", 4, 48, 512, 1056, torch.float32),
     ("g8_m24_f32", 4, 24, 512, 512, torch.float32),
     ("q6_offset_x_m40_bf16", 6, 40, 1024, 2048, torch.bfloat16),
+    # M = 8: the serving batcher's eight slots in one talker step (f32 x
+    # after the first rope, bf16 x into layer 0's q/k/v) and the code
+    # predictor's two-token seed at M = 16
+    ("qkv_m8_f32", 4, 8, 4096, 1024, torch.float32),
+    ("qkv_m8_bf16", 4, 8, 4096, 1024, torch.bfloat16),
+    ("oproj_m8_f32", 4, 8, 1024, 2048, torch.float32),
+    ("codec_head_m8_f32", 4, 8, 3072, 1024, torch.float32),
+    ("qkv_m16_f32", 4, 16, 4096, 1024, torch.float32),
 ]
 # groups other than 64: K = 1040 is 65 groups of 16
 QMM_GROUP = {"q6_k1040_m1_f32": 16, "g32_m64_bf16": 32, "q6_g128_m96_f32": 128,
@@ -828,6 +866,10 @@ TEXT_M = 336
 QMM_PREFILL = [("qkv", TP, 4096, 1024), ("o_proj", TP, 1024, 2048),
                ("gate_up", TP, 6144, 1024), ("down", TP, 1024, 3072),
                ("text_proj", TEXT_M, 2048, 2048)]
+# the serving batcher's talker step: eight slots, int4, q/k/v and o_proj, in
+# f32 x (the residual stream after the first rope) and bf16 x (layer 0)
+SERVE_M = 8
+QMM_SERVE = [("qkv", SERVE_M, 4096, 1024), ("o_proj", SERVE_M, 1024, 2048)]
 # timed: name, bits, M, N, K (f32 x): the talker's fused q/k/v and o_proj
 # at M = 1, the code predictor's two-token seed; at 6 bits the talker's four
 # shapes, which each take about a quarter of the 6-bit path's launches
@@ -847,6 +889,10 @@ QMLP_CASES = [  # name, bits, M, K, I, N, dtype
     ("mlp_m3_f32", 4, 3, 1024, 3072, 1024, torch.float32),
     ("mlp_k1088_m1_f32", 4, 1, 1088, 3072, 1024, torch.float32),
     ("mlp_k1088_m2_bf16", 4, 2, 1088, 3072, 1024, torch.bfloat16),
+    # the serving tick's eight slots, and the code predictor's seed at 16
+    ("mlp_m8_f32", 4, 8, 1024, 3072, 1024, torch.float32),
+    ("mlp_m8_bf16", 4, 8, 1024, 3072, 1024, torch.bfloat16),
+    ("mlp_m16_f32", 4, 16, 1024, 3072, 1024, torch.float32),
 ]
 
 
@@ -867,9 +913,10 @@ def launched_kernels(fn, calls: int = 3, sessions: int = 3) -> list:
     """The port's kernels that `calls` calls of fn launch, from
     torch.profiler, which can drop the record of a launch now and then (and
     once in a while records no kernel in a whole session: then the calls
-    are profiled again, up to `sessions` times)."""
+    are profiled again, up to `sessions` times; [] if none recorded one)."""
     from torch.profiler import ProfilerActivity, profile
 
+    keys = []
     for _ in range(sessions):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
@@ -881,6 +928,31 @@ def launched_kernels(fn, calls: int = 3, sessions: int = 3) -> list:
         if keys:
             return keys
     return keys
+
+
+def qmm_taken(call, bits: int) -> tuple:
+    """The qmm kernels that calls of `call` launch: (the routes qmm_fwd
+    handed back to the wrapper's counter, exact; the port's kernels in the
+    profile of the same calls, which can be empty when the profiler
+    recorded nothing)."""
+    from mlx_audio_tpu_torch.ops.cuda.quant_matmul import quantized_matmul, quantized_matmul6
+
+    wrapper = quantized_matmul6 if bits == 6 else quantized_matmul
+    before = dict(wrapper.kernels)
+    seen = launched_kernels(call)
+    counted = sorted(k for k, n in wrapper.kernels.items() if n != before[k])
+    return counted, seen
+
+
+def qmm_route_fault(counted, seen, route: str, bits: int):
+    """Why the launches of one qmm case are not `route` at `bits` bits, or
+    None: the counter must show that kernel alone, and a profile that
+    recorded kernels must show it alone too, at these bits."""
+    if counted != [route]:
+        return f"the wrapper counted {counted}"
+    if seen and (len(seen) != 1 or route not in seen[0] or f"<{bits}," not in seen[0]):
+        return f"the profile shows {seen}"
+    return None
 
 
 def phase_quant_kernels():
@@ -905,16 +977,18 @@ def phase_quant_kernels():
                                          group_size=group)
         ok, err, desc = compare_q(out, ref)
         route = qmm_route(name, M, bits, K, group)
-        took = launched_kernels(lambda: quantized_matmul(x, packed, scales, biases, bits=bits,
-                                                         group_size=group))
+        counted, took = qmm_taken(lambda: quantized_matmul(
+            x, packed, scales, biases, bits=bits, group_size=group), bits)
         log(f"[kernel] {'qmm6' if bits == 6 else 'qmm'} {name} bits={bits} M={M} N={N} "
-            f"K={K} group {group}: {desc}; took "
-            f"{', '.join(re.sub(r'\(.*', '', k.split('::', 1)[-1]) for k in took) or 'no kernel'}")
+            f"K={K} group {group}: {desc}; took {', '.join(counted)} by the counter, "
+            f"{', '.join(re.sub(r'\(.*', '', k.split('::', 1)[-1]) for k in took) or 'no record'}"
+            f" in the profile")
         if not ok:
             raise SystemExit(f"chip_smoke: quantized_matmul {name} over its bar: {desc}")
-        if len(took) != 1 or route not in took[0] or f"<{bits}," not in took[0]:
-            raise SystemExit(f"chip_smoke: quantized_matmul {name} launched {took}, not one "
-                             f"{route}<{bits}, ...>")
+        fault = qmm_route_fault(counted, took, route, bits)
+        if fault:
+            raise SystemExit(f"chip_smoke: quantized_matmul {name} did not launch one "
+                             f"{route}<{bits}, ...>: {fault}")
         errs[name] = err
         if name in QMM_PLANTED:
             planted_quant_check(
@@ -968,7 +1042,25 @@ def phase_quant_kernels():
             f"{100 * bound / ms:.1f}% of bound; a Python loop of launches takes {loop:.4f} ms "
             f"a call")
     timing.update(time_prefill())
-    M, K, I, N = 1, 1024, 3072, 1024
+    timing.update(time_prefill([(4, shape, M, N, K, dtype)
+                                for dtype in (torch.float32, torch.bfloat16)
+                                for shape, M, N, K in QMM_SERVE]))
+    timing["qmlp"] = time_qmlp(1)
+    timing["qmlp_m8"] = time_qmlp(SERVE_M)
+    return errs, timing
+
+
+def time_qmlp(M) -> dict:
+    """The fused quantized SwiGLU at the talker's widths, int4, f32 x, M rows
+    (1: the single-request decode; 8: the serving batcher's tick), device
+    time per call with the weights cycled past L2, beside its plain version
+    and a bf16 yardstick."""
+    from mlx_audio_tpu_torch.ops.cuda.quant_matmul import (quantized_matmul_reference,
+                                                           quantized_mlp,
+                                                           quantized_mlp_reference)
+
+    f32 = torch.float32
+    K, I, N = 1024, 3072, 1024
     g = torch.Generator(device="cuda").manual_seed(500)
     sets = [(quant_weights(2 * I, K, 4, g), quant_weights(N, I, 4, g))]
     wbytes = weight_bytes(*sets[0][0]) + weight_bytes(*sets[0][1])
@@ -993,19 +1085,19 @@ def phase_quant_kernels():
                           for w in sets], 40)
     yard, _ = device_ms([lambda d=d: yard_mlp(d) for d in dense], 400)
     bound, by = quant_bound_ms(wbytes, M, K, N, f32, 2.0 * M * (2 * I * K + N * I))
-    timing["qmlp"] = dict(ms=ms, plain_ms=plain, library_ms=None, yardstick_ms=yard,
-                          bound_ms=bound, bound_by=by, host_loop_ms=loop)
-    log(f"[time] qmlp int4 M=1 K={K} I={I} N={N} f32 x (weights cycled past L2), device time "
-        f"per call: kernel (its one launch, no memset) {ms:.4f} ms, plain {plain:.4f} ms, "
+    log(f"[time] qmlp int4 M={M} K={K} I={I} N={N} f32 x (weights cycled past L2), device "
+        f"time per call: kernel (its one launch, no memset) {ms:.4f} ms, plain {plain:.4f} ms, "
         f"yardstick bf16 F.linear gate_up, silu*mul, F.linear down {yard:.4f} ms, bound "
         f"{bound:.4f} ms ({by}); kernel at {100 * bound / ms:.1f}% of bound; a Python loop "
         f"of launches takes {loop:.4f} ms a call")
-    return errs, timing
+    return dict(ms=ms, plain_ms=plain, library_ms=None, yardstick_ms=yard, bound_ms=bound,
+                bound_by=by, host_loop_ms=loop)
 
 
-def time_prefill() -> dict:
+def time_prefill(cases=None) -> dict:
     """The tensor-core GEMM at QMM_PREFILL's shapes, int4 and 6-bit, bf16 x
-    (and f32 x at the talker's four), device time per call with the weights
+    (and f32 x at the talker's four), or at `cases` ((bits, shape, M, N, K,
+    dtype)), device time per call with the weights
     cycled past L2, beside the tiled CUDA-core kernel in the same call (x at a
     2-byte offset, which the tiled kernel takes and the GEMM does not), the
     plain version, bf16 `F.linear` on the dequantized weight (a yardstick,
@@ -1016,9 +1108,9 @@ def time_prefill() -> dict:
                                                            quantized_matmul_reference)
 
     timing = {}
-    cases = [(bits, shape, M, N, K, dtype) for bits in (4, 6)
-             for dtype in (torch.bfloat16, torch.float32)
-             for shape, M, N, K in QMM_PREFILL if dtype == torch.bfloat16 or M == TP]
+    cases = cases or [(bits, shape, M, N, K, dtype) for bits in (4, 6)
+                      for dtype in (torch.bfloat16, torch.float32)
+                      for shape, M, N, K in QMM_PREFILL if dtype == torch.bfloat16 or M == TP]
     for bits, shape, M, N, K, dtype in cases:
         key = f"{'qmm6' if bits == 6 else 'qmm'}_{shape}_m{M}" + ("_f32" if dtype != torch.bfloat16
                                                                  else "")
@@ -1037,9 +1129,9 @@ def time_prefill() -> dict:
             return quantized_matmul(xx, *w, bits=bits, group_size=GROUP)
 
         for xx, want in ((x, "qmm_mma"), (x_off, "qmm_kernel")):
-            took = launched_kernels(lambda: qmm(xx, sets[0]))
-            if len(took) != 1 or want not in took[0]:
-                raise SystemExit(f"chip_smoke: {key} launched {took}, not {want}")
+            fault = qmm_route_fault(*qmm_taken(lambda: qmm(xx, sets[0]), bits), want, bits)
+            if fault:
+                raise SystemExit(f"chip_smoke: {key} did not launch one {want}: {fault}")
         ms, loop = device_ms([lambda w=w: qmm(x, w) for w in sets], 400)
         tiled, _ = device_ms([lambda w=w: qmm(x_off, w) for w in sets], 100)
         plain, _ = device_ms([lambda w=w: quantized_matmul_reference(
@@ -1133,20 +1225,12 @@ def phase_qwen_card_vs_cpu():
     torch.cuda.empty_cache()
 
 
-def predicted_launches(model, bits, frames, layers_only=False) -> dict:
-    """Kernel launches of one `generate` of `frames` frames of QWEN_TEXT,
-    from the routing guards (`nn.quantized.qmm_routable`,
-    `fused_mlp_routable`) applied to every quantized call the path makes:
-    "qmm" and "qmlp" by wrapper, and the qmm launches by kernel
-    (`qmm_route`). `layers_only`: the model quantizes what the loader does
-    (`Model.model_quant_predicate`: the talker's and the code predictor's
-    transformer layers), not the text projection, codec head and codec."""
+def route_table(bits):
+    """Counts by wrapper and qmm kernel, and the two helpers that add a
+    projection or a transformer layer at M rows to them, by the routing
+    guards (`nn.quantized.qmm_routable`, `fused_mlp_routable`)."""
     from mlx_audio_tpu_torch.nn.quantized import fused_mlp_routable, qmm_routable
 
-    cfg = model.config
-    tk = cfg.talker_config
-    cp = tk.code_predictor_config
-    dc = cfg.tokenizer_config.decoder_config
     n = {"qmm": 0, "qmlp": 0, "qmm_gemv": 0, "qmm_mma": 0, "qmm_kernel": 0}
 
     def proj(N, K, M, times=1):
@@ -1164,6 +1248,43 @@ def predicted_launches(model, bits, frames, layers_only=False) -> dict:
         else:
             proj(2 * c.intermediate_size, c.hidden_size, M, times)  # fused gate/up
             proj(c.hidden_size, c.intermediate_size, M, times)  # down
+
+    return n, proj, layer
+
+
+def predicted_serving_launches(model, bits, prompt_bucket, requests, frames, slots) -> dict:
+    """Kernel launches of the slot batcher (`Qwen3TTSBatcher`) from the
+    routing guards: each request's B = 1 prefill at its prompt bucket (the
+    talker's layers and its codec head over every row), then `frames` frame
+    steps of the whole pool (ticks x tick_frames, every slot, live or not):
+    the talker step and its head at M = slots, the code predictor's
+    two-token seed at M = 2 slots and its 15 single steps at M = slots. The
+    text projection runs on the callers' threads, before the count."""
+    tk = model.config.talker_config
+    cp = tk.code_predictor_config
+    n, proj, layer = route_table(bits)
+    layer(tk, prompt_bucket, requests * tk.num_hidden_layers)
+    proj(tk.vocab_size, tk.hidden_size, prompt_bucket, requests)
+    layer(tk, slots, frames * tk.num_hidden_layers)
+    proj(tk.vocab_size, tk.hidden_size, slots, frames)
+    layer(cp, 2 * slots, frames * cp.num_hidden_layers)
+    layer(cp, slots, frames * cp.num_hidden_layers * (tk.num_code_groups - 1))
+    return n
+
+
+def predicted_launches(model, bits, frames, layers_only=False) -> dict:
+    """Kernel launches of one `generate` of `frames` frames of QWEN_TEXT,
+    from the routing guards (`nn.quantized.qmm_routable`,
+    `fused_mlp_routable`) applied to every quantized call the path makes:
+    "qmm" and "qmlp" by wrapper, and the qmm launches by kernel
+    (`qmm_route`). `layers_only`: the model quantizes what the loader does
+    (`Model.model_quant_predicate`: the talker's and the code predictor's
+    transformer layers), not the text projection, codec head and codec."""
+    cfg = model.config
+    tk = cfg.talker_config
+    cp = tk.code_predictor_config
+    dc = cfg.tokenizer_config.decoder_config
+    n, proj, layer = route_table(bits)
 
     def head(N, K, M, times=1):  # a projection outside the transformer layers
         if not layers_only:
@@ -1265,9 +1386,10 @@ def check_synthesis(results, frames, codes_seen, model, label):
         raise SystemExit(f"chip_smoke: {label}: repeated runs with one seed disagree")
 
 
-def phase_qwen_slice():
-    """Qwen3-TTS 0.6B int4: 256 frames through `generate`, 1 warm-up and 2
-    timed runs, launches held to the routing table's each run."""
+def phase_qwen_slice(keep):
+    """Qwen3-TTS 0.6B int4: 256 frames through `generate`, a warm-up and
+    QWEN_TIMED timed runs, launches held to the routing table's each run. The model
+    stays in `keep` for phase 11."""
     from mlx_audio_tpu_torch.ops.cuda import quant_matmul as qk
 
     t0 = time.perf_counter()
@@ -1306,15 +1428,16 @@ def phase_qwen_slice():
     pred16 = predicted_launches(model, 4, QWEN_PROFILE_FRAMES)
     _, seen = profile_one_run(short, f"one {QWEN_PROFILE_FRAMES}-frame synthesis")
     log_m_gt_4(seen, 4, pred16, "qwen3")
-    del model, run, short
-    torch.cuda.empty_cache()
+    del model._decode_codes  # qwen_run's spy
+    keep["qwen3_int4"] = model
     return launches
 
 
-def phase_qwen_bf16():
+def phase_qwen_bf16(keep):
     """Qwen3-TTS 0.6B unquantized in bf16, as `bench_qwen3_tts()` runs it:
     256 frames, temperature 0.9, top_k 50, seed 0; the median of
-    QWEN_TIMED runs after a warm-up, and no launch of any quantized kernel."""
+    QWEN_TIMED runs after a warm-up, and no launch of any quantized kernel.
+    The model stays in `keep` for phase 11."""
     from mlx_audio_tpu_torch.ops.cuda import quant_matmul as qk
 
     gc.collect()
@@ -1347,9 +1470,8 @@ def phase_qwen_bf16():
         f"walls {', '.join(f'{w:.4f}' for w in walls)} s; median RTF {med / audio_s:.4f}, "
         f"{frames / med:.1f} talker frames/s; peak memory {peak_gb:.2f} GB; quantized "
         f"kernel launches {quant}; codes identical across {len(codes_seen)} runs")
-    del model, run
-    gc.collect()
-    torch.cuda.empty_cache()
+    del model._decode_codes  # qwen_run's spy
+    keep["qwen3_bf16"] = model
     return {"frames": frames, "audio_s": audio_s, "walls_s": walls, "rtf": med / audio_s,
             "frames_per_s": frames / med, "peak_gb": peak_gb, "quantized_launches": quant}
 
@@ -1479,13 +1601,14 @@ def phase_relu2_kernel():
             planted_relu2_check(name, q, k, v, ref)
 
     timing = {}
-    for name, G, E, dtype, split_v in (
-            ("merged20s_f32", 10, 2048, torch.float32, False),
-            ("merged4s_f32", 2, 2048, torch.float32, False),
-            ("merged20s_bf16", 10, 2048, torch.bfloat16, False),
-            ("merged4s_bf16", 2, 2048, torch.bfloat16, False),
-            ("chunk20s_f32", 10, 1024, torch.float32, True)):
-        B, N, D = 1, 256, 128
+    for name, B, G, E, dtype, split_v in (
+            ("merged20s_f32", 1, 10, 2048, torch.float32, False),
+            ("merged4s_f32", 1, 2, 2048, torch.float32, False),
+            ("merged20s_bf16", 1, 10, 2048, torch.bfloat16, False),
+            ("merged4s_bf16", 1, 2, 2048, torch.bfloat16, False),
+            ("chunk20s_f32", 1, 10, 1024, torch.float32, True),
+            ("merged4s_b8_f32", 8, 2, 2048, torch.float32, False)):
+        N, D = 256, 128
         q, k, v = relu2_inputs(B, G, N, D, E, dtype, split_v, seed=700)
         ms, loop = device_ms([lambda: relu2_attention(q, k, v, N)], 200)
         plain, _ = device_ms([lambda: relu2_attention_reference(q, k, v, N)], 50)
@@ -1557,10 +1680,11 @@ def phase_moss_card_vs_cpu():
     torch.cuda.empty_cache()
 
 
-def phase_moss_slice():
+def phase_moss_slice(keep):
     """MossFormer2-SE 48 kHz at full width, f32: three requests through
     `Model.enhance`, 1 warm-up and 3 timed runs each; the ReLU² kernel's
-    launches of one pass over the three held to the prediction."""
+    launches of one pass over the three held to the prediction. The model
+    stays in `keep` for phase 11."""
     from mlx_audio_tpu_torch.ops.cuda.relu2_attention import relu2_attention
     from mlx_audio_tpu_torch.sts.models.mossformer2_se import Model
 
@@ -1620,8 +1744,7 @@ def phase_moss_slice():
     log(f"[moss] peak memory {peak_gb:.2f} GB, of which {before_gb:.2f} GB was allocated "
         f"before the model was built")
     profile_one_run(lambda: run(0), "one 20 s enhancement")
-    del model
-    torch.cuda.empty_cache()
+    keep["mossformer2_se"] = model
     return launches
 
 
@@ -1646,9 +1769,10 @@ def port_kernel_launches() -> dict:
             "relu2": relu2_attention.launches}
 
 
-def phase_kokoro_card_vs_cpu():
+def phase_kokoro_card_vs_cpu(keep):
     """Kokoro-82M at full width, float32, TF32 off: the card against the CPU
-    on ~40 phonemes, with one noise draw (made on the CPU) given to both."""
+    on ~40 phonemes, with one noise draw (made on the CPU) given to both.
+    The card's model stays in `keep` for phase 11."""
     from mlx_audio_tpu_torch.tts.models.kokoro.kokoro import FRAME_BUCKETS, _bucket
 
     cpu = kokoro_model("cpu", seed=1)
@@ -1676,17 +1800,18 @@ def phase_kokoro_card_vs_cpu():
         f"{peak:.3e}, corr {corr:.6f} (bar {KOKORO_CARD_VS_CPU_REL:g} of max|ref|)")
     if not err <= KOKORO_CARD_VS_CPU_REL * peak:
         raise SystemExit(f"chip_smoke: Kokoro card vs CPU audio max|d| {err}")
-    del cpu, card
-    torch.cuda.empty_cache()
+    keep["kokoro_f32"] = card
+    del cpu
     return {"phonemes": len(ps), "max_abs_err": float(err),
             "bar": float(KOKORO_CARD_VS_CPU_REL * peak)}
 
 
-def phase_kokoro():
+def phase_kokoro(keep):
     """Kokoro-82M at bench.py's widths in bf16 (seeded random weights):
     bench.py's 508 phonemes through `Model.__call__`, one warm-up and 5 timed
     runs (RTF = mean wall / audio seconds, as bench.py), one profiled run,
-    and `Model.generate` through the pipeline with a seeded voice pack."""
+    and `Model.generate` through the pipeline with a seeded voice pack. The
+    model stays in `keep` for phase 11."""
     import tempfile
 
     gc.collect()
@@ -1758,8 +1883,8 @@ def phase_kokoro():
     log(f"[kokoro] generate({text!r}, voice=af_smoke): {r.token_count} phonemes, "
         f"{r.samples} samples ({r.audio_duration}), {r.processing_time_seconds:.3f} s, "
         f"RTF {r.real_time_factor}, peak memory {r.peak_memory_usage} GiB")
-    del model
-    torch.cuda.empty_cache()
+    model.repo_id, model._pipelines = None, {}  # the voice directory is gone
+    keep["kokoro"] = model
     return {"phonemes": len(ps), "frames": frames, "audio_s": audio_s, "voiced": voiced[0],
             "walls_s": walls, "rtf": wall / audio_s, "peak_gb": peak_gb,
             "profiled": profiled, "frame_rate_bilstm": bilstm,
@@ -1796,7 +1921,7 @@ def check_words(out, label) -> int:
     return n
 
 
-def phase_whisper_rest():
+def phase_whisper_rest(keep):
     """Whisper-large-v3-turbo in bf16 (the phase 4 model, seeded weights) through
     every route the port added after `generate_chunked`: the seek loop at
     `bench_whisper_serving`'s settings and at its defaults, conditioned
@@ -1805,7 +1930,8 @@ def phase_whisper_rest():
     step's flash launches are held to a count derived from the code: one
     launch per encoder layer per encoder pass, and one encoder pass per seek
     window (two with word timing), per chunked group (word timing reuses
-    its K/V), per conditioned decode group, per streamed chunk."""
+    its K/V), per conditioned decode group, per streamed chunk. The model
+    stays in `keep` for phase 11."""
     import tempfile
 
     from mlx_audio_tpu_torch.ops.cuda.flash_attention import flash_attention
@@ -2015,10 +2141,7 @@ def phase_whisper_rest():
         raise SystemExit(f"chip_smoke: the writers wrote {sizes}")
     log(f"[rest] writers: {sizes} bytes")
     rec["writers_bytes"] = sizes
-
-    del model
-    gc.collect()
-    torch.cuda.empty_cache()
+    keep["whisper"] = model
     return rec
 
 
@@ -2366,15 +2489,487 @@ def phase_loaded(smi: str) -> dict:
     return rec
 
 
+# Phase 11: serving, on the models of phases 5, 7, 8 and 9 (the phase 4
+# Whisper), at bench.py's serving settings
+SERVE_STREAMS, SERVE_TRIALS = 8, 3
+SERVE_WHISPER_S = 30.0
+SERVE_QWEN_FRAMES, SERVE_QWEN_TICK, SERVE_QWEN_MAX_LEN = 64, 8, 1024
+SERVE_INT4_FRAMES = 16
+SERVE_KOKORO_REQUESTS = 4
+SERVE_KOKORO_TEXT = "The quick brown fox jumps over the lazy dog."
+# Kokoro batched against sequential: in float32 within one int16 step (the
+# same float32 operations at another batch width); in bf16 the batched
+# GEMMs, convolutions and LSTM round each bf16 activation in other places
+# (on the CPU at full width, 40 phonemes: 365-377 int16 steps apart,
+# correlation 0.99994; in float32 one step), so the bf16 rows are held to
+# the JAX package's own bar for batched Kokoro (tests/test_serving.py).
+KOKORO_SERVE_BF16_CORR = 0.999
+SERVE_TIMEOUT = 600
+# Tokens of the batched and the sequential Whisper path may part only where
+# the two bf16 runs round in other places: the batched encoder's GEMMs tile
+# 8 x 1500 rows where the sequential tile 1500, and each bf16 activation may
+# round the other way, which a 32-layer encoder carries into the logits as
+# a few bf16 ulps. The bar: the two chosen tokens' logits within this many
+# bf16 ulps at their magnitude.
+SERVE_TIE_ULPS = 4
+# Qwen3-TTS int4 greedy, the batcher (tensor-core GEMM at M = 8) against
+# `_run_codes` (the GEMV at M = 1): float32 residual stream and logits,
+# sums in other orders; codes may part only where the reference's two
+# candidates lie within this share of its largest |logit|.
+SERVE_QWEN_TIE_REL = 1e-4
+
+
+def serve_texts():
+    """bench_qwen3_serving's eight texts."""
+    return [f"Concurrent stream number {i}: the quick brown fox jumps over the lazy dog "
+            "while the synthesis model turns text into speech." for i in range(SERVE_STREAMS)]
+
+
+def results_in_time(futs) -> list:
+    return [f.result(timeout=SERVE_TIMEOUT) for f in futs]
+
+
+def concurrently(fn, args) -> list:
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(args)) as ex:
+        return results_in_time([ex.submit(fn, a) for a in args])
+
+
+def bf16_ulp(x: float) -> float:
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 1e-30))) - 7)
+
+
+def serve_whisper(model) -> dict:
+    """bench_whisper_serving on the phase 4 model in bf16: 8 streams of 30 s
+    seeded noise through `generate` (the seek loop), sequential once, then
+    through `make_batcher(max_batch=8, window_ms=50)`: the batch buckets
+    warmed, a warm concurrent wave, the median of 3 concurrent trials. Each
+    trial's flash launches held to 32 per batched encode (one per encoder
+    layer per dispatch); each stream's tokens to its sequential tokens, or
+    a near-tie where they part (SERVE_TIE_ULPS)."""
+    from mlx_audio_tpu_torch.ops.cuda.flash_attention import flash_attention
+    from mlx_audio_tpu_torch.stt.models.whisper.decoding import DecodingOptions
+    from mlx_audio_tpu_torch.stt.models.whisper.tokenizer import DummyTokenizer
+
+    tok = DummyTokenizer(n_vocab=TURBO["n_vocab"])
+    rng = np.random.default_rng(2)  # bench.py's
+    audios = [(rng.standard_normal(int(16000 * SERVE_WHISPER_S)) * 0.05).astype(np.float32)
+              for _ in range(SERVE_STREAMS)]
+    kw = dict(language="en", temperature=0.0, tokenizer=tok, condition_on_previous_text=False,
+              no_speech_threshold=None, without_timestamps=True, sample_len=96)
+
+    def transcribe(a):
+        return model.generate(a, **kw)  # tokens reach the host: synchronised
+
+    def tokens(out):
+        return [s["tokens"] for s in out.segments]
+
+    transcribe(audios[0])
+    t0 = time.perf_counter()
+    seq = [transcribe(a) for a in audios]
+    seq_wall = time.perf_counter() - t0
+    L = TURBO["n_audio_layer"]
+    batcher = model.make_batcher(max_batch=SERVE_STREAMS, window_ms=50.0).install()
+    try:
+        opts = DecodingOptions(task="transcribe", language="en", temperature=0.0,
+                               without_timestamps=True, sample_len=96)
+        t0 = time.perf_counter()
+        batcher.warmup(torch.zeros(3000, TURBO["n_mels"], device=model.device),
+                       list(tok.sot_sequence_including_notimestamps), opts, tok)
+        warm_s = time.perf_counter() - t0
+        concurrently(transcribe, audios)
+        walls, dispatches, launches = [], [], []
+        for _ in range(SERVE_TRIALS):
+            d0 = batcher.dispatch_count
+            flash_attention.launches = 0
+            t0 = time.perf_counter()
+            outs = concurrently(transcribe, audios)
+            walls.append(time.perf_counter() - t0)
+            launches.append(flash_attention.launches)
+            dispatches.append(batcher.dispatch_count - d0)
+            if launches[-1] != L * dispatches[-1]:
+                raise SystemExit(f"chip_smoke: a serving trial launched flash {launches[-1]} "
+                                 f"times over {dispatches[-1]} dispatches, the code says "
+                                 f"{L} per batched encode")
+            parted = check_served_tokens(model, audios, seq, outs, tok)
+        profile_one_run(lambda: concurrently(transcribe, audios),
+                        f"one concurrent wave of {SERVE_STREAMS} x {SERVE_WHISPER_S:g} s")
+        profiled = profile_one_run.last
+    finally:
+        batcher.close()
+    med = statistics.median(walls)
+    total = SERVE_WHISPER_S * SERVE_STREAMS
+    if any(len(t) != 1 or len(t[0]) != 96 for t in map(tokens, seq)):
+        raise SystemExit(f"chip_smoke: served Whisper windows {[tokens(o) for o in seq][:1]}")
+    log(f"[serving] whisper: {SERVE_STREAMS} x {SERVE_WHISPER_S:g} s, bf16, window 50 ms: "
+        f"sequential {seq_wall:.4f} s ({total / seq_wall:.1f}x real time); batched walls "
+        f"{', '.join(f'{w:.4f}' for w in walls)} s, median {med:.4f} s = {total / med:.1f}x "
+        f"aggregate real time, {seq_wall / med:.2f}x sequential; dispatches per trial "
+        f"{dispatches}, flash launches per trial {launches} ({L} per batched encode); bucket "
+        f"warm-up {warm_s:.2f} s; streams whose tokens part from sequential: {parted}")
+    return {"streams": SERVE_STREAMS, "audio_s": total, "sequential_wall_s": seq_wall,
+            "walls_s": walls, "aggregate_xrt": total / med, "speedup": seq_wall / med,
+            "dispatches": dispatches, "flash_launches": launches, "warmup_s": warm_s,
+            "parted": parted, "profiled": profiled}
+
+
+def check_served_tokens(model, audios, seq, outs, tok) -> list:
+    """Each stream's batched tokens against its sequential tokens. Where
+    they part, the sequential path's logits after the common prefix (a
+    B = 1 encode and decoder pass) must put the two choices within
+    SERVE_TIE_ULPS bf16 ulps. Returns [(stream, step, gap, bar)]."""
+    parted = []
+    prompt = list(tok.sot_sequence_including_notimestamps)
+    for i, (s, o) in enumerate(zip(seq, outs)):
+        a, b = o.segments[0]["tokens"], s.segments[0]["tokens"]
+        if a == b:
+            continue
+        j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        mel, _ = model._mel_chunks_device(audios[i])
+        with torch.inference_mode():
+            _, kv = model._encode(mel[:1])
+            lg = model.decoder(torch.tensor([prompt + b[:j]], device=model.device), 0, None,
+                               kv)[0][0, -1].float()
+        top = lg.topk(2).values
+        gap = abs(lg[a[j]] - lg[b[j]]).item() if j < min(len(a), len(b)) else float("inf")
+        bar = SERVE_TIE_ULPS * bf16_ulp(max(abs(lg[a[j]].item()), abs(lg[b[j]].item())))
+        log(f"[serving] whisper stream {i}: batched and sequential part at step {j} (batched "
+            f"{a[j:j + 3]}, sequential {b[j:j + 3]}); top-2 logit margin there "
+            f"{(top[0] - top[1]).item():.3e}, gap between the two choices {gap:.3e} (bar "
+            f"{bar:.3e} = {SERVE_TIE_ULPS} bf16 ulp)")
+        if not gap <= bar:
+            raise SystemExit(f"chip_smoke: served Whisper stream {i} parts from sequential at "
+                             f"step {j} with a gap of {gap}, not a near-tie")
+        parted.append((i, j, gap, bar))
+    return parted
+
+
+def serve_qwen_bf16(model) -> dict:
+    """bench_qwen3_serving on the unquantized bf16 model: 8 sampled streams x
+    64 frames, slots 8, max_len 1024, tick_frames 8; a warm wave, the 8
+    requests one live slot at a time on the same engine, then the median of
+    3 concurrent trials. Each request's codes in every trial equal its
+    one-slot codes (a request's draws depend only on its seed)."""
+    from mlx_audio_tpu_torch.ops.cuda import quant_matmul as qk
+
+    preps = [model._prepare_generation_inputs(t)[:2] for t in serve_texts()]
+    samp = dict(max_tokens=SERVE_QWEN_FRAMES, min_tokens=SERVE_QWEN_FRAMES, temperature=0.9,
+                top_k=50, top_p=1.0, repetition_penalty=1.05)
+    qk.reset_launches()
+    batcher = model.make_batcher(slots=SERVE_STREAMS, max_len=SERVE_QWEN_MAX_LEN,
+                                 tick_frames=SERVE_QWEN_TICK)
+    try:
+        warm = {**samp, "max_tokens": SERVE_QWEN_TICK, "min_tokens": SERVE_QWEN_TICK}
+        t0 = time.perf_counter()
+        results_in_time([batcher.submit(e, t, seed=0, **warm) for e, t in preps])
+        warm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        alone = [batcher.submit(e, t, seed=i, **samp).result(timeout=SERVE_TIMEOUT)
+                 for i, (e, t) in enumerate(preps)]
+        seq_wall = time.perf_counter() - t0
+        walls, ticks = [], []
+        for _ in range(SERVE_TRIALS):
+            d0 = batcher.dispatch_count
+            t0 = time.perf_counter()
+            frames = results_in_time([batcher.submit(e, t, seed=i, **samp)
+                                      for i, (e, t) in enumerate(preps)])
+            walls.append(time.perf_counter() - t0)
+            ticks.append(batcher.dispatch_count - d0)
+            check_served_codes(frames, alone, "qwen3 bf16")
+        profile_one_run(lambda: results_in_time([batcher.submit(e, t, seed=i, **warm)
+                                                 for i, (e, t) in enumerate(preps)]),
+                        f"one tick of {SERVE_STREAMS} slots x {SERVE_QWEN_TICK} frames")
+        profiled = profile_one_run.last
+    finally:
+        batcher.close()
+    quant = quant_counts(4)
+    if any(quant.values()):
+        raise SystemExit(f"chip_smoke: the unquantized model launched quantized kernels {quant}")
+    total = sum(f.shape[0] for f in frames)
+    med = statistics.median(walls)
+    log(f"[serving] qwen3 bf16: {SERVE_STREAMS} sampled streams x {SERVE_QWEN_FRAMES} frames, "
+        f"slots {SERVE_STREAMS}, tick {SERVE_QWEN_TICK}: warm wave {warm_s:.2f} s; one live slot "
+        f"at a time {seq_wall:.4f} s; concurrent walls {', '.join(f'{w:.4f}' for w in walls)} s, "
+        f"median {med:.4f} s = {seq_wall / med:.2f}x sequential, {total / med:.1f} aggregate "
+        f"frames/s ({total / 12.5 / med:.2f}x real time); ticks per trial {ticks}; every "
+        f"request's codes equal its one-slot codes")
+    return {"streams": SERVE_STREAMS, "frames": total, "sequential_wall_s": seq_wall,
+            "walls_s": walls, "speedup": seq_wall / med, "frames_per_s": total / med,
+            "ticks": ticks, "warmup_s": warm_s, "profiled": profiled}
+
+
+def check_served_codes(got, want, label) -> None:
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape or not np.array_equal(g, w):
+            raise SystemExit(f"chip_smoke: {label} request {i}: served codes {g.shape} differ "
+                             f"from its one-slot codes {w.shape}")
+
+
+def serve_qwen_int4(model) -> dict:
+    """The int4 model of phase 5 through the same batcher: 8 sampled streams
+    x 16 frames, every quantized launch held to the routing table at the
+    pool's shapes (`predicted_serving_launches`); each request's codes equal
+    its one-slot codes; a greedy request's codes (one live slot) equal
+    `_run_codes`' greedy codes, or part at a near-tie (SERVE_QWEN_TIE_REL)."""
+    from mlx_audio_tpu_torch.lm.continuous import _bucket
+    from mlx_audio_tpu_torch.ops.cuda import quant_matmul as qk
+    from mlx_audio_tpu_torch.tts.models.qwen3_tts import batcher as batcher_mod
+
+    preps = [model._prepare_generation_inputs(t)[:2] for t in serve_texts()]
+    T = preps[0][0].shape[1]
+    samp = dict(max_tokens=SERVE_INT4_FRAMES, min_tokens=SERVE_INT4_FRAMES, temperature=0.9,
+                top_k=50, top_p=1.0, repetition_penalty=1.05)
+    batcher = model.make_batcher(slots=SERVE_STREAMS, max_len=SERVE_QWEN_MAX_LEN,
+                                 tick_frames=SERVE_QWEN_TICK)
+    try:
+        results_in_time([batcher.submit(e, t, seed=0, **samp) for e, t in preps])  # warm
+        qk.reset_launches()
+        d0 = batcher.dispatch_count
+        t0 = time.perf_counter()
+        codes = results_in_time([batcher.submit(e, t, seed=i, **samp)
+                                 for i, (e, t) in enumerate(preps)])
+        wall = time.perf_counter() - t0
+        ticks = batcher.dispatch_count - d0
+        got = quant_counts(4)
+        predicted = predicted_serving_launches(model, 4, _bucket(T), SERVE_STREAMS,
+                                               ticks * SERVE_QWEN_TICK, SERVE_STREAMS)
+        log(f"[serving] qwen3 int4: {SERVE_STREAMS} x {SERVE_INT4_FRAMES} frames in {ticks} "
+            f"ticks, wall {wall:.4f} s; launches {got}, routing table {predicted} (prefill "
+            f"at M = {_bucket(T)}, ticks at M = {SERVE_STREAMS})")
+        for k, want in predicted.items():
+            if got[k] != want:
+                raise SystemExit(f"chip_smoke: served int4 Qwen3-TTS launched {k} {got[k]} "
+                                 f"times, the routing table says {want}")
+        for k in ("qmm_mma", "qmlp"):
+            if got[k] <= 0:
+                raise SystemExit(f"chip_smoke: served int4 Qwen3-TTS launched no {k}")
+        alone = [batcher.submit(e, t, seed=i, **samp).result(timeout=SERVE_TIMEOUT)
+                 for i, (e, t) in enumerate(preps)]
+        check_served_codes(codes, alone, "qwen3 int4")
+        greedy = dict(samp, temperature=0.0, top_k=0, repetition_penalty=1.0)
+        served_lg = []
+        sample_rows = batcher_mod._sample_rows_core
+
+        def spy(logits, *a, **kw):
+            served_lg.append(logits[0].float().clone())  # the one live slot's row
+            return sample_rows(logits, *a, **kw)
+
+        batcher_mod._sample_rows_core = spy
+        try:
+            served = batcher.submit(*preps[0], seed=0, **greedy).result(timeout=SERVE_TIMEOUT)
+        finally:
+            batcher_mod._sample_rows_core = sample_rows
+    finally:
+        batcher.close()
+    parted = check_greedy_codes(model, serve_texts()[0], served, served_lg, greedy)
+    log(f"[serving] qwen3 int4: every request's codes equal its one-slot codes; a greedy "
+        f"request through the batcher against _run_codes: "
+        f"{'identical' if parted is None else parted}")
+    return {"streams": SERVE_STREAMS, "frames": sum(c.shape[0] for c in codes), "wall_s": wall,
+            "ticks": ticks, "launches": got, "predicted": predicted, "greedy_parted": parted}
+
+
+def check_greedy_codes(model, text, served, served_lg, greedy):
+    """The batcher's greedy codes against `_run_codes`' (one request, B = 1),
+    draw by draw (c0, then the 15 codebooks, a frame at a time). Where they
+    part, `_run_codes`' logits must put the two choices within
+    SERVE_QWEN_TIE_REL of their largest |logit|."""
+    from mlx_audio_tpu_torch.tts.models.qwen3_tts import qwen3_tts
+
+    ref_lg = []
+    sample = qwen3_tts._sample
+
+    def spy(logits, *a, **kw):
+        ref_lg.append(logits[0].float().clone())
+        return sample(logits, *a, **kw)
+
+    qwen3_tts._sample = spy
+    try:
+        emb, tr, pad = model._prepare_generation_inputs(text)
+        ref = np.concatenate(list(model._run_codes(
+            emb, tr, pad, chunk_tokens=greedy["max_tokens"], seed=0, **greedy)))
+    finally:
+        qwen3_tts._sample = sample
+    if ref.shape != served.shape:
+        raise SystemExit(f"chip_smoke: greedy codes {served.shape} vs _run_codes {ref.shape}")
+    if np.array_equal(ref, served):
+        return None
+    a, b = served.reshape(-1), ref.reshape(-1)
+    k = int(np.nonzero(a != b)[0][0])
+    lg = ref_lg[k]
+    gap = abs(lg[int(a[k])] - lg[int(b[k])]).item()
+    bar = SERVE_QWEN_TIE_REL * lg.abs().max().item()
+    log(f"[serving] qwen3 int4 greedy: the batcher and _run_codes part at draw {k} (frame "
+        f"{k // ref.shape[1]}, codebook {k % ref.shape[1]}): batcher {int(a[k])}, _run_codes "
+        f"{int(b[k])}, gap {gap:.3e} (bar {bar:.3e}); the batcher's own logits there give "
+        f"{(served_lg[k][int(a[k])] - served_lg[k][int(b[k])]).item():.3e}")
+    if not gap <= bar:
+        raise SystemExit(f"chip_smoke: greedy codes part from _run_codes at draw {k} with a "
+                         f"gap of {gap}, not a near-tie")
+    return {"draw": k, "gap": gap, "bar": bar}
+
+
+def serve_moss(model) -> dict:
+    """Phase 7's 90 s request chunked through `make_batcher` (max_batch 8):
+    its own 4 s chunks fuse; ReLU² launches held to one per FLASH layer per
+    batched dispatch; the output within MOSS_CARD_VS_CPU_REL of the peak of
+    the unbatched route's. Median of 3 after a warm-up, beside the
+    unbatched route's in the same call."""
+    from mlx_audio_tpu_torch.ops.cuda.relu2_attention import relu2_attention
+
+    cfg = model.config
+    sec = MOSS_REQUESTS[2][0]
+    audio = (np.random.default_rng(12).standard_normal(int(sec * cfg.sample_rate))
+             * 0.05).astype(np.float32)  # phase 7's 90 s request
+
+    def timed(n):
+        walls, out = [], None
+        for _ in range(n):
+            t0 = time.perf_counter()
+            out = model.enhance(audio)  # numpy: synchronised
+            walls.append(time.perf_counter() - t0)
+        return out, walls
+
+    ref, plain = timed(SERVE_TRIALS)
+    batcher = model.make_batcher(max_batch=SERVE_STREAMS).install()
+    try:
+        timed(1)
+        relu2_attention.launches = 0
+        d0 = batcher.dispatch_count
+        out, walls = timed(1)
+        launches, dispatches = relu2_attention.launches, batcher.dispatch_count - d0
+        more, walls2 = timed(SERVE_TRIALS - 1)
+        walls += walls2
+        profile_one_run(lambda: timed(1), f"one {sec:g} s chunked enhancement, batched")
+        profiled = profile_one_run.last
+    finally:
+        batcher.close()
+    err, peak = np.abs(out - ref).max(), np.abs(ref).max()
+    med, pmed = statistics.median(walls), statistics.median(plain)
+    log(f"[serving] mossformer2-se: {sec:g} s chunked through the batcher: {dispatches} batched "
+        f"dispatches, relu2 launches {launches} (predicted {cfg.num_blocks} a dispatch); walls "
+        f"{', '.join(f'{w:.4f}' for w in walls)} s, median {med:.4f} s = {sec / med:.1f}x real "
+        f"time; unbatched in this call {pmed:.4f} s ({pmed / med:.2f}x slower); output max|d| "
+        f"{err:.3e} against the unbatched route, max|ref| {peak:.3e} (bar "
+        f"{MOSS_CARD_VS_CPU_REL:g} of max|ref|)")
+    if launches != cfg.num_blocks * dispatches:
+        raise SystemExit(f"chip_smoke: served MossFormer2-SE launched relu2 {launches} times "
+                         f"over {dispatches} dispatches")
+    if not err <= MOSS_CARD_VS_CPU_REL * peak or not np.array_equal(out, more):
+        raise SystemExit(f"chip_smoke: served MossFormer2-SE output max|d| {err}, or repeated "
+                         f"runs disagree")
+    return {"audio_s": sec, "dispatches": dispatches, "relu2_launches": launches,
+            "walls_s": walls, "xrt": sec / med, "unbatched_walls_s": plain,
+            "max_abs_err": float(err), "profiled": profiled}
+
+
+def serve_kokoro(model, label, bar) -> dict:
+    """4 concurrent `generate` calls (one text, four seeded voice packs)
+    through `make_batcher`, against the same calls one after another: the
+    rows share a frame bucket, so each draws its sequential noise; each
+    request's audio held to its sequential audio by `bar` ("int16": within
+    one int16 step; else a least correlation); the dispatch count."""
+    import tempfile
+
+    from mlx_audio_tpu_torch.tts.models.kokoro.kokoro import FRAME_BUCKETS, _bucket
+
+    n = SERVE_KOKORO_REQUESTS
+    with tempfile.TemporaryDirectory() as d:
+        (Path(d) / "voices").mkdir()
+        for i in range(n):
+            pack = (np.random.default_rng(40 + i).standard_normal(
+                (510, 1, 2 * model.config.style_dim)) * 0.1).astype(np.float32)
+            np.savez(Path(d) / "voices" / f"af_serve{i}.npz", voice=pack)
+        model.repo_id, model._pipelines = d, {}
+
+        def run(i):
+            res = list(model.generate(SERVE_KOKORO_TEXT, voice=f"af_serve{i}"))
+            if len(res) != 1:
+                raise SystemExit(f"chip_smoke: Kokoro generate gave {len(res)} segments")
+            return res[0]
+
+        seq = [run(i) for i in range(n)]
+        t0 = time.perf_counter()
+        seq = [run(i) for i in range(n)]
+        seq_wall = time.perf_counter() - t0
+        batcher = model.make_batcher(max_batch=n, window_ms=100.0).install()
+        try:
+            concurrently(run, list(range(n)))  # warm
+            d0 = batcher.dispatch_count
+            t0 = time.perf_counter()
+            outs = concurrently(run, list(range(n)))
+            wall = time.perf_counter() - t0
+            dispatches = batcher.dispatch_count - d0
+        finally:
+            batcher.close()
+        model.repo_id, model._pipelines = None, {}
+    spf = 2 * model.decoder.generator.total_upsample
+    buckets = [_bucket(r.samples // spf, FRAME_BUCKETS) for r in seq]
+    if [o.samples for o in outs] != [r.samples for r in seq] or len(set(buckets)) != 1:
+        raise SystemExit(f"chip_smoke: Kokoro {label}: served lengths {[o.samples for o in outs]} "
+                         f"against {[r.samples for r in seq]}, frame buckets {buckets}")
+    steps = [int(np.abs(np.round(o.audio * 32767.0) - np.round(s.audio * 32767.0)).max())
+             for o, s in zip(outs, seq)]
+    corr = [float(np.corrcoef(o.audio, s.audio)[0, 1]) for o, s in zip(outs, seq)]
+    log(f"[serving] kokoro {label}: {n} concurrent generate calls ({SERVE_KOKORO_TEXT!r}, "
+        f"voices af_serve0-{n - 1}): {dispatches} dispatch(es), wall {wall:.4f} s against "
+        f"{seq_wall:.4f} s one after another ({seq_wall / wall:.2f}x); frame buckets {buckets}; "
+        f"from each sequential call: int16 steps {steps}, correlation "
+        f"{', '.join(f'{c:.6f}' for c in corr)} (bar: "
+        f"{'one int16 step' if bar == 'int16' else f'correlation >= {bar}'})")
+    if (max(steps) > 1) if bar == "int16" else (min(corr) < bar):
+        raise SystemExit(f"chip_smoke: served Kokoro {label} audio over its bar: steps {steps}, "
+                         f"correlation {corr}")
+    return {"requests": n, "dispatches": dispatches, "wall_s": wall,
+            "sequential_wall_s": seq_wall, "max_int16_steps": max(steps),
+            "min_corr": min(corr)}
+
+
+def phase_serving(keep) -> dict:
+    """Phase 11: the serving batchers on the models of phases 5, 7, 8 and 9
+    (built here from the same seeds when those phases did not run)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    if "whisper" not in keep:
+        from mlx_audio_tpu_torch.stt.models.whisper import Model, ModelDimensions
+
+        keep["whisper"] = Model(ModelDimensions(**TURBO), dtype=torch.bfloat16, seed=0)
+    if "qwen3_bf16" not in keep:
+        keep["qwen3_bf16"] = qwen_model(None)
+    if "qwen3_int4" not in keep:
+        keep["qwen3_int4"] = qwen_model(4)
+    if "mossformer2_se" not in keep:
+        from mlx_audio_tpu_torch.sts.models.mossformer2_se import Model
+
+        keep["mossformer2_se"] = Model(device="cuda", seed=0)
+        fill_depthwise(keep["mossformer2_se"], 1)
+    if "kokoro" not in keep:
+        keep["kokoro"] = kokoro_model("cuda", torch.bfloat16)
+    if "kokoro_f32" not in keep:
+        keep["kokoro_f32"] = kokoro_model("cuda", seed=1)
+    t0 = time.perf_counter()
+    rec = {"whisper": serve_whisper(keep["whisper"]),
+           "qwen3_bf16": serve_qwen_bf16(keep["qwen3_bf16"]),
+           "qwen3_int4": serve_qwen_int4(keep["qwen3_int4"]),
+           "mossformer2_se": serve_moss(keep["mossformer2_se"]),
+           "kokoro_f32": serve_kokoro(keep["kokoro_f32"], "f32", "int16"),
+           "kokoro_bf16": serve_kokoro(keep["kokoro"], "bf16", KOKORO_SERVE_BF16_CORR)}
+    rec["wall_s"] = time.perf_counter() - t0
+    log(f"[serving] phase 11 wall {rec['wall_s']:.1f} s")
+    return rec
+
+
 QUANT_SOURCE = "mlx_audio_tpu_torch/csrc/quant_matmul.cu"
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
                     help="comma-separated subset to run; a subset prints no result")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
     smi = phase_device()
+    keep = {}  # the models phase 11 serves
     if 2 in phases:
         errs, timing = phase_kernels()
         qerrs, qtiming = phase_quant_kernels()
@@ -2386,19 +2981,21 @@ def main():
     if 4 in phases:
         launches, launches_f32 = phase_slice()
     if 5 in phases:
-        qlaunches = phase_qwen_slice()
-        qwen_bf16 = phase_qwen_bf16()
+        qlaunches = phase_qwen_slice(keep)
+        qwen_bf16 = phase_qwen_bf16(keep)
     if 6 in phases:
         q6_launches = phase_qwen_6bit()
     if 7 in phases:
-        r2_launches = phase_moss_slice()
+        r2_launches = phase_moss_slice(keep)
     if 8 in phases:
-        kokoro = {"card_vs_cpu_f32": phase_kokoro_card_vs_cpu(), "bf16": phase_kokoro()}
+        kokoro = {"card_vs_cpu_f32": phase_kokoro_card_vs_cpu(keep), "bf16": phase_kokoro(keep)}
     if 9 in phases:
-        rest = phase_whisper_rest()
+        rest = phase_whisper_rest(keep)
     if 10 in phases:
         loaded = phase_loaded(smi)
-    if phases != set(range(1, 11)):
+    if 11 in phases:
+        serving = phase_serving(keep)
+    if phases != set(range(1, 12)):
         log(f"[device] {smi}")
         sys.exit(f"chip_smoke: ran phases {sorted(phases)} only; no result")
     record = {"kernels": [{
@@ -2416,6 +3013,10 @@ def main():
         "seek_loop_120s": rest["seek_loop"]["flash_launches"],
         "seek_word_timing_30s": 2 * TURBO["n_audio_layer"] * rest["word_timing"]["seek_windows"],
         "streaming_10s": TURBO["n_audio_layer"] * int(REST_STREAM_S)}
+    # B = 8: the serving batcher's encode of eight windows (phase 11)
+    record["kernels"][0]["serving"] = {
+        "launches": serving["whisper"]["flash_launches"][-1],
+        "b8": {"max_abs_err": errs["whisper_b8_bf16"], **timing["whisper_b8_bf16"]}}
     for name, replaces, n, err in (
             ("qmm", "mlx_audio_tpu/ops/pallas/quant_matmul.py:64", qlaunches["qmm"],
              qerrs["qkv_m1_f32"]),
@@ -2442,6 +3043,18 @@ def main():
                 "ms", "bound_ms", "bound_by", "plain_ms", "tiled_ms", "yardstick_ms")}
                 for key in qtiming if key.startswith(f"{tag}_") and "_m" in key
                 and "tiled_ms" in qtiming[key]}}
+    # the serving batcher's int4 run (phase 11): launches by kernel, and the
+    # tick's M = 8 shapes
+    served = serving["qwen3_int4"]["launches"]
+    qmm = next(k for k in record["kernels"] if k["name"] == "qmm")
+    qmm["serving"] = {
+        "launches": {k: served[k] for k in ("qmm", "qmm_gemv", "qmm_mma", "qmm_kernel")},
+        "max_abs_err": qerrs["qkv_m8_f32"],
+        "m8": {key[len("qmm_"):]: qtiming[key] for key in qtiming
+               if key.startswith("qmm_") and f"_m{SERVE_M}" in key}}
+    qmlp = next(k for k in record["kernels"] if k["name"] == "qmlp")
+    qmlp["serving"] = {"launches": served["qmlp"],
+                       "m8": {"max_abs_err": qerrs["mlp_m8_f32"], **qtiming["qmlp_m8"]}}
     record["kernels"].append({
         "name": "relu2_attention", "route": "cuda",
         "source": "mlx_audio_tpu_torch/csrc/relu2_attention.cu",
@@ -2450,12 +3063,16 @@ def main():
         **rtiming["merged20s_f32"],
         "bf16": {"max_abs_err": rerrs["merged20s_bf16"],
                  **{f"G{G}": {k: rtiming[case][k] for k in ("ms", "bound_ms", "plain_ms")}
-                    for G, case in ((10, "merged20s_bf16"), (2, "merged4s_bf16"))}}})
+                    for G, case in ((10, "merged20s_bf16"), (2, "merged4s_bf16"))}},
+        "serving": {"launches": serving["mossformer2_se"]["relu2_launches"],
+                    "b8_g2": {"max_abs_err": rerrs["merged4s_b8_f32"],
+                              **rtiming["merged4s_b8_f32"]}}})
     log(f"[device] {smi}")
     print(json.dumps({"kokoro": kokoro}), flush=True)
     print(json.dumps({"qwen3_bf16": qwen_bf16}), flush=True)
     print(json.dumps({"whisper_rest": rest}), flush=True)
     print(json.dumps({"loaded": loaded}), flush=True)
+    print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 __all__ = ["hanning", "hamming", "STR_TO_WINDOW_FN", "stft", "istft", "mel_filters",
            "log_mel_spectrogram", "compute_deltas_kaldi", "get_mel_banks_kaldi",
-           "kaldi_dither", "compute_fbank_kaldi"]
+           "kaldi_dither", "compute_fbank_kaldi", "compute_fbank_kaldi_rows"]
 
 
 @lru_cache(maxsize=None)
@@ -292,7 +292,6 @@ def compute_fbank_kaldi(
     if waveform.dim() == 2:
         waveform = waveform[0]
     window_shift, window_size = win_inc, win_len
-    padded_window_size = _next_power_of_2(window_size)
 
     num_samples = waveform.shape[0]
     if snip_edges:
@@ -310,16 +309,49 @@ def compute_fbank_kaldi(
             waveform = torch.cat([waveform[-pad:], waveform.flip(0)])
         frames = waveform.unfold(0, window_size, window_shift)[:m]
 
+    return _fbank_of_frames(frames, sample_rate, num_mels, win_type, preemphasis, dither,
+                            low_freq, high_freq, noise)
+
+
+def compute_fbank_kaldi_rows(
+    waveforms: torch.Tensor,
+    sample_rate: int = 48000,
+    win_len: int = 1920,
+    win_inc: int = 384,
+    num_mels: int = 60,
+    win_type: str = "hamming",
+    preemphasis: float = 0.97,
+    dither: float = 1.0,
+    low_freq: float = 20.0,
+    high_freq: float = 0.0,
+    noise: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """`compute_fbank_kaldi` (snip_edges) of each row of waveforms (B, T) →
+    (B, time, num_mels), as one batched computation. Every row takes the
+    same dither: `noise` (frames, win_len), by default `kaldi_dither`'s draw
+    for one row, which is what the row alone would take."""
+    if waveforms.shape[-1] < win_len:
+        return waveforms.new_zeros((waveforms.shape[0], 0, num_mels))
+    frames = waveforms.unfold(-1, win_len, win_inc)
+    return _fbank_of_frames(frames, sample_rate, num_mels, win_type, preemphasis, dither,
+                            low_freq, high_freq, noise)
+
+
+def _fbank_of_frames(frames, sample_rate, num_mels, win_type, preemphasis, dither,
+                     low_freq, high_freq, noise):
+    """Log mel-filterbank of framed samples (..., time, window_size)."""
+    window_size = frames.shape[-1]
+    padded_window_size = _next_power_of_2(window_size)
     frames = frames.float()
     if dither != 0.0:
         if noise is None:
-            noise = kaldi_dither(frames.shape, frames.device)
+            noise = kaldi_dither(frames.shape[-2:], frames.device)
         frames = frames + dither * noise
 
-    frames = frames - frames.mean(dim=1, keepdim=True)
+    frames = frames - frames.mean(dim=-1, keepdim=True)
     if preemphasis != 0.0:
-        frames = torch.cat([frames[:, :1], frames[:, 1:] - preemphasis * frames[:, :-1]],
-                           dim=1)
+        frames = torch.cat([frames[..., :1], frames[..., 1:] - preemphasis * frames[..., :-1]],
+                           dim=-1)
 
     n = np.arange(window_size)
     if win_type == "hamming":
@@ -332,7 +364,7 @@ def compute_fbank_kaldi(
         window = np.ones(window_size)
     frames = frames * torch.from_numpy(window.astype(np.float32)).to(frames.device)
 
-    spectrum = torch.fft.rfft(frames, n=padded_window_size, dim=1).abs() ** 2.0
+    spectrum = torch.fft.rfft(frames, n=padded_window_size, dim=-1).abs() ** 2.0
     mel_banks, _ = get_mel_banks_kaldi(num_mels, padded_window_size, float(sample_rate),
                                        low_freq, high_freq)
     mel_banks = F.pad(torch.from_numpy(mel_banks).to(frames.device), (0, 1))

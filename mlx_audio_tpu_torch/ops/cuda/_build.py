@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Optional
@@ -103,15 +104,30 @@ def _build() -> Path:
     return out
 
 
+# one build, and exact launch counts, when several threads launch (a
+# serving batcher's worker beside its callers)
+_LOCK = threading.Lock()
+
+
 def load_library() -> ctypes.CDLL:
     global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(_build()))
-        for name, (restype, argtypes) in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.restype, fn.argtypes = restype, argtypes
-        _LIB = lib
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(_build()))
+            for name, (restype, argtypes) in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.restype, fn.argtypes = restype, argtypes
+            _LIB = lib
     return _LIB
+
+
+def count_launch(fn, kernel: Optional[str] = None) -> None:
+    """Add one to a wrapper's launch count (and to `fn.kernels[kernel]`),
+    under a lock: `+=` on an attribute is not atomic across threads."""
+    with _LOCK:
+        fn.launches += 1
+        if kernel is not None:
+            fn.kernels[kernel] += 1
 
 
 def error_string(err: int) -> str:

@@ -112,7 +112,7 @@ def flash_attention(q, k, v, *, causal: bool = False,
         )
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: {_build.error_string(err)}")
-    flash_attention.launches += 1
+    _build.count_launch(flash_attention)
     return out
 
 

@@ -146,7 +146,7 @@ def _x2d(x):
 # rows the others cannot take), the GEMV (M <= 4) and the tensor-core GEMM
 # (M > 4)
 QMM_KERNELS = ("qmm_kernel", "qmm_gemv", "qmm_mma")
-_ROUTE = ctypes.c_int(-1)
+
 
 def _launch_qmm(fn, x, w, scales, biases, bits, group_size):
     """Launch qmm_fwd and count it on `fn` (its total and its kernel)."""
@@ -156,15 +156,15 @@ def _launch_qmm(fn, x, w, scales, biases, bits, group_size):
     x2 = _x2d(x)
     M, N = x2.shape[0], w.shape[0]
     y = torch.empty(M, N, dtype=x.dtype, device=x.device)
+    route = ctypes.c_int(-1)  # this call's own: another thread may launch meanwhile
     err = _build.load_library().qmm_fwd(
         x2.data_ptr(), w.data_ptr(), scales.data_ptr(), biases.data_ptr(), y.data_ptr(),
         M, N, K, group_size, bits, _DTYPE_CODE[x.dtype], x2.stride(0), x.device.index,
-        ctypes.addressof(_ROUTE), _stream(x))
+        ctypes.addressof(route), _stream(x))
     if err != 0:
         raise RuntimeError(f"qmm_fwd ({bits}-bit) launch failed: {_build.error_string(err)}")
-    if _ROUTE.value >= 0:
-        fn.launches += 1
-        fn.kernels[QMM_KERNELS[_ROUTE.value]] += 1
+    if route.value >= 0:
+        _build.count_launch(fn, QMM_KERNELS[route.value])
     return y.reshape(*x.shape[:-1], N)
 
 
@@ -253,7 +253,7 @@ def quantized_mlp(x, w_gu, s_gu, b_gu, w_down, s_down, b_down, *,
         x.device.index, x2.stride(0), stream)
     if err != 0:
         raise RuntimeError(f"qmlp_fwd launch failed: {_build.error_string(err)}")
-    quantized_mlp.launches += 1
+    _build.count_launch(quantized_mlp)
     return y.reshape(*x.shape[:-1], N)
 
 

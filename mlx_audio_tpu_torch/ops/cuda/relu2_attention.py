@@ -109,7 +109,7 @@ def relu2_attention(q, k, v, group_size: Optional[int] = None) -> torch.Tensor:
         )
     if err != 0:
         raise RuntimeError(f"relu2_attention launch failed: {_build.error_string(err)}")
-    relu2_attention.launches += 1
+    _build.count_launch(relu2_attention)
     return out
 
 

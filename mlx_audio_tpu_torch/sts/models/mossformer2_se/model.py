@@ -3,11 +3,15 @@ iSTFT (counterpart of `mlx_audio_tpu/sts/models/mossformer2_se/model.py`).
 
 Each chunk runs eagerly on the model's device. The segmented and chunked
 modes for long audio cut and reassemble on the host in numpy, exactly as
-the JAX package does. The JAX package's serving hook (`_hook`,
-`make_batcher`, the vmapped batch) waits for the port of `serving.py`.
+the JAX package does. The chunk core is one batched forward over (B, T)
+(`_process_batch_core`, the JAX package's vmapped batch); a lone chunk is
+the batch of one. Under an installed serving batcher (`make_batcher`, a
+`serving.StackBatcher`) concurrent equal-length chunks, a long request's
+own among them, stack into one forward.
 
 The fbank's dither is `dsp.kaldi_dither`: a fixed draw per chunk length,
-as the JAX package's PRNGKey(0), but not the same numbers.
+as the JAX package's PRNGKey(0), but not the same numbers; every row of a
+batch takes the draw it takes alone.
 """
 
 from __future__ import annotations
@@ -19,8 +23,9 @@ import torch
 from torch import nn
 
 from ....device import resolve_device
-from ....dsp import compute_deltas_kaldi, compute_fbank_kaldi, hamming, istft, stft
+from ....dsp import compute_deltas_kaldi, compute_fbank_kaldi_rows, hamming, istft, stft
 from ....nn.module import init_weights
+from ....serving import StackBatcher, get_infer_hook, register_infer_hook, unregister_infer_hook
 from .config import MossFormer2SEConfig
 from .mossformer2 import MossFormer2SE, TestNet
 
@@ -31,29 +36,38 @@ __all__ = ["MossFormer2SEModel", "Model", "MossFormer2SEConfig"]
 
 def _features(audio: torch.Tensor, cfg: MossFormer2SEConfig,
               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(T,) samples scaled by MAX_WAV_VALUE → (1, frames, 3·num_mels):
-    the Kaldi fbank, its deltas and delta-deltas."""
-    fb = compute_fbank_kaldi(audio, sample_rate=cfg.sample_rate, win_len=cfg.win_len,
-                             win_inc=cfg.win_inc, num_mels=cfg.num_mels,
-                             win_type=cfg.win_type, preemphasis=cfg.preemphasis,
-                             noise=noise)
-    d1 = compute_deltas_kaldi(fb.T, win_length=5)
+    """(T,) or (B, T) samples scaled by MAX_WAV_VALUE → (B, frames,
+    3·num_mels): the Kaldi fbank, its deltas and delta-deltas."""
+    fb = compute_fbank_kaldi_rows(audio.reshape(-1, audio.shape[-1]),
+                                  sample_rate=cfg.sample_rate, win_len=cfg.win_len,
+                                  win_inc=cfg.win_inc, num_mels=cfg.num_mels,
+                                  win_type=cfg.win_type, preemphasis=cfg.preemphasis,
+                                  noise=noise)
+    d1 = compute_deltas_kaldi(fb.transpose(1, 2), win_length=5)
     d2 = compute_deltas_kaldi(d1, win_length=5)
-    return torch.cat([fb, d1.T, d2.T], dim=1)[None]
+    return torch.cat([fb, d1.transpose(1, 2), d2.transpose(1, 2)], dim=2)
+
+
+def _process_batch_core(model: TestNet, audio: torch.Tensor, cfg: MossFormer2SEConfig,
+                        noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, T) equal-length chunks scaled by MAX_WAV_VALUE → the enhanced
+    (B, T), as one forward (the ReLU² kernel takes the B rows in each
+    launch). `noise` replaces the fbank's dither draw of every row."""
+    mask = model(_features(audio, cfg, noise))[-1]  # (B, frames, out_final)
+    window = hamming(cfg.win_len, device=audio.device)
+    spec = stft(audio, n_fft=cfg.fft_len, hop_length=cfg.win_inc, win_length=cfg.win_len,
+                window=window, center=False)  # (B, frames, freq)
+    frames = min(spec.shape[1], mask.shape[1])
+    masked = spec[:, :frames] * mask[:, :frames]
+    return istft(masked.transpose(1, 2), hop_length=cfg.win_inc, win_length=cfg.win_len,
+                 window=window, center=False, length=audio.shape[-1])
 
 
 def _process_chunk_core(model: TestNet, audio: torch.Tensor, cfg: MossFormer2SEConfig,
                         noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(T,) samples scaled by MAX_WAV_VALUE → the enhanced (T,). `noise`
-    replaces the fbank's dither draw."""
-    mask = model(_features(audio, cfg, noise))[-1][0]  # (frames, out_final)
-    window = hamming(cfg.win_len, device=audio.device)
-    spec = stft(audio, n_fft=cfg.fft_len, hop_length=cfg.win_inc, win_length=cfg.win_len,
-                window=window, center=False)  # (frames, freq)
-    frames = min(spec.shape[0], mask.shape[0])
-    masked = spec[:frames] * mask[:frames]
-    return istft(masked.T, hop_length=cfg.win_inc, win_length=cfg.win_len, window=window,
-                 center=False, length=audio.shape[0])
+    """(T,) samples scaled by MAX_WAV_VALUE → the enhanced (T,): the batch
+    of one."""
+    return _process_batch_core(model, audio[None], cfg, noise)[0]
 
 
 class MossFormer2SEModel:
@@ -63,7 +77,17 @@ class MossFormer2SEModel:
         self.model = model
         self.config = config
 
+    def _hook(self):
+        """The serving hook: `Model.make_batcher`'s batcher registers on
+        this processor, whose two methods below are the device call sites."""
+        return get_infer_hook(self)
+
     def _process_chunk(self, audio: np.ndarray) -> np.ndarray:
+        # under a running server a StackBatcher may be installed: concurrent
+        # equal-length chunks enhance as one batched forward
+        hook = self._hook()
+        if hook is not None:
+            return np.asarray(hook(np.asarray(audio, np.float32)))
         device = next(self.model.parameters()).device
         x = torch.from_numpy(np.asarray(audio, np.float32)).to(device)
         with torch.inference_mode():
@@ -71,6 +95,13 @@ class MossFormer2SEModel:
         return out.cpu().numpy()
 
     def _process_many(self, segments) -> list:
+        """Enhance several segments. Under an installed batcher they are
+        submitted together, so one long request's own windows fuse into
+        batched forwards (and with co-tenant requests')."""
+        hook = self._hook()
+        if hook is not None:
+            futs = [hook.submit(np.asarray(s, np.float32)) for s in segments]
+            return [np.asarray(f.result()) for f in futs]
         return [self._process_chunk(s) for s in segments]
 
     def enhance(self, audio: np.ndarray, chunked: Optional[bool] = None) -> np.ndarray:
@@ -178,6 +209,21 @@ class Model(nn.Module):
             audio = audio_input
         return self.processor.enhance(audio, chunked=chunked)
 
+    def make_batcher(self, **kwargs):
+        """Serving batcher: concurrent equal-length enhancement chunks run as
+        one batched forward (`_process_batch_core`). It registers on the
+        processor, whose `_process_chunk` / `_process_many` are the device
+        call sites, and on this wrapper too, where a server looks it up to
+        tear it down."""
+        proc = self.processor
+        cfg, dev = self.config, self.device
+
+        def run_batch(items):
+            x = torch.from_numpy(np.stack([np.asarray(a, np.float32) for a in items])).to(dev)
+            return list(_process_batch_core(proc.model, x, cfg).cpu().numpy())
+
+        return _WrapperStackBatcher(self, proc, run_batch, device=dev, **kwargs)
+
     def sanitize(self, weights: dict) -> dict:
         out = {}
         for key, value in weights.items():
@@ -194,3 +240,21 @@ class Model(nn.Module):
             k = k.replace(".prelu.weight", ".prelu_weight")
             out[k] = value
         return out
+
+
+class _WrapperStackBatcher(StackBatcher):
+    """A StackBatcher keyed on the processor that installs itself on the
+    loader-facing wrapper as well."""
+
+    def __init__(self, wrapper, proc, run_batch, **kwargs):
+        super().__init__(proc, run_batch, **kwargs)
+        self.wrapper = wrapper
+
+    def install(self):
+        super().install()
+        register_infer_hook(self.wrapper, self)
+        return self
+
+    def close(self):
+        unregister_infer_hook(self.wrapper)
+        super().close()

@@ -10,6 +10,8 @@ Entry points: `generate` (the sequential 30 s seek loop), `generate_chunked`
 (batched 30 s windows, with and without previous-text conditioning) and
 `generate_streaming` (AlignAtt, `streaming.py`); beam search
 (`decoding.py`) and word timestamps (`timing.py`) serve the first two.
+`make_batcher` gives the serving batcher that `generate` routes its windows
+through once it is installed.
 Audio is a 16 kHz mono waveform, or a path that `utils.load_audio` reads,
 downmixes and resamples to one.
 """
@@ -34,6 +36,7 @@ from ....nn import Conv1d, Embedding, LayerNorm, Linear
 from ....nn.module import cast_floats, init_weights
 from ....nn.sanitize import permute
 from ....ops.attention import make_causal_mask, scaled_dot_product_attention
+from ....serving import get_infer_hook
 from ..base import STTOutput
 from . import audio as A
 from .decoding import DecodingOptions, DecodingResult, decode_window, decode_window_batch
@@ -607,9 +610,10 @@ class Model(nn.Module):
         temperature fallback, segmented at its timestamps, and the seek
         pointer moves to where the window's text ends.
 
-        ``stream=True`` hands off to `generate_streaming`. There is no
-        serving hook in the port yet, so every window is encoded and decoded
-        here (the JAX package's route without a hook)."""
+        ``stream=True`` hands off to `generate_streaming`. Under a running
+        server a `WhisperBatcher` may be installed (`make_batcher`): each
+        window's encode and decode then go through it, fused with the
+        windows of concurrent requests."""
         if stream:
             return self.generate_streaming(
                 audio, chunk_duration=chunk_duration, language=language,
@@ -643,6 +647,7 @@ class Model(nn.Module):
         time_precision = 0.02
         n_gen_tokens = 0
         last_speech_timestamp = 0.0
+        hook = get_infer_hook(self)
 
         # clip_timestamps → (start, end) frame ranges: comma-separated
         # seconds, an odd count ends at the end of the audio, the last end
@@ -674,7 +679,9 @@ class Model(nn.Module):
             window_end_time = (seek + A.N_FRAMES) * A.HOP_LENGTH / A.SAMPLE_RATE
             previous_seek = seek
 
-            _xa, cross_kv = self._encode(window[None])
+            cross_kv = None
+            if hook is None or detected_language is None:  # the batcher encodes itself
+                _xa, cross_kv = self._encode(window[None])
             if detected_language is None:
                 detected_language, _ = self.detect_language(cross_kv, tokenizer)
                 tokenizer.language = detected_language
@@ -690,12 +697,15 @@ class Model(nn.Module):
             for t in temps:
                 opts = self._fallback_options(decode_options, task, detected_language,
                                               t, without_timestamps)
-                result = decode_window(
-                    self, cross_kv, tokenizer, prompt, opts,
-                    n_ctx=self.dims.n_text_ctx, n_vocab=self.dims.n_vocab,
-                    decoder_step=type(self)._decoder_step,
-                    make_caches=self._make_caches,
-                )
+                if hook is not None:
+                    result = hook(window, prompt, opts, tokenizer)
+                else:
+                    result = decode_window(
+                        self, cross_kv, tokenizer, prompt, opts,
+                        n_ctx=self.dims.n_text_ctx, n_vocab=self.dims.n_vocab,
+                        decoder_step=type(self)._decoder_step,
+                        make_caches=self._make_caches,
+                    )
                 if _result_ok(result, compression_ratio_threshold, logprob_threshold):
                     break
 
@@ -849,6 +859,13 @@ class Model(nn.Module):
             duration=content_duration,
             extra={"wall_seconds": wall, "xrt": content_duration / max(wall, 1e-9)},
         )
+
+    def make_batcher(self, **kwargs):
+        """Serving batcher: fuses concurrent requests' seek-loop windows into
+        one batched encode and decode (`serving.WhisperBatcher`)."""
+        from ....serving import WhisperBatcher
+
+        return WhisperBatcher(self, **kwargs)
 
     @torch.inference_mode()
     def generate_chunked(

@@ -13,7 +13,8 @@ kept exactly, and the output equals the JAX package's at the same bucket.
 The sine source's noise comes from a `torch.Generator` seeded per call
 (`seed`), deterministic per call as the JAX package's PRNGKey(0) but not
 the same numbers; `noise` passes the draws in. The serving path
-(`batch_synthesize`, `make_batcher`) waits for the port of `serving.py`.
+(`batch_synthesize`, `make_batcher`) fuses concurrent requests into one
+frontend and one synthesis, each row with its sequential call's draws.
 """
 
 from __future__ import annotations
@@ -221,6 +222,74 @@ class Model(nn.Module):
         if return_output:
             return self.Output(audio=audio_np, pred_dur=pred_dur_np[0][:T])
         return audio_np
+
+    def batch_synthesize(self, phonemes_list, ref_s_list, speed: float = 1.0, seed: int = 0,
+                         noise=None):
+        """Several requests as ONE frontend and ONE synthesis (the serving
+        path): rows share the text bucket of the longest and the frame
+        bucket of the longest, the batch is padded to a power of two by
+        repeating the last row. Returns one `Output` a request (audio
+        trimmed to its own frames).
+
+        Each row's sine-source noise is the draw a sequential call on that
+        row makes (a generator seeded `seed`, at the row's own frame
+        bucket; zeros past it), so a row in a group of its own frame bucket
+        gets its sequential audio. `noise` = (rand_ini (Bpad, 9), normal
+        (Bpad, L, 9)) replaces the draws."""
+        B = len(phonemes_list)
+        idseqs = []
+        for ph in phonemes_list:
+            ids = [i for i in (self.vocab.get(p) for p in ph) if i is not None]
+            if len(ids) + 2 > self.context_length:
+                raise ValueError(f"{len(ids)} phonemes exceed the context of "
+                                 f"{self.context_length - 2}")
+            idseqs.append([0, *ids, 0])
+        Tpad = _bucket(max(len(r) for r in idseqs), TEXT_BUCKETS)
+        Bpad = 1 << (B - 1).bit_length()
+        rows = idseqs + [idseqs[-1]] * (Bpad - B)
+        dev = self.device
+        ids_arr = torch.tensor([r + [0] * (Tpad - len(r)) for r in rows], device=dev)
+        mask = torch.tensor([[False] * len(r) + [True] * (Tpad - len(r)) for r in rows],
+                            device=dev)
+        refs = [np.asarray(r, np.float32).reshape(-1) for r in ref_s_list]
+        refs = refs + [refs[-1]] * (Bpad - B)
+        ref_s = torch.from_numpy(np.stack(refs)).to(dev, self.bert_encoder.weight.dtype)
+        spf = self.decoder.generator.total_upsample * 2
+        with torch.inference_mode():
+            pred_dur, d, t_en = self._frontend(ids_arr, mask, ref_s, float(speed))
+            pred_dur_np = pred_dur.cpu().numpy()  # the durations reach the host
+            totals = pred_dur_np.sum(axis=1)
+            num_frames = _bucket(int(totals.max()), FRAME_BUCKETS)
+            if noise is None:
+                noise = self._row_noise(totals, num_frames * spf, seed)
+            audio = self._synthesize(d, t_en, pred_dur, ref_s, num_frames, noise)
+            out = audio.cpu().numpy().astype(np.float32) / 32767.0
+        return [self.Output(audio=out[i][: int(totals[i]) * spf],
+                            pred_dur=pred_dur_np[i][: len(idseqs[i])])
+                for i in range(B)]
+
+    def _row_noise(self, totals, L: int, seed: int):
+        """Per row, the sine source's draws of a sequential call on that row
+        (`SineGen` draws rand_ini, then the normals at its frame bucket),
+        zero past its bucket, stacked to (rows, L, dim)."""
+        dim = self.decoder.generator.m_source.l_sin_gen.dim
+        spf = self.decoder.generator.total_upsample * 2
+        dev = self.device
+        rand_ini = torch.empty(len(totals), dim, device=dev)
+        normal = torch.zeros(len(totals), L, dim, device=dev)
+        for i, total in enumerate(totals):
+            own = _bucket(int(total), FRAME_BUCKETS) * spf
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            rand_ini[i] = torch.randn(1, dim, generator=gen, device=dev)[0]
+            normal[i, :own] = torch.randn(1, own, dim, generator=gen, device=dev)[0]
+        return rand_ini, normal
+
+    def make_batcher(self, **kwargs):
+        """Serving batcher: fuses concurrent requests into one frontend and
+        one synthesis (`serving.KokoroBatcher`)."""
+        from ....serving import KokoroBatcher
+
+        return KokoroBatcher(self, **kwargs)
 
     # ------------------------------------------------------------------
 

@@ -1,9 +1,9 @@
 """Kokoro language pipeline: G2P, 510-phoneme chunking, voice packs,
 timestamps. Contract of reference tts/models/kokoro/pipeline.py:47-460.
 
-Host-only; a copy of `mlx_audio_tpu/tts/models/kokoro/pipeline.py` without
-its serving hook (the port has no `serving.py` yet), kept here so that the
-port imports nothing of the JAX package. A voice is read from
+Host-only; a copy of `mlx_audio_tpu/tts/models/kokoro/pipeline.py`, its
+serving hook included (`infer` routes through an installed KokoroBatcher),
+kept here so that the port imports nothing of the JAX package. A voice is read from
 `<repo_id>/voices/` (the checkpoint directory's, through
 `config.model_path`); a voice that is not there raises, since the port
 does not download."""
@@ -21,6 +21,7 @@ import torch
 
 from ....nn.sanitize import as_float32
 from ....safetensors_io import load_file
+from ....serving import get_infer_hook
 from ....utils import NO_DOWNLOAD
 from .g2p import PhonemeToken, get_g2p
 
@@ -187,6 +188,11 @@ class KokoroPipeline:
     @classmethod
     def infer(cls, model, ps: str, pack: np.ndarray, speed: float = 1.0):
         ref_s = pack[len(ps) - 1]
+        # under a running server a KokoroBatcher may be installed for this
+        # model: concurrent requests then share one frontend and synthesis
+        hook = get_infer_hook(model)
+        if hook is not None:
+            return hook(ps, ref_s, speed)
         return model(ps, ref_s, speed, return_output=True)
 
     @dataclass

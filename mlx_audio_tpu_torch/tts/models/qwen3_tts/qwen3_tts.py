@@ -11,9 +11,10 @@ card, except once a frame to see whether EOS was drawn, and not at all
 while `min_tokens` keeps EOS out.
 
 Ported: `generate` with the base, custom_voice and voice_design routes,
-streaming and not. Not yet: ICL voice cloning (`ref_audio` + `ref_text`,
-which needs the Mimi-based speech-tokenizer encoder), the speaker encoder
-and the serving batcher; they raise NotImplementedError.
+streaming and not, alone or through an installed serving batcher
+(`make_batcher`, `batcher.py`). Not yet: ICL voice cloning (`ref_audio` +
+`ref_text`, which needs the Mimi-based speech-tokenizer encoder) and the
+speaker encoder; they raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from ....device import resolve_device
 from ....lm.sample import apply_repetition_penalty, top_k_filter, top_p_filter
 from ....nn.module import cast_floats, init_weights
 from ....nn.sanitize import orient_weights_to_model
+from ....serving import get_infer_hook, stream_chunks
 from ..base import GenerationResult, format_duration
 from .config import ModelConfig
 from .speech_tokenizer import Qwen3TTSSpeechTokenizer
@@ -420,15 +422,31 @@ class Model(nn.Module):
         context = 25
         up = self.speech_tokenizer.decode_upsample_rate
         chunk_size = max(1, int(streaming_interval * 12.5)) if stream else max_tokens
-        run = self._run_codes(
-            input_embeds, trailing, tts_pad, max_tokens=max_tokens, chunk_tokens=chunk_size,
-            temperature=temperature, top_k=top_k, top_p=top_p,
-            repetition_penalty=repetition_penalty, seed=seed, min_tokens=min_tokens)
+        sampling = dict(max_tokens=max_tokens, min_tokens=min_tokens, temperature=temperature,
+                        top_k=top_k, top_p=top_p, repetition_penalty=repetition_penalty,
+                        seed=seed)
+        # under a running server a Qwen3TTSBatcher may be installed:
+        # concurrent requests' frame loops then decode in lock-step
+        hook = get_infer_hook(self)
+        codes = None
+        if hook is not None and not stream:
+            codes = hook.submit(input_embeds, trailing, **sampling).result()  # (n, G)
+        elif hook is not None:
+            # batched and streaming: the batcher emits each frame through
+            # `on_frame` as its tick completes; chunk_size frames regroup here,
+            # so the chunked codec decode below is the single-stream path's
+            run = (np.stack(c) for c in stream_chunks(
+                hook.submit, input_embeds, trailing, chunk_size=chunk_size,
+                callback_kw="on_frame", **sampling))
+        else:
+            run = self._run_codes(input_embeds, trailing, tts_pad, chunk_tokens=chunk_size,
+                                  **sampling)
         if not stream:
-            chunks = list(run)
-            if not chunks:
+            if codes is None:
+                chunks = list(run)
+                codes = np.concatenate(chunks, axis=0) if chunks else None
+            if codes is None or codes.shape[0] == 0:
                 return
-            codes = np.concatenate(chunks, axis=0)
             audio = self._decode_codes(codes)
             yield self._result(audio, codes.shape[0], segment_idx, time.perf_counter() - t0)
             return
@@ -538,4 +556,9 @@ class Model(nn.Module):
             repetition_penalty=repetition_penalty, seed=seed)
 
     def make_batcher(self, **kwargs):
-        raise NotImplementedError("the Qwen3-TTS serving batcher is not ported yet")
+        """Serving batcher: continuous (slot-based) batching of concurrent
+        talker + code-predictor frame loops, every live request advanced by
+        each tick (see batcher.Qwen3TTSBatcher)."""
+        from .batcher import Qwen3TTSBatcher
+
+        return Qwen3TTSBatcher(self, **kwargs)

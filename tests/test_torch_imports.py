@@ -1,6 +1,7 @@
 """The port imports neither jax nor anything of the JAX package, at run
 time (every module imported in a fresh interpreter) or in its source (a
-static scan of every import, chip_smoke.py included). Nor does it import,
+static scan of every import, chip_smoke.py included), the serving modules
+among them. Nor does it import,
 at module level, a package the card's machine lacks (safetensors,
 tokenizers, transformers, ml_dtypes, huggingface_hub): only a function may
 import one, and raise where it is absent. The loader reads and writes
@@ -192,3 +193,34 @@ def test_entry_points_default_to_the_card(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cls(cfg)
         assert cls(cfg, device="cpu").device.type == "cpu"
+
+
+SERVING_MODULES = ("mlx_audio_tpu_torch.serving", "mlx_audio_tpu_torch.lm.continuous",
+                   "mlx_audio_tpu_torch.tts.models.qwen3_tts.batcher")
+
+
+def test_serving_modules_are_scanned():
+    """The serving modules are among those the import and scan tests cover."""
+    names = {name for _, name in _modules()}
+    assert set(SERVING_MODULES) <= names
+
+
+def test_batchers_follow_their_model_device(monkeypatch):
+    """Every family's `make_batcher` on a model built with device='cpu' runs
+    its worker on that device, with no card present: the batchers take the
+    model's device and never ask for `cuda` themselves."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for cls, cfg in _tiny_entry_points():
+        kw = {}
+        if "talker_config" in cfg:  # text ids inside the tiny text vocabulary
+            cfg = dict(cfg, tts_pad_token_id=5, tts_bos_token_id=6, tts_eos_token_id=7)
+            kw = dict(slots=1, max_len=16)
+        model = cls(cfg, device="cpu")
+        batcher = model.make_batcher(**kw)
+        try:
+            worker = getattr(batcher, "sched", batcher)
+            assert worker.device == torch.device("cpu"), cls
+        finally:
+            batcher.close()
