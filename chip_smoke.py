@@ -20,8 +20,8 @@ Phases, each printing its own lines:
      once in float32 (the model's default dtype), profiled, with the f32
      flash kernel's launches held to one per encoder layer;
   5. Qwen3-TTS 0.6B int4 at full width (bf16, seeded random weights):
-     256 frames of synthesis through `Model.generate` (a warm-up and one
-     counted run), with launch counts
+     QWEN_FRAMES (64) frames of synthesis through `Model.generate` (a
+     warm-up and one counted run), with launch counts
      read around each run and held to the routing table's, the qmm
      launches split by kernel;
   6. the same model at 6 bits, 32 frames, then a profiled 16-frame run:
@@ -57,11 +57,13 @@ Phases, each printing its own lines:
      every dtype;
  11. serving, on the models of phases 5, 7, 8 and 9 (kept, not rebuilt):
      `bench_whisper_serving` (8 x 30 s through `WhisperBatcher`, window 50
-     ms, sequential then the median of 3 concurrent trials; each trial's
-     flash launches held to 32 per batched encode, each stream's tokens to
-     its sequential tokens or a stated near-tie); `bench_qwen3_serving` on
-     the unquantized bf16 model (8 sampled streams x 64 frames, tick 8;
-     every request's codes equal to its one-slot codes); the int4 model
+     ms, sequential then the median of 2 concurrent trials, where bench.py
+     takes 3; each trial's flash launches held to 32 per batched encode,
+     each stream's tokens to its sequential tokens or a stated near-tie);
+     `bench_qwen3_serving`'s shape cut in depth on the unquantized bf16
+     model (8 sampled streams x 16 frames, where bench.py decodes 64, tick
+     8, 2 trials where it takes 3; every request's codes equal to its
+     one-slot codes); the int4 model
      through the same batcher (8 x 16 frames, every quantized launch held to
      the routing table at the pool's shapes, the one-slot gate, and greedy
      codes against `_run_codes`); MossFormer2-SE's 90 s request through a
@@ -69,7 +71,29 @@ Phases, each printing its own lines:
      output at phase 3's bar of the unbatched route); Kokoro-82M, 4
      concurrent `generate` calls through `KokoroBatcher`, in float32 (each
      within one int16 step of its sequential call) and in bf16 (each
-     correlated with its sequential call at the JAX package's bar).
+     correlated with its sequential call at the JAX package's bar);
+ 12. the server (`server.serve_stdlib`, in process on a free port) on the
+     directories phase 10 wrote, each with a tokenizer.json the script
+     writes (read by the port's own reader: the card has no `tokenizers`),
+     models loaded through POST /v1/models and their batchers warmed:
+     Whisper-large-v3-turbo (bf16) transcribing a 30 s 44.1 kHz stereo
+     upload (the text and tokens of the in-memory phase 4 model, flash
+     launches 32 per batched encode), 8 concurrent requests, the first as
+     NDJSON, each its own seeded upload of 8-11.5 s (each transcription
+     the in-memory model's sequential one of the same upload, or a stated
+     near-tie at the decode where the two part), and the realtime WebSocket route (its
+     final = `generate` on the same buffer) inside `profiling.trace`; int4
+     Qwen3-TTS served as CustomVoice (greedy, streamed wav: time to first
+     byte; then a wave of four texts in the server's four-slot pool, the
+     WebSocket route, the model's `generate` in process and two HTTP
+     requests, each equal to its own text's one-slot samples, their
+     quantized launches held to the routing table);
+     Kokoro-82M in float32 (within one int16 step of the in-memory model);
+     an int4 Whisper converted from the bf16 directory (its quantized
+     launches held to the code's count, q/k/v one launch a layer a step as
+     the wrapper counts them by shape,
+     and its decode equal to the same checkpoint without the row-stack);
+     every model unloaded by DELETE, which ends its batcher's thread.
 Phase 2 also holds the ReLU² attention kernel to its plain version and
 flash at B = 1, and the serving shapes: flash bf16 at B = 8, `qmm_mma` and
 the fused MLP at M = 8 (the batcher's tick), ReLU² f32 at B = 8, G = 2;
@@ -79,11 +103,12 @@ Phase 5 ends with the unquantized bf16 Qwen3-TTS (bench.py's
 `bench_qwen3_tts()`). The lines before the last hold phase 8's numbers
 ({"kokoro": ...}), the bf16 Qwen3-TTS step's ({"qwen3_bf16": ...}), phase
 9's ({"whisper_rest": ...}), phase 10's ({"loaded": ...}), phase 11's
-({"serving": ...}) and the kernels' JSON record, in that order;
+({"serving": ...}), phase 12's ({"server": ...}) and the kernels' JSON
+record, in that order;
 the last line is {"ok": true, "device": {...}}. Any failure raises and exits non-zero. It
 needs one CUDA card and the checkout's `mlx_audio_tpu_torch/` package.
-`--phases 1,2` runs a subset (a first check of new kernels); the default
-runs all of them.
+`--phases 1,2` runs a subset (a first check of new kernels), `--phases
+1,12` the server (with phase 10 before it); the default runs all of them.
 """
 
 from __future__ import annotations
@@ -97,6 +122,8 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -153,9 +180,10 @@ L2_BYTES = 50e6  # the H100's L2: timed weights cycle through twice this
 # Qwen3-TTS: bench.py's text, with a copy of its deterministic tokenizer
 QWEN_TEXT = ("The quick brown fox jumps over the lazy dog while the "
              "synthesis model turns text into speech. " * 3).strip()
-QWEN_FRAMES, QWEN_FRAMES_6BIT, QWEN_PROFILE_FRAMES = 256, 32, 16
-# one counted run after the warm-up (two until phase 11 came: the run
-# keeps its wall under ~900 s on a slow host)
+# 64 frames (256 until phase 12 came) and one counted run after the
+# warm-up (two until phase 11 came): the run keeps its wall under ~1000 s
+# on a slow host
+QWEN_FRAMES, QWEN_FRAMES_6BIT, QWEN_PROFILE_FRAMES = 64, 32, 16
 QWEN_WARMUP, QWEN_TIMED = 1, 1
 # card (kernels) against CPU (dequantize + matmul), float32, TF32 off
 QWEN_CARD_VS_CPU_ATOL = 1e-4
@@ -232,6 +260,141 @@ class AsciiTok:
 
     def encode(self, text, **kw):
         return [(ord(c) % 997) + 3 for c in text]
+
+
+# tokenizer.json files the run writes into its checkpoint directories (the
+# card has no `tokenizers` to train one): the 256 byte-level symbols, merges
+# learned from a seeded text, unique filler tokens up to the base
+# vocabulary, and the added tokens at the ids the models use, by name. The
+# tests hold the port's reader to `tokenizers` on this generator's output.
+TOKENIZER_MERGES = 300
+TOKENIZER_WORDS = ("assistant", "user", "the", "quick", "brown", "fox", "jumps", "over",
+                   "lazy", "dog", "while", "synthesis", "model", "turns", "text", "into",
+                   "speech", "concurrent", "stream", "number", "hello", "world")
+WHISPER_TIMESTAMPS = 1501  # <|0.00|> .. <|30.00|>
+
+
+def whisper_added_tokens(n_vocab: int = TURBO["n_vocab"]):
+    """(base vocabulary size, [(content, id, special)]) in Whisper's order:
+    <|endoftext|>, <|startoftranscript|>, the languages, the task and
+    control tokens, then the timestamps, ending at n_vocab."""
+    from mlx_audio_tpu_torch.stt.models.whisper.tokenizer import LANGUAGES
+
+    names = (["<|endoftext|>", "<|startoftranscript|>"] + [f"<|{c}|>" for c in LANGUAGES]
+             + ["<|translate|>", "<|transcribe|>", "<|startoflm|>", "<|startofprev|>",
+                "<|nospeech|>", "<|notimestamps|>"])
+    base = n_vocab - WHISPER_TIMESTAMPS - len(names)
+    added = [(n, base + i, True) for i, n in enumerate(names)]
+    added += [(f"<|{i * 0.02:.2f}|>", base + len(names) + i, False)
+              for i in range(WHISPER_TIMESTAMPS)]
+    return base, added
+
+
+def qwen_added_tokens():
+    """(base vocabulary size, [(content, id, special)]): Qwen2's special
+    tokens from <|endoftext|> on, ids contiguous as `tokenizers` assigns
+    them, up to the three text-side ids Qwen3-TTS's config names."""
+    names = (["<|endoftext|>", "<|im_start|>", "<|im_end|>", "<|object_ref_start|>",
+              "<|object_ref_end|>", "<|box_start|>", "<|box_end|>", "<|quad_start|>",
+              "<|quad_end|>", "<|vision_start|>", "<|vision_end|>", "<|vision_pad|>",
+              "<|image_pad|>", "<|video_pad|>"]
+             + [(n, False) for n in ("<tool_call>", "</tool_call>", "<|fim_prefix|>",
+                                     "<|fim_middle|>", "<|fim_suffix|>", "<|fim_pad|>",
+                                     "<|repo_name|>", "<|file_sep|>", "<tool_response>",
+                                     "</tool_response>", "<think>", "</think>")]
+             + ["<|reserved_0|>", "<|reserved_1|>", "<tts_pad>", "<tts_text_bos>",
+                "<tts_text_eod>"])
+    base = 151643
+    return base, [(n, base + i, True) if isinstance(n, str) else (n[0], base + i, n[1])
+                  for i, n in enumerate(names)]
+
+
+def train_merges(n_merges: int, seed: int) -> list:
+    """Byte-level BPE merges learned from a seeded text: the most frequent
+    adjacent pair first, ties to the larger pair; words both bare and after
+    a space, as the pre-tokenizers cut them."""
+    from collections import Counter
+
+    from mlx_audio_tpu_torch.tokenizer_json import bytes_to_unicode
+
+    b2u = bytes_to_unicode()
+    rng = np.random.default_rng(seed)
+    syll = ["ka", "to", "ri", "en", "st", "an", "qu", "er", "ing", "th", "ou", "ch"]
+    words = [w for w in TOKENIZER_WORDS for _ in range(8)]
+    words += ["".join(rng.choice(syll, rng.integers(1, 4))) for _ in range(400)]
+    counts = Counter()
+    for w in words:
+        for form in (w, " " + w):
+            counts[tuple(b2u[b] for b in form.encode())] += 1
+    merges = []
+    for _ in range(n_merges):
+        pairs = Counter()
+        for w, c in counts.items():
+            for pair in zip(w, w[1:]):
+                pairs[pair] += c
+        if not pairs:
+            break
+        best = max(pairs.items(), key=lambda kv: (kv[1], kv[0]))[0]
+        merges.append(best)
+        merged = Counter()
+        for w, c in counts.items():
+            out, i = [], 0
+            while i < len(w):
+                if i + 1 < len(w) and (w[i], w[i + 1]) == best:
+                    out.append(w[i] + w[i + 1])
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            merged[tuple(out)] += c
+        counts = merged
+    return merges
+
+
+def write_tokenizer_json(path, style: str, seed: int = 0,
+                         n_merges: int = TOKENIZER_MERGES) -> Path:
+    """A byte-level BPE tokenizer.json: style "whisper" (GPT-2's ByteLevel
+    pre-tokenizer, merges as "a b" strings, Whisper-large-v3's added tokens)
+    or "qwen2" (NFC, Qwen2's Split pattern, merges as pairs, the chat
+    tokens)."""
+    from mlx_audio_tpu_torch.tokenizer_json import QWEN2_PATTERN, bytes_to_unicode
+
+    base, added = whisper_added_tokens() if style == "whisper" else qwen_added_tokens()
+    vocab = {c: b for b, c in bytes_to_unicode().items()}
+    merges = train_merges(n_merges, seed)
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
+    for k in range(base - len(vocab)):
+        vocab[f"<|fill{k}|>"] = len(vocab)
+    assert len(vocab) == base
+    byte_level = dict(type="ByteLevel", add_prefix_space=False, trim_offsets=True,
+                      use_regex=True)
+    if style == "whisper":
+        normalizer, pre = None, byte_level
+        merges = [f"{a} {b}" for a, b in merges]
+    else:
+        normalizer = {"type": "NFC"}
+        pre = {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": QWEN2_PATTERN}, "behavior": "Isolated",
+             "invert": False},
+            dict(byte_level, use_regex=False, trim_offsets=False)]}
+        merges = [[a, b] for a, b in merges]
+    spec = {"version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": [{"id": i, "content": c, "single_word": False, "lstrip": False,
+                              "rstrip": False, "normalized": False, "special": sp}
+                             for c, i, sp in added],
+            "normalizer": normalizer, "pre_tokenizer": pre,
+            "post_processor": dict(byte_level, trim_offsets=False),
+            "decoder": byte_level,
+            "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                      "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                      "fuse_unk": False, "byte_fallback": False, "ignore_merges": False,
+                      "vocab": vocab, "merges": merges}}
+    path = Path(path)
+    if path.suffix != ".json":
+        path = path / "tokenizer.json"
+    path.write_text(json.dumps(spec, ensure_ascii=False), encoding="utf-8")
+    return path
 
 
 def log(msg: str) -> None:
@@ -844,6 +1007,13 @@ QMM_CASES = [  # name, bits, M, N, K, dtype: the routed shapes of phases 5 and 6
     ("oproj_m8_f32", 4, 8, 1024, 2048, torch.float32),
     ("codec_head_m8_f32", 4, 8, 3072, 1024, torch.float32),
     ("qkv_m16_f32", 4, 16, 4096, 1024, torch.float32),
+    # a quantized Whisper-large-v3-turbo's fused self-attention q/k/v (N =
+    # 3 x 1280) in bf16: a decoder step (M = 1), the 3- and 4-token prompts,
+    # and eight batched windows' step (M = 8)
+    ("whisper_qkv_m1_bf16", 4, 1, 3840, 1280, torch.bfloat16),
+    ("whisper_qkv_m3_bf16", 4, 3, 3840, 1280, torch.bfloat16),
+    ("whisper_qkv_m4_bf16", 4, 4, 3840, 1280, torch.bfloat16),
+    ("whisper_qkv_m8_bf16", 4, 8, 3840, 1280, torch.bfloat16),
 ]
 # groups other than 64: K = 1040 is 65 groups of 16
 QMM_GROUP = {"q6_k1040_m1_f32": 16, "g32_m64_bf16": 32, "q6_g128_m96_f32": 128,
@@ -852,7 +1022,7 @@ QMM_GROUP = {"q6_k1040_m1_f32": 16, "g32_m64_bf16": 32, "q6_g128_m96_f32": 128,
 # the planted faults run on these (each dtype and bits of the GEMV, and an
 # int4 and a 6-bit case of the tensor-core GEMM)
 QMM_PLANTED = ("qkv_m1_f32", "qkv_m1_bf16", "q6_qkv_m1_f32", "q6_qkv_m1_bf16",
-               "qkv_prefill_bf16", "q6_qkv_prefill_f32")
+               "qkv_prefill_bf16", "q6_qkv_prefill_f32", "whisper_qkv_m1_bf16")
 # The talker's prefill bucket: bench.py's text gives the talker an
 # 8-position prompt (the text itself streams in a token a frame), which
 # `_prefill` pads to 32 rows; `phase_qwen_slice` checks it. The text
@@ -876,7 +1046,9 @@ QMM_SERVE = [("qkv", SERVE_M, 4096, 1024), ("o_proj", SERVE_M, 1024, 2048)]
 QMM_TIMED = [("qmm", 4, 1, 4096, 1024), ("qmm_oproj", 4, 1, 1024, 2048),
              ("qmm_m2", 4, 2, 4096, 1024), ("qmm6", 6, 1, 4096, 1024),
              ("qmm6_oproj", 6, 1, 1024, 2048), ("qmm6_gateup", 6, 1, 6144, 1024),
-             ("qmm6_down", 6, 1, 1024, 3072)]
+             ("qmm6_down", 6, 1, 1024, 3072),
+             # the int4 Whisper decoder step's fused q/k/v, bf16 x
+             ("qmm_whisper_qkv", 4, 1, 3840, 1280, torch.bfloat16)]
 QMLP_CASES = [  # name, bits, M, K, I, N, dtype
     ("mlp_m1_f32", 4, 1, 1024, 3072, 1024, torch.float32),
     ("mlp_m1_bf16", 4, 1, 1024, 3072, 1024, torch.bfloat16),
@@ -1013,13 +1185,13 @@ def phase_quant_kernels():
                 (x, *gu, *down), (3, 6), (2, 5))
 
     timing = {}
-    f32 = torch.float32
-    for kname, bits, M, N, K in QMM_TIMED:
+    for kname, bits, M, N, K, *xdt in QMM_TIMED:
+        xdt = xdt[0] if xdt else torch.float32
         g = torch.Generator(device="cuda").manual_seed(400 + bits)
         sets = [quant_weights(N, K, bits, g)]
         wbytes = weight_bytes(*sets[0])
         sets += [tuple(t.clone() for t in sets[0]) for _ in range(int(2 * L2_BYTES // wbytes))]
-        x = torch.randn(M, K, generator=g, device="cuda")
+        x = torch.randn(M, K, generator=g, device="cuda").to(xdt)
         dense = [(x.bfloat16(), (quantized_matmul_reference(
             torch.eye(K, device="cuda"), *sets[0], bits=bits, group_size=GROUP).T.contiguous()
             .bfloat16()))]
@@ -1032,10 +1204,11 @@ def phase_quant_kernels():
                                                                      group_size=GROUP)
                               for w in sets], 40)
         yard, _ = device_ms([lambda d=d: F.linear(d[0], d[1]) for d in dense], 400)
-        bound, by = quant_bound_ms(wbytes, M, K, N, f32, 2.0 * M * N * K)
+        bound, by = quant_bound_ms(wbytes, M, K, N, xdt, 2.0 * M * N * K)
         timing[kname] = dict(ms=ms, plain_ms=plain, library_ms=None, yardstick_ms=yard,
                              bound_ms=bound, bound_by=by, host_loop_ms=loop)
-        log(f"[time] {kname} int{bits} M={M} N={N} K={K} f32 x (weights cycled past L2), device "
+        log(f"[time] {kname} int{bits} M={M} N={N} K={K} {str(xdt)[6:]} x (weights cycled "
+            f"past L2), device "
             f"time per call: kernel {ms:.4f} ms, plain {plain:.4f} ms, yardstick F.linear on "
             f"the bf16 dequantized weight {yard:.4f} ms, bound {bound:.4f} ms ({by}, "
             f"{wbytes / 1e6:.3f} MB of weights, scales and biases); kernel at "
@@ -1045,6 +1218,8 @@ def phase_quant_kernels():
     timing.update(time_prefill([(4, shape, M, N, K, dtype)
                                 for dtype in (torch.float32, torch.bfloat16)
                                 for shape, M, N, K in QMM_SERVE]))
+    # eight batched Whisper windows' decoder step, fused q/k/v
+    timing.update(time_prefill([(4, "whisper_qkv", SERVE_M, 3840, 1280, torch.bfloat16)]))
     timing["qmlp"] = time_qmlp(1)
     timing["qmlp_m8"] = time_qmlp(SERVE_M)
     return errs, timing
@@ -1252,21 +1427,26 @@ def route_table(bits):
     return n, proj, layer
 
 
-def predicted_serving_launches(model, bits, prompt_bucket, requests, frames, slots) -> dict:
+def predicted_serving_launches(model, bits, prompt_buckets, frames, slots,
+                               layers_only=False) -> dict:
     """Kernel launches of the slot batcher (`Qwen3TTSBatcher`) from the
     routing guards: each request's B = 1 prefill at its prompt bucket (the
     talker's layers and its codec head over every row), then `frames` frame
     steps of the whole pool (ticks x tick_frames, every slot, live or not):
     the talker step and its head at M = slots, the code predictor's
     two-token seed at M = 2 slots and its 15 single steps at M = slots. The
-    text projection runs on the callers' threads, before the count."""
+    text projection runs on the callers' threads, before the count.
+    `layers_only`: a loaded model, whose codec head stays unquantized."""
     tk = model.config.talker_config
     cp = tk.code_predictor_config
     n, proj, layer = route_table(bits)
-    layer(tk, prompt_bucket, requests * tk.num_hidden_layers)
-    proj(tk.vocab_size, tk.hidden_size, prompt_bucket, requests)
+    for bucket in prompt_buckets:  # one a request
+        layer(tk, bucket, tk.num_hidden_layers)
+        if not layers_only:
+            proj(tk.vocab_size, tk.hidden_size, bucket)
     layer(tk, slots, frames * tk.num_hidden_layers)
-    proj(tk.vocab_size, tk.hidden_size, slots, frames)
+    if not layers_only:
+        proj(tk.vocab_size, tk.hidden_size, slots, frames)
     layer(cp, 2 * slots, frames * cp.num_hidden_layers)
     layer(cp, slots, frames * cp.num_hidden_layers * (tk.num_code_groups - 1))
     return n
@@ -1387,7 +1567,7 @@ def check_synthesis(results, frames, codes_seen, model, label):
 
 
 def phase_qwen_slice(keep):
-    """Qwen3-TTS 0.6B int4: 256 frames through `generate`, a warm-up and
+    """Qwen3-TTS 0.6B int4: QWEN_FRAMES through `generate`, a warm-up and
     QWEN_TIMED timed runs, launches held to the routing table's each run. The model
     stays in `keep` for phase 11."""
     from mlx_audio_tpu_torch.ops.cuda import quant_matmul as qk
@@ -1435,7 +1615,7 @@ def phase_qwen_slice(keep):
 
 def phase_qwen_bf16(keep):
     """Qwen3-TTS 0.6B unquantized in bf16, as `bench_qwen3_tts()` runs it:
-    256 frames, temperature 0.9, top_k 50, seed 0; the median of
+    QWEN_FRAMES frames, temperature 0.9, top_k 50, seed 0; the median of
     QWEN_TIMED runs after a warm-up, and no launch of any quantized kernel.
     The model stays in `keep` for phase 11."""
     from mlx_audio_tpu_torch.ops.cuda import quant_matmul as qk
@@ -1894,7 +2074,7 @@ def phase_kokoro(keep):
 # Phase 9: the rest of Whisper (the seek loop, beam search, word timing,
 # streaming, writers) at full width in bf16, on the phase 4 model
 REST_SEEK_S, REST_DEFAULTS_S, REST_LONG_S, REST_STREAM_S = 120.0, 30.0, 600.0, 10.0
-REST_TIMED = 3
+REST_TIMED = 2  # 3 until phase 12 came
 
 
 def noise(seconds, seed):
@@ -2308,7 +2488,7 @@ def loaded_whisper(tmp: Path, smi: str) -> dict:
         f"{sum(len(t) for t in tokens[0])} tokens); flash launches {launches}; writers "
         f"{sizes} bytes ({smi})")
     del model, loaded
-    shutil.rmtree(d)
+    write_tokenizer_json(d, "whisper")  # the directory stays for phase 12
     gc.collect()
     torch.cuda.empty_cache()
     return {"checkpoint_bytes": nbytes, "save_s": save_s, "load_s": load_s,
@@ -2406,7 +2586,7 @@ def loaded_qwen3(tmp: Path, smi: str) -> dict:
         f"first run); {audio_s:.2f} s of audio; codes identical, wav = the model's int16 "
         f"samples = the in-memory model's ({smi})")
     del model, loaded
-    shutil.rmtree(q4)
+    write_tokenizer_json(q4, "qwen2")  # the directory stays for phase 12
     gc.collect()
     torch.cuda.empty_cache()
     return {"source_bytes": src_bytes, "checkpoint_bytes": nbytes, "save_s": save_s,
@@ -2465,35 +2645,33 @@ def loaded_kokoro(tmp: Path, smi: str) -> dict:
         f"voice=af_smoke) {cli_s:.4f} s with the load, the in-memory model {mem_s:.4f} s; "
         f"{a.shape[0] / sr:.2f} s of audio, max |d| {steps} int16 step(s); the port's kernels "
         f"launched { {k: after[k] - before[k] for k in after} } (none is on this path) ({smi})")
-    del model
-    shutil.rmtree(d)
+    del model  # the directory stays for phase 12
     torch.cuda.empty_cache()
     return {"checkpoint_bytes": nbytes, "save_s": save_s, "load_s": load_s,
             "load_gb_per_s": nbytes / load_s / 1e9, "cli_wall_s": cli_s,
             "in_memory_wall_s": mem_s, "max_int16_steps": steps}
 
 
-def phase_loaded(smi: str) -> dict:
-    """Phase 10: every checkpoint in one temporary directory, removed after."""
-    import tempfile
-
+def phase_loaded(smi: str, tmp: Path) -> dict:
+    """Phase 10: every checkpoint in `tmp` (a temporary directory that main
+    removes after phase 12, which serves the Whisper, int4 Qwen3-TTS and
+    Kokoro directories, each with the tokenizer.json it needs)."""
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as d:
-        tmp = Path(d)
-        rec = {"safetensors": loaded_safetensors(tmp), "whisper": loaded_whisper(tmp, smi),
-               "qwen3_int4": loaded_qwen3(tmp, smi), "kokoro": loaded_kokoro(tmp, smi)}
+    rec = {"safetensors": loaded_safetensors(tmp), "whisper": loaded_whisper(tmp, smi),
+           "qwen3_int4": loaded_qwen3(tmp, smi), "kokoro": loaded_kokoro(tmp, smi)}
     rec["wall_s"] = time.perf_counter() - t0
     log(f"[loaded] phase 10 wall {rec['wall_s']:.1f} s")
     return rec
 
 
 # Phase 11: serving, on the models of phases 5, 7, 8 and 9 (the phase 4
-# Whisper), at bench.py's serving settings
-SERVE_STREAMS, SERVE_TRIALS = 8, 3
+# Whisper), at bench.py's serving shapes, cut in depth: 2 trials where
+# bench.py takes 3, Qwen3-TTS streams of 16 frames where it decodes 64
+SERVE_STREAMS, SERVE_TRIALS = 8, 2
 SERVE_WHISPER_S = 30.0
-SERVE_QWEN_FRAMES, SERVE_QWEN_TICK, SERVE_QWEN_MAX_LEN = 64, 8, 1024
+SERVE_QWEN_FRAMES, SERVE_QWEN_TICK, SERVE_QWEN_MAX_LEN = 16, 8, 1024
 SERVE_INT4_FRAMES = 16
 SERVE_KOKORO_REQUESTS = 4
 SERVE_KOKORO_TEXT = "The quick brown fox jumps over the lazy dog."
@@ -2544,8 +2722,8 @@ def serve_whisper(model) -> dict:
     """bench_whisper_serving on the phase 4 model in bf16: 8 streams of 30 s
     seeded noise through `generate` (the seek loop), sequential once, then
     through `make_batcher(max_batch=8, window_ms=50)`: the batch buckets
-    warmed, a warm concurrent wave, the median of 3 concurrent trials. Each
-    trial's flash launches held to 32 per batched encode (one per encoder
+    warmed, a warm concurrent wave, the median of SERVE_TRIALS concurrent
+    trials. Each trial's flash launches held to 32 per batched encode (one per encoder
     layer per dispatch); each stream's tokens to its sequential tokens, or
     a near-tie where they part (SERVE_TIE_ULPS)."""
     from mlx_audio_tpu_torch.ops.cuda.flash_attention import flash_attention
@@ -2592,12 +2770,13 @@ def serve_whisper(model) -> dict:
                 raise SystemExit(f"chip_smoke: a serving trial launched flash {launches[-1]} "
                                  f"times over {dispatches[-1]} dispatches, the code says "
                                  f"{L} per batched encode")
-            parted = check_served_tokens(model, audios, seq, outs, tok)
+            parted = check_served_tokens(model, audios, seq, outs, tok, opts)
         profile_one_run(lambda: concurrently(transcribe, audios),
                         f"one concurrent wave of {SERVE_STREAMS} x {SERVE_WHISPER_S:g} s")
         profiled = profile_one_run.last
     finally:
         batcher.close()
+    sampled = sampled_decode_cost(model, audios, tok)
     med = statistics.median(walls)
     total = SERVE_WHISPER_S * SERVE_STREAMS
     if any(len(t) != 1 or len(t[0]) != 96 for t in map(tokens, seq)):
@@ -2611,46 +2790,77 @@ def serve_whisper(model) -> dict:
     return {"streams": SERVE_STREAMS, "audio_s": total, "sequential_wall_s": seq_wall,
             "walls_s": walls, "aggregate_xrt": total / med, "speedup": seq_wall / med,
             "dispatches": dispatches, "flash_launches": launches, "warmup_s": warm_s,
-            "parted": parted, "profiled": profiled}
+            "parted": parted, "profiled": profiled, "sampled_decode": sampled}
 
 
-def check_served_tokens(model, audios, seq, outs, tok) -> list:
-    """Each stream's batched tokens against its sequential tokens. Where
-    they part, the sequential path's logits after the common prefix (a
-    B = 1 encode and decoder pass) must put the two choices within
-    SERVE_TIE_ULPS bf16 ulps. Returns [(stream, step, gap, bar)]."""
+def sampled_decode_cost(model, audios, tok, steps=96) -> dict:
+    """The batched sampled decode the server's fallback runs (8 windows,
+    t = 0.4, up to `steps` steps): its wall, and its Gumbel noise timed
+    alone two ways for the same steps: one (8, V) draw a step from one
+    generator, as the decode drew before its rows had generators of their
+    own, and `uniform_noise`'s (NOISE_STEPS, V) draw a row every NOISE_STEPS
+    steps (8 launches every 16 steps where the other makes one a step)."""
+    from mlx_audio_tpu_torch.stt.models.whisper import Model
+    from mlx_audio_tpu_torch.stt.models.whisper import decoding as dec
+
+    V, dev, B = model.dims.n_vocab, model.device, len(audios)
+    opts = dec.DecodingOptions(task="transcribe", language="en", temperature=0.4,
+                               without_timestamps=True, sample_len=steps)
+    prompts = [list(tok.sot_sequence_including_notimestamps)] * B
+
+    def wall(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    with torch.inference_mode():
+        _, kv = model._encode(torch.cat([model._mel_chunks_device(a)[0][:1] for a in audios]))
+        res = []
+        decode_s = wall(lambda: res.append(dec.decode_window_batch(
+            model, kv, tok, prompts, opts, n_ctx=model.dims.n_text_ctx, n_vocab=V,
+            decoder_step=Model._decoder_step, make_caches=model._make_caches)))
+        shared = torch.Generator(device=dev).manual_seed(0)
+        gens = [torch.Generator(device=dev).manual_seed(j) for j in range(B)]
+        one_s = wall(lambda: [torch.rand((B, V), generator=shared, device=dev)
+                              for _ in range(steps)])
+        rows_s = wall(lambda: [dec.uniform_noise(gens, V, dev)
+                               for _ in range(0, steps, dec.NOISE_STEPS)])
+    n = max(len(r.tokens) for r in res[-1])
+    log(f"[serving] whisper sampled decode, {B} windows at t = 0.4: {decode_s:.4f} s for up "
+        f"to {steps} steps (longest row {n} tokens); the noise alone for {steps} steps: one "
+        f"({B}, V) draw a step {one_s * 1e3:.3f} ms, a ({dec.NOISE_STEPS}, V) draw a row every "
+        f"{dec.NOISE_STEPS} steps {rows_s * 1e3:.3f} ms")
+    return {"windows": B, "steps": steps, "longest_row": n, "decode_s": decode_s,
+            "noise_one_draw_a_step_ms": one_s * 1e3, "noise_draw_a_row_ms": rows_s * 1e3}
+
+
+def check_served_tokens(model, audios, seq, outs, tok, opts) -> list:
+    """Each stream's batched tokens against its sequential tokens; where
+    they part, a near-tie (`parting_gap`). Returns [(stream, step, gap,
+    bar)]."""
     parted = []
     prompt = list(tok.sot_sequence_including_notimestamps)
     for i, (s, o) in enumerate(zip(seq, outs)):
         a, b = o.segments[0]["tokens"], s.segments[0]["tokens"]
-        if a == b:
-            continue
-        j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
-        mel, _ = model._mel_chunks_device(audios[i])
-        with torch.inference_mode():
-            _, kv = model._encode(mel[:1])
-            lg = model.decoder(torch.tensor([prompt + b[:j]], device=model.device), 0, None,
-                               kv)[0][0, -1].float()
-        top = lg.topk(2).values
-        gap = abs(lg[a[j]] - lg[b[j]]).item() if j < min(len(a), len(b)) else float("inf")
-        bar = SERVE_TIE_ULPS * bf16_ulp(max(abs(lg[a[j]].item()), abs(lg[b[j]].item())))
-        log(f"[serving] whisper stream {i}: batched and sequential part at step {j} (batched "
-            f"{a[j:j + 3]}, sequential {b[j:j + 3]}); top-2 logit margin there "
-            f"{(top[0] - top[1]).item():.3e}, gap between the two choices {gap:.3e} (bar "
-            f"{bar:.3e} = {SERVE_TIE_ULPS} bf16 ulp)")
-        if not gap <= bar:
-            raise SystemExit(f"chip_smoke: served Whisper stream {i} parts from sequential at "
-                             f"step {j} with a gap of {gap}, not a near-tie")
-        parted.append((i, j, gap, bar))
+        if a != b:
+            mel, _ = model._mel_chunks_device(audios[i])
+            j, _, gap, bar = parting_gap(model, mel[0], prompt, opts, tok, a, b,
+                                         f"[serving] whisper stream {i}")
+            parted.append((i, j, gap, bar))
     return parted
 
 
 def serve_qwen_bf16(model) -> dict:
-    """bench_qwen3_serving on the unquantized bf16 model: 8 sampled streams x
-    64 frames, slots 8, max_len 1024, tick_frames 8; a warm wave, the 8
-    requests one live slot at a time on the same engine, then the median of
-    3 concurrent trials. Each request's codes in every trial equal its
-    one-slot codes (a request's draws depend only on its seed)."""
+    """bench_qwen3_serving's shape on the unquantized bf16 model, cut in
+    depth: 8 sampled streams x SERVE_QWEN_FRAMES (16; bench.py decodes 64),
+    slots 8, max_len 1024, tick_frames 8; a warm wave, the 8 requests one
+    live slot at a time on the same engine, then the median of SERVE_TRIALS
+    (2; bench.py takes 3) concurrent trials. Each request's codes in every
+    trial equal its one-slot codes (a request's draws depend only on its
+    seed)."""
     from mlx_audio_tpu_torch.ops.cuda import quant_matmul as qk
 
     preps = [model._prepare_generation_inputs(t)[:2] for t in serve_texts()]
@@ -2732,7 +2942,7 @@ def serve_qwen_int4(model) -> dict:
         wall = time.perf_counter() - t0
         ticks = batcher.dispatch_count - d0
         got = quant_counts(4)
-        predicted = predicted_serving_launches(model, 4, _bucket(T), SERVE_STREAMS,
+        predicted = predicted_serving_launches(model, 4, [_bucket(T)] * SERVE_STREAMS,
                                                ticks * SERVE_QWEN_TICK, SERVE_STREAMS)
         log(f"[serving] qwen3 int4: {SERVE_STREAMS} x {SERVE_INT4_FRAMES} frames in {ticks} "
             f"ticks, wall {wall:.4f} s; launches {got}, routing table {predicted} (prefill "
@@ -2960,42 +3170,812 @@ def phase_serving(keep) -> dict:
     return rec
 
 
+# Phase 12: serving over HTTP and WebSocket (`server.py`, stdlib transport)
+# on the checkpoint directories phase 10 wrote, each with its tokenizer.json
+HTTP_WHISPER_S, HTTP_STREAMS = 30.0, 8
+# the 8 concurrent uploads: one window each, each its own seed, level and
+# length
+HTTP_CONC_S = tuple(8.0 + 0.5 * i for i in range(HTTP_STREAMS))
+# the int4 Whisper's upload: one 30 s window (a 30 s upload can take two);
+# seeded weights decode every window at all six fallback temperatures
+HTTP_INT4_S = 20.0
+HTTP_TEXT = "The quick brown fox jumps over the lazy dog."
+# the wave of four speech requests: each its own text, of words the
+# generated tokenizer.json merges (12-13 ids each, so each decode is capped
+# at 128 frames as HTTP_TEXT's is; a text of 22 ids or more doubles it)
+HTTP_TEXTS = (HTTP_TEXT, "The lazy dog jumps over the quick brown fox.",
+              "Hello world, the model turns text into speech.",
+              "The model turns text into speech while the dog jumps.")
+# the int4 Qwen3-TTS directory is served as a CustomVoice checkpoint (one
+# seeded speaker): its decode is capped by the text's length (128 frames
+# here), where the Base route runs to EOS or 4096 frames, which seeded
+# weights may never draw
+QWEN_SPEAKER, QWEN_SPEAKER_ID = "smoke", 3000
+HTTP_STREAM_INTERVAL = 0.8  # s of audio a streamed chunk: 10 frames
+FLASH_PER_ENCODE = TURBO["n_audio_layer"]
+
+
+def http_json(url, obj=None, method=None, timeout=SERVE_TIMEOUT):
+    """(status, body bytes) of one request; a JSON body when `obj` is given."""
+    import urllib.request
+
+    data = None if obj is None else json.dumps(obj).encode()
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, r.read()
+
+
+def http_multipart(url, fields: dict, wav: bytes, timeout=SERVE_TIMEOUT) -> bytes:
+    import urllib.request
+
+    b = "chipsmokeboundary"
+    body = b"".join(f'--{b}\r\nContent-Disposition: form-data; name="{k}"\r\n\r\n{v}\r\n'
+                    .encode() for k, v in fields.items())
+    body += (f'--{b}\r\nContent-Disposition: form-data; name="file"; filename="a.wav"\r\n'
+             f"Content-Type: audio/wav\r\n\r\n").encode() + wav + f"\r\n--{b}--\r\n".encode()
+    req = urllib.request.Request(url + "/v1/audio/transcriptions", data=body, method="POST",
+                                 headers={"Content-Type": f"multipart/form-data; boundary={b}"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.read()
+
+
+def http_speech_timed(url, payload) -> tuple:
+    """(body, seconds to the status line, seconds to the last byte): the
+    status line follows the model's first chunk, so the first is the time
+    to first audio."""
+    import http.client
+    from urllib.parse import urlsplit
+
+    u = urlsplit(url)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=SERVE_TIMEOUT)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/v1/audio/speech", body=json.dumps(payload),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        first = time.perf_counter() - t0
+        body = resp.read()
+        total = time.perf_counter() - t0
+        if resp.status != 200:
+            raise SystemExit(f"chip_smoke: /v1/audio/speech answered {resp.status}: {body[:300]}")
+        return body, first, total
+    finally:
+        conn.close()
+
+
+def ws_open(url, path):
+    """A WebSocket client made from `ws.client_handshake_headers`."""
+    import socket
+    from urllib.parse import urlsplit
+
+    from mlx_audio_tpu_torch import ws
+
+    u = urlsplit(url)
+    sock = socket.create_connection((u.hostname, u.port), timeout=SERVE_TIMEOUT)
+    req, expect = ws.client_handshake_headers(f"{u.hostname}:{u.port}", path)
+    sock.sendall(req)
+    resp = b""
+    while b"\r\n\r\n" not in resp:
+        resp += sock.recv(4096)
+    head = resp.split(b"\r\n\r\n")[0].decode()
+    if " 101 " not in head.splitlines()[0] or expect not in head:
+        raise SystemExit(f"chip_smoke: the WebSocket upgrade of {path} answered {head!r}")
+    return sock, ws.WebSocketConnection(sock.makefile("rb"), sock.makefile("wb"),
+                                        mask_outgoing=True)
+
+
+def load_served(url, provider, name) -> dict:
+    """POST /v1/models, then wait for the batcher's warm-up, which must not
+    have raised."""
+    t0 = time.perf_counter()
+    status, body = http_json(url + "/v1/models", {"model_name": name})
+    load_s = time.perf_counter() - t0
+    if status != 200 or json.loads(body)["status"] != "success":
+        raise SystemExit(f"chip_smoke: POST /v1/models {name}: {status} {body[:300]}")
+    t0 = time.perf_counter()
+    err = provider.wait_warmup(name, timeout=SERVE_TIMEOUT)
+    if err is not None:
+        raise SystemExit(f"chip_smoke: the batcher warm-up of {name} raised {err!r}")
+    return {"load_s": load_s, "warmup_s": time.perf_counter() - t0}
+
+
+def unload_served(url, provider, name) -> None:
+    """DELETE /v1/models/<id>: the batcher's scheduler thread must end."""
+    from mlx_audio_tpu_torch.serving import get_infer_hook
+
+    model = provider.load_model(name)
+    batcher = get_infer_hook(model)
+    thread = getattr(batcher, "sched", batcher)._thread
+    status, body = http_json(f"{url}/v1/models/{name}", method="DELETE")
+    thread.join(60)
+    if status != 200 or thread.is_alive() or get_infer_hook(model) is not None:
+        raise SystemExit(f"chip_smoke: DELETE {name} answered {status} {body[:200]} and left "
+                         f"the batcher's thread {'alive' if thread.is_alive() else 'ended'}")
+
+
+def http_routes(url) -> None:
+    _, health = http_json(url + "/health")
+    _, root = http_json(url + "/")
+    _, ui = http_json(url + "/ui")
+    _, models = http_json(url + "/v1/models")
+    if (json.loads(health) != {"status": "ok"} or "/ui" not in json.loads(root)["endpoints"]
+            or b"studio" not in ui or json.loads(models)["data"] != []):
+        raise SystemExit("chip_smoke: GET /health, /, /ui or /v1/models answered wrongly")
+    log(f"[server] GET /health, /, /ui ({len(ui)} bytes) and /v1/models answer")
+
+
+def noise_wav(seconds, seed, sr=16000, channels=1, scale=0.05) -> bytes:
+    from mlx_audio_tpu_torch import audio_io
+
+    shape = (int(sr * seconds),) + ((channels,) if channels > 1 else ())
+    x = (np.random.default_rng(seed).standard_normal(shape) * scale).astype(np.float32)
+    return audio_io.encode_bytes(x, sr, "wav")
+
+
+def seg_tokens(segments) -> list:
+    return [t for s in segments for t in s["tokens"]]
+
+
+def transcript_key(text, duration, segments) -> tuple:
+    """What a verbose_json transcription says: its text, its duration and
+    each segment's times, text and tokens."""
+    return (text, round(duration, 6)) + tuple(
+        (round(s["start"], 6), round(s["end"], 6), s["text"], tuple(s["tokens"]))
+        for s in segments)
+
+
+class WindowDecodes:
+    """Records the window decodes a model's installed `WhisperBatcher` serves
+    (the seek loop's `hook(window, prompt, opts, tokenizer)`), by putting a
+    recording hook in front of it in the infer-hook registry: per calling
+    thread (a served request's handler), in order, (window, prompt,
+    options, tokens). `close` puts the batcher back."""
+
+    def __init__(self, model):
+        from mlx_audio_tpu_torch.serving import get_infer_hook, register_infer_hook
+
+        self.model, self.batcher = model, get_infer_hook(model)
+        self.lock = threading.Lock()
+        self.by_thread = {}
+        register_infer_hook(model, self)
+
+    def __call__(self, window, prompt, opts, tokenizer):
+        res = self.batcher(window, prompt, opts, tokenizer)
+        with self.lock:
+            self.by_thread.setdefault(threading.get_ident(), []).append(
+                (window, list(prompt), opts, list(res.tokens)))
+        return res
+
+    def take(self) -> list:
+        """This thread's decodes so far, which it forgets."""
+        with self.lock:
+            return self.by_thread.pop(threading.get_ident(), [])
+
+    def close(self) -> None:
+        from mlx_audio_tpu_torch.serving import register_infer_hook
+
+        register_infer_hook(self.model, self.batcher)
+
+
+def check_served_windows(model, outs, wants, served, tok) -> list:
+    """Each served transcription against the in-memory model's sequential
+    transcription of the same upload: the same text, duration and segments
+    (times, text and tokens), or, at the
+    first window decode where the two part (the same window, prompt and
+    temperature, other tokens), a near-tie (`parting_gap`). `wants` holds
+    (result, its decodes) a request, `served` the decodes of each served
+    request, matched to it by their first window. Returns [(request,
+    decode, temperature, step, what, gap, bar)]."""
+    parted = []
+    for i, (o, (want, seq)) in enumerate(zip(outs, wants)):
+        if transcript_key(o["text"], o["duration"], o["segments"]) == transcript_key(
+                want.text, want.duration, want.segments):
+            continue
+        srv = next((d for d in served if torch.equal(d[0][0], seq[0][0])), None)
+        k = next((k for k, (x, y) in enumerate(zip(srv or [], seq))
+                  if (x[2].temperature, x[3]) != (y[2].temperature, y[3])), None)
+        if k is None or srv[k][2].temperature != seq[k][2].temperature or srv[k][1] != seq[k][1]:
+            raise SystemExit(f"chip_smoke: served Whisper request {i} differs from its "
+                             f"sequential transcription with no decode parting at the same "
+                             f"window, prompt and temperature (decode {k})")
+        (window, prompt, opts, b), a = seq[k], srv[k][3]
+        parted.append((i, k, opts.temperature, *parting_gap(
+            model, window, prompt, opts, tok, a, b,
+            f"[server] whisper request {i}, decode {k} (t={opts.temperature})")))
+    return parted
+
+
+def parting_gap(model, window, prompt, opts, tok, a, b, label) -> tuple:
+    """Where a served decode `a` parts from the sequential decode `b` of the
+    same window, prompt and options: the sequential path's logits after the
+    common prefix (a B = 1 encode and decoder pass), through the decoding
+    rules, must put the two choices within SERVE_TIE_ULPS bf16 ulps; at
+    t > 0 the row's Gumbel noise (its generator seeded 0, as
+    `decode_window_batch` seeds a window's only sample) is added and the
+    bar divided by t. Where the served choice is one the sequential rules
+    masked, the rule that can flip on the logits is the forced timestamp
+    (P(timestamps) > the best text token's): its two log-probabilities must
+    lie within the bar. Returns (step, what, gap, bar); raises if it is no
+    near-tie."""
+    from mlx_audio_tpu_torch.stt.models.whisper import decoding as dec
+
+    j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+    ca = a[j] if j < len(a) else tok.eot
+    cb = b[j] if j < len(b) else tok.eot
+    toks, dev, V, ts = list(prompt) + list(b[:j]), model.device, model.dims.n_vocab, \
+        tok.timestamp_begin
+    stamps = [x for x in b[:j] if x >= ts]
+    with torch.inference_mode():
+        _, kv = model._encode(window[None])
+        raw = model.decoder(torch.tensor([toks], device=dev), 0, None, kv)[0][0, -1].float()
+        f = dec._apply_rules(
+            raw[None].clone(), j, torch.tensor([toks[-1]], device=dev),
+            torch.tensor([toks[-2]], device=dev),
+            torch.tensor([stamps[-1] if stamps else ts], device=dev),
+            suppress_mask=torch.from_numpy(dec._suppress_mask(tok, opts, V)).to(dev),
+            eot=tok.eot, timestamp_begin=ts, no_timestamps=tok.no_timestamps,
+            blank=(tok.encode(" ") or [tok.eot])[0], without_timestamps=opts.without_timestamps,
+            max_initial_ts_index=(V if opts.max_initial_timestamp is None
+                                  else round(opts.max_initial_timestamp / 0.02)))[0]
+        t = float(opts.temperature)
+        if not torch.isfinite(f[ca]):  # masked for the sequential run
+            lp = torch.log_softmax(raw, dim=-1)
+            is_ts = torch.arange(V, device=dev) >= ts
+            x, y = torch.logsumexp(lp[is_ts], 0).item(), lp[~is_ts].max().item()
+            what, gap = "forced-timestamp rule", abs(x - y)
+            bar = SERVE_TIE_ULPS * bf16_ulp(max(abs(x), abs(y)))
+        else:
+            what, gap = "choice", (f[cb] - f[ca]).item()
+            bar = SERVE_TIE_ULPS * bf16_ulp(max(abs(f[ca].item()), abs(f[cb].item())))
+            if t > 0:
+                gen = torch.Generator(device=dev).manual_seed(0)
+                for _ in range(j // dec.NOISE_STEPS + 1):
+                    u = dec.uniform_noise([gen], V, dev)[0, j % dec.NOISE_STEPS]
+                g = -torch.log(-torch.log(u.clamp_min(1e-20)))
+                gap, bar = gap / t + (g[cb] - g[ca]).item(), bar / t
+    log(f"{label}: served and sequential part at step {j} (served {a[j:j + 3]}, sequential "
+        f"{b[j:j + 3]}); {what} gap {gap:.3e} (bar {bar:.3e} = {SERVE_TIE_ULPS} bf16 ulp"
+        f"{' / t' if t and what == 'choice' else ''})")
+    if not abs(gap) <= bar:
+        raise SystemExit(f"chip_smoke: {label}: served and sequential part at step {j} with a "
+                         f"{what} gap of {gap}: not a near-tie")
+    return j, what, gap, bar
+
+
+def http_whisper(url, provider, tmp: Path, keep, smi) -> dict:
+    """Whisper-large-v3-turbo (bf16) over HTTP and WebSocket, held to the
+    in-memory phase 4 model (same seed) through a batcher of its own (the
+    server's defaults, one row here)."""
+    from mlx_audio_tpu_torch import profiling, server
+    from mlx_audio_tpu_torch.ops.cuda.flash_attention import flash_attention
+    from mlx_audio_tpu_torch.serving import get_infer_hook
+    from mlx_audio_tpu_torch.stt.models.whisper import Model, ModelDimensions
+    from mlx_audio_tpu_torch.stt.models.whisper.tokenizer import WhisperTokenizer
+
+    d = tmp / "whisper-large-v3-turbo"
+    name = str(d)
+    rec = load_served(url, provider, name)
+    served = provider.load_model(name)
+    batcher = get_infer_hook(served)
+    ref = keep.get("whisper") or Model(ModelDimensions(**TURBO), dtype=torch.bfloat16, seed=0)
+    ref_batcher = ref.make_batcher().install()
+
+    def tok():
+        return WhisperTokenizer(d, language="en")
+
+    try:
+        # one request: 30 s of 44.1 kHz stereo noise
+        wav = noise_wav(HTTP_WHISPER_S, 21, sr=44100, channels=2)
+        fields = {"model": name, "language": "en", "response_format": "verbose_json"}
+        flash_attention.launches, d0 = 0, batcher.dispatch_count
+        t0 = time.perf_counter()
+        one = json.loads(http_multipart(url, fields, wav))
+        one_s = time.perf_counter() - t0
+        launches, dispatches = flash_attention.launches, batcher.dispatch_count - d0
+        want = ref.generate(server._read_16k(wav), language="en", tokenizer=tok())
+        if launches != FLASH_PER_ENCODE * dispatches or not dispatches:
+            raise SystemExit(f"chip_smoke: a served transcription launched flash {launches} "
+                             f"times over {dispatches} batched dispatches")
+        if one["text"] != want.text or seg_tokens(one["segments"]) != seg_tokens(
+                want.segments) or not seg_tokens(want.segments):
+            raise SystemExit(f"chip_smoke: the served text {one['text'][:80]!r} is not the "
+                             f"in-memory model's {want.text[:80]!r}")
+        log(f"[server] whisper: POST /v1/models {rec['load_s']:.2f} s, warm-up "
+            f"{rec['warmup_s']:.2f} s; one 30 s 44.1 kHz stereo transcription {one_s:.4f} s "
+            f"({HTTP_WHISPER_S / one_s:.1f}x real time), {dispatches} batched decode(s), flash "
+            f"launches {launches} ({FLASH_PER_ENCODE} per encode); text = the reader's decode "
+            f"of the in-memory model's {len(seg_tokens(want.segments))} tokens "
+            f"({len(one['segments'])} segments, temperatures "
+            f"{[s['temperature'] for s in one['segments']]})")
+
+        # 8 concurrent requests, each its own seeded upload and length (one
+        # window each): one batched encode and decode a step of the seek
+        # loops, each transcription the in-memory model's sequential one of
+        # the same upload, or a stated near-tie. The seeded weights decode
+        # few text tokens, often the same ones for other noise, so the
+        # lengths keep the 8 answers apart (each states its duration). The
+        # first asks for NDJSON: its segment lines and done line are its
+        # answer
+        wavs = [noise_wav(HTTP_CONC_S[i], 30 + i, scale=0.02 * (1 + i))
+                for i in range(HTTP_STREAMS)]
+
+        def transcribe(i):
+            if i:
+                return json.loads(http_multipart(url, fields, wavs[i]))
+            lines = [json.loads(x) for x in http_multipart(
+                url, dict(fields, stream="true"), wavs[0]).splitlines() if x.strip()]
+            *segs, done = lines
+            if done.get("type") != "done" or done["text"] != "".join(
+                    x["text"] for x in segs).strip():
+                raise SystemExit(f"chip_smoke: the NDJSON stream ends {done}, not a done line "
+                                 f"with its segments' text")
+            return {"text": done["text"], "duration": done["duration"], "segments": segs}
+
+        served_decodes = WindowDecodes(served)
+        flash_attention.launches, d0 = 0, batcher.dispatch_count
+        t0 = time.perf_counter()
+        try:
+            outs = concurrently(transcribe, list(range(HTTP_STREAMS)))
+        finally:
+            served_decodes.close()
+        conc_s = time.perf_counter() - t0
+        c_launches, c_dispatches = flash_attention.launches, batcher.dispatch_count - d0
+        if c_launches != FLASH_PER_ENCODE * c_dispatches:
+            raise SystemExit(f"chip_smoke: 8 served transcriptions launched flash {c_launches} "
+                             f"times over {c_dispatches} batched dispatches")
+        ref_decodes = WindowDecodes(ref)
+        t0 = time.perf_counter()
+        try:
+            wants = [(ref.generate(server._read_16k(w), language="en", tokenizer=tok()),
+                      ref_decodes.take()) for w in wavs]
+        finally:
+            ref_decodes.close()
+        seq_s = time.perf_counter() - t0
+        keys = [transcript_key(w.text, w.duration, w.segments) for w, _ in wants]
+        if len(set(keys)) != HTTP_STREAMS:
+            raise SystemExit("chip_smoke: two of the 8 uploads have the same transcription, so "
+                             "a response sent to the other request could pass")
+        distinct_tokens = len({tuple(seg_tokens(w.segments)) for w, _ in wants})
+        parted = check_served_windows(ref, outs, wants, served_decodes.by_thread.values(), tok())
+        same = [transcript_key(o["text"], o["duration"], o["segments"]) == k
+                for o, k in zip(outs, keys)]
+        total = sum(HTTP_CONC_S)
+        log(f"[server] whisper: {HTTP_STREAMS} concurrent requests (the first as NDJSON: "
+            f"{len(outs[0]['segments'])} segment lines and a done line), each its own seeded "
+            f"upload of {HTTP_CONC_S[0]:g}-{HTTP_CONC_S[-1]:g} s ({distinct_tokens} distinct "
+            f"token lists), in {conc_s:.4f} s = {total / conc_s:.1f}x aggregate real time "
+            f"({seq_s:.4f} s one after another in memory: {seq_s / conc_s:.2f}x), "
+            f"{c_dispatches} batched dispatches, flash launches "
+            f"{c_launches}; transcriptions equal to their own sequential ones: {same}; parted at "
+            f"near-ties: {parted}")
+
+        # realtime, one session inside profiling.trace: a seeded burst, then
+        # silence, in 16 kHz int16 frames
+        burst = (np.clip(np.random.default_rng(22).standard_normal(16000) * 0.3, -1, 1)
+                 * 32767).astype("<i2").tobytes()
+        silence = bytes(8000)
+        trace_dir = tmp / "trace"
+        t_trace = time.perf_counter()
+        with profiling.trace(trace_dir):
+            with profiling.annotate("request"):
+                sock, conn = ws_open(url, f"/v1/audio/transcriptions/realtime?model={name}")
+                try:
+                    for i in range(0, len(burst), 6400):
+                        conn.send_binary(burst[i:i + 6400])
+                    events = []
+                    t0 = time.perf_counter()
+                    for _ in range(3):
+                        conn.send_binary(silence)
+                    while not any(e.get("type") == "final" for e in events):
+                        events.append(json.loads(conn.recv()[1]))
+                    final_s = time.perf_counter() - t0
+                finally:
+                    sock.close()
+        traced_s = time.perf_counter() - t_trace
+        text = "".join(p.read_text() for p in trace_dir.glob("*.json"))
+        shutil.rmtree(trace_dir)
+        stats, peak = profiling.memory_stats(), profiling.peak_memory_gb()
+        if "request" not in text or "flash_fwd_bf16" not in text or not stats or peak <= 0:
+            raise SystemExit(f"chip_smoke: the trace ({len(text)} bytes) lacks the span or "
+                             f"flash_fwd_bf16, or memory stats are empty ({len(stats)}, {peak})")
+        buf = np.frombuffer(burst + silence * 2, np.int16).astype(np.float32) / 32768.0
+        rt_want = ref.generate(buf, tokenizer=tok()).text
+        if events[-1]["text"] != rt_want:
+            raise SystemExit(f"chip_smoke: the realtime final {events[-1]['text'][:60]!r} is "
+                             f"not generate's {rt_want[:60]!r}")
+        log(f"[server] whisper realtime WebSocket, inside profiling.trace and "
+            f"annotate('request'): {len(events)} event(s), the final {final_s:.4f} s after the "
+            f"silence began, text = generate on the same buffer; {traced_s:.2f} s with the "
+            f"export: {len(text) / 1e6:.1f} MB of Chrome trace naming 'request' and "
+            f"flash_fwd_bf16; memory_stats {len(stats)} keys, peak_memory_gb {peak} ({smi})")
+    finally:
+        ref_batcher.close()
+    unload_served(url, provider, name)
+    return dict(rec, one_wall_s=one_s, flash_launches=launches, dispatches=dispatches,
+                concurrent_wall_s=conc_s, concurrent_xrt=total / conc_s,
+                concurrent_sequential_wall_s=seq_s,
+                concurrent_dispatches=c_dispatches, concurrent_flash_launches=c_launches,
+                parted=parted, realtime_final_s=final_s, traced_s=traced_s,
+                trace_bytes=len(text), peak_memory_gb=peak)
+
+
+def pcm16(audio) -> bytes:
+    from mlx_audio_tpu_torch.server import _pcm16
+
+    return _pcm16(audio)
+
+
+def http_qwen(url, provider, tmp: Path, smi) -> dict:
+    """Int4 Qwen3-TTS 0.6B (the phase 10 directory, served as CustomVoice)
+    over HTTP and WebSocket."""
+    from mlx_audio_tpu_torch.lm.continuous import _bucket
+    from mlx_audio_tpu_torch.ops.cuda import quant_matmul as qk
+    from mlx_audio_tpu_torch.serving import get_infer_hook
+
+    d = tmp / "qwen3-tts-0.6b-4bit"
+    cfg = json.loads((d / "config.json").read_text())
+    cfg["tts_model_type"] = "custom_voice"
+    cfg["talker_config"] = dict(cfg.get("talker_config") or {},
+                                spk_id={QWEN_SPEAKER: QWEN_SPEAKER_ID})
+    (d / "config.json").write_text(json.dumps(cfg, indent=2))
+    name = str(d)
+    rec = load_served(url, provider, name)
+    model = provider.load_model(name)
+    batcher = get_infer_hook(model)
+    req = {"model": name, "input": HTTP_TEXT, "voice": QWEN_SPEAKER, "temperature": 0.0,
+           "streaming_interval": HTTP_STREAM_INTERVAL}
+
+    # greedy, streamed wav, alone: time to first byte
+    body, ttfb, wall = http_speech_timed(url, dict(req, response_format="wav"))
+    audio_s = (len(body) - 44) / 2 / model.sample_rate
+
+    # then one full wave of the pool (the server's batcher: 4 slots), each
+    # request its own text: the first text over the WebSocket route, the
+    # second through the served model's own `generate` in process, the last
+    # two over HTTP. Each must give the samples its text gives with one live
+    # slot (greedy codes do not depend on co-tenants): the first body, and
+    # for the others the model's `generate` after the wave, one at a time.
+    # Every quantized launch of the wave is held to the routing table at the
+    # pool's shapes
+    def over_ws(text):
+        sock, conn = ws_open(url, "/v1/audio/speech/stream")
+        try:
+            t0 = time.perf_counter()
+            conn.send_text(json.dumps(dict(req, input=text)))
+            start = json.loads(conn.recv()[1])
+            frames, first = [], None
+            while True:
+                op, payload = conn.recv()
+                if op == 0x1:
+                    return start, json.loads(payload), frames, first, time.perf_counter() - t0
+                if first is None:
+                    first = time.perf_counter() - t0
+                frames.append(payload)
+        finally:
+            sock.close()
+
+    def in_process(text):
+        kw = dict(text=text, voice=QWEN_SPEAKER, speed=1.0, lang_code="a",
+                  temperature=0.0, stream=True, streaming_interval=HTTP_STREAM_INTERVAL)
+        return b"".join(pcm16(r.audio) for r in model.generate(**kw))
+
+    def over_http(text):
+        return http_json(url + "/v1/audio/speech", dict(req, input=text,
+                                                        response_format="pcm"))[1]
+
+    buckets = [_bucket(model._prepare_generation_inputs(t, language="a", speaker=QWEN_SPEAKER)[0]
+                       .shape[1]) for t in HTTP_TEXTS]
+    qk.reset_launches()
+    t0_ticks = batcher.dispatch_count
+    t0 = time.perf_counter()
+    wave = concurrently(lambda fa: fa[0](fa[1]), list(zip(
+        (over_ws, in_process, over_http, over_http), HTTP_TEXTS)))
+    conc_s = time.perf_counter() - t0
+    ticks = batcher.dispatch_count - t0_ticks
+    got = quant_counts(4)
+    t0 = time.perf_counter()
+    wants = [body[44:]] + [in_process(t) for t in HTTP_TEXTS[1:]]
+    alone_s = time.perf_counter() - t0
+    (start, done, frames, first_frame, ws_wall), *bodies = wave
+    if body[:4] != b"RIFF" or not all(wants) or len(set(wants)) != len(wants):
+        raise SystemExit(f"chip_smoke: the one-slot speech of the four texts is empty or not "
+                         f"distinct ({[len(w) for w in wants]} bytes)")
+    if start.get("type") != "start" or done.get("type") != "done" or b"".join(frames) != wants[0]:
+        raise SystemExit(f"chip_smoke: the WebSocket speech ({start}, {done}) is not the HTTP "
+                         f"body's samples")
+    for i, (b, w) in enumerate(zip(bodies, wants[1:]), 1):
+        if b != w:
+            raise SystemExit(f"chip_smoke: greedy request {i} beside co-tenants gave other "
+                             f"samples ({len(b)} bytes) than alone ({len(w)} bytes)")
+    predicted = predicted_serving_launches(model, 4, buckets, ticks * batcher.tick_frames,
+                                           batcher.slots, layers_only=True)
+    wave_s = sum(len(w) for w in wants) / 2 / model.sample_rate
+    log(f"[server] qwen3 int4 greedy CustomVoice speech, {audio_s:.2f} s of audio: HTTP time "
+        f"to first byte {ttfb:.4f} s, wall {wall:.4f} s (RTF {wall / audio_s:.3f}), alone; "
+        f"then a wave of {len(wave)} texts in {conc_s:.4f} s ({wave_s / conc_s:.2f}x real "
+        f"time aggregate, {ticks} ticks of {batcher.slots} slots): the WebSocket route (first "
+        f"frame {first_frame:.4f} s, {len(frames)} frames), the model's generate in process "
+        f"and two HTTP requests, each equal int16 for int16 to its text alone (the last three "
+        f"{alone_s:.4f} s one after another); launches {got}, routing table {predicted} "
+        f"({smi})")
+    for k, n in predicted.items():
+        if got[k] != n:
+            raise SystemExit(f"chip_smoke: the served wave launched {k} {got[k]} times, the "
+                             f"routing table says {n}")
+    unload_served(url, provider, name)
+    return dict(rec, audio_s=audio_s, ttfb_s=ttfb, wall_s=wall, ws_first_frame_s=first_frame,
+                ws_wall_s=ws_wall, wave=len(wave), wave_wall_s=conc_s,
+                wave_xrt=wave_s / conc_s, alone_wall_s=alone_s, ticks=ticks, launches=got,
+                predicted=predicted)
+
+
+def http_kokoro(url, provider, tmp: Path) -> dict:
+    """Kokoro-82M (the phase 10 directory, float32) against the in-memory
+    model of the same seed in float32, within one int16 step."""
+    from mlx_audio_tpu_torch.nn import load_weights
+    from mlx_audio_tpu_torch.tts.models.kokoro.kokoro import torch_checkpoint
+
+    d = tmp / "kokoro-82m"
+    name = str(d)
+    rec = load_served(url, provider, name)
+    body, ttfb, wall = http_speech_timed(url, {"model": name, "input": LOADED_KOKORO_TEXT,
+                                               "voice": "af_smoke", "response_format": "wav"})
+    # the in-memory float32 model: built in float32 (its STFT tables too, as
+    # the loader builds them), with the weights of phase 10's bf16 model
+    # taken through the upstream layout in memory (the weight-norm fold
+    # moves a weight by up to a float32 ulp, as the loader's does)
+    model = kokoro_model("cuda")
+    load_weights(model, model.sanitize(torch_checkpoint(kokoro_model("cuda", torch.bfloat16))))
+    model.repo_id = str(d)
+    want = np.frombuffer(b"".join(pcm16(r.audio) for r in model.generate(
+        LOADED_KOKORO_TEXT, voice="af_smoke", speed=1.0, lang_code="a")), "<i2")
+    got = np.frombuffer(body[44:], "<i2")
+    steps = int(np.abs(got.astype(np.int32) - want).max()) if got.shape == want.shape else None
+    del model
+    if steps is None or steps > 1 or not want.size:
+        raise SystemExit(f"chip_smoke: served Kokoro {got.shape} is not within one int16 step "
+                         f"of the in-memory model's {want.shape} ({steps})")
+    log(f"[server] kokoro f32: {want.size / 24000:.2f} s of audio, time to first byte "
+        f"{ttfb:.4f} s, wall {wall:.4f} s; max |d| {steps} int16 step(s) from the in-memory "
+        f"model")
+    unload_served(url, provider, name)
+    return dict(rec, ttfb_s=ttfb, wall_s=wall, max_int16_steps=steps)
+
+
+def http_whisper_int4(url, provider, tmp: Path) -> dict:
+    """Whisper-large-v3-turbo converted to int4: served, its quantized
+    launches held to the code's count (every decoder step: per layer the
+    fused q/k/v, o, the cross-attention's query and out, mlp1 and mlp2,
+    each where the routing guard takes it), the fused q/k/v's as the
+    wrapper counts them at N = 3 x 1280; then, in process, its decode on
+    one encoder output against the same checkpoint loaded without the
+    row-stack: identical tokens, and two fewer launches a layer a step."""
+    from mlx_audio_tpu_torch import convert, server, utils
+    from mlx_audio_tpu_torch.nn import quantized as nnq
+    from mlx_audio_tpu_torch.nn.quantized import qmm_routable
+    from mlx_audio_tpu_torch.ops.cuda import quant_matmul as qk
+    from mlx_audio_tpu_torch.stt.models.whisper import Model
+    from mlx_audio_tpu_torch.stt.models.whisper.decoding import DecodingOptions, decode_window
+    from mlx_audio_tpu_torch.stt.models.whisper.tokenizer import WhisperTokenizer
+
+    src = tmp / "whisper-large-v3-turbo"
+    d = tmp / "whisper-large-v3-turbo-4bit"
+    t0 = time.perf_counter()
+    convert.convert(str(src), str(d), quantize=True, q_bits=4, q_group_size=GROUP)
+    convert_s = time.perf_counter() - t0
+    name = str(d)
+    rec = load_served(url, provider, name)
+    served = provider.load_model(name)
+    layers, D = TURBO["n_text_layer"], TURBO["n_text_state"]
+    enc_layers, Da = TURBO["n_audio_layer"], TURBO["n_audio_state"]
+    # (N, K) of a decoder layer's quantized projections: the fused q/k/v,
+    # out, the cross-attention's query and out, mlp1, mlp2; of an encoder
+    # layer's; and the cross-attention's key and value over the encoder
+    # output, once an encode
+    shapes = [(3 * D, D), (D, D), (D, D), (D, D), (4 * D, D), (D, 4 * D)]
+    enc_shapes = [(3 * Da, Da), (Da, Da), (4 * Da, Da), (Da, 4 * Da)]
+    kv_shapes = [(D, Da), (D, Da)]
+    fused = sum(hasattr(b.attn, "qkv_fused") for b in served.decoder.blocks)
+    crossed = sum(hasattr(b.cross_attn, "qkv_fused") for b in served.decoder.blocks)
+    if fused != layers or crossed:
+        raise SystemExit(f"chip_smoke: the int4 Whisper row-stacked {fused} self-attentions and "
+                         f"{crossed} cross-attentions")
+
+    rows, enc_rows = [], []
+    step, encode = Model._decoder_step, Model._encode
+
+    def spy(model, tokens, *a, **kw):
+        rows.append(tokens.shape[0] * tokens.shape[1])
+        return step(model, tokens, *a, **kw)
+
+    def encode_spy(model, mel):
+        enc_rows.append(mel.shape[0] * TURBO["n_audio_ctx"])
+        return encode(model, mel)
+
+    def predicted(dec_ms, enc_ms) -> dict:
+        n = {"qmm": 0, "qmm_gemv": 0, "qmm_mma": 0, "qmm_kernel": 0}
+        for ms, table in ((dec_ms, [(s, layers) for s in shapes]),
+                          (enc_ms, [(s, enc_layers) for s in enc_shapes]
+                           + [(s, layers) for s in kv_shapes])):
+            for M in ms:
+                for (N, K), times in table:
+                    if qmm_routable(4, GROUP, N, K, M):
+                        n["qmm"] += times
+                        n[qmm_route("", M, 4, K, GROUP)] += times
+        return n
+
+    wav = noise_wav(HTTP_INT4_S, 41)  # one window
+    Model._decoder_step = staticmethod(spy)
+    Model._encode = encode_spy
+    try:
+        qk.reset_launches()
+        t0 = time.perf_counter()
+        out = json.loads(http_multipart(url, {"model": name, "language": "en",
+                                              "response_format": "verbose_json"}, wav))
+        wall = time.perf_counter() - t0
+        got = {k: quant_counts(4)[k] for k in ("qmm", "qmm_gemv", "qmm_mma", "qmm_kernel")}
+        qkv = qk.quantized_matmul.shapes.get((3 * D, D), 0)  # counted where it launches
+        served_rows, served_enc = list(rows), list(enc_rows)
+        want = predicted(served_rows, served_enc)
+        want_qkv = sum(layers * qmm_routable(4, GROUP, 3 * D, D, M) for M in served_rows)
+        if got != want or qkv != want_qkv or not qkv:
+            raise SystemExit(f"chip_smoke: the served int4 Whisper launched {got}, {qkv} of "
+                             f"them the fused q/k/v; the code says {want}, {want_qkv}, over "
+                             f"{len(served_rows)} decoder steps and {len(served_enc)} encodes")
+        # fused against unfused on one encoder output, greedy, 96 tokens
+        tok = WhisperTokenizer(d, language="en")
+        opts = DecodingOptions(task="transcribe", language="en", temperature=0.0,
+                               without_timestamps=True, sample_len=96)
+        prompt = list(tok.sot_sequence_including_notimestamps)
+        mel, _ = served._mel_chunks_device(server._read_16k(wav))
+        unfused_load = nnq.fuse_quantized_projections
+        nnq.fuse_quantized_projections = lambda model: 0
+        try:
+            unfused = utils.load_model(d, device=served.device)
+        finally:
+            nnq.fuse_quantized_projections = unfused_load
+        toks, counts = [], []
+        with torch.inference_mode():
+            _, cross_kv = served._encode(mel[:1])
+            for m in (served, unfused):
+                qk.reset_launches()
+                rows.clear()
+                res = decode_window(m, cross_kv, tok, prompt, opts, n_ctx=m.dims.n_text_ctx,
+                                    n_vocab=m.dims.n_vocab, decoder_step=Model._decoder_step,
+                                    make_caches=m._make_caches)
+                toks.append(res.tokens)
+                counts.append((quant_counts(4)["qmm"], list(rows),
+                               qk.quantized_matmul.shapes.get((3 * D, D), 0)))
+    finally:
+        Model._decoder_step, Model._encode = step, encode
+    del unfused
+    (nf, dec_rows, qkv_f), (nu, dec_rows_u, qkv_u) = counts
+    calls = len(dec_rows)
+    # three launches at N = D where the row-stack makes one at N = 3D, a
+    # layer a step (at these widths every one is routed: 2 a layer a step)
+    extra = sum(layers * (3 * qmm_routable(4, GROUP, D, D, M)
+                          - qmm_routable(4, GROUP, 3 * D, D, M)) for M in dec_rows)
+    if (toks[0] != toks[1] or not toks[0] or dec_rows != dec_rows_u or nu - nf != extra
+            or qkv_u or qkv_f != sum(layers * qmm_routable(4, GROUP, 3 * D, D, M)
+                                     for M in dec_rows)):
+        raise SystemExit(f"chip_smoke: fused and unfused int4 Whisper: tokens "
+                         f"{'equal' if toks[0] == toks[1] else 'differ'}, qmm launches {nf} and "
+                         f"{nu} over {calls} and {len(dec_rows_u)} decoder steps (fused q/k/v "
+                         f"{qkv_f} and {qkv_u}), the code says {extra} more unfused")
+    log(f"[server] whisper int4: converted in {convert_s:.2f} s; POST /v1/models "
+        f"{rec['load_s']:.2f} s; q/k/v row-stacked on the {fused} self-attentions only; one "
+        f"served {HTTP_INT4_S:g} s transcription {wall:.4f} s over {len(served_enc)} encode(s) and "
+        f"{len(served_rows)} decoder steps (rows {sorted(set(served_rows))}; the encodes' "
+        f"share {predicted([], served_enc)['qmm']}): quantized launches {got} = the code's "
+        f"count, of which {qkv} at the fused q/k/v's N = {3 * D}, K = {D}; fused and unfused "
+        f"decodes on one encoder output: {len(toks[0])} identical tokens, qmm launches {nf} "
+        f"({qkv_f} fused q/k/v) and {nu} ({extra} more unfused over {calls} steps)")
+    unload_served(url, provider, name)
+    return dict(rec, convert_s=convert_s, wall_s=wall, decoder_steps=len(served_rows),
+                launches=got, fused_qkv_launches=qkv, fused_qmm=nf, unfused_qmm=nu,
+                fused_decode_qkv_launches=qkv_f, decode_steps=calls,
+                text_chars=len(out["text"]))
+
+
+def phase_http(smi: str, tmp: Path, keep) -> dict:
+    """Phase 12: `server.serve_stdlib` in process on a free port, models
+    loaded through POST /v1/models from phase 10's directories."""
+    from mlx_audio_tpu_torch import server
+    from mlx_audio_tpu_torch.tts.models.qwen3_tts import Model as Qwen
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    provider = server.ModelProvider()  # on the card
+    httpd = server.serve_stdlib("127.0.0.1", 0, provider)
+    url = "http://127.0.0.1:%d" % httpd.server_address[1]
+    saved = Qwen._tokenizer
+    Qwen._tokenizer = None  # phase 5's stand-in: served models read their tokenizer.json
+    try:
+        http_routes(url)
+        rec = {"whisper": http_whisper(url, provider, tmp, keep, smi),
+               "qwen3_int4": http_qwen(url, provider, tmp, smi),
+               "kokoro_f32": http_kokoro(url, provider, tmp),
+               "whisper_int4": http_whisper_int4(url, provider, tmp)}
+    finally:
+        Qwen._tokenizer = saved
+        httpd.shutdown()
+        httpd.server_close()
+        for name in provider.list_models():
+            provider.unload(name)
+    rec["wall_s"] = time.perf_counter() - t0
+    log(f"[server] phase 12 wall {rec['wall_s']:.1f} s")
+    return rec
+
+
 QUANT_SOURCE = "mlx_audio_tpu_torch/csrc/quant_matmul.cu"
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
-                    help="comma-separated subset to run; a subset prints no result")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
+                    help="comma-separated subset to run (12 runs 10 first for its checkpoint "
+                         "directories); a subset prints no result")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
+    if 12 in phases:
+        phases.add(10)
     smi = phase_device()
-    keep = {}  # the models phase 11 serves
+    keep = {}  # the models phases 11 and 12 reuse
+    ckpt = tempfile.TemporaryDirectory()  # phase 10's directories, served by phase 12
+    try:
+        run_phases(phases, smi, keep, Path(ckpt.name))
+    finally:
+        ckpt.cleanup()
+
+
+def run_phases(phases, smi, keep, ckpt: Path) -> None:
+    clock = [time.perf_counter()]
+
+    def took(phase) -> None:  # each phase's wall, for the 1200 s budget
+        now = time.perf_counter()
+        log(f"[time] phase {phase}: {now - clock[0]:.1f} s")
+        clock[0] = now
+
     if 2 in phases:
         errs, timing = phase_kernels()
         qerrs, qtiming = phase_quant_kernels()
         rerrs, rtiming = phase_relu2_kernel()
+        took(2)
     if 3 in phases:
         phase_card_vs_cpu()
         phase_qwen_card_vs_cpu()
         phase_moss_card_vs_cpu()
+        took(3)
     if 4 in phases:
         launches, launches_f32 = phase_slice()
+        took(4)
     if 5 in phases:
         qlaunches = phase_qwen_slice(keep)
         qwen_bf16 = phase_qwen_bf16(keep)
+        took(5)
     if 6 in phases:
         q6_launches = phase_qwen_6bit()
+        took(6)
     if 7 in phases:
         r2_launches = phase_moss_slice(keep)
+        took(7)
     if 8 in phases:
         kokoro = {"card_vs_cpu_f32": phase_kokoro_card_vs_cpu(keep), "bf16": phase_kokoro(keep)}
+        took(8)
     if 9 in phases:
         rest = phase_whisper_rest(keep)
+        took(9)
     if 10 in phases:
-        loaded = phase_loaded(smi)
+        loaded = phase_loaded(smi, ckpt)
+        took(10)
     if 11 in phases:
         serving = phase_serving(keep)
-    if phases != set(range(1, 12)):
+        took(11)
+    if 12 in phases:
+        served = phase_http(smi, ckpt, keep)
+        took(12)
+    if phases != set(range(1, 13)):
         log(f"[device] {smi}")
         sys.exit(f"chip_smoke: ran phases {sorted(phases)} only; no result")
     record = {"kernels": [{
@@ -3014,6 +3994,9 @@ def main():
         "seek_word_timing_30s": 2 * TURBO["n_audio_layer"] * rest["word_timing"]["seek_windows"],
         "streaming_10s": TURBO["n_audio_layer"] * int(REST_STREAM_S)}
     # B = 8: the serving batcher's encode of eight windows (phase 11)
+    record["kernels"][0]["server"] = {  # phase 12: one served upload, then eight
+        "launches": served["whisper"]["flash_launches"],
+        "concurrent_launches": served["whisper"]["concurrent_flash_launches"]}
     record["kernels"][0]["serving"] = {
         "launches": serving["whisper"]["flash_launches"][-1],
         "b8": {"max_abs_err": errs["whisper_b8_bf16"], **timing["whisper_b8_bf16"]}}
@@ -3045,15 +4028,29 @@ def main():
                 and "tiled_ms" in qtiming[key]}}
     # the serving batcher's int4 run (phase 11): launches by kernel, and the
     # tick's M = 8 shapes
-    served = serving["qwen3_int4"]["launches"]
+    pool = serving["qwen3_int4"]["launches"]
     qmm = next(k for k in record["kernels"] if k["name"] == "qmm")
     qmm["serving"] = {
-        "launches": {k: served[k] for k in ("qmm", "qmm_gemv", "qmm_mma", "qmm_kernel")},
+        "launches": {k: pool[k] for k in ("qmm", "qmm_gemv", "qmm_mma", "qmm_kernel")},
         "max_abs_err": qerrs["qkv_m8_f32"],
         "m8": {key[len("qmm_"):]: qtiming[key] for key in qtiming
                if key.startswith("qmm_") and f"_m{SERVE_M}" in key}}
+    # a quantized Whisper's fused self-attention q/k/v (phase 12): one
+    # launch a layer a decoder step, N = 3 x 1280
+    w4 = served["whisper_int4"]
+    qmm["whisper_qkv"] = {
+        "launches_per_served_transcription": {k: w4["launches"][k] for k in (
+            "qmm", "qmm_gemv", "qmm_mma", "qmm_kernel")},
+        "fused_qkv_launches_per_served_transcription": w4["fused_qkv_launches"],
+        "unfused_minus_fused_qmm_per_decode": w4["unfused_qmm"] - w4["fused_qmm"],
+        "max_abs_err": qerrs["whisper_qkv_m1_bf16"], "m1": qtiming["qmm_whisper_qkv"],
+        "m8": {"max_abs_err": qerrs["whisper_qkv_m8_bf16"],
+               **qtiming[f"qmm_whisper_qkv_m{SERVE_M}"]}}
+    qmm["server"] = {"launches": {k: served["qwen3_int4"]["launches"][k] for k in (
+        "qmm", "qmm_gemv", "qmm_mma", "qmm_kernel")}}  # phase 12's 8 requests
     qmlp = next(k for k in record["kernels"] if k["name"] == "qmlp")
-    qmlp["serving"] = {"launches": served["qmlp"],
+    qmlp["server"] = {"launches": served["qwen3_int4"]["launches"]["qmlp"]}
+    qmlp["serving"] = {"launches": serving["qwen3_int4"]["launches"]["qmlp"],
                        "m8": {"max_abs_err": qerrs["mlp_m8_f32"], **qtiming["qmlp_m8"]}}
     record["kernels"].append({
         "name": "relu2_attention", "route": "cuda",
@@ -3073,6 +4070,7 @@ def main():
     print(json.dumps({"whisper_rest": rest}), flush=True)
     print(json.dumps({"loaded": loaded}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
+    print(json.dumps({"server": served}), flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

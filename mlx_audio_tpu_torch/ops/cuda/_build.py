@@ -121,13 +121,16 @@ def load_library() -> ctypes.CDLL:
     return _LIB
 
 
-def count_launch(fn, kernel: Optional[str] = None) -> None:
-    """Add one to a wrapper's launch count (and to `fn.kernels[kernel]`),
-    under a lock: `+=` on an attribute is not atomic across threads."""
+def count_launch(fn, kernel: Optional[str] = None, shape=None) -> None:
+    """Add one to a wrapper's launch count (and to `fn.kernels[kernel]`, and
+    to `fn.shapes[shape]`), under a lock: `+=` on an attribute is not
+    atomic across threads."""
     with _LOCK:
         fn.launches += 1
         if kernel is not None:
             fn.kernels[kernel] += 1
+        if shape is not None:
+            fn.shapes[shape] = fn.shapes.get(shape, 0) + 1
 
 
 def error_string(err: int) -> str:

@@ -149,7 +149,8 @@ QMM_KERNELS = ("qmm_kernel", "qmm_gemv", "qmm_mma")
 
 
 def _launch_qmm(fn, x, w, scales, biases, bits, group_size):
-    """Launch qmm_fwd and count it on `fn` (its total and its kernel)."""
+    """Launch qmm_fwd and count it on `fn` (its total, its kernel and its
+    weight's (N, K))."""
     _check_card(x)
     K = x.shape[-1]
     _check_weight(x, w, scales, biases, bits, group_size, K)
@@ -164,7 +165,7 @@ def _launch_qmm(fn, x, w, scales, biases, bits, group_size):
     if err != 0:
         raise RuntimeError(f"qmm_fwd ({bits}-bit) launch failed: {_build.error_string(err)}")
     if route.value >= 0:
-        _build.count_launch(fn, QMM_KERNELS[route.value])
+        _build.count_launch(fn, QMM_KERNELS[route.value], (N, K))
     return y.reshape(*x.shape[:-1], N)
 
 
@@ -196,6 +197,7 @@ def reset_launches(*fns) -> None:
         fn.launches = 0
         if hasattr(fn, "kernels"):
             fn.kernels = dict.fromkeys(QMM_KERNELS, 0)
+            fn.shapes = {}  # (N, K) -> launches
 
 
 # h is M·I·4 bytes and each tile of up to 4 rows of x is one pass over the

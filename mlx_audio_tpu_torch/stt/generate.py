@@ -18,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from ..tts.models.base import peak_memory_gb
+from ..profiling import peak_memory_gb
 from .utils import load_model
 
 
@@ -152,13 +152,11 @@ def generate_transcription(
         if not streamed:
             print(result.text)
         if result.duration:
-            peak = (peak_memory_gb(torch.cuda.max_memory_allocated())
-                    if torch.cuda.is_available() else 0.0)
             print(
                 f"--- {result.duration:.1f}s audio in {wall:.2f}s "
                 f"({result.duration / max(wall, 1e-9):.1f}x realtime), "
                 f"{result.generation_tokens} tokens, "
-                f"peak memory {peak:.3f} GB"
+                f"peak memory {peak_memory_gb():.3f} GB"
             )
     if output_path is not None:
         from .models.whisper.writers import get_writer

@@ -137,6 +137,23 @@ def _apply_rules(
     return logits.masked_fill(force_ts[:, None] & ~is_ts[None, :], neg)
 
 
+# The Gumbel-max sampler's uniform noise is drawn NOISE_STEPS steps ahead,
+# one (NOISE_STEPS, V) draw a row from that row's own generator: a window's
+# noise is the same alone or batched with others, and a batch of B rows
+# costs B launches every NOISE_STEPS steps
+NOISE_STEPS = 16
+
+
+def uniform_noise(generators: List[torch.Generator], V: int, dev) -> torch.Tensor:
+    """(B, NOISE_STEPS, V) uniform draws, row b from generators[b]; step s
+    of a decode reads [:, s % NOISE_STEPS] of the draw made at the step
+    NOISE_STEPS * (s // NOISE_STEPS)."""
+    u = torch.empty(len(generators), NOISE_STEPS, V, device=dev)
+    for row, g in zip(u, generators):
+        torch.rand(NOISE_STEPS, V, generator=g, device=dev, out=row)
+    return u
+
+
 @torch.inference_mode()
 def _decode_loop(
     model,
@@ -144,7 +161,7 @@ def _decode_loop(
     cross_kv,
     prompt,  # (B, Tp) int64
     suppress_mask,  # (V,) bool — True = suppress
-    generator: Optional[torch.Generator],
+    generators: Optional[List[torch.Generator]],  # one a row, for t > 0
     decoder_step,  # fn(model, tokens (B,t), pos0, caches, cross_kv) -> (logits, caches)
     sample_len: int,
     n_ctx: int,
@@ -188,7 +205,9 @@ def _decode_loop(
         if temperature == 0.0:
             next_tok = torch.argmax(filtered, dim=-1)
         else:  # Gumbel-max draw from softmax(filtered / temperature)
-            u = torch.rand(filtered.shape, generator=generator, device=dev)
+            if step % NOISE_STEPS == 0:
+                noise = uniform_noise(generators, filtered.shape[-1], dev)
+            u = noise[:, step % NOISE_STEPS]
             gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
             next_tok = torch.argmax(filtered / temperature + gumbel, dim=-1)
         logprobs = torch.log_softmax(filtered, dim=-1)
@@ -434,8 +453,10 @@ def decode_window_batch(
 
     With ``options.best_of=N`` (temperature > 0) each window is decoded as
     N sample rows in the same batch and the winner is picked by likelihood
-    ranking with the length penalty. Sampling draws from a torch.Generator
-    seeded with `seed` on the decode's device.
+    ranking with the length penalty. Sampling draws from one torch.Generator
+    a row on the decode's device, the j-th sample of a window seeded with
+    `seed + j`: a window's draws are the same alone or batched with others
+    (a serving batcher's rows equal their sequential calls).
 
     With ``options.beam_size=K`` (temperature 0) each window is decoded by
     beam search (`_beam_decode_loop`), its K beams as K batch rows, and the
@@ -488,12 +509,12 @@ def decode_window_batch(
             max_init=max_init, sot_index=sot_index,
         )
 
-    generator = None
+    generators = None
     if options.temperature > 0:
-        generator = torch.Generator(device=dev)
-        generator.manual_seed(seed)
+        generators = [torch.Generator(device=dev).manual_seed(seed + j)
+                      for _ in rows for j in range(n_group)]
     tokens_buf, n_steps, sum_lp, no_speech_prob = _decode_loop(
-        model, caches, cross_kv, prompt, suppress, generator, decoder_step,
+        model, caches, cross_kv, prompt, suppress, generators, decoder_step,
         sample_len=sample_len, n_ctx=n_ctx, eot=tokenizer.eot,
         timestamp_begin=tokenizer.timestamp_begin,
         no_timestamps=tokenizer.no_timestamps, blank=blank,

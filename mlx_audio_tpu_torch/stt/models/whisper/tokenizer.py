@@ -1,15 +1,16 @@
 """Whisper tokenizer wrapper (a copy of `mlx_audio_tpu/stt/models/whisper/tokenizer.py`,
 kept here so the port never imports the JAX package).
 
-Loads `tokenizer.json` from the checkpoint dir via the `tokenizers` library.
-Special-token ids are resolved by name; a DummyTokenizer with the same
-interface backs the tests and the random-weight runs.
+Loads `tokenizer.json` from the checkpoint dir through the port's own reader
+(`tokenizer_json`), which needs no `tokenizers` library; the JAX package
+reads the same file with `tokenizers`. Special-token ids are resolved by
+name; a DummyTokenizer with the same interface backs the tests and the
+random-weight runs.
 """
 
 from __future__ import annotations
 
-from functools import cached_property, lru_cache
-from pathlib import Path
+from functools import cached_property
 from typing import List, Optional, Sequence, Tuple
 
 LANGUAGES = {
@@ -46,17 +47,15 @@ class WhisperTokenizer:
 
     def __init__(self, model_path, multilingual: bool = True,
                  language: Optional[str] = "en", task: str = "transcribe"):
-        from tokenizers import Tokenizer
+        from ....tokenizer_json import load
 
-        path = Path(model_path)
-        tok_file = path / "tokenizer.json" if path.is_dir() else path
-        self._tok = Tokenizer.from_file(str(tok_file))
+        self._tok = load(model_path)
         self.multilingual = multilingual
         self.language = language or "en"
         self.task = task
 
     def encode(self, text: str) -> List[int]:
-        return self._tok.encode(text, add_special_tokens=False).ids
+        return self._tok.encode(text, add_special_tokens=False)
 
     def decode(self, ids: Sequence[int]) -> str:
         ids = [i for i in ids if i < self.timestamp_begin]

@@ -97,6 +97,11 @@ def sinusoids(length: int, channels: int, max_timescale: int = 10000) -> np.ndar
 
 
 class MultiHeadAttention(nn.Module):
+    # post-load quantized q/k/v row-stack (`fuse_quantized_projections`):
+    # valid only when all three read the same activation, so the
+    # cross-attention sets `_fuse_veto` (its key/value read encoder state)
+    _FUSE_GROUPS = (("qkv_fused", ("query", "key", "value")),)
+
     def __init__(self, n_state: int, n_head: int, device=None):
         super().__init__()
         self.query = Linear(n_state, n_state, device=device)
@@ -114,15 +119,20 @@ class MultiHeadAttention(nn.Module):
     def forward(self, x, xa=None, mask=None, cache: Optional[KVCache] = None,
                 cross_kv: Optional[Tuple] = None):
         new_cache = None
-        q = self._split(self.query(x))
-        if cross_kv is not None:
-            k, v = cross_kv
-        else:
-            src = xa if xa is not None else x
-            k = self._split(self.key(src))
-            v = self._split(self.value(src))
+        if hasattr(self, "qkv_fused") and xa is None and cross_kv is None:
+            q, k, v = (self._split(p) for p in self.qkv_fused(x))
             if cache is not None:
                 k, v, new_cache = cache.update(k, v)
+        else:
+            q = self._split(self.query(x))
+            if cross_kv is not None:
+                k, v = cross_kv
+            else:
+                src = xa if xa is not None else x
+                k = self._split(self.key(src))
+                v = self._split(self.value(src))
+                if cache is not None:
+                    k, v, new_cache = cache.update(k, v)
         out = scaled_dot_product_attention(q, k, v, mask=mask)
         B, H, T, Dh = out.shape
         return self.out(out.transpose(1, 2).reshape(B, T, H * Dh)), new_cache
@@ -152,6 +162,7 @@ class ResidualAttentionBlock(nn.Module):
         self.attn_ln = LayerNorm(n_state, device=device)
         if cross_attention:
             self.cross_attn = MultiHeadAttention(n_state, n_head, device=device)
+            self.cross_attn._fuse_veto = True  # key/value read encoder state
             self.cross_attn_ln = LayerNorm(n_state, device=device)
         else:
             self.cross_attn = None
@@ -421,7 +432,8 @@ class Model(nn.Module):
                     v = permute(v, (0, 2, 1))  # torch (O,I,K) -> (O,K,I)
             if k == "decoder.positional_embedding.weight":
                 k = "decoder.positional_embedding"
-            out[k] = v
+            # the OpenAI release's MLP names (`convert` writes them as they are)
+            out[k.replace(".mlp.0.", ".mlp1.").replace(".mlp.2.", ".mlp2.")] = v
         out.pop("proj_out.weight", None)
         return out
 
@@ -487,7 +499,9 @@ class Model(nn.Module):
         what the decode will write instead of the full n_text_ctx."""
         d = self.dims
         cap = min(capacity, d.n_text_ctx)
-        w = self.decoder.token_embedding.weight
+        # the compute dtype: a quantized token embedding's weight holds
+        # packed int32 words (the JAX package takes that dtype, ROADMAP Queue 3)
+        w = self.decoder.positional_embedding
         return [
             KVCache(batch, d.n_text_head, cap, d.n_text_state // d.n_text_head,
                     dtype=w.dtype, device=w.device)
@@ -546,7 +560,7 @@ class Model(nn.Module):
         when an explicit fp16 request disagrees with it."""
         if "fp16" not in decode_options:
             return
-        dtype = self.decoder.token_embedding.weight.dtype
+        dtype = self.decoder.positional_embedding.dtype
         half = dtype in (torch.bfloat16, torch.float16)
         if bool(decode_options["fp16"]) != half:
             warnings.warn(

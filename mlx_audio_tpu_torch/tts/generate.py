@@ -5,8 +5,9 @@ with its flags).
 
 The port adds `--device` (default: the card; `cpu` runs the plain PyTorch
 path) and `--dtype` (default: the checkpoint's); `--model` is a local
-directory, since the port does not download. `--play` needs the audio
-player, which is not ported: it raises.
+directory, since the port does not download. `--play` plays through
+`sounddevice` (`audio_player.py`) and raises where it or an output device is
+missing.
 """
 
 from __future__ import annotations
@@ -100,9 +101,9 @@ def generate_audio(
     """Generate speech, write wav/other files, return the results list.
     `device` and `dtype` apply where a model is loaded here."""
     if play:
-        raise NotImplementedError(
-            "--play needs tts/audio_player.py and a sound device, which the port "
-            "does not have yet; write the audio and play the file")
+        from .audio_player import check_output_device
+
+        check_output_device()
     if model is None:
         model = load_model(model_path, device=device, dtype=dtype)
 
@@ -150,12 +151,19 @@ def generate_audio(
 
     results = []
     segments = []
+    player = None
     out_dir = Path(output_path)
     out_dir.mkdir(parents=True, exist_ok=True)
     for result in model.generate(**call_kwargs):
         results.append(result)
         audio = np.asarray(result.audio).reshape(-1)
         sr = sample_rate or result.sample_rate
+        if play:
+            if player is None:
+                from .audio_player import AudioPlayer
+
+                player = AudioPlayer(sample_rate=sr, verbose=verbose)
+            player.queue_audio(audio)
         if join_audio:
             segments.append(audio)
         else:
@@ -175,6 +183,13 @@ def generate_audio(
         audio_io.write(fname, np.concatenate(segments), sr)
         if verbose:
             print(f"✓ wrote {fname}")
+    if player is not None:
+        # a short clip may not reach the auto-play buffer threshold: start
+        # playback explicitly before draining
+        player.play()
+        if player.playing:
+            player.wait_for_drain(timeout=120)
+        player.stop()
     return results
 
 

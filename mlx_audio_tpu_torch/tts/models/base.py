@@ -6,18 +6,9 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any
 
-import torch
-
 from ...nn.sanitize import orient_to  # re-export, as the JAX package's base
 
-__all__ = ["GenerationResult", "check_array_shape", "format_duration", "orient_to",
-           "peak_memory_gb"]
-
-
-def peak_memory_gb(peak_bytes: int) -> float:
-    """A byte count in GiB rounded to 3 places, the unit of the JAX
-    package's `profiling.peak_memory_gb`."""
-    return round(peak_bytes / 1024**3, 3)
+__all__ = ["GenerationResult", "check_array_shape", "format_duration", "orient_to"]
 
 
 @dataclass
@@ -37,9 +28,12 @@ class GenerationResult:
     is_final_chunk: bool = False
 
     def __post_init__(self):
-        # 0.0 means "unknown": fill in the card's high-water mark (GiB)
-        if not self.peak_memory_usage and torch.cuda.is_available():
-            self.peak_memory_usage = peak_memory_gb(torch.cuda.max_memory_allocated())
+        # 0.0 means "unknown": fill in the card's high-water mark (GiB; 0.0
+        # on the host)
+        if not self.peak_memory_usage:
+            from ...profiling import peak_memory_gb
+
+            self.peak_memory_usage = peak_memory_gb()
 
 
 def format_duration(seconds: float) -> str:

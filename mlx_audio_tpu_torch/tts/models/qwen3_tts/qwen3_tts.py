@@ -106,8 +106,9 @@ class Model(nn.Module):
 
     # ---- runtime ----
 
-    # the text tokenizer, shared by every instance as in the JAX package, so
-    # that one set before a loader call reaches the model it loads
+    # a text tokenizer set by `set_runtime`, shared by every instance as in
+    # the JAX package, so that one set before a loader call reaches the model
+    # it loads; without one, each model reads its checkpoint's tokenizer.json
     _tokenizer = None
 
     @property
@@ -116,11 +117,19 @@ class Model(nn.Module):
 
     @property
     def tokenizer(self):
-        if Model._tokenizer is None:
+        """`set_runtime`'s tokenizer, else the reader of the checkpoint's
+        `tokenizer.json` (where the JAX package builds `AutoTokenizer`)."""
+        if Model._tokenizer is not None:
+            return Model._tokenizer
+        from ....tokenizer_json import load
+
+        where = getattr(self.config, "model_path", None)
+        path = Path(where or "") / "tokenizer.json"
+        if not where or not path.is_file():
             raise RuntimeError(
-                "no text tokenizer: call set_runtime(tokenizer=...) (the port does not "
-                "read the checkpoint's tokenizer files, which need `transformers`)")
-        return Model._tokenizer
+                f"no text tokenizer: {path} does not exist; load the model from a "
+                "checkpoint directory that has one, or call set_runtime(tokenizer=...)")
+        return load(path)
 
     def set_runtime(self, tokenizer=None):
         if tokenizer is not None:

@@ -119,8 +119,8 @@ def test_tts_main_matches_jax(qwen_jax, tmp_path, capsys, jax_tokenizer, port_to
 
 
 def test_tts_join_audio_and_refusals(qwen_jax, tmp_path, port_tokenizer):
-    """`join_audio` writes one file; `--play` raises (no audio player in the
-    port); a reference audio without its text is transcribed with an STT
+    """`join_audio` writes one file; `--play` raises where `sounddevice` (or
+    an output device) is missing, as here; a reference audio without its text is transcribed with an STT
     model loaded through the port's loader, before the ICL route, which is
     not ported, raises."""
     _, d = qwen_jax
@@ -129,7 +129,7 @@ def test_tts_join_audio_and_refusals(qwen_jax, tmp_path, port_tokenizer):
                               device="cpu")
     x, sr = pio.read(tmp_path / "audio.wav")
     assert len(res) == 1 and x.shape == (res[0].samples,) and sr == 24000
-    with pytest.raises(NotImplementedError, match="--play"):
+    with pytest.raises(RuntimeError, match="sounddevice"):
         ptts.main(["--model", str(d), "--text", TEXT, "--play", "--device", "cpu"])
 
     seen = []

@@ -224,3 +224,63 @@ def test_batchers_follow_their_model_device(monkeypatch):
             assert worker.device == torch.device("cpu"), cls
         finally:
             batcher.close()
+
+
+SERVER_SLICE_MODULES = ("mlx_audio_tpu_torch.server", "mlx_audio_tpu_torch.ws",
+                        "mlx_audio_tpu_torch.profiling", "mlx_audio_tpu_torch.tokenizer_json",
+                        "mlx_audio_tpu_torch.stt.models.whisper.convert",
+                        "mlx_audio_tpu_torch.tts.audio_player")
+
+
+def test_server_slice_modules_are_scanned():
+    """The server, its WebSocket codec, profiling, the tokenizer.json reader,
+    the Whisper converter and the audio player are among the modules the
+    import and scan tests cover, and the studio UI ships as package data."""
+    names = {name for _, name in _modules()}
+    assert set(SERVER_SLICE_MODULES) <= names
+    assert (PKG / "ui" / "index.html").is_file()
+    assert '"ui/*.html"' in (REPO / "pyproject.toml").read_text()
+
+
+def test_no_tokenizers_or_transformers_import_anywhere():
+    """Text goes through the port's own tokenizer.json reader: no module of
+    the port imports `tokenizers` or `transformers`, in a function either."""
+    bad = []
+    for path, module in _modules():
+        for line, name in _absolute_imports(path, module):
+            if name.split(".")[0] in ("tokenizers", "transformers"):
+                bad.append(f"{path.relative_to(REPO)}:{line}: {name}")
+    assert not bad, bad
+
+
+def test_tokenizers_build_without_the_missing_packages(tmp_path):
+    """With tokenizers and transformers unimportable, Whisper's tokenizer and
+    Qwen3-TTS's text tokenizer build from a directory's tokenizer.json."""
+    code = (
+        "import sys\n"
+        f"for n in {NOT_ON_THE_CARD!r}:\n"
+        "    sys.modules[n] = None\n"
+        f"sys.path.insert(0, {str(REPO)!r})\n"
+        "import importlib.util, pathlib\n"
+        f"spec = importlib.util.spec_from_file_location('cs', {str(REPO / 'chip_smoke.py')!r})\n"
+        "cs = importlib.util.module_from_spec(spec); spec.loader.exec_module(cs)\n"
+        f"d = pathlib.Path({str(tmp_path)!r})\n"
+        "(d / 'w').mkdir(); (d / 'q').mkdir()\n"
+        "cs.write_tokenizer_json(d / 'w', 'whisper', n_merges=40)\n"
+        "cs.write_tokenizer_json(d / 'q', 'qwen2', n_merges=40)\n"
+        "from mlx_audio_tpu_torch.stt.models.whisper.tokenizer import WhisperTokenizer\n"
+        "tok = WhisperTokenizer(d / 'w', language='en')\n"
+        "assert tok.sot_sequence == (50258, 50259, 50360), tok.sot_sequence\n"
+        "assert tok.decode(tok.encode(' hello world')) == ' hello world'\n"
+        "from mlx_audio_tpu_torch.tts.models.qwen3_tts import Model\n"
+        "m = Model.__new__(Model)\n"
+        "m.config = type('C', (), {'model_path': str(d / 'q')})()\n"
+        "assert m.tokenizer.encode('<|im_start|>assistant\\n')[0] == 151644\n"
+        "assert not any(k.split('.')[0] in ('tokenizers', 'transformers') and sys.modules[k]\n"
+        "               for k in sys.modules)\n"
+        "print('OK')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "OK"

@@ -420,19 +420,16 @@ def test_mixed_recipe_checkpoint(whisper_jax, tmp_path):
     out = pconvert.convert(str(d), str(tmp_path / "q"), quantize=True, q_recipe="mixed_4_6")
     pm = putils.load_model(out, device="cpu")
     assert pm.decoder.token_embedding.bits == 6 and pm.decoder.blocks[0].mlp1.bits == 4
-    # the JAX package row-stacks Whisper's quantized q/k/v after loading (the
-    # port does not): its stacks, split back, are the port's layers
-    theirs = {}
-    for k, v in _np(jflat(jutils.load_model(out))).items():
-        pre, fused, leaf = k.partition(".qkv_fused.")
-        if not fused:
-            theirs[k] = v
-            continue
-        for name, part in zip(("query", "key", "value"), np.split(v, 3)):
-            if name == "key" and leaf == "bias":
-                assert not part.any()  # the bias-less key, zero-filled
-            else:
-                theirs[f"{pre}.{name}.{leaf}"] = part
+    # both packages row-stack Whisper's quantized self-attention q/k/v after
+    # loading (the cross-attention is vetoed): the stacks compare as they
+    # are, the bias-less key's zero-filled bias rows included
+    theirs = _np(jflat(jutils.load_model(out)))
+    assert any(".attn.qkv_fused." in k for k in theirs)
+    assert not any(".cross_attn.qkv_fused." in k for k in theirs)
+    for k, v in theirs.items():
+        if k.endswith(".attn.qkv_fused.bias"):
+            n = v.shape[0] // 3
+            assert not v[n:2 * n].any()  # the key's rows
     ours = _np(flatten_params(pm))
     assert sorted(ours) == sorted(theirs)
     for k in ours:

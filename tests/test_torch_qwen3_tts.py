@@ -308,16 +308,17 @@ def test_unported_routes_raise(pair):
 @pytest.mark.parametrize("peak", [3 * 2**30, 1_234_567_890])
 def test_peak_memory_reads_gib_as_jax_does(monkeypatch, peak):
     """`GenerationResult` fills in the card's peak in GiB rounded to 3
-    places, as the JAX package's `profiling.peak_memory_gb` does: 3·2³⁰
+    places, through `profiling.peak_memory_gb` in both packages: 3·2³⁰
     bytes read 3.0 (1e9-byte GB would read 3.221)."""
     from mlx_audio_tpu import profiling as jprof
     from mlx_audio_tpu.tts.models.base import GenerationResult as JaxResult
+    from mlx_audio_tpu_torch import profiling as pprof
     from mlx_audio_tpu_torch.tts.models import base as pbase
 
     monkeypatch.setattr(jprof, "memory_stats", lambda device=None: {"peak_bytes_in_use": peak})
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda device=None: peak)
-    assert pbase.peak_memory_gb(peak) == jprof.peak_memory_gb()
+    assert pprof.peak_memory_gb() == jprof.peak_memory_gb()
     kw = dict(audio=np.zeros(4, np.float32), samples=4, sample_rate=24000)
     got = pbase.GenerationResult(**kw).peak_memory_usage
     assert got == JaxResult(**kw).peak_memory_usage

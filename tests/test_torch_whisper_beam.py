@@ -114,3 +114,27 @@ def test_kv_cache_reorder():
     assert torch.equal(cache.k[:, :, :5], k[[2, 2, 0]])
     assert torch.equal(cache.v[:, :, :5], -k[[2, 2, 0]])
     assert not cache.k[:, :, 5:].any() and cache.pos == 5
+
+
+def _port_decode(pm, kv, rows, **opts):
+    kv = [(k[list(rows)], v[list(rows)]) for k, v in kv]
+    tok = DummyTokenizer(n_vocab=V)
+    return decoding.decode_window_batch(
+        pm, kv, tok, [list(tok.sot_sequence)] * len(rows),
+        decoding.DecodingOptions(language="en", **opts), n_ctx=448, n_vocab=V,
+        decoder_step=type(pm)._decoder_step, make_caches=pm._make_caches, sample_len=40)
+
+
+@pytest.mark.parametrize("best_of", [1, 2])
+def test_sampled_windows_draw_alone_what_they_draw_batched(pair, encoded, best_of):
+    """At t > 0 each sample row draws its Gumbel noise from a generator of
+    its own (the window's seed + j), so a window batched beside another
+    decodes the tokens it decodes alone, across more than one
+    `uniform_noise` draw (40 steps, 16 a draw)."""
+    _, pm = pair
+    kv = encoded[1]
+    opts = dict(temperature=0.7, best_of=best_of, without_timestamps=True)
+    both = _port_decode(pm, kv, (0, 1), **opts)
+    alone = [_port_decode(pm, kv, (i,), **opts)[0] for i in (0, 1)]
+    assert [r.tokens for r in both] == [r.tokens for r in alone]
+    assert max(len(r.tokens) for r in both) > decoding.NOISE_STEPS
