@@ -20,11 +20,12 @@ Phases, each printing its own lines:
      once in float32 (the model's default dtype), profiled, with the f32
      flash kernel's launches held to one per encoder layer;
   5. Qwen3-TTS 0.6B int4 at full width (bf16, seeded random weights):
-     QWEN_FRAMES (64) frames of synthesis through `Model.generate` (a
+     QWEN_FRAMES (32) frames of synthesis through `Model.generate` (a
      warm-up and one counted run), with launch counts
      read around each run and held to the routing table's, the qmm
      launches split by kernel;
-  6. the same model at 6 bits, 32 frames, then a profiled 16-frame run:
+  6. the same model at 6 bits, 16 frames (32 until phase 13 came), then a
+     profiled 16-frame run:
      device time per frame, the 6-bit GEMV's time per launch and the M > 4
      kernel's device time;
   7. MossFormer2-SE 48 kHz at full width (f32, 24 blocks, seeded random
@@ -57,12 +58,12 @@ Phases, each printing its own lines:
      every dtype;
  11. serving, on the models of phases 5, 7, 8 and 9 (kept, not rebuilt):
      `bench_whisper_serving` (8 x 30 s through `WhisperBatcher`, window 50
-     ms, sequential then the median of 2 concurrent trials, where bench.py
-     takes 3; each trial's flash launches held to 32 per batched encode,
+     ms, sequential then 1 concurrent trial, where bench.py takes the
+     median of 3; each trial's flash launches held to 32 per batched encode,
      each stream's tokens to its sequential tokens or a stated near-tie);
      `bench_qwen3_serving`'s shape cut in depth on the unquantized bf16
-     model (8 sampled streams x 16 frames, where bench.py decodes 64, tick
-     8, 2 trials where it takes 3; every request's codes equal to its
+     model (8 sampled streams x 8 frames, where bench.py decodes 64, tick
+     8, 1 trial where it takes 3; every request's codes equal to its
      one-slot codes); the int4 model
      through the same batcher (8 x 16 frames, every quantized launch held to
      the routing table at the pool's shapes, the one-slot gate, and greedy
@@ -93,22 +94,50 @@ Phases, each printing its own lines:
      launches held to the code's count, q/k/v one launch a layer a step as
      the wrapper counts them by shape,
      and its decode equal to the same checkpoint without the row-stack);
-     every model unloaded by DELETE, which ends its batcher's thread.
+     every model unloaded by DELETE, which ends its batcher's thread;
+ 13. Orpheus-3B int4 (Llama-3.2-3B's widths, llama3 rope, the 156940-token
+     audio vocabulary; every Linear int4 g64, the embedding bf16) written
+     to a checkpoint directory with a Llama-3 style tokenizer.json and
+     loaded by `utils.load_model`, with seeded weights that plant a greedy
+     path (each embedding row the lm_head row of its planted successor:
+     END_OF_HUMAN, START_OF_AI, START_OF_SPEECH, 23 frames of valid SNAC
+     codes, END_OF_SPEECH), and SNAC 24 kHz at its published widths:
+     `Model.generate` end to end at the greedy defaults (a warm-up and
+     ORPHEUS_TIMED runs, each run's quantized launches held to the count
+     from the code, the planted codes decoded), one profiled run of 44
+     tokens, the same streamed (time to first audio; each chunk equal to
+     one decode of its planted frames past its context); a two-layer copy
+     in float32, where the logits resolve what the layers add: card against
+     CPU, every call's logits (the prompt's and each decode step's) and the
+     greedy tokens, then a batched wave with each slot's logits at set
+     decode steps held to its sequential run, both with planted faults (an
+     off-by-one cache position, two slots reading each other's caches) that
+     the bars must reject; four prompts through `make_batcher` (an
+     LMContinuousBatcher at bench_snac_lm_continuous's 4 slots, 16-step
+     ticks, 128 tokens), each equal to its sequential greedy tokens, with
+     launches held to the code's count; one request served over HTTP,
+     equal to the in-memory samples; SNAC alone card against CPU and its
+     decode_stream; Qwen3-TTS Base's x-vector card against CPU in float32,
+     then a 16-frame int4 synthesis with `ref_audio` and no `ref_text`.
 Phase 2 also holds the ReLU² attention kernel to its plain version and
 flash at B = 1, and the serving shapes: flash bf16 at B = 8, `qmm_mma` and
 the fused MLP at M = 8 (the batcher's tick), ReLU² f32 at B = 8, G = 2;
 phase 3 a one-block MossFormer2-SE on the card to the CPU, and Whisper's
 score pass, seek loop and beam search card against CPU.
 Phase 5 ends with the unquantized bf16 Qwen3-TTS (bench.py's
-`bench_qwen3_tts()`). The lines before the last hold phase 8's numbers
-({"kokoro": ...}), the bf16 Qwen3-TTS step's ({"qwen3_bf16": ...}), phase
-9's ({"whisper_rest": ...}), phase 10's ({"loaded": ...}), phase 11's
-({"serving": ...}), phase 12's ({"server": ...}) and the kernels' JSON
-record, in that order;
+`bench_qwen3_tts()`). Phase 2 also holds the Orpheus-3B shapes (the GEMV
+at M = 1 and 4 on q/k/v, o_proj and the 156940-row lm_head, the fused MLP,
+the tensor-core GEMM at M = 32) and times them. The lines before the last
+hold phase 8's numbers ({"kokoro": ...}), the bf16 Qwen3-TTS step's
+({"qwen3_bf16": ...}), phase 9's ({"whisper_rest": ...}), phase 10's
+({"loaded": ...}), phase 11's ({"serving": ...}), phase 12's ({"server":
+...}), phase 13's ({"orpheus": ...}) and the kernels' JSON record, in that
+order;
 the last line is {"ok": true, "device": {...}}. Any failure raises and exits non-zero. It
 needs one CUDA card and the checkout's `mlx_audio_tpu_torch/` package.
 `--phases 1,2` runs a subset (a first check of new kernels), `--phases
-1,12` the server (with phase 10 before it); the default runs all of them.
+1,12` the server (with phase 10 before it), `--phases 1,13` Orpheus; the
+default runs all of them.
 """
 
 from __future__ import annotations
@@ -180,10 +209,10 @@ L2_BYTES = 50e6  # the H100's L2: timed weights cycle through twice this
 # Qwen3-TTS: bench.py's text, with a copy of its deterministic tokenizer
 QWEN_TEXT = ("The quick brown fox jumps over the lazy dog while the "
              "synthesis model turns text into speech. " * 3).strip()
-# 64 frames (256 until phase 12 came) and one counted run after the
-# warm-up (two until phase 11 came): the run keeps its wall under ~1000 s
-# on a slow host
-QWEN_FRAMES, QWEN_FRAMES_6BIT, QWEN_PROFILE_FRAMES = 64, 32, 16
+# 32 frames (256 until phase 12 came, 64 until phase 13 came) and one
+# counted run after the warm-up (two until phase 11 came): the run keeps its
+# wall under ~1000 s on a slow host
+QWEN_FRAMES, QWEN_FRAMES_6BIT, QWEN_PROFILE_FRAMES = 32, 16, 16
 QWEN_WARMUP, QWEN_TIMED = 1, 1
 # card (kernels) against CPU (dequantize + matmul), float32, TF32 off
 QWEN_CARD_VS_CPU_ATOL = 1e-4
@@ -309,6 +338,19 @@ def qwen_added_tokens():
                   for i, n in enumerate(names)]
 
 
+def llama3_added_tokens():
+    """(base vocabulary size, [(content, id, special)]): Llama-3.2's 256
+    special tokens from <|begin_of_text|> (128000) on; <|eot_id|> is 128009,
+    Orpheus's END_OF_TEXT."""
+    names = ["<|begin_of_text|>", "<|end_of_text|>", "<|reserved_special_token_0|>",
+             "<|reserved_special_token_1|>", "<|finetune_right_pad_id|>",
+             "<|reserved_special_token_2|>", "<|start_header_id|>", "<|end_header_id|>",
+             "<|eom_id|>", "<|eot_id|>", "<|python_tag|>"]
+    names += [f"<|reserved_special_token_{k}|>" for k in range(3, 3 + 256 - len(names))]
+    base = 128000
+    return base, [(n, base + i, True) for i, n in enumerate(names)]
+
+
 def train_merges(n_merges: int, seed: int) -> list:
     """Byte-level BPE merges learned from a seeded text: the most frequent
     adjacent pair first, ties to the larger pair; words both bare and after
@@ -354,12 +396,15 @@ def train_merges(n_merges: int, seed: int) -> list:
 def write_tokenizer_json(path, style: str, seed: int = 0,
                          n_merges: int = TOKENIZER_MERGES) -> Path:
     """A byte-level BPE tokenizer.json: style "whisper" (GPT-2's ByteLevel
-    pre-tokenizer, merges as "a b" strings, Whisper-large-v3's added tokens)
-    or "qwen2" (NFC, Qwen2's Split pattern, merges as pairs, the chat
-    tokens)."""
-    from mlx_audio_tpu_torch.tokenizer_json import QWEN2_PATTERN, bytes_to_unicode
+    pre-tokenizer, merges as "a b" strings, Whisper-large-v3's added tokens),
+    "qwen2" (NFC, Qwen2's Split pattern, merges as pairs, the chat tokens)
+    or "llama3" (Llama-3's Split pattern, merges as pairs, its special
+    tokens, and a post-processor that puts <|begin_of_text|> first)."""
+    from mlx_audio_tpu_torch.tokenizer_json import (LLAMA3_PATTERN, QWEN2_PATTERN,
+                                                    bytes_to_unicode)
 
-    base, added = whisper_added_tokens() if style == "whisper" else qwen_added_tokens()
+    base, added = {"whisper": whisper_added_tokens, "qwen2": qwen_added_tokens,
+                   "llama3": llama3_added_tokens}[style]()
     vocab = {c: b for b, c in bytes_to_unicode().items()}
     merges = train_merges(n_merges, seed)
     for a, b in merges:
@@ -373,18 +418,31 @@ def write_tokenizer_json(path, style: str, seed: int = 0,
         normalizer, pre = None, byte_level
         merges = [f"{a} {b}" for a, b in merges]
     else:
-        normalizer = {"type": "NFC"}
+        normalizer = {"type": "NFC"} if style == "qwen2" else None
         pre = {"type": "Sequence", "pretokenizers": [
-            {"type": "Split", "pattern": {"Regex": QWEN2_PATTERN}, "behavior": "Isolated",
-             "invert": False},
+            {"type": "Split", "behavior": "Isolated", "invert": False, "pattern": {
+                "Regex": QWEN2_PATTERN if style == "qwen2" else LLAMA3_PATTERN}},
             dict(byte_level, use_regex=False, trim_offsets=False)]}
         merges = [[a, b] for a, b in merges]
+    post = dict(byte_level, trim_offsets=False)
+    if style == "llama3":
+        bos = "<|begin_of_text|>"
+        post = {"type": "Sequence", "processors": [
+            dict(byte_level, add_prefix_space=True, trim_offsets=False), {
+                "type": "TemplateProcessing",
+                "single": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                           {"Sequence": {"id": "A", "type_id": 0}}],
+                "pair": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                         {"Sequence": {"id": "A", "type_id": 0}},
+                         {"SpecialToken": {"id": bos, "type_id": 1}},
+                         {"Sequence": {"id": "B", "type_id": 1}}],
+                "special_tokens": {bos: {"id": bos, "ids": [base], "tokens": [bos]}}}]}
     spec = {"version": "1.0", "truncation": None, "padding": None,
             "added_tokens": [{"id": i, "content": c, "single_word": False, "lstrip": False,
                               "rstrip": False, "normalized": False, "special": sp}
                              for c, i, sp in added],
             "normalizer": normalizer, "pre_tokenizer": pre,
-            "post_processor": dict(byte_level, trim_offsets=False),
+            "post_processor": post,
             "decoder": byte_level,
             "model": {"type": "BPE", "dropout": None, "unk_token": None,
                       "continuing_subword_prefix": None, "end_of_word_suffix": None,
@@ -796,7 +854,9 @@ def profile_one_run(run, what: str = "one transcription") -> tuple:
     keeps the run's wall, busy time, idle share and launches."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # device activity only: recording every host-side op as well took tens of
+    # seconds a profile to collect, and slowed the run it measures
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         wall_us = (time.perf_counter() - t0) * 1e6
@@ -845,6 +905,21 @@ def quant_weights(N, K, bits, g, group=GROUP):
 
     w = torch.randn(N, K, generator=g, device="cuda") * K ** -0.5
     return quantize_arrays(w, group, bits)
+
+
+def random_quant_weights(N, K, g, scale=None, group=GROUP):
+    """An int4 weight drawn on the card as it is stored: uniform random codes,
+    per-group scales around `scale` (by default 2 K^-1/2 / 15: the codes span
+    a K^-1/2 spread) and biases that centre the codes, give or take a little
+    (a 156940-row matrix quantized on the host would take seconds)."""
+    words = torch.randint(-2 ** 31, 2 ** 31, (N, K // 8), generator=g, device="cuda",
+                          dtype=torch.int64).to(torch.int32)
+    if scale is None:
+        scale = 2 * K ** -0.5 / 15
+    scales = (0.5 + torch.rand(N, K // group, generator=g, device="cuda")) * scale
+    biases = -7.5 * scales + 0.75 * scale * torch.randn(N, K // group, generator=g,
+                                                        device="cuda")
+    return words, scales, biases
 
 
 def weight_bytes(packed, scales, biases) -> int:
@@ -1014,6 +1089,20 @@ QMM_CASES = [  # name, bits, M, N, K, dtype: the routed shapes of phases 5 and 6
     ("whisper_qkv_m3_bf16", 4, 3, 3840, 1280, torch.bfloat16),
     ("whisper_qkv_m4_bf16", 4, 4, 3840, 1280, torch.bfloat16),
     ("whisper_qkv_m8_bf16", 4, 8, 3840, 1280, torch.bfloat16),
+    # Orpheus-3B int4 (phase 13), bf16 x: the decode step's fused q/k/v (N =
+    # 3072 + 2 x 1024), o_proj and the 156940-row lm_head (a ragged last
+    # block) at M = 1 and at the batcher's four slots; at the 32-row prefill
+    # bucket the tensor-core GEMM on gate/up (N = 2 x 8192), down (K = 8192)
+    # and the lm_head
+    ("orpheus_qkv_m1_bf16", 4, 1, 5120, 3072, torch.bfloat16),
+    ("orpheus_oproj_m1_bf16", 4, 1, 3072, 3072, torch.bfloat16),
+    ("orpheus_lm_head_m1_bf16", 4, 1, 156940, 3072, torch.bfloat16),
+    ("orpheus_qkv_m4_bf16", 4, 4, 5120, 3072, torch.bfloat16),
+    ("orpheus_oproj_m4_bf16", 4, 4, 3072, 3072, torch.bfloat16),
+    ("orpheus_lm_head_m4_bf16", 4, 4, 156940, 3072, torch.bfloat16),
+    ("orpheus_gateup_m32_bf16", 4, 32, 16384, 3072, torch.bfloat16),
+    ("orpheus_down_m32_bf16", 4, 32, 3072, 8192, torch.bfloat16),
+    ("orpheus_lm_head_m32_bf16", 4, 32, 156940, 3072, torch.bfloat16),
 ]
 # groups other than 64: K = 1040 is 65 groups of 16
 QMM_GROUP = {"q6_k1040_m1_f32": 16, "g32_m64_bf16": 32, "q6_g128_m96_f32": 128,
@@ -1022,7 +1111,8 @@ QMM_GROUP = {"q6_k1040_m1_f32": 16, "g32_m64_bf16": 32, "q6_g128_m96_f32": 128,
 # the planted faults run on these (each dtype and bits of the GEMV, and an
 # int4 and a 6-bit case of the tensor-core GEMM)
 QMM_PLANTED = ("qkv_m1_f32", "qkv_m1_bf16", "q6_qkv_m1_f32", "q6_qkv_m1_bf16",
-               "qkv_prefill_bf16", "q6_qkv_prefill_f32", "whisper_qkv_m1_bf16")
+               "qkv_prefill_bf16", "q6_qkv_prefill_f32", "whisper_qkv_m1_bf16",
+               "orpheus_lm_head_m1_bf16", "orpheus_lm_head_m32_bf16")
 # The talker's prefill bucket: bench.py's text gives the talker an
 # 8-position prompt (the text itself streams in a token a frame), which
 # `_prefill` pads to 32 rows; `phase_qwen_slice` checks it. The text
@@ -1065,7 +1155,20 @@ QMLP_CASES = [  # name, bits, M, K, I, N, dtype
     ("mlp_m8_f32", 4, 8, 1024, 3072, 1024, torch.float32),
     ("mlp_m8_bf16", 4, 8, 1024, 3072, 1024, torch.bfloat16),
     ("mlp_m16_f32", 4, 16, 1024, 3072, 1024, torch.float32),
+    # Orpheus-3B (phase 13), bf16 x: the decode step, the batcher's four
+    # slots and a 16-token prefill
+    ("orpheus_mlp_m1_bf16", 4, 1, 3072, 8192, 3072, torch.bfloat16),
+    ("orpheus_mlp_m4_bf16", 4, 4, 3072, 8192, 3072, torch.bfloat16),
+    ("orpheus_mlp_m16_bf16", 4, 16, 3072, 8192, 3072, torch.bfloat16),
 ]
+# Orpheus-3B's shapes, timed (phase 2) beside their bound, plain version and
+# bf16 `F.linear`: name, M, N, K (bf16 x); and the fused MLP at M = 1 and 4
+ORPHEUS_GEMV = [("qkv", 1, 5120, 3072), ("o_proj", 1, 3072, 3072),
+                ("lm_head", 1, 156940, 3072), ("qkv", 4, 5120, 3072),
+                ("o_proj", 4, 3072, 3072), ("lm_head", 4, 156940, 3072)]
+ORPHEUS_MMA = [("gate_up", 32, 16384, 3072), ("down", 32, 3072, 8192),
+               ("lm_head", 32, 156940, 3072)]
+ORPHEUS_MLP = dict(K=3072, I=8192, N=3072)
 
 
 def qmm_route(name, M, bits, K, group) -> str:
@@ -1139,7 +1242,8 @@ def phase_quant_kernels():
     for i, (name, bits, M, N, K, dtype) in enumerate(QMM_CASES):
         g = torch.Generator(device="cuda").manual_seed(200 + i)
         group = QMM_GROUP.get(name, GROUP)
-        packed, scales, biases = quant_weights(N, K, bits, g, group)
+        packed, scales, biases = (random_quant_weights(N, K, g) if N * K > 1 << 27
+                                  else quant_weights(N, K, bits, g, group))
         x = torch.randn(M, K, generator=g, device="cuda").to(dtype)
         if "offset_x" in name:  # rows 4 bytes past a 16-byte boundary
             x = torch.cat([x[:, :1], x], dim=1)[:, 1:]
@@ -1222,26 +1326,66 @@ def phase_quant_kernels():
     timing.update(time_prefill([(4, "whisper_qkv", SERVE_M, 3840, 1280, torch.bfloat16)]))
     timing["qmlp"] = time_qmlp(1)
     timing["qmlp_m8"] = time_qmlp(SERVE_M)
+    timing.update(time_orpheus())
     return errs, timing
 
 
-def time_qmlp(M) -> dict:
-    """The fused quantized SwiGLU at the talker's widths, int4, f32 x, M rows
-    (1: the single-request decode; 8: the serving batcher's tick), device
-    time per call with the weights cycled past L2, beside its plain version
-    and a bf16 yardstick."""
+def time_orpheus() -> dict:
+    """Orpheus-3B int4's shapes, bf16 x: the GEMV at M = 1 and 4, the
+    tensor-core GEMM at the 32-row prefill bucket, the fused MLP at M = 1 and
+    4, each beside its bound, plain version and bf16 `F.linear` on the
+    dequantized weight."""
+    from mlx_audio_tpu_torch.ops.cuda.quant_matmul import (quantized_matmul,
+                                                           quantized_matmul_reference)
+
+    timing = {}
+    bf16 = torch.bfloat16
+    for shape, M, N, K in ORPHEUS_GEMV + ORPHEUS_MMA:
+        key = f"orpheus_{shape}_m{M}"
+        g = torch.Generator(device="cuda").manual_seed(470 + M)
+        sets = [random_quant_weights(N, K, g)]
+        wbytes = weight_bytes(*sets[0])
+        sets += [tuple(t.clone() for t in sets[0]) for _ in range(int(2 * L2_BYTES // wbytes))]
+        x = torch.randn(M, K, generator=g, device="cuda").to(bf16)
+        w_dense = quantized_matmul_reference(torch.eye(K, device="cuda"), *sets[0],
+                                             group_size=GROUP).T.contiguous().bfloat16()
+        dense = [w_dense] + [w_dense.clone() for _ in range(int(2 * L2_BYTES // (2 * N * K)))]
+        ms, loop = device_ms([lambda w=w: quantized_matmul(x, *w, group_size=GROUP)
+                              for w in sets], 200)
+        plain, _ = device_ms([lambda w=w: quantized_matmul_reference(x, *w, group_size=GROUP)
+                              for w in sets], 10)
+        yard, _ = device_ms([lambda d=d: F.linear(x, d) for d in dense], 200)
+        bound, by = quant_bound_ms(wbytes, M, K, N, bf16, 2.0 * M * N * K)
+        ms = not_below_bound(key, ms, loop, bound)
+        route = "qmm_gemv" if M <= 4 else "qmm_mma"
+        timing[key] = dict(kernel=route, ms=ms, plain_ms=plain, library_ms=None,
+                           yardstick_ms=yard, bound_ms=bound, bound_by=by, host_loop_ms=loop)
+        log(f"[time] {key}: {route} int4 M={M} N={N} K={K} bf16 x, device time per call "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, yardstick F.linear on the bf16 dequantized "
+            f"weight {yard:.4f} ms, bound {bound:.4f} ms ({by}, {wbytes / 1e6:.2f} MB of "
+            f"weights, scales and biases); at {100 * bound / ms:.1f}% of bound")
+        del sets, dense, w_dense
+    for M in (1, 4):
+        timing[f"orpheus_qmlp_m{M}"] = time_qmlp(M, dtype=bf16, **ORPHEUS_MLP)
+    torch.cuda.empty_cache()
+    return timing
+
+
+def time_qmlp(M, K=1024, I=3072, N=1024, dtype=torch.float32) -> dict:
+    """The fused quantized SwiGLU, int4, M rows (the talker's widths by
+    default; 1 row: the single-request decode; 8: the serving batcher's
+    tick), device time per call with the weights cycled past L2, beside its
+    plain version and a bf16 yardstick."""
     from mlx_audio_tpu_torch.ops.cuda.quant_matmul import (quantized_matmul_reference,
                                                            quantized_mlp,
                                                            quantized_mlp_reference)
 
-    f32 = torch.float32
-    K, I, N = 1024, 3072, 1024
     g = torch.Generator(device="cuda").manual_seed(500)
     sets = [(quant_weights(2 * I, K, 4, g), quant_weights(N, I, 4, g))]
     wbytes = weight_bytes(*sets[0][0]) + weight_bytes(*sets[0][1])
     sets += [tuple(tuple(t.clone() for t in part) for part in sets[0])
              for _ in range(int(2 * L2_BYTES // wbytes))]
-    x = torch.randn(M, K, generator=g, device="cuda")
+    x = torch.randn(M, K, generator=g, device="cuda").to(dtype)
     eye = torch.eye(K, device="cuda")
     w_gu = quantized_matmul_reference(eye, *sets[0][0], group_size=GROUP).T.bfloat16()
     w_d = quantized_matmul_reference(torch.eye(I, device="cuda"), *sets[0][1],
@@ -1259,8 +1403,9 @@ def time_qmlp(M) -> dict:
                                                              group_size=GROUP)
                           for w in sets], 40)
     yard, _ = device_ms([lambda d=d: yard_mlp(d) for d in dense], 400)
-    bound, by = quant_bound_ms(wbytes, M, K, N, f32, 2.0 * M * (2 * I * K + N * I))
-    log(f"[time] qmlp int4 M={M} K={K} I={I} N={N} f32 x (weights cycled past L2), device "
+    bound, by = quant_bound_ms(wbytes, M, K, N, dtype, 2.0 * M * (2 * I * K + N * I))
+    log(f"[time] qmlp int4 M={M} K={K} I={I} N={N} {str(dtype)[6:]} x (weights cycled past "
+        f"L2), device "
         f"time per call: kernel (its one launch, no memset) {ms:.4f} ms, plain {plain:.4f} ms, "
         f"yardstick bf16 F.linear gate_up, silu*mul, F.linear down {yard:.4f} ms, bound "
         f"{bound:.4f} ms ({by}); kernel at {100 * bound / ms:.1f}% of bound; a Python loop "
@@ -1336,15 +1481,16 @@ def qwen_predicate(path, m):
     return isinstance(m, Linear) and "code_predictor.lm_head" not in path
 
 
-def qwen_model(bits, device="cuda", dtype=torch.bfloat16, seed=0, **depth):
+def qwen_model(bits, device="cuda", dtype=torch.bfloat16, seed=0, speaker=False, **depth):
     """Qwen3-TTS at the published 0.6B widths (`ModelConfig.from_dict({})`),
     quantized and row-stacked as bench.py builds it (`bits=None`: not
-    quantized, as `bench_qwen3_tts()`); `depth` may cut the layer counts
-    (talker, code_predictor, codec)."""
+    quantized, as `bench_qwen3_tts()`); `speaker` adds a Base checkpoint's
+    speaker encoder at its published widths; `depth` may cut the layer
+    counts (talker, code_predictor, codec)."""
     from mlx_audio_tpu_torch.nn.quantized import fuse_quantized_projections, quantize_module
     from mlx_audio_tpu_torch.tts.models.qwen3_tts import Model, ModelConfig
 
-    cfg = ModelConfig.from_dict({})
+    cfg = ModelConfig.from_dict({"speaker_encoder_config": {}} if speaker else {})
     if depth:
         cfg.talker_config.num_hidden_layers = depth["talker"]
         cfg.talker_config.code_predictor_config.num_hidden_layers = depth["code_predictor"]
@@ -2074,7 +2220,7 @@ def phase_kokoro(keep):
 # Phase 9: the rest of Whisper (the seek loop, beam search, word timing,
 # streaming, writers) at full width in bf16, on the phase 4 model
 REST_SEEK_S, REST_DEFAULTS_S, REST_LONG_S, REST_STREAM_S = 120.0, 30.0, 600.0, 10.0
-REST_TIMED = 2  # 3 until phase 12 came
+REST_TIMED = 1  # 3 until phase 12 came, 2 until phase 13 came
 
 
 def noise(seconds, seed):
@@ -2667,11 +2813,12 @@ def phase_loaded(smi: str, tmp: Path) -> dict:
 
 
 # Phase 11: serving, on the models of phases 5, 7, 8 and 9 (the phase 4
-# Whisper), at bench.py's serving shapes, cut in depth: 2 trials where
-# bench.py takes 3, Qwen3-TTS streams of 16 frames where it decodes 64
-SERVE_STREAMS, SERVE_TRIALS = 8, 2
+# Whisper), at bench.py's serving shapes, cut in depth: 1 trial where
+# bench.py takes 3 (2 until phase 13 came), Qwen3-TTS bf16 streams of 8 frames
+# (16 until phase 13 came) where it decodes 64
+SERVE_STREAMS, SERVE_TRIALS = 8, 1
 SERVE_WHISPER_S = 30.0
-SERVE_QWEN_FRAMES, SERVE_QWEN_TICK, SERVE_QWEN_MAX_LEN = 16, 8, 1024
+SERVE_QWEN_FRAMES, SERVE_QWEN_TICK, SERVE_QWEN_MAX_LEN = 8, 8, 1024  # 16 until phase 13
 SERVE_INT4_FRAMES = 16
 SERVE_KOKORO_REQUESTS = 4
 SERVE_KOKORO_TEXT = "The quick brown fox jumps over the lazy dog."
@@ -2855,7 +3002,7 @@ def check_served_tokens(model, audios, seq, outs, tok, opts) -> list:
 
 def serve_qwen_bf16(model) -> dict:
     """bench_qwen3_serving's shape on the unquantized bf16 model, cut in
-    depth: 8 sampled streams x SERVE_QWEN_FRAMES (16; bench.py decodes 64),
+    depth: 8 sampled streams x SERVE_QWEN_FRAMES (8; bench.py decodes 64),
     slots 8, max_len 1024, tick_frames 8; a warm wave, the 8 requests one
     live slot at a time on the same engine, then the median of SERVE_TRIALS
     (2; bench.py takes 3) concurrent trials. Each request's codes in every
@@ -3044,7 +3191,7 @@ def serve_moss(model) -> dict:
     ref, plain = timed(SERVE_TRIALS)
     batcher = model.make_batcher(max_batch=SERVE_STREAMS).install()
     try:
-        timed(1)
+        warm, _ = timed(1)
         relu2_attention.launches = 0
         d0 = batcher.dispatch_count
         out, walls = timed(1)
@@ -3066,7 +3213,8 @@ def serve_moss(model) -> dict:
     if launches != cfg.num_blocks * dispatches:
         raise SystemExit(f"chip_smoke: served MossFormer2-SE launched relu2 {launches} times "
                          f"over {dispatches} dispatches")
-    if not err <= MOSS_CARD_VS_CPU_REL * peak or not np.array_equal(out, more):
+    if not err <= MOSS_CARD_VS_CPU_REL * peak or not all(
+            np.array_equal(out, o) for o in (warm, more) if o is not None):
         raise SystemExit(f"chip_smoke: served MossFormer2-SE output max|d| {err}, or repeated "
                          f"runs disagree")
     return {"audio_s": sec, "dispatches": dispatches, "relu2_launches": launches,
@@ -3180,9 +3328,10 @@ HTTP_CONC_S = tuple(8.0 + 0.5 * i for i in range(HTTP_STREAMS))
 # seeded weights decode every window at all six fallback temperatures
 HTTP_INT4_S = 20.0
 HTTP_TEXT = "The quick brown fox jumps over the lazy dog."
-# the wave of four speech requests: each its own text, of words the
-# generated tokenizer.json merges (12-13 ids each, so each decode is capped
-# at 128 frames as HTTP_TEXT's is; a text of 22 ids or more doubles it)
+# the wave of four speech requests (phase 12's, and phase 13's batcher's
+# prompts): each its own text, of words the generated tokenizer.json merges
+# (12-13 ids each, so each decode is capped at 128 frames as HTTP_TEXT's is;
+# a text of 22 ids or more doubles it)
 HTTP_TEXTS = (HTTP_TEXT, "The lazy dog jumps over the quick brown fox.",
               "Hello world, the model turns text into speech.",
               "The model turns text into speech while the dog jumps.")
@@ -3286,7 +3435,9 @@ def unload_served(url, provider, name) -> None:
 
     model = provider.load_model(name)
     batcher = get_infer_hook(model)
-    thread = getattr(batcher, "sched", batcher)._thread
+    # the scheduler's thread: a BatchScheduler's, a ContinuousBatcher's, or
+    # the batcher's own
+    thread = getattr(batcher, "sched", getattr(batcher, "cb", batcher))._thread
     status, body = http_json(f"{url}/v1/models/{name}", method="DELETE")
     thread.join(60)
     if status != 200 or thread.is_alive() or get_infer_hook(model) is not None:
@@ -3909,12 +4060,724 @@ def phase_http(smi: str, tmp: Path, keep) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: Orpheus-3B int4 through the LM core (CausalLM, the generate
+# loops, the continuous batcher) and SNAC 24 kHz, loaded from a checkpoint
+# directory written in the run; Qwen3-TTS Base's x-vector voice cloning
+# ---------------------------------------------------------------------------
+
+# Orpheus-3B: Llama-3.2-3B's published widths and llama3 rope scaling with
+# the audio vocabulary (scripts/bench_serving.py:175-179); the lm_head
+# untied, as the repository's own builds leave it
+ORPHEUS_CFG = dict(
+    model_type="llama", hidden_size=3072, num_hidden_layers=28, intermediate_size=8192,
+    num_attention_heads=24, num_key_value_heads=8, head_dim=128, vocab_size=156940,
+    rope_theta=500000.0, rms_norm_eps=1e-5, max_position_embeddings=131072,
+    tie_word_embeddings=False,
+    rope_scaling={"factor": 32.0, "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                  "original_max_position_embeddings": 8192, "rope_type": "llama3"})
+# hubertsiuzdak/snac_24khz's published config: hop 512, one 7-token frame is
+# 4 latent frames (the first codebook's stride), 2048 samples
+SNAC_24K = dict(sampling_rate=24000, encoder_dim=48, encoder_rates=[2, 4, 8, 8],
+                decoder_dim=1024, decoder_rates=[8, 8, 4, 2], attn_window_size=None,
+                codebook_size=4096, codebook_dim=8, vq_strides=[4, 2, 1], noise=True,
+                depthwise=True)
+# The seeded checkpoint plants a greedy path through the full model: every
+# weight is random int4 codes with per-group scales, the residual branches'
+# at a small scale; the lm_head's at a large one; and the (bf16) embedding
+# row of token t is the dequantized lm_head row of its planted successor, so
+# the residual stream points at the successor's row and the argmax takes it
+# by a wide margin. From END_OF_HUMAN the path runs START_OF_AI,
+# START_OF_SPEECH, ORPHEUS_SPOKEN frames of 7 codes (each slot its own
+# codebook offset), END_OF_SPEECH; a second set of ORPHEUS_CYCLE frames
+# loops without end (the batcher's prompts enter it). Tokens off the path
+# succeed themselves.
+ORPHEUS_SPOKEN = 23
+ORPHEUS_CYCLE = 100
+ORPHEUS_RESIDUAL_SCALE = 1e-3
+ORPHEUS_TEXT = HTTP_TEXT
+# Model.generate at the greedy defaults (repetition penalty 1.3 over 20
+# tokens): SOA, SOS, 23 frames and END_OF_SPEECH are 164 tokens, under the cap
+ORPHEUS_MAX_TOKENS = 7 * 24
+ORPHEUS_STREAM_INTERVAL = 0.5  # s of audio a streamed chunk: 63 tokens, 9 frames
+ORPHEUS_TIMED = 1
+ORPHEUS_PROFILE_TOKENS = 2 + 7 * 6
+# the reduced-depth copy's tokens card against CPU (every CPU step
+# dequantizes the 156940 x 3072 lm_head)
+ORPHEUS_CPU_TOKENS = 3
+# The layers' share of the planted path's logits is small (the residual
+# branches are scaled by ORPHEUS_RESIDUAL_SCALE), so the float32 two-layer
+# copy's logits are held to ORPHEUS_LAYER_BAR of what its layers add to them
+# (their distance from the logits of the embedding alone), beside
+# CARD_VS_CPU_ATOL of their peak; planted faults of the decode must exceed it
+ORPHEUS_LAYER_BAR = 1e-2
+# the two-layer copy's batched wave: each request's tokens, and the decode
+# steps whose logits each slot holds to its sequential run (within and
+# across 16-step ticks)
+ORPHEUS_CHECK_TOKENS = 40
+ORPHEUS_CHECK_STEPS = (1, 8, 15, 16, 17, 33, 39)
+# bench_snac_lm_continuous's settings (scripts/bench_serving.py:161-231)
+ORPHEUS_SLOTS, ORPHEUS_TICK, ORPHEUS_POOL_LEN, ORPHEUS_BATCH_TOKENS = 4, 16, 256, 128
+# Qwen3-TTS Base x-vector cloning: a 3 s 24 kHz reference, 16 frames
+XVEC_FRAMES = 16
+
+
+def orpheus_successors(V: int, seed: int = 0, model_cls=None):
+    """(successor of every token id, the spoken frames' codes (23, 7), the
+    cycle's codes (100, 7)), codes 0..4095 a slot, for the special-token
+    layout of `model_cls` (default Orpheus; VyvoTTS has its own)."""
+    from mlx_audio_tpu_torch.tts.models.llama import Model as Orpheus
+
+    m = model_cls or Orpheus
+    rng = np.random.default_rng(seed)
+    n = ORPHEUS_SPOKEN + ORPHEUS_CYCLE
+    codes = np.stack([rng.permutation(4096)[:n] for _ in range(7)], axis=1)
+    tok = m.AUDIO_TOKENS_START + np.arange(7) * 4096 + codes
+    succ = np.arange(V)
+    succ[m.END_OF_HUMAN] = m.START_OF_AI
+    succ[m.START_OF_AI] = m.START_OF_SPEECH
+    succ[m.START_OF_SPEECH] = tok[0, 0]
+    A, C = ORPHEUS_SPOKEN, ORPHEUS_CYCLE
+    for f in range(n):
+        succ[tok[f, :6]] = tok[f, 1:]
+        if f < A - 1:
+            succ[tok[f, 6]] = tok[f + 1, 0]
+        elif f == A - 1:
+            succ[tok[f, 6]] = m.END_OF_SPEECH
+        else:
+            succ[tok[f, 6]] = tok[A + (f - A + 1) % C, 0]
+    return succ, codes[:A], codes[A:]
+
+
+def frame_codes(codes) -> list:
+    """Frames of 7 slot codes → the flat code list `parse_output` gives."""
+    return [int(c) + 4096 * k for frame in codes for k, c in enumerate(frame)]
+
+
+def write_orpheus(path: Path, reduced: Path, succ, seed: int = 0) -> tuple:
+    """Orpheus-3B int4 (g64, every Linear; the embedding bf16) into `path`
+    and its first two layers into `reduced`, each with a Llama-3 style
+    tokenizer.json. One matrix at a time is drawn on the card; the host
+    holds the int4 checkpoint, never a float model. → (seconds, bytes)."""
+    from mlx_audio_tpu_torch.convert import save_model
+    from mlx_audio_tpu_torch.nn.quantized import dequantize_arrays
+
+    t0 = time.perf_counter()
+    c = ORPHEUS_CFG
+    D, I, V = c["hidden_size"], c["intermediate_size"], c["vocab_size"]
+    q, kv = c["num_attention_heads"] * c["head_dim"], c["num_key_value_heads"] * c["head_dim"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def host(prefix, w, s, b):
+        return {f"{prefix}.weight": w.cpu().numpy().view(np.uint32),
+                f"{prefix}.scales": s.cpu().numpy(), f"{prefix}.biases": b.cpu().numpy()}
+
+    ones = torch.ones(D, dtype=torch.bfloat16)
+    weights = {}
+    for layer in range(c["num_hidden_layers"]):
+        p = f"model.layers.{layer}"
+        for name, N, K in (("self_attn.q_proj", q, D), ("self_attn.k_proj", kv, D),
+                           ("self_attn.v_proj", kv, D), ("self_attn.o_proj", D, q),
+                           ("mlp.gate_proj", I, D), ("mlp.up_proj", I, D),
+                           ("mlp.down_proj", D, I)):
+            weights.update(host(f"{p}.{name}",
+                                *random_quant_weights(N, K, g, ORPHEUS_RESIDUAL_SCALE)))
+        weights[f"{p}.input_layernorm.weight"] = ones
+        weights[f"{p}.post_attention_layernorm.weight"] = ones
+    head = random_quant_weights(V, D, g, 1.0)
+    weights.update(host("lm_head", *head))
+    weights["model.norm.weight"] = ones
+    emb = torch.empty(V, D, dtype=torch.bfloat16, device="cuda")
+    succ_t = torch.as_tensor(succ, device="cuda")
+    for i in range(0, V, 16384):
+        rows = succ_t[i:i + 16384]
+        emb[i:i + 16384] = dequantize_arrays(head[0][rows], head[1][rows], head[2][rows],
+                                             GROUP, 4, torch.bfloat16)
+    weights["model.embed_tokens.weight"] = emb.cpu()
+    del emb, head
+    quant = {"group_size": GROUP, "bits": 4}
+    save_model(path, weights, dict(c, quantization=quant))
+    write_tokenizer_json(path, "llama3")
+    two = {k: v for k, v in weights.items()
+           if not k.startswith("model.layers.") or int(k.split(".")[2]) < 2}
+    save_model(reduced, two, dict(c, num_hidden_layers=2, quantization=quant))
+    write_tokenizer_json(reduced, "llama3")
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t0, checkpoint_bytes(path)
+
+
+def decode_calls(n_gen: int, max_tokens: int, chunk: int) -> int:
+    """The model calls of `lm.generate`'s decode for n_gen tokens (EOS last)
+    under max_tokens, in chunks of `chunk` steps: a chunk stops at the first
+    poll (every POLL_STEPS steps, before its last step) after EOS."""
+    from mlx_audio_tpu_torch.lm.generate import POLL_STEPS
+
+    calls = produced = 0
+    while produced < max_tokens:
+        steps = min(chunk, max_tokens - produced)
+        eos = n_gen - 1 - produced
+        if 0 <= eos < steps:
+            i = eos + 1
+            while i < steps and i % POLL_STEPS:
+                i += 1
+            return calls + i
+        calls += steps
+        produced += steps
+    return calls
+
+
+def orpheus_launches(layers: int, calls) -> dict:
+    """The quantized launches of model calls [(rows M, calls)] from the code:
+    a layer's fused q/k/v and o_proj through qmm (the GEMV at M <= 4, the
+    tensor-core GEMM above), its MLP through the fused kernel up to
+    QMLP_MAX_M rows (else gate/up and down through qmm), and the lm_head
+    through qmm."""
+    from mlx_audio_tpu_torch.ops.cuda.quant_matmul import QMLP_MAX_M
+
+    got = {"qmm": 0, "qmlp": 0, "qmm_kernel": 0, "qmm_gemv": 0, "qmm_mma": 0}
+    for M, n in calls:
+        per = 2 * layers + 1
+        if M <= QMLP_MAX_M:
+            got["qmlp"] += layers * n
+        else:
+            per += 2 * layers
+        got["qmm_gemv" if M <= 4 else "qmm_mma"] += per * n
+        got["qmm"] += per * n
+    return got
+
+
+def held_launches(label, predicted) -> dict:
+    got = quant_counts(4)
+    log(f"[orpheus] {label}: launches {got}, from the code {predicted}")
+    if got != predicted:
+        raise SystemExit(f"chip_smoke: {label} launched {got}, the code says {predicted}")
+    return got
+
+
+def wave_prompts(model, cycle) -> list:
+    """The four texts' prompts, each entering the planted cycle at its own
+    frame, so that the four requests' tokens differ."""
+    M = type(model)
+    return [model.prepare_input_ids(t) + [
+        M.START_OF_AI, M.START_OF_SPEECH,
+        M.AUDIO_TOKENS_START + int(cycle[25 * i, 0])] for i, t in enumerate(HTTP_TEXTS)]
+
+
+def logit_rows(rows, fault: bool = False):
+    """A `generate_tokens` model call that keeps every call's last float32
+    logits on the host. `fault` plants an off-by-one cache position: each
+    decode step writes its K/V over its predecessor's, at its predecessor's
+    position."""
+    def call(model, ids, caches):
+        if fault and ids.shape[1] == 1:
+            for c in caches:
+                c.pos -= 1
+        logits, caches = model(ids, caches)
+        rows.append(logits[0, -1].float().cpu())
+        return logits, caches
+    return call
+
+
+def plant_logits(model, toks) -> torch.Tensor:
+    """The logits of tokens `toks` from the embedding alone, the layers
+    skipped: what the layers add is the logits' distance from these."""
+    ids = torch.as_tensor([list(toks)], device=model.device)
+    return model.logits(model.model.norm(model.model.embed_tokens(ids)))[0].float().cpu()
+
+
+def within(gaps) -> bool:
+    """Every row (max|got - want|, want's peak, what the layers add to want)
+    inside both bars."""
+    return all(d <= CARD_VS_CPU_ATOL * peak and d <= ORPHEUS_LAYER_BAR * add
+               for d, peak, add in gaps)
+
+
+def row_gaps(pairs) -> list:
+    """(got, want, plant) rows → (max|got - want|, want's peak, max|want -
+    plant|) each."""
+    return [((g - w).abs().max().item(), w.abs().max().item(), (w - p).abs().max().item())
+            for g, w, p in pairs]
+
+
+def batched_rows(model, prompts, fault=None) -> tuple:
+    """One wave of `prompts` through the model's LMContinuousBatcher →
+    (each request's tokens, {(request, decode step): its slot's float32
+    logits} at ORPHEUS_CHECK_STEPS). `fault` plants one: "position" steps
+    every slot at its predecessor's position, "slots" makes slots 0 and 1
+    read (and write) each other's caches."""
+    from mlx_audio_tpu_torch.lm import continuous as lc
+
+    step, rows = lc._step, {}
+    batcher = model.make_batcher(slots=ORPHEUS_SLOTS, max_len=ORPHEUS_POOL_LEN,
+                                 tick_tokens=ORPHEUS_TICK)
+
+    def swap(caches):
+        for c in caches:
+            c.k[[0, 1]] = c.k[[1, 0]]
+            c.v[[0, 1]] = c.v[[1, 0]]
+
+    def spy(m, caches, tokens, pos):
+        if fault == "slots":
+            swap(caches)
+        logits = step(m, caches, tokens, pos - 1 if fault == "position" else pos)
+        if fault == "slots":
+            swap(caches)
+        at = pos.tolist()
+        for slot, req in enumerate(batcher.cb.active):
+            # a slot at position p draws its request's token p - T + 1
+            k = -1 if req is None else at[slot] - len(req.prompt) + 1
+            if k in ORPHEUS_CHECK_STEPS:
+                rows[(id(req.future), k)] = logits[slot].cpu()
+        return logits
+
+    lc._step = spy
+    try:
+        futs = [batcher.submit(p, max_tokens=ORPHEUS_CHECK_TOKENS) for p in prompts]
+        outs = results_in_time(futs)
+    finally:
+        lc._step = step
+        batcher.close()
+    index = {id(f): i for i, f in enumerate(futs)}
+    return outs, {(index[f], k): r for (f, k), r in rows.items()}
+
+
+def orpheus_two_layer(reduced: Path, ids, prompts) -> dict:
+    """The two-layer copy at full width in float32 (TF32 off), where the
+    logits resolve what the layers add. `generate_tokens` card against CPU:
+    every call's logits (the prompt's, and each M = 1 decode step's through
+    the bf16 KV cache) and ORPHEUS_CPU_TOKENS greedy tokens, which must be
+    identical. Then one LMContinuousBatcher wave of the four prompts on the
+    card: each request's tokens equal to its sequential run's, and each
+    slot's logits at ORPHEUS_CHECK_STEPS held to them. Logits are held to
+    both bars (`within`); planted faults must break them: an off-by-one
+    cache position in the decode and in the batcher, and two slots that
+    read each other's caches."""
+    from mlx_audio_tpu_torch.lm.generate import generate_tokens
+    from mlx_audio_tpu_torch.tts.models.llama import Model as Orpheus
+
+    t0 = time.perf_counter()
+    kw = dict(max_tokens=ORPHEUS_CPU_TOKENS, repetition_penalty=1.3,
+              repetition_context_size=20, eos_token_ids=(Orpheus.END_OF_SPEECH,))
+    cpu, cpu_load = timed_load(str(reduced), device="cpu", dtype=torch.float32)
+    want = []
+    with torch.inference_mode():
+        want_toks = generate_tokens(cpu, ids, model_call=logit_rows(want), **kw)[0][0].tolist()
+    del cpu
+    card, _ = timed_load(str(reduced), device="cuda", dtype=torch.float32)
+    got, bad = [], []
+    with torch.inference_mode():
+        toks = generate_tokens(card, ids, model_call=logit_rows(got), **kw)[0][0].tolist()
+        generate_tokens(card, ids, model_call=logit_rows(bad, fault=True), **kw)
+        plant = plant_logits(card, [ids[-1]] + want_toks)
+    gaps = row_gaps(zip(got, want, plant))
+    fault = row_gaps(zip(bad, want, plant))
+    log(f"[orpheus] two-layer copy, float32, card against CPU: logits of the prompt and "
+        f"{len(gaps) - 1} decode steps, max|d| {[f'{g[0]:.3e}' for g in gaps]}, peaks "
+        f"{[round(g[1], 1) for g in gaps]} (bar {CARD_VS_CPU_ATOL:g} of each), what the layers "
+        f"add {[round(g[2], 3) for g in gaps]} (bar {ORPHEUS_LAYER_BAR:g} of each); greedy "
+        f"tokens {toks} vs {want_toks}; a planted off-by-one cache position parts them by "
+        f"{[f'{g[0]:.3e}' for g in fault]} ({time.perf_counter() - t0:.1f} s, the CPU load "
+        f"{cpu_load:.1f} s)")
+    if not within(gaps) or toks != want_toks or len(gaps) != ORPHEUS_CPU_TOKENS + 1:
+        raise SystemExit("chip_smoke: the Orpheus two-layer copy parts card from CPU")
+    if within(fault):
+        raise SystemExit("chip_smoke: the two-layer decode check passes an off-by-one cache "
+                         "position")
+
+    t1 = time.perf_counter()
+    seq = []
+    with torch.inference_mode():
+        for p in prompts:
+            rows = []
+            out = generate_tokens(card, p, max_tokens=ORPHEUS_CHECK_TOKENS,
+                                  model_call=logit_rows(rows))[0][0].tolist()
+            seq.append((out, rows, plant_logits(card, [p[-1]] + out)))
+
+    def wave_gaps(rows):
+        return row_gaps((r, seq[i][1][k], seq[i][2][k]) for (i, k), r in sorted(rows.items()))
+
+    outs, rows = batched_rows(card, prompts)
+    wave = wave_gaps(rows)
+    faults = {}
+    for kind in ("position", "slots"):
+        f_outs, f_rows = batched_rows(card, prompts, kind)
+        faults[kind] = max(g[0] for g in wave_gaps(f_rows))
+        if within(wave_gaps(f_rows)) and f_outs == outs:
+            raise SystemExit(f"chip_smoke: the two-layer batched check passes a planted "
+                             f"{kind} fault")
+    worst = max(g[0] / min(CARD_VS_CPU_ATOL * g[1], ORPHEUS_LAYER_BAR * g[2]) for g in wave)
+    log(f"[orpheus] two-layer copy, float32, LMContinuousBatcher ({ORPHEUS_SLOTS} slots, tick "
+        f"{ORPHEUS_TICK}): {len(prompts)} x {ORPHEUS_CHECK_TOKENS} tokens equal to each "
+        f"request's sequential run; each slot's logits at decode steps {ORPHEUS_CHECK_STEPS} "
+        f"against its sequential run: max|d| {max(g[0] for g in wave):.3e}, what the layers "
+        f"add at least {min(g[2] for g in wave):.3f}, worst share of its bar {worst:.3f}; "
+        f"planted faults part them by {', '.join(f'{v:.3e} ({k})' for k, v in faults.items())} "
+        f"({time.perf_counter() - t1:.1f} s)")
+    if (outs != [o for o, _, _ in seq] or len(rows) != len(prompts) * len(ORPHEUS_CHECK_STEPS)
+            or not within(wave)):
+        raise SystemExit("chip_smoke: the two-layer batched wave parts from its sequential runs")
+    del card
+    return {"logits_max_abs_err": max(g[0] for g in gaps),
+            "logits_peak": min(g[1] for g in gaps), "layers_add": min(g[2] for g in gaps),
+            "off_by_one_gap": max(g[0] for g in fault), "tokens": toks,
+            "batched_max_abs_err": max(g[0] for g in wave),
+            "batched_layers_add": min(g[2] for g in wave), "batched_fault_gaps": faults,
+            "wall_s": time.perf_counter() - t0}
+
+
+def orpheus_batched(model, prompts) -> dict:
+    """`make_batcher` (an LMContinuousBatcher) at bench_snac_lm_continuous's
+    settings: four distinct prompts (each text's prompt entering the
+    planted cycle at its own frame), each held to its sequential greedy
+    `generate_tokens`; tokens/s and the speedup over sequential; launches
+    held to the code's count."""
+    from mlx_audio_tpu_torch.lm.continuous import _bucket
+    from mlx_audio_tpu_torch.lm.generate import generate_tokens
+    from mlx_audio_tpu_torch.ops.cuda import quant_matmul as qk
+
+    with torch.inference_mode():  # the model is warm: phase 13 has run it
+        t0 = time.perf_counter()
+        seq = [generate_tokens(model, p, max_tokens=ORPHEUS_BATCH_TOKENS)[0][0].tolist()
+               for p in prompts]
+        seq_s = time.perf_counter() - t0
+    batcher = model.make_batcher(slots=ORPHEUS_SLOTS, max_len=ORPHEUS_POOL_LEN,
+                                 tick_tokens=ORPHEUS_TICK)
+    try:
+        batcher.warmup()
+        qk.reset_launches()
+        ticks0 = batcher.dispatch_count
+        t0 = time.perf_counter()
+        outs = results_in_time([batcher.submit(p, max_tokens=ORPHEUS_BATCH_TOKENS)
+                                for p in prompts])
+        bat_s = time.perf_counter() - t0
+        ticks = batcher.dispatch_count - ticks0
+    finally:
+        batcher.close()
+    layers = model.config.num_hidden_layers
+    predicted = orpheus_launches(layers, [(_bucket(len(p)), 1) for p in prompts]
+                                 + [(ORPHEUS_SLOTS, ticks * ORPHEUS_TICK)])
+    got = held_launches("batched wave", predicted)
+    if outs != seq or len({tuple(o) for o in outs}) != len(outs):
+        raise SystemExit("chip_smoke: batched Orpheus tokens differ from sequential, or the "
+                         "four requests' tokens are not distinct")
+    total = sum(len(o) for o in outs)
+    log(f"[orpheus] LMContinuousBatcher ({ORPHEUS_SLOTS} slots, tick {ORPHEUS_TICK}, pool "
+        f"{ORPHEUS_POOL_LEN}): {len(outs)} x {ORPHEUS_BATCH_TOKENS} tokens in {bat_s:.4f} s "
+        f"({total / bat_s:.1f} tokens/s aggregate, {ticks} ticks), sequential {seq_s:.4f} s "
+        f"({total / seq_s:.1f} tokens/s): speedup {seq_s / bat_s:.2f}x; every request's "
+        f"tokens equal its sequential greedy tokens")
+    return {"tokens_per_s": total / bat_s, "sequential_tokens_per_s": total / seq_s,
+            "batched_wall_s": bat_s, "sequential_wall_s": seq_s, "speedup": seq_s / bat_s,
+            "ticks": ticks, "launches": got}
+
+
+def orpheus_served(path: Path, want: bytes) -> dict:
+    """One greedy speech request through `server.py` (a stdlib server in
+    process; the provider installs the model's LMContinuousBatcher and warms
+    it), held int16 for int16 to the in-memory model's samples."""
+    from mlx_audio_tpu_torch import server
+
+    provider = server.ModelProvider()
+    httpd = server.serve_stdlib("127.0.0.1", 0, provider)
+    url = "http://127.0.0.1:%d" % httpd.server_address[1]
+    name = str(path)
+    try:
+        rec = load_served(url, provider, name)
+        body, ttfb, wall = http_speech_timed(url, {"model": name, "input": ORPHEUS_TEXT,
+                                                   "temperature": 0.0,
+                                                   "response_format": "wav"})
+        unload_served(url, provider, name)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        for n in provider.list_models():
+            provider.unload(n)
+    if body[:4] != b"RIFF" or body[44:] != want:
+        raise SystemExit(f"chip_smoke: the served Orpheus speech ({len(body)} bytes) is not "
+                         f"the in-memory model's samples ({len(want)} bytes)")
+    audio_s = (len(body) - 44) / 2 / SNAC_24K["sampling_rate"]
+    log(f"[orpheus] served over HTTP: {audio_s:.3f} s of audio, time to first byte "
+        f"{ttfb:.4f} s, wall {wall:.4f} s (load {rec['load_s']:.1f} s, batcher warm-up "
+        f"{rec['warmup_s']:.1f} s); equal int16 for int16 to the in-memory samples")
+    return {"ttfb_s": ttfb, "wall_s": wall, "audio_s": audio_s, **rec}
+
+
+def stream_reference(snac, spoken, chunks) -> None:
+    """Each streamed chunk against its own reference: one SNAC decode of its
+    planted frames and the frames of decode_stream's context before them
+    (8 latent frames at the first codebook's stride), past the context.
+    They must be equal: the same decode of the same codes."""
+    from mlx_audio_tpu_torch.tts.models.snac_lm import codes_to_layers
+
+    frame = snac.hop_length * snac.vq_strides[0]
+    ctx = 8 // snac.vq_strides[0]
+    f0 = 0
+    with torch.inference_mode():
+        for i, audio in enumerate(chunks):
+            n, rest = divmod(len(audio), frame)
+            c0 = max(0, f0 - ctx)
+            want = snac.decode(codes_to_layers(frame_codes(spoken[c0:f0 + n])))
+            want = want[..., (f0 - c0) * frame:].float().cpu().numpy().reshape(-1)
+            if rest or not np.array_equal(audio, want):
+                raise SystemExit(f"chip_smoke: streamed chunk {i} ({len(audio)} samples) is "
+                                 f"not one decode of frames {f0}-{f0 + n} past their context")
+            f0 += n
+    if f0 != len(spoken):
+        raise SystemExit(f"chip_smoke: the stream decoded {f0} frames of {len(spoken)}")
+
+
+def snac_checks(snac, codes) -> dict:
+    """SNAC 24 kHz alone: the planted frames decoded on the card against the
+    CPU in float32 (TF32 off, the same noise draws), at phase 3's bar; and
+    `decode_stream` in chunks of 8 frames, each chunk's samples equal to one
+    decode of its context and codes past the context."""
+    from mlx_audio_tpu_torch.codec.models import SNAC
+    from mlx_audio_tpu_torch.tts.models.snac_lm import codes_to_layers
+
+    def noise():  # one CPU stream a decode, on either device
+        g = torch.Generator().manual_seed(0)
+        return lambda shape: torch.randn(shape, generator=g)
+
+    layers = codes_to_layers(frame_codes(codes))
+    cpu = SNAC(**SNAC_24K, device="cpu")
+    cpu.load_state_dict(snac.state_dict())
+    t0 = time.perf_counter()
+    card_audio = snac.decode(layers, noise_fn=noise()).cpu()
+    card_s = time.perf_counter() - t0
+    cpu_audio = cpu.decode(layers, noise_fn=noise())
+    d = (card_audio - cpu_audio).abs().max().item()
+    peak = cpu_audio.abs().max().item()
+    frame = snac.hop_length * snac.vq_strides[0]
+    if card_audio.shape != (1, 1, frame * len(codes)) or d > CARD_VS_CPU_ATOL or peak < 0.1:
+        raise SystemExit(f"chip_smoke: SNAC decode {tuple(card_audio.shape)}, card against "
+                         f"CPU max|d| {d:.3e}")
+    chunks, ctx, gap = [], None, 0.0
+    full = snac.decode(layers)
+    ctx_s = 8 * snac.hop_length
+    for f0 in range(0, len(codes), 8):
+        part = codes_to_layers(frame_codes(codes[f0:f0 + 8]))
+        audio, new_ctx = snac.decode_stream(part, ctx)
+        if ctx is not None:
+            comb = [torch.cat([p[:, -max(1, 8 // s):].cpu(), n], dim=1)
+                    for p, n, s in zip(ctx, part, snac.vq_strides)]
+            want = snac.decode(comb)[..., ctx_s:]
+            if not torch.equal(audio, want):
+                raise SystemExit(f"chip_smoke: SNAC decode_stream at frame {f0} is not one "
+                                 f"decode past its context")
+        chunks.append(audio)
+        ctx = new_ctx
+    joined = torch.cat(chunks, dim=-1)
+    gap = (joined - full).abs().max().item()
+    if joined.shape != full.shape:
+        raise SystemExit(f"chip_smoke: SNAC stream {tuple(joined.shape)} against one decode "
+                         f"{tuple(full.shape)}")
+    log(f"[snac] 24 kHz decode of {len(codes)} frames on the card {card_s:.4f} s; card "
+        f"against CPU float32 max|d| {d:.3e} (peak {peak:.4f}, bar {CARD_VS_CPU_ATOL:g}); "
+        f"decode_stream in 8-frame chunks: each chunk equal to one decode of its context "
+        f"past the context; joined against one decode of all, max|d| {gap:.3e} (the "
+        f"context covers part of the receptive field)")
+    return {"max_abs_err": d, "peak": peak, "decode_s": card_s, "stream_gap": gap}
+
+
+def xvector_checks(keep) -> dict:
+    """Qwen3-TTS Base with the ECAPA-TDNN speaker encoder: the x-vector card
+    against CPU in float32 (a shallow model at full width, TF32 off), then
+    one XVEC_FRAMES-frame synthesis of the int4 model with `ref_audio` and no
+    `ref_text`."""
+    from mlx_audio_tpu_torch.nn.module import cast_floats, init_weights
+    from mlx_audio_tpu_torch.tts.models.qwen3_tts.config import Qwen3TTSSpeakerEncoderConfig
+    from mlx_audio_tpu_torch.tts.models.qwen3_tts.speaker_encoder import (
+        Qwen3TTSSpeakerEncoder)
+
+    sr = 24000
+    t = np.arange(3 * sr) / sr
+    rng = np.random.default_rng(7)
+    ref = (0.3 * np.sin(2 * np.pi * 180 * t) * (1 + np.sin(2 * np.pi * 3 * t))
+           + 0.05 * rng.standard_normal(t.size)).astype(np.float32)
+    depth = dict(talker=2, code_predictor=1, codec=1)
+    cpu = qwen_model(4, device="cpu", dtype=torch.float32, seed=1, speaker=True, **depth)
+    card = qwen_model(4, device="cuda", dtype=torch.float32, seed=2, speaker=True, **depth)
+    card.load_state_dict(cpu.state_dict())
+    e_cpu = cpu.extract_speaker_embedding(ref)
+    e_card = card.extract_speaker_embedding(ref).cpu()
+    d = (e_card - e_cpu).abs().max().item()
+    peak = e_cpu.abs().max().item()
+    log(f"[xvector] speaker embedding {tuple(e_card.shape)}, float32, card against CPU max|d| "
+        f"{d:.3e} of peak {peak:.3f} (bar {CARD_VS_CPU_ATOL:g} of it)")
+    if e_card.shape != (1, 1, 1024) or d > CARD_VS_CPU_ATOL * peak:
+        raise SystemExit("chip_smoke: the x-vector parts card from CPU")
+    del cpu, card
+    model = keep.get("qwen3_int4") or qwen_model(4)
+    if model.speaker_encoder is None:  # phase 5's model: give it a Base speaker encoder
+        cfg = Qwen3TTSSpeakerEncoderConfig()
+        model.config.speaker_encoder_config = cfg
+        model.speaker_encoder = Qwen3TTSSpeakerEncoder(cfg, device="cuda")
+        init_weights(model.speaker_encoder, torch.Generator(device="cuda").manual_seed(3))
+        cast_floats(model.speaker_encoder, torch.bfloat16)
+    with_ref = model._prepare_generation_inputs(QWEN_TEXT, ref_audio=ref)[0].shape[1]
+    without = model._prepare_generation_inputs(QWEN_TEXT)[0].shape[1]
+    t0 = time.perf_counter()
+    res = list(model.generate(QWEN_TEXT, ref_audio=ref, max_tokens=XVEC_FRAMES,
+                              min_tokens=XVEC_FRAMES, temperature=0.9, top_k=50))
+    wall = time.perf_counter() - t0
+    up = model.speech_tokenizer.decode_upsample_rate
+    if (with_ref != without + 1 or len(res) != 1 or res[0].token_count != XVEC_FRAMES
+            or res[0].audio.shape != (XVEC_FRAMES * up,) or not np.isfinite(res[0].audio).all()):
+        raise SystemExit(f"chip_smoke: x-vector synthesis: prompt {with_ref} vs {without} "
+                         f"positions, {[r.token_count for r in res]} frames")
+    log(f"[xvector] Qwen3-TTS int4 Base, ref_audio without ref_text: the speaker's x-vector "
+        f"takes one prompt position ({with_ref} against {without}); {XVEC_FRAMES} frames in "
+        f"{wall:.4f} s")
+    return {"max_abs_err": d, "peak": peak, "synthesis_s": wall}
+
+
+def phase_orpheus(smi: str, keep) -> dict:
+    """Phase 13 (see the module docstring)."""
+    from mlx_audio_tpu_torch.codec.models import SNAC
+    from mlx_audio_tpu_torch.ops.cuda import quant_matmul as qk
+    from mlx_audio_tpu_torch.tts.models.llama import Model as Orpheus
+    from mlx_audio_tpu_torch.tts.models.snac_lm import codes_to_layers
+
+    for k in [k for k in keep if k != "qwen3_int4"]:  # the last phase: free the card
+        del keep[k]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+
+    def mark(what):  # the phase's own clock, for its share of the time limit
+        log(f"[orpheus] {time.perf_counter() - t_phase:.1f} s into phase 13 after {what}")
+
+    tmp = Path(tempfile.mkdtemp(prefix="orpheus-"))
+    try:
+        path, reduced = tmp / "orpheus-3b-int4", tmp / "orpheus-3b-int4-2layer"
+        succ, spoken, cycle = orpheus_successors(ORPHEUS_CFG["vocab_size"])
+        write_s, nbytes = write_orpheus(path, reduced, succ)
+        model, load_s = timed_load(str(path))
+        layers = model.config.num_hidden_layers
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"[orpheus] Orpheus-3B int4 g64 (every Linear, fused q/k/v and gate/up; bf16 "
+            f"embedding and activations; llama3 rope): {n_params / 1e6:.1f} M stored values, "
+            f"{nbytes / 1e9:.3f} GB written in {write_s:.1f} s (with the two-layer copy), "
+            f"loaded in {load_s:.2f} s ({nbytes / 1e9 / load_s:.2f} GB/s)")
+        snac = SNAC(**SNAC_24K, device="cuda", seed=3)
+        # seeded weights leave the samples ~1e-4: the output layer is scaled
+        # so that the planted frames reach 0.3, which the card-against-CPU
+        # bar and the served int16 samples can resolve
+        with torch.no_grad():
+            quiet = snac.decode(codes_to_layers(frame_codes(spoken))).abs().max().item()
+            snac.decoder.model[-1].weight.mul_(0.3 / quiet)
+        log(f"[snac] 24 kHz at the published widths, seeded: output layer scaled by "
+            f"{0.3 / quiet:.1f} (peak {quiet:.3e} before)")
+        model.set_runtime(codec=snac)
+        ids = model.prepare_input_ids(ORPHEUS_TEXT)
+        want_codes = frame_codes(spoken)
+        n_gen = 2 + len(want_codes) + 1  # SOA, SOS, the codes, END_OF_SPEECH
+        seen = []
+        decode = model.decode_audio
+        model.decode_audio = lambda codes: (seen.append(list(codes)), decode(codes))[1]
+
+        def run(**kw):
+            kw = dict(dict(max_tokens=ORPHEUS_MAX_TOKENS), **kw)
+            with torch.inference_mode():
+                out = list(model.generate(ORPHEUS_TEXT, temperature=0.0, **kw))
+            torch.cuda.synchronize()
+            return out
+
+        calls = decode_calls(n_gen, ORPHEUS_MAX_TOKENS, ORPHEUS_MAX_TOKENS)
+        predicted = orpheus_launches(layers, [(len(ids), 1), (1, calls)])
+        run()  # warm-up
+        walls = []
+        for _ in range(ORPHEUS_TIMED):
+            qk.reset_launches()
+            t0 = time.perf_counter()
+            res = run()
+            walls.append(time.perf_counter() - t0)
+            launches = held_launches("generate", predicted)
+        audio = res[0].audio
+        audio_s = len(audio) / model.sample_rate
+        if (len(res) != 1 or res[0].token_count != n_gen or seen[-1] != want_codes
+                or audio.shape != (snac.hop_length * snac.vq_strides[0] * ORPHEUS_SPOKEN,)
+                or not np.isfinite(audio).all() or np.abs(audio).max() > 1.0):
+            raise SystemExit(f"chip_smoke: Orpheus generate gave {[r.token_count for r in res]}"
+                             f" tokens, audio {audio.shape}, codes not the planted frames")
+        wall = statistics.median(walls)
+        log(f"[orpheus] generate (greedy, repetition penalty 1.3 over 20), prompt {len(ids)} "
+            f"tokens: {n_gen} tokens to END_OF_SPEECH, {audio_s:.4f} s of audio, wall median "
+            f"{wall:.4f} s of {walls} (RTF {wall / audio_s:.4f}, {n_gen / wall:.1f} tokens/s), "
+            f"{calls} decode calls ({smi})")
+        mark("timed generate")
+        # profiled on ORPHEUS_PROFILE_TOKENS: the profiler's post-processing
+        # grows with the ~1,400 launches a decode step
+        busy_us, kernels = profile_one_run(lambda: run(max_tokens=ORPHEUS_PROFILE_TOKENS),
+                                           f"one Orpheus generate of {ORPHEUS_PROFILE_TOKENS} "
+                                           f"tokens")
+        mark("the profiled generate")
+        prof = dict(profile_one_run.last)
+        prof["port_kernels"] = {k: {"launches": n, "device_ms": us / 1e3}
+                                for k, (n, us) in kernels.items()}
+
+        qk.reset_launches()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            stream = model.generate(ORPHEUS_TEXT, temperature=0.0, max_tokens=ORPHEUS_MAX_TOKENS,
+                                    stream=True, streaming_interval=ORPHEUS_STREAM_INTERVAL)
+            first = next(stream)
+            ttfa = time.perf_counter() - t0
+            chunks = [first] + list(stream)
+        stream_s = time.perf_counter() - t0
+        joined = np.concatenate([c.audio for c in chunks])
+        held_launches("stream", orpheus_launches(layers, [(len(ids), 1), (1, decode_calls(
+            n_gen, ORPHEUS_MAX_TOKENS, 32))]))
+        if joined.shape != audio.shape or not np.isfinite(joined).all():
+            raise SystemExit(f"chip_smoke: the streamed Orpheus audio {joined.shape} against "
+                             f"{audio.shape}")
+        stream_reference(snac, spoken, [c.audio for c in chunks])
+        log(f"[orpheus] stream=True, {ORPHEUS_STREAM_INTERVAL} s interval: time to first audio "
+            f"{ttfa:.4f} s ({len(chunks)} chunks of {[len(c.audio) for c in chunks]} samples, "
+            f"wall {stream_s:.4f} s); each chunk equal to one decode of its planted frames "
+            f"past its context; joined against one decode of all: max|d| "
+            f"{np.abs(joined - audio).max():.3e} (the context covers part of the receptive "
+            f"field)")
+
+        mark("the stream")
+        prompts = wave_prompts(model, cycle)
+        cpu = orpheus_two_layer(reduced, ids, prompts)
+        mark("the two-layer copy")
+        batched = orpheus_batched(model, prompts)
+        mark("the batched wave")
+        # the served request decodes to END_OF_SPEECH under the default cap;
+        # the timed run's cap came after it too, so its samples are the same
+        served = orpheus_served(path, pcm16(audio))
+        mark("the served request")
+        snac_rec = snac_checks(snac, spoken)
+        mark("SNAC")
+        del model
+        Orpheus._codec = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    xvec = xvector_checks(keep)
+    mark("the x-vector checks")
+    rec = {"write_s": write_s, "checkpoint_bytes": nbytes, "load_s": load_s,
+           "prompt_tokens": len(ids), "generated_tokens": n_gen, "audio_s": audio_s,
+           "wall_s": wall, "walls_s": walls, "rtf": wall / audio_s, "decode_calls": calls,
+           "launches": launches, "profile_tokens": ORPHEUS_PROFILE_TOKENS, "profile": prof,
+           "ttfa_s": ttfa, "stream_wall_s": stream_s,
+           "card_vs_cpu": cpu, "batched": batched, "served": served, "snac": snac_rec,
+           "xvector": xvec, "phase_s": time.perf_counter() - t_phase}
+    log(f"[orpheus] phase 13 wall {rec['phase_s']:.1f} s")
+    return rec
+
+
 QUANT_SOURCE = "mlx_audio_tpu_torch/csrc/quant_matmul.cu"
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
                     help="comma-separated subset to run (12 runs 10 first for its checkpoint "
                          "directories); a subset prints no result")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
@@ -3975,7 +4838,10 @@ def run_phases(phases, smi, keep, ckpt: Path) -> None:
     if 12 in phases:
         served = phase_http(smi, ckpt, keep)
         took(12)
-    if phases != set(range(1, 13)):
+    if 13 in phases:
+        orpheus = phase_orpheus(smi, keep)
+        took(13)
+    if phases != set(range(1, 14)):
         log(f"[device] {smi}")
         sys.exit(f"chip_smoke: ran phases {sorted(phases)} only; no result")
     record = {"kernels": [{
@@ -4050,6 +4916,21 @@ def run_phases(phases, smi, keep, ckpt: Path) -> None:
         "qmm", "qmm_gemv", "qmm_mma", "qmm_kernel")}}  # phase 12's 8 requests
     qmlp = next(k for k in record["kernels"] if k["name"] == "qmlp")
     qmlp["server"] = {"launches": served["qwen3_int4"]["launches"]["qmlp"]}
+    # Orpheus-3B int4 (phase 13): launches of one greedy generate and of the
+    # batched wave, and the kernels' times at its shapes (phase 2, bf16 x)
+    qmm["orpheus"] = {
+        "launches": {k: orpheus["launches"][k] for k in ("qmm", "qmm_gemv", "qmm_mma",
+                                                          "qmm_kernel")},
+        "batched_launches": {k: orpheus["batched"]["launches"][k]
+                             for k in ("qmm", "qmm_gemv", "qmm_mma", "qmm_kernel")},
+        "max_abs_err": qerrs["orpheus_lm_head_m1_bf16"],
+        "shapes": {key[len("orpheus_"):]: qtiming[key] for key in qtiming
+                   if key.startswith("orpheus_") and "qmlp" not in key}}
+    qmlp["orpheus"] = {
+        "launches": orpheus["launches"]["qmlp"],
+        "batched_launches": orpheus["batched"]["launches"]["qmlp"],
+        "max_abs_err": qerrs["orpheus_mlp_m1_bf16"],
+        "shapes": {f"m{M}": qtiming[f"orpheus_qmlp_m{M}"] for M in (1, 4)}}
     qmlp["serving"] = {"launches": serving["qwen3_int4"]["launches"]["qmlp"],
                        "m8": {"max_abs_err": qerrs["mlp_m8_f32"], **qtiming["qmlp_m8"]}}
     record["kernels"].append({
@@ -4071,6 +4952,7 @@ def run_phases(phases, smi, keep, ckpt: Path) -> None:
     print(json.dumps({"loaded": loaded}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"server": served}), flush=True)
+    print(json.dumps({"orpheus": orpheus}), flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -137,9 +137,11 @@ def istft(x: torch.Tensor, hop_length: Optional[int] = None,
 
 
 @lru_cache(maxsize=None)
-def _mel_filters_np(sample_rate: int, n_fft: int, n_mels: int) -> np.ndarray:
+def _mel_filters_np(sample_rate: int, n_fft: int, n_mels: int, f_min: float = 0.0,
+                    f_max: Optional[float] = None) -> np.ndarray:
     """Slaney-scale triangular mel filterbank with slaney area
-    normalisation, shape (n_mels, n_fft//2 + 1), as librosa and Whisper."""
+    normalisation over [f_min, f_max] (default: up to Nyquist), shape
+    (n_mels, n_fft//2 + 1), as librosa and Whisper."""
     f_sp = 200.0 / 3
     min_log_hz = 1000.0
     min_log_mel = min_log_hz / f_sp
@@ -159,7 +161,7 @@ def _mel_filters_np(sample_rate: int, n_fft: int, n_mels: int) -> np.ndarray:
 
     n_freqs = n_fft // 2 + 1
     all_freqs = np.linspace(0, sample_rate // 2, n_freqs)
-    m_pts = np.linspace(hz_to_mel(0.0), hz_to_mel(sample_rate / 2), n_mels + 2)
+    m_pts = np.linspace(hz_to_mel(f_min), hz_to_mel(f_max or sample_rate / 2), n_mels + 2)
     f_pts = mel_to_hz(m_pts)
 
     f_diff = f_pts[1:] - f_pts[:-1]
@@ -171,8 +173,9 @@ def _mel_filters_np(sample_rate: int, n_fft: int, n_mels: int) -> np.ndarray:
     return fb.T.astype(np.float32)
 
 
-def mel_filters(sample_rate: int, n_fft: int, n_mels: int, device=None) -> torch.Tensor:
-    return torch.from_numpy(_mel_filters_np(sample_rate, n_fft, n_mels)).to(device)
+def mel_filters(sample_rate: int, n_fft: int, n_mels: int, f_min: float = 0.0,
+                f_max: Optional[float] = None, device=None) -> torch.Tensor:
+    return torch.from_numpy(_mel_filters_np(sample_rate, n_fft, n_mels, f_min, f_max)).to(device)
 
 
 def log_mel_spectrogram(

@@ -9,7 +9,10 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["KVCache"]
+__all__ = ["KVCache", "make_caches", "CACHE_DTYPE"]
+
+# the LM's caches' dtype whatever the model's, as the JAX package's default
+CACHE_DTYPE = torch.bfloat16
 
 
 class KVCache:
@@ -54,3 +57,10 @@ class KVCache:
         k_idx = torch.arange(self.max_len, device=dev)[None, :]
         zero = torch.zeros((), device=dev)
         return torch.where(k_idx <= q_pos, zero, float("-inf"))[None, None]
+
+
+def make_caches(num_layers: int, batch: int, num_kv_heads: int, max_len: int,
+                head_dim: int, dtype=CACHE_DTYPE, device=None):
+    """One `KVCache` a layer."""
+    return [KVCache(batch, num_kv_heads, max_len, head_dim, dtype, device)
+            for _ in range(num_layers)]

@@ -79,9 +79,11 @@ def scaled_dot_product_attention(
 
     probs = torch.softmax(scores, dim=-1).to(q.dtype).reshape(B, H_kv, rep * T, S)
     if v.dtype != probs.dtype:
-        # a float32 cache under bf16 queries: the product runs in the wider
-        # type and returns the query's, as JAX promotes
-        out = torch.matmul(probs.to(v.dtype), v).to(q.dtype)
+        # a float32 cache under bf16 queries, or a bf16 cache under float32
+        # ones: the product runs in the wider type and returns the query's,
+        # as JAX promotes
+        wide = torch.promote_types(probs.dtype, v.dtype)
+        out = torch.matmul(probs.to(wide), v.to(wide)).to(q.dtype)
     else:
         out = torch.matmul(probs, v)
     return out.view(B, H, T, D)

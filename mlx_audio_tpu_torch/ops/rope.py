@@ -1,13 +1,15 @@
 """Rotary position embeddings (counterpart of `mlx_audio_tpu/ops/rope.py`):
-the rotate-half layout and the `traditional` (interleaved pairs) one."""
+the rotate-half layout and the `traditional` (interleaved pairs) one, and
+Llama-3's frequency scaling."""
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
-__all__ = ["rope_cos_sin", "apply_rope"]
+__all__ = ["rope_cos_sin", "apply_rope", "llama3_rope_freqs"]
 
 
 def rope_cos_sin(positions: torch.Tensor, dims: int, base: float = 10000.0,
@@ -39,3 +41,23 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     if 2 * d < x.shape[-1]:
         out = torch.cat([out.to(x.dtype), x[..., 2 * d:]], dim=-1)
     return out.to(x.dtype)
+
+
+def llama3_rope_freqs(dims: int, base: float, factor: float = 8.0,
+                      low_freq_factor: float = 1.0, high_freq_factor: float = 4.0,
+                      original_max_position: int = 8192, device=None) -> torch.Tensor:
+    """Llama-3's long-context rescaling of the rope frequencies (float32,
+    (dims/2,)): wavelengths past original_max_position / low_freq_factor
+    slow down by `factor`, those under original_max_position /
+    high_freq_factor stay, and the band between blends the two. Computed in
+    float64 on the host, as the JAX package does."""
+    freqs = base ** (-np.arange(0, dims, 2, dtype=np.float64) / dims)
+    wavelens = 2 * np.pi / freqs
+    low_freq_wavelen = original_max_position / low_freq_factor
+    high_freq_wavelen = original_max_position / high_freq_factor
+    new_freqs = np.where(wavelens > low_freq_wavelen, freqs / factor, freqs)
+    smooth = (original_max_position / wavelens - low_freq_factor) / (
+        high_freq_factor - low_freq_factor)
+    mid = np.where((wavelens <= low_freq_wavelen) & (wavelens >= high_freq_wavelen),
+                   freqs / ((1 - smooth) / factor + smooth), new_freqs)
+    return torch.from_numpy(mid.astype(np.float32)).to(device)

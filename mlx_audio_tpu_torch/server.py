@@ -104,9 +104,9 @@ class ModelProvider:
         every other batcher takes no arguments."""
         import torch
 
-        from .serving import _pinned, _thread_setup
+        from .device import pinned, thread_setup
 
-        _thread_setup(_pinned(getattr(model, "device", None)))
+        thread_setup(pinned(getattr(model, "device", None)))
         if hasattr(model, "dims") and hasattr(model, "get_tokenizer"):
             from .stt.models.whisper.decoding import DecodingOptions
 

@@ -19,9 +19,10 @@ refuse the inference tensors its callers hand over). No fallback: a batched
 call that raises sets the exception on every future of its group; nothing is
 retried unbatched or on the host.
 
-Not ported yet: `ParakeetBatcher` (waits for Parakeet) and
-`LMContinuousBatcher` (waits for the LM core, `lm/continuous.py`'s
-`ContinuousBatcher`).
+`LMContinuousBatcher` puts the token-level `lm.continuous.ContinuousBatcher`
+behind the same hook for the LM families (Orpheus and VyvoTTS).
+
+Not ported yet: `ParakeetBatcher` (waits for Parakeet).
 """
 
 from __future__ import annotations
@@ -35,12 +36,15 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .device import pinned, thread_setup
+
 __all__ = [
     "BatchScheduler",
     "KokoroBatcher",
     "WhisperBatcher",
     "FrameBatcherBase",
     "StackBatcher",
+    "LMContinuousBatcher",
     "register_infer_hook",
     "unregister_infer_hook",
     "get_infer_hook",
@@ -73,24 +77,6 @@ def stream_chunks(submit, *args, chunk_size: int = 1, callback_kw: str, **kwargs
 
 
 _SENTINEL = object()
-
-
-def _pinned(device) -> Optional[torch.device]:
-    """The model's device with its index: a bare "cuda" means the device
-    current on the thread that builds the batcher."""
-    if device is None:
-        return None
-    dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
-
-
-def _thread_setup(device: Optional[torch.device]) -> None:
-    """A worker thread's own device setup: the current CUDA device is per
-    thread, and the kernels launch on the current device's stream."""
-    if device is not None and device.type == "cuda":
-        torch.cuda.set_device(device)
 
 
 def _batch_bucket(n: int, max_batch: int) -> int:
@@ -130,7 +116,7 @@ class BatchScheduler:
         self.bucket_fn = bucket_fn
         self.max_batch = max_batch
         self.window_s = window_ms / 1000.0
-        self.device = _pinned(device)
+        self.device = pinned(device)
         self._q: "queue.Queue[Tuple[Any, Optional[Future]]]" = queue.Queue()
         self._stop = threading.Event()
         self.dispatch_count = 0  # batched device dispatches (for tests/metrics)
@@ -174,7 +160,7 @@ class BatchScheduler:
         return batch
 
     def _worker(self):
-        _thread_setup(self.device)
+        thread_setup(self.device)
         with torch.inference_mode():
             while not self._stop.is_set():
                 pending = self._collect()
@@ -371,7 +357,7 @@ class FrameBatcherBase:
     def __init__(self, slots: int = 4, tick_frames: int = 8, device=None):
         self.slots = slots
         self.tick_frames = max(1, int(tick_frames))
-        self.device = _pinned(device)
+        self.device = pinned(device)
         self.active: List[Optional[Any]] = [None] * slots
         self._joinq: "queue.Queue[Any]" = queue.Queue()
         self._stop = threading.Event()
@@ -439,7 +425,7 @@ class FrameBatcherBase:
                 req.future.set_exception(RuntimeError("batcher closed"))
 
     def _worker(self):
-        _thread_setup(self.device)
+        thread_setup(self.device)
         with torch.inference_mode():
             while not self._stop.is_set():
                 while any(a is None for a in self.active):
@@ -470,6 +456,48 @@ class FrameBatcherBase:
     @property
     def dispatch_count(self) -> int:
         return self.steps
+
+
+# ---------------------------------------------------------------------------
+# Token-stream LMs
+# ---------------------------------------------------------------------------
+
+
+class LMContinuousBatcher:
+    """Continuous batching for AR token-stream models (the SNAC LMs, Orpheus
+    and VyvoTTS): concurrent requests decode in lock-step through
+    `lm.continuous.ContinuousBatcher`; the model routes through
+    `hook.submit(...)`."""
+
+    def __init__(self, model, slots: int = 4, max_len: int = 4096, **kwargs):
+        from .lm.continuous import ContinuousBatcher
+
+        self.model = model
+        self.cb = ContinuousBatcher(model, slots=slots, max_len=max_len, **kwargs)
+
+    def warmup(self):
+        """One concurrent wave of tiny requests, one a slot: the smallest
+        prefill bucket, every slot's install and a tick run before live
+        traffic."""
+        n = self.cb.tick_tokens + 1
+        futs = [self.cb.submit([1] * 8, max_tokens=n) for _ in range(self.cb.slots)]
+        for f in futs:
+            f.result()
+
+    def submit(self, *args, **kwargs):
+        return self.cb.submit(*args, **kwargs)
+
+    def install(self):
+        register_infer_hook(self.model, self)
+        return self
+
+    def close(self):
+        unregister_infer_hook(self.model)
+        self.cb.close()
+
+    @property
+    def dispatch_count(self) -> int:
+        return self.cb.steps
 
 
 # ---------------------------------------------------------------------------

@@ -6,20 +6,23 @@ Qwen2 text tokenizer), written against the `tokenizers` library's semantics
 and held to it by the tests. It needs neither `tokenizers` nor
 `transformers`, which the card's machine does not have.
 
-It covers exactly the components Whisper's and Qwen2's files use:
+It covers exactly the components Whisper's, Qwen2's and Llama-3's files
+use:
 
 - model: `BPE`, merges written as "a b" strings or as pairs, `ignore_merges`,
   `unk_token` / `fuse_unk`;
 - normalizer: null, `NFC`, or a `Sequence` of them;
 - pre-tokenizer: `ByteLevel` (with or without the GPT-2 pattern), and a
   `Sequence` of `Split(Regex, "Isolated")` and `ByteLevel(use_regex=False)`
-  with Qwen2's pattern;
+  with Qwen2's pattern or Llama-3's (Qwen2's with runs of up to three
+  digits);
 - decoder: `ByteLevel`;
-- post-processor: `ByteLevel`, null, or `TemplateProcessing` (single);
+- post-processor: `ByteLevel`, null, `TemplateProcessing` (single), or a
+  `Sequence` of them with at most one template (Llama-3's);
 - `added_tokens`, split out before pre-tokenizing, with `special`,
   `lstrip`, `rstrip` and `normalized`.
 
-Any other component raises and names itself. The two split patterns use
+Any other component raises and names itself. The split patterns use
 `\\p{L}` and `\\p{N}`, which neither `re` nor the card has; they run here as
 small scanners over `unicodedata.category` that follow each pattern's
 alternation order, backtracking included.
@@ -34,7 +37,8 @@ import unicodedata
 from pathlib import Path
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
-__all__ = ["Tokenizer", "load", "GPT2_PATTERN", "QWEN2_PATTERN", "bytes_to_unicode"]
+__all__ = ["Tokenizer", "load", "GPT2_PATTERN", "QWEN2_PATTERN", "LLAMA3_PATTERN",
+           "bytes_to_unicode"]
 
 # Unicode White_Space: Rust's `char::is_whitespace` and Oniguruma's `\s`
 # (str.isspace would add U+001C..U+001F)
@@ -45,6 +49,8 @@ WHITE_SPACE = frozenset(
 GPT2_PATTERN = r"'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+"
 QWEN2_PATTERN = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}"
                  r"| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+LLAMA3_PATTERN = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}{1,3}"
+                  r"| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
 
 
 @functools.lru_cache(maxsize=None)
@@ -63,7 +69,7 @@ def bytes_to_unicode() -> Dict[int, str]:
 
 
 # ---------------------------------------------------------------------------
-# The two split patterns
+# The split patterns
 # ---------------------------------------------------------------------------
 
 
@@ -143,9 +149,10 @@ def _not_crlf_letter_number(c: str) -> bool:
     return c not in "\r\n" and unicodedata.category(c)[0] not in "LN"
 
 
-def _scan_qwen2(text: str, i: int) -> int:
+def _scan_qwen2(text: str, i: int, digits: int = 1) -> int:
     """`(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\\r\\n\\p{L}\\p{N}]?\\p{L}+|\\p{N}
-    | ?[^\\s\\p{L}\\p{N}]+[\\r\\n]*|\\s*[\\r\\n]+|\\s+(?!\\S)|\\s+`"""
+    | ?[^\\s\\p{L}\\p{N}]+[\\r\\n]*|\\s*[\\r\\n]+|\\s+(?!\\S)|\\s+`, with
+    `\\p{N}{1,digits}` for the third branch (Llama-3's: 3)."""
     end = _contraction(text, i, ignore_case=True)
     if end > 0:
         return end
@@ -153,7 +160,7 @@ def _scan_qwen2(text: str, i: int) -> int:
     if end > 0:
         return end
     if _number(text[i]):
-        return i + 1
+        return min(_run(text, i, _number), i + digits)
     end = _opt_prefix_run(text, i, " ".__eq__, _other)
     if end > 0:
         return _run(text, end, "\r\n".__contains__)
@@ -165,7 +172,8 @@ def _scan_qwen2(text: str, i: int) -> int:
     return _space_tail(text, i)
 
 
-_SCANNERS = {GPT2_PATTERN: _scan_gpt2, QWEN2_PATTERN: _scan_qwen2}
+_SCANNERS = {GPT2_PATTERN: _scan_gpt2, QWEN2_PATTERN: _scan_qwen2,
+             LLAMA3_PATTERN: functools.partial(_scan_qwen2, digits=3)}
 
 
 def _split_isolated(text: str, scan: Callable[[str, int], int]) -> List[str]:
@@ -193,7 +201,7 @@ def _split_isolated(text: str, scan: Callable[[str, int], int]) -> List[str]:
 
 def _unsupported(path, what: str, spec) -> ValueError:
     return ValueError(f"{path}: unsupported {what} {json.dumps(spec)[:200]} (the reader "
-                      "covers byte-level BPE as Whisper's and Qwen2's files use it)")
+                      "covers byte-level BPE as Whisper's, Qwen2's and Llama-3's files use it)")
 
 
 def _normalizer(spec, path) -> Callable[[str], str]:
@@ -402,6 +410,12 @@ def _post_processor(spec, path, token_to_id) -> Tuple[List[int], List[int]]:
     """(ids before, ids after) the sequence when special tokens are added."""
     if spec is None or spec.get("type") == "ByteLevel":
         return [], []
+    if spec.get("type") == "Sequence":
+        parts = [_post_processor(p, path, token_to_id) for p in spec.get("processors", [])]
+        templates = [p for p in parts if p != ([], [])]
+        if len(templates) > 1:
+            raise _unsupported(path, "post-processor sequence of several templates", spec)
+        return templates[0] if templates else ([], [])
     if spec.get("type") == "TemplateProcessing":
         special = spec.get("special_tokens", {})
         before: List[int] = []

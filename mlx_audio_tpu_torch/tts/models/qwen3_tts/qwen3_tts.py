@@ -12,9 +12,11 @@ while `min_tokens` keeps EOS out.
 
 Ported: `generate` with the base, custom_voice and voice_design routes,
 streaming and not, alone or through an installed serving batcher
-(`make_batcher`, `batcher.py`). Not yet: ICL voice cloning (`ref_audio` +
-`ref_text`, which needs the Mimi-based speech-tokenizer encoder) and the
-speaker encoder; they raise NotImplementedError.
+(`make_batcher`, `batcher.py`), and x-vector voice cloning on Base
+checkpoints (`ref_audio` without `ref_text`: the ECAPA-TDNN speaker encoder
+of `speaker_encoder.py` over `mel_spectrogram`). Not yet: ICL voice cloning
+(`ref_audio` + `ref_text`, which needs the Mimi-based speech-tokenizer
+encoder); it raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -29,23 +31,42 @@ import torch
 from torch import nn
 
 from ....device import resolve_device
+from ....dsp import hanning, mel_filters, stft
 from ....lm.sample import apply_repetition_penalty, top_k_filter, top_p_filter
 from ....nn.module import cast_floats, init_weights
 from ....nn.sanitize import orient_weights_to_model
 from ....serving import get_infer_hook, stream_chunks
 from ..base import GenerationResult, format_duration
 from .config import ModelConfig
+from .speaker_encoder import Qwen3TTSSpeakerEncoder
 from .speech_tokenizer import Qwen3TTSSpeechTokenizer
 from .talker import Qwen3TTSTalkerForConditionalGeneration
 
-__all__ = ["Model", "ModelConfig", "checkpoint_quant_predicate"]
+__all__ = ["Model", "ModelConfig", "checkpoint_quant_predicate", "mel_spectrogram"]
 
 # JAX parameter prefixes of parts this port does not build yet
-NOT_BUILT = ("speech_tokenizer.encoder.", "speaker_encoder.")
+NOT_BUILT = ("speech_tokenizer.encoder.",)
 
 _ICL_TODO = ("ICL voice cloning (ref_audio + ref_text) needs the Mimi-based "
              "speech-tokenizer encoder, which is not ported yet")
-_SPK_TODO = "the speaker encoder (ref_audio without ref_text) is not ported yet"
+
+
+def mel_spectrogram(audio, n_fft: int = 1024, num_mels: int = 128, sample_rate: int = 24000,
+                    hop_size: int = 256, win_size: int = 1024, fmin: float = 0.0,
+                    fmax: float = 12000.0, device=None) -> torch.Tensor:
+    """The speaker encoder's BigVGAN-style log mel → (1, T, num_mels) float32:
+    reflect padding of (n_fft - hop)/2 a side, an uncentred STFT under a
+    symmetric Hann window, magnitudes through slaney mel filters, the log of
+    values clipped at 1e-5."""
+    x = torch.as_tensor(np.asarray(audio, np.float32).reshape(-1), device=device)
+    pad = (n_fft - hop_size) // 2
+    x = torch.nn.functional.pad(x[None, None], (pad, pad), mode="reflect")[0, 0]
+    spec = stft(x, n_fft=n_fft, hop_length=hop_size, win_length=win_size,
+                window=hanning(win_size, device=x.device), center=False)
+    mag = torch.sqrt(spec.abs() ** 2 + 1e-9)
+    fb = mel_filters(sample_rate, n_fft, num_mels, f_min=fmin, f_max=fmax, device=x.device)
+    mel = torch.matmul(mag, fb.T)
+    return torch.log(mel.clamp(min=1e-5))[None]
 
 
 def checkpoint_quant_predicate(key: str, w=None) -> bool:
@@ -97,6 +118,10 @@ class Model(nn.Module):
                                                              device=self.device)
         self.speech_tokenizer = Qwen3TTSSpeechTokenizer(config.tokenizer_config,
                                                         device=self.device)
+        # Base checkpoints carry the x-vector encoder; the other types do not
+        self.speaker_encoder = (
+            Qwen3TTSSpeakerEncoder(config.speaker_encoder_config, device=self.device)
+            if config.speaker_encoder_config is not None else None)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         init_weights(self, gen)
@@ -164,7 +189,11 @@ class Model(nn.Module):
 
     # ---- loading (utils.base_load_model) ----
 
-    NOT_BUILT = NOT_BUILT
+    @property
+    def NOT_BUILT(self):
+        """Checkpoint prefixes the loader drops: the speech-tokenizer encoder,
+        and the speaker encoder where the config builds none."""
+        return NOT_BUILT + (("speaker_encoder.",) if self.speaker_encoder is None else ())
 
     @classmethod
     def post_load_hook(cls, model, model_path):
@@ -216,6 +245,15 @@ class Model(nn.Module):
 
     # ---- inputs ----
 
+    @torch.inference_mode()
+    def extract_speaker_embedding(self, ref_audio) -> torch.Tensor:
+        """A reference waveform at the speaker encoder's rate → its x-vector
+        (1, 1, enc_dim)."""
+        cfg = self.config.speaker_encoder_config
+        mel = mel_spectrogram(ref_audio, num_mels=cfg.mel_dim, sample_rate=cfg.sample_rate,
+                              device=self.device)
+        return self.speaker_encoder(mel)[:, None]
+
     def _text_embed(self, ids) -> torch.Tensor:
         t = torch.as_tensor(list(ids), dtype=torch.long, device=self.device)[None]
         return self.talker.text_projection(self.talker.model.text_embedding(t))
@@ -229,8 +267,6 @@ class Model(nn.Module):
                                    speaker: Optional[str] = None, ref_audio=None,
                                    instruct: Optional[str] = None):
         cfg = self.config.talker_config
-        if ref_audio is not None:
-            raise NotImplementedError(_SPK_TODO)
         chat = f"<|im_start|>assistant\n{text}<|im_end|>\n<|im_start|>assistant\n"
         text_embed = self._text_embed(self.tokenizer.encode(chat))
         tts = self._text_embed([self.config.tts_bos_token_id, self.config.tts_eos_token_id,
@@ -238,7 +274,9 @@ class Model(nn.Module):
         tts_bos, tts_eos, tts_pad = tts[:, 0:1], tts[:, 1:2], tts[:, 2:3]
 
         speaker_embed = None
-        if speaker and speaker.lower() in (cfg.spk_id or {}):
+        if ref_audio is not None and self.speaker_encoder is not None:
+            speaker_embed = self.extract_speaker_embedding(ref_audio)
+        elif speaker and speaker.lower() in (cfg.spk_id or {}):
             speaker_embed = self._codec_embed([cfg.spk_id[speaker.lower()]])
 
         language_id = None
@@ -492,9 +530,15 @@ class Model(nn.Module):
                  streaming_interval: float = 2.0, **kwargs):
         """Routes by model type as the JAX package does: voice_design (voice
         described by `instruct`), custom_voice (a named speaker, optional
-        `instruct`), base (one segment per `split_pattern` piece)."""
-        if ref_audio is not None:
-            raise NotImplementedError(_ICL_TODO if ref_text is not None else _SPK_TODO)
+        `instruct`), base (one segment per `split_pattern` piece, with the
+        x-vector of `ref_audio` as the speaker where the checkpoint has the
+        speaker encoder)."""
+        if ref_audio is not None and ref_text is not None:
+            raise NotImplementedError(_ICL_TODO)
+        if ref_audio is not None and isinstance(ref_audio, str):
+            from ....utils import load_audio
+
+            ref_audio = load_audio(ref_audio, sample_rate=self.sample_rate)
         common = dict(
             temperature=temperature, top_k=top_k, top_p=top_p,
             repetition_penalty=repetition_penalty, max_tokens=max_tokens, stream=stream,
@@ -520,7 +564,8 @@ class Model(nn.Module):
         segments = [s.strip() for s in text.split(split_pattern) if s.strip()]
         for segment_idx, segment in enumerate(segments):
             input_embeds, trailing, tts_pad = self._prepare_generation_inputs(
-                segment, language=lang_code, speaker=voice, instruct=instruct)
+                segment, language=lang_code, speaker=voice, ref_audio=ref_audio,
+                instruct=instruct)
             yield from self._generate_segment(input_embeds, trailing, tts_pad,
                                               segment_idx=segment_idx, **common)
 

@@ -14,7 +14,8 @@ The JAX package's contract: `load_config`, `load_weight_files`
 - a model is built on an explicit device (`device=None` is the card) and
   in one float dtype (`dtype=None` takes the checkpoint's);
 - only the families the port has resolve (`whisper`, `qwen3_tts`,
-  `kokoro`); any other raises the JAX package's "not supported" error;
+  `kokoro`, `llama` (Orpheus) and `qwen3` (VyvoTTS)); any other raises the
+  JAX package's "not supported" error;
 - `resample_audio` is scipy's `resample_poly`, the JAX package's second
   route (its first is its native C resampler, not loaded here);
 - tensor-parallel serving (`maybe_shard_for_serving`) is not ported.
@@ -43,7 +44,7 @@ T = TypeVar("T")
 logger = logging.getLogger(__name__)
 
 # the model families the port has, by category
-PORTED = {"stt": ("whisper",), "tts": ("qwen3_tts", "kokoro")}
+PORTED = {"stt": ("whisper",), "tts": ("qwen3_tts", "kokoro", "llama", "qwen3")}
 
 NO_DOWNLOAD = ("the PyTorch port reads local checkpoint directories only and does not "
                "download: fetch {!r} first and pass its directory")

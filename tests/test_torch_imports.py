@@ -156,6 +156,8 @@ def _tiny_entry_points():
     from mlx_audio_tpu_torch.sts.models.mossformer2_se import Model as MossFormer2SE
     from mlx_audio_tpu_torch.stt.models.whisper import Model as Whisper
     from mlx_audio_tpu_torch.tts.models.kokoro import Model as Kokoro
+    from mlx_audio_tpu_torch.tts.models.llama import Model as Orpheus
+    from mlx_audio_tpu_torch.tts.models.qwen3 import Model as Vyvo
     from mlx_audio_tpu_torch.tts.models.qwen3_tts import Model as Qwen3TTS
 
     whisper = dict(n_mels=80, n_audio_ctx=8, n_audio_state=16, n_audio_head=2,
@@ -178,8 +180,11 @@ def _tiny_entry_points():
         gen_istft_hop_size=1), dim_in=8, hidden_dim=8, style_dim=4, n_layer=1, max_dur=4,
         plbert=dict(hidden_size=8, num_attention_heads=2, intermediate_size=8,
                     max_position_embeddings=16, num_hidden_layers=1, embedding_size=8))
+    lm = dict(hidden_size=16, num_hidden_layers=1, intermediate_size=32,
+              num_attention_heads=2, num_key_value_heads=1, vocab_size=32)
     return [(Whisper, whisper), (Qwen3TTS, qwen3), (MossFormer2SE, mossformer2_se),
-            (Kokoro, kokoro)]
+            (Kokoro, kokoro), (Orpheus, dict(lm, model_type="llama")),
+            (Vyvo, dict(lm, model_type="qwen3"))]
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
@@ -188,8 +193,12 @@ def test_entry_points_default_to_the_card(monkeypatch):
     import pytest
     import torch
 
+    from mlx_audio_tpu_torch.codec.models import SNAC
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for cls, cfg in _tiny_entry_points():
+    snac = dict(encoder_dim=4, encoder_rates=[2], decoder_dim=8, decoder_rates=[2],
+                attn_window_size=None, codebook_size=8, codebook_dim=2, vq_strides=[1])
+    for cls, cfg in _tiny_entry_points() + [(lambda c, **kw: SNAC(**c, **kw), snac)]:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cls(cfg)
         assert cls(cfg, device="cpu").device.type == "cpu"
@@ -220,7 +229,8 @@ def test_batchers_follow_their_model_device(monkeypatch):
         model = cls(cfg, device="cpu")
         batcher = model.make_batcher(**kw)
         try:
-            worker = getattr(batcher, "sched", batcher)
+            # the scheduler: a BatchScheduler, a ContinuousBatcher, or the batcher
+            worker = getattr(batcher, "sched", getattr(batcher, "cb", batcher))
             assert worker.device == torch.device("cpu"), cls
         finally:
             batcher.close()
@@ -284,3 +294,19 @@ def test_tokenizers_build_without_the_missing_packages(tmp_path):
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "OK"
+
+
+LM_CORE_SLICE_MODULES = (
+    "mlx_audio_tpu_torch.lm.transformer", "mlx_audio_tpu_torch.lm.generate",
+    "mlx_audio_tpu_torch.lm.sample", "mlx_audio_tpu_torch.nn.activations",
+    "mlx_audio_tpu_torch.codec.models.base", "mlx_audio_tpu_torch.codec.models.snac.snac",
+    "mlx_audio_tpu_torch.tts.models.snac_lm", "mlx_audio_tpu_torch.tts.models.llama.llama",
+    "mlx_audio_tpu_torch.tts.models.qwen3.qwen3",
+    "mlx_audio_tpu_torch.tts.models.qwen3_tts.speaker_encoder")
+
+
+def test_lm_core_slice_modules_are_scanned():
+    """The LM core, SNAC, the SNAC-LM families and Qwen3-TTS's speaker
+    encoder are among the modules the import and scan tests cover."""
+    names = {name for _, name in _modules()}
+    assert set(LM_CORE_SLICE_MODULES) <= names

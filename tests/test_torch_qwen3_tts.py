@@ -295,11 +295,18 @@ def test_streaming_gives_the_same_codes(pair_int4):
 
 
 def test_unported_routes_raise(pair):
-    _, pm = pair
+    """ICL (ref_audio with ref_text) still raises. ref_audio alone no longer
+    does: a config without the speaker encoder ignores it, as the JAX
+    package does (tests/test_torch_qwen3_speaker.py holds the Base route)."""
+    jm, pm = pair
     with pytest.raises(NotImplementedError, match="ICL"):
         list(pm.generate(TEXT, ref_audio=np.zeros(2400, np.float32), ref_text="hi"))
-    with pytest.raises(NotImplementedError, match="speaker encoder"):
-        list(pm.generate(TEXT, ref_audio=np.zeros(2400, np.float32)))
+    assert pm.speaker_encoder is None
+    (with_ref,), _ = _codes(pm, ref_audio=np.zeros(2400, np.float32))
+    (jax_ref,), _ = _codes(jm, ref_audio=np.zeros(2400, np.float32))
+    (plain,), _ = _codes(pm)
+    np.testing.assert_array_equal(with_ref, plain)
+    np.testing.assert_array_equal(with_ref, jax_ref)
 
 
 # ---- the result type and the discovery API ----

@@ -1,9 +1,11 @@
 """The port's `tokenizer.json` reader against the `tokenizers` library (and
 `transformers.AutoTokenizer` for the Qwen2 file): identical `encode` ids and
 `decode` strings on a fixed corpus and on arbitrary Unicode text
-(hypothesis), for a Whisper-style and a Qwen2-style byte-level BPE trained
-here with `tokenizers`, and for the files `chip_smoke.py` writes into its
-checkpoint directories. Components the reader does not cover raise."""
+(hypothesis), for a Whisper-style, a Qwen2-style and a Llama-3-style
+(digits split in threes, <|begin_of_text|> added by a `Sequence`
+post-processor) byte-level BPE trained here with `tokenizers`, and for the
+files `chip_smoke.py` writes into its checkpoint directories. Components the
+reader does not cover raise."""
 
 import importlib.util
 import json
@@ -16,7 +18,7 @@ from tokenizers import AddedToken, Regex, decoders, models, normalizers, pre_tok
 from tokenizers import Tokenizer as HFTokenizer
 from tokenizers import processors, trainers
 
-from mlx_audio_tpu_torch.tokenizer_json import QWEN2_PATTERN, Tokenizer
+from mlx_audio_tpu_torch.tokenizer_json import LLAMA3_PATTERN, QWEN2_PATTERN, Tokenizer
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -40,6 +42,7 @@ WHISPER_SPECIALS = ["<|endoftext|>", "<|startoftranscript|>", "<|en|>", "<|es|>"
                     "<|translate|>", "<|transcribe|>", "<|startofprev|>", "<|nospeech|>",
                     "<|notimestamps|>"]
 QWEN_SPECIALS = ["<|endoftext|>", "<|im_start|>", "<|im_end|>"]
+LLAMA3_SPECIALS = ["<|begin_of_text|>", "<|end_of_text|>", "<|eot_id|>"]
 TRAIN_TEXT = [t for t in CORPUS if "<|" not in t] * 20 + [
     "the assistant said hello to the user in the world of speech synthesis"] * 50
 
@@ -50,11 +53,13 @@ def _train(style: str) -> HFTokenizer:
         tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
         specials = WHISPER_SPECIALS
     else:
-        tok.normalizer = normalizers.NFC()
+        if style == "qwen2":
+            tok.normalizer = normalizers.NFC()
         tok.pre_tokenizer = pre_tokenizers.Sequence([
-            pre_tokenizers.Split(Regex(QWEN2_PATTERN), behavior="isolated"),
+            pre_tokenizers.Split(Regex(QWEN2_PATTERN if style == "qwen2" else LLAMA3_PATTERN),
+                                 behavior="isolated"),
             pre_tokenizers.ByteLevel(add_prefix_space=False, use_regex=False)])
-        specials = QWEN_SPECIALS
+        specials = QWEN_SPECIALS if style == "qwen2" else LLAMA3_SPECIALS
     tok.decoder = decoders.ByteLevel()
     tok.post_processor = processors.ByteLevel(trim_offsets=False)
     trainer = trainers.BpeTrainer(vocab_size=600, special_tokens=specials,
@@ -64,6 +69,13 @@ def _train(style: str) -> HFTokenizer:
     if style == "whisper":  # timestamps: added, not special
         tok.add_tokens([AddedToken(f"<|{i * 0.02:.2f}|>", normalized=False, special=False)
                         for i in range(4)])
+    if style == "llama3":  # Llama-3's post-processor: ByteLevel, then the template
+        bos = tok.token_to_id("<|begin_of_text|>")
+        tok.post_processor = processors.Sequence([
+            processors.ByteLevel(trim_offsets=False),
+            processors.TemplateProcessing(single="<|begin_of_text|> $A",
+                                          pair="<|begin_of_text|> $A <|begin_of_text|> $B",
+                                          special_tokens=[("<|begin_of_text|>", bos)])])
     # the added-token options the reader covers
     tok.add_tokens([AddedToken("<mask>", lstrip=True, normalized=False),
                     AddedToken("[R]", rstrip=True, normalized=False),
@@ -111,7 +123,7 @@ def _template(spec):
 @pytest.fixture(scope="module")
 def files(tmp_path_factory):
     d = tmp_path_factory.mktemp("tok")
-    whisper, qwen = _train("whisper"), _train("qwen2")
+    whisper, qwen, llama3 = _train("whisper"), _train("qwen2"), _train("llama3")
     cs = _chip_smoke()
     out = {
         "whisper": _write(whisper, d / "whisper.json", _string_merges),
@@ -120,13 +132,15 @@ def files(tmp_path_factory):
         "qwen2_ignore_merges": _write(qwen, d / "qwen2_ignore.json", _ignore_merges),
         "chip_whisper": cs.write_tokenizer_json(d / "chip_whisper.json", "whisper"),
         "chip_qwen2": cs.write_tokenizer_json(d / "chip_qwen2.json", "qwen2"),
+        "llama3": _write(llama3, d / "llama3.json"),
+        "chip_llama3": cs.write_tokenizer_json(d / "chip_llama3.json", "llama3"),
     }
     return {k: (HFTokenizer.from_file(str(p)), Tokenizer.from_file(p), p)
             for k, p in out.items()}
 
 
 NAMES = ["whisper", "whisper_template", "qwen2", "qwen2_ignore_merges", "chip_whisper",
-         "chip_qwen2"]
+         "chip_qwen2", "llama3", "chip_llama3"]
 
 
 def _same(hf, me, text):
@@ -227,6 +241,22 @@ def test_chip_smoke_files_fit_the_models(files):
     assert q.get_vocab_size() == 151674
     assert [q.token_to_id(t) for t in ("<tts_pad>", "<tts_text_bos>", "<tts_text_eod>")] == [
         151671, 151672, 151673]
+
+
+def test_chip_smoke_llama3_file_fits_orpheus(files):
+    """The generated Llama-3 file: <|begin_of_text|> (128000) first in every
+    encode, <|eot_id|> at 128009 (Orpheus's END_OF_TEXT), 128256 ids, and
+    digits in runs of three."""
+    hf, me, _ = files["chip_llama3"]
+    assert me.token_to_id("<|begin_of_text|>") == 128000
+    assert me.token_to_id("<|eot_id|>") == 128009
+    assert me.get_vocab_size() == 128256
+    ids = me.encode("tara: 12345")
+    assert ids[0] == 128000 and ids == hf.encode("tara: 12345").ids
+    text = "tara: 12345 and ٣٤٥٦٧, 7"
+    want = [p for p, _ in hf.pre_tokenizer.pre_tokenize_str(text)]
+    assert list(me._pieces(text)) == want
+    assert [p for p in want if p.isdigit()] == ["123", "45", "7"]
 
 
 def _spec(tok: HFTokenizer) -> dict:
