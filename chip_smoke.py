@@ -118,7 +118,28 @@ Phases, each printing its own lines:
      launches held to the code's count; one request served over HTTP,
      equal to the in-memory samples; SNAC alone card against CPU and its
      decode_stream; Qwen3-TTS Base's x-vector card against CPU in float32,
-     then a 16-frame int4 synthesis with `ref_audio` and no `ref_text`.
+     then a 16-frame int4 synthesis with `ref_audio` and no `ref_text`;
+ 14. Sesame/CSM-1B (Llama-3.2-1B's 16 x 2048 backbone, the 4 x 1024 depth
+     decoder, 32 codebooks of 2051) in bf16 and the Mimi codec at
+     `mimi_202407(32)`, seeded, written to a checkpoint directory in the
+     upstream key layout (Mimi's safetensors in kyutai's, in mimi/, and a
+     Llama-3 style tokenizer.json) and loaded by `utils.load_model` and
+     `Mimi.from_pretrained`: a two-layer float32 copy card against CPU (every
+     logits row of four greedy frames held to both bars, the frames
+     identical, a planted off-by-one codebook offset rejected); Mimi's decode
+     of 64 frames card against CPU and its streaming decode against offline
+     (keys written one ring slot on rejected); `generate` with a 5 s
+     reference and its text at 64 frames, greedy and sampled (wall,
+     frames/s, RTF), profiled, streamed at 0.5 s (each chunk's frames the
+     monolithic decode's, time to first audio), the watermark found on the
+     output and not on unmarked audio; `bench_sesame_serving` at bench.py's
+     settings (8 x 64 frames, tick 8, pool 1024, one trial; greedy batched
+     frames equal to sequential); `convert(quantize=True)` to int4, loaded,
+     with the direct loop's quantized launches held to the code's count; one
+     streamed request served over HTTP, equal to the in-memory model's
+     samples; Qwen3-TTS ICL on phase 13's int4 Base model with a
+     speech-tokenizer encoder at its published widths (reference codes card
+     against CPU, then 16 frames).
 Phase 2 also holds the ReLU² attention kernel to its plain version and
 flash at B = 1, and the serving shapes: flash bf16 at B = 8, `qmm_mma` and
 the fused MLP at M = 8 (the batcher's tick), ReLU² f32 at B = 8, G = 2;
@@ -127,22 +148,27 @@ score pass, seek loop and beam search card against CPU.
 Phase 5 ends with the unquantized bf16 Qwen3-TTS (bench.py's
 `bench_qwen3_tts()`). Phase 2 also holds the Orpheus-3B shapes (the GEMV
 at M = 1 and 4 on q/k/v, o_proj and the 156940-row lm_head, the fused MLP,
-the tensor-core GEMM at M = 32) and times them. The lines before the last
+the tensor-core GEMM at M = 32) and times them, and CSM-1B int4's (float32
+x: the GEMV at M = 1 and 2 on both stacks' q/k/v and o_proj, the
+projection and the 2051-row codebook0_head, the tensor-core GEMM at the
+batcher's M = 8 and 16 and a 64-row prompt, the fused MLP at K = 2048 and
+1024, I = 8192). The lines before the last
 hold phase 8's numbers ({"kokoro": ...}), the bf16 Qwen3-TTS step's
 ({"qwen3_bf16": ...}), phase 9's ({"whisper_rest": ...}), phase 10's
 ({"loaded": ...}), phase 11's ({"serving": ...}), phase 12's ({"server":
-...}), phase 13's ({"orpheus": ...}) and the kernels' JSON record, in that
-order;
+...}), phase 13's ({"orpheus": ...}), phase 14's ({"csm": ...}) and the
+kernels' JSON record, in that order;
 the last line is {"ok": true, "device": {...}}. Any failure raises and exits non-zero. It
 needs one CUDA card and the checkout's `mlx_audio_tpu_torch/` package.
 `--phases 1,2` runs a subset (a first check of new kernels), `--phases
-1,12` the server (with phase 10 before it), `--phases 1,13` Orpheus; the
-default runs all of them.
+1,12` the server (with phase 10 before it), `--phases 1,13` Orpheus,
+`--phases 1,14` CSM-1B and Mimi; the default runs all of them.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -164,8 +190,15 @@ REPO = Path(__file__).resolve().parent
 
 # NVIDIA H100 SXM data sheet, dense peaks at the 700 W limit
 PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12  # CUDA cores, no tensor cores
 PEAK_BYTES = 3.35e12
+
+
+def ops_s(flops, dtype) -> float:
+    """The least time of `flops` on `dtype` operands: the bf16 tensor-core
+    peak; float32 operands as three bf16 products each (the split that
+    keeps float32's accuracy, faster than the CUDA cores' 67 TFLOP/s)."""
+    return flops * (1 if dtype == torch.bfloat16 else 3) / PEAK_BF16_FLOPS
+
 
 TURBO = dict(n_mels=128, n_audio_ctx=1500, n_audio_state=1280, n_audio_head=20,
              n_audio_layer=32, n_vocab=51866, n_text_ctx=448, n_text_state=1280,
@@ -519,8 +552,7 @@ def attention_bound_ms(B, H, T, S, D, dtype, causal) -> tuple:
     flops = 4.0 * B * H * pairs * D
     elem = torch.tensor([], dtype=dtype).element_size()
     nbytes = elem * B * H * D * (2 * T + 2 * S)  # q, o read/written; k, v read
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    t_ops, t_bytes = ops_s(flops, dtype), nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -846,6 +878,20 @@ def whisper_f32(audio, tok, sample_len) -> int:
 PORT_KERNELS = ("flash_fwd", "qmm_kernel", "qmm_gemv", "qmm_mma", "qmlp_kernel", "relu2_")
 
 
+def device_kernels(prof) -> dict:
+    """{name: (launches, device us)} of the kernels, copies and memsets a
+    torch.profiler session recorded on the card, read from its raw events
+    (`key_averages()` first builds a Python record of every event: seconds
+    a profile at ~75,000 launches)."""
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA or e.is_user_annotation():
+            continue
+        n, us = out.get(e.name(), (0, 0.0))
+        out[e.name()] = (n + 1, us + e.duration_ns() / 1e3)
+    return out
+
+
 def profile_one_run(run, what: str = "one transcription") -> tuple:
     """Device busy time and the top kernels of one run, from torch.profiler
     (CUPTI), with the port's own kernels listed too. Prints "not measured"
@@ -860,26 +906,23 @@ def profile_one_run(run, what: str = "one transcription") -> tuple:
         t0 = time.perf_counter()
         run()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
+    kernels = device_kernels(prof)
+    busy_us = sum(us for _, us in kernels.values())
+    launches = sum(n for n, _ in kernels.values())
     profile_one_run.last = {"wall_ms": wall_us / 1e3, "device_ms": busy_us / 1e3,
-                            "idle_share": 1 - busy_us / wall_us,
-                            "launches": sum(e.count for e in kernels)}
+                            "idle_share": 1 - busy_us / wall_us, "launches": launches}
     if busy_us <= 0:
         log("[profile] device time: not measured (the profiler saw no CUDA kernels)")
         return 0.0, {}
     log(f"[profile] {what} (profiled): wall {wall_us / 1e3:.1f} ms, device busy "
         f"{busy_us / 1e3:.1f} ms, idle share {100 * (1 - busy_us / wall_us):.1f}%, "
-        f"{sum(e.count for e in kernels)} kernel launches")
-    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
-    port = [e for e in ranked[8:] if any(k in e.key for k in PORT_KERNELS)]
-    for e in ranked[:8] + port:
-        rank = f"#{ranked.index(e) + 1}"
-        log(f"[profile]   {rank:>4} {e.self_device_time_total / 1e3:8.2f} ms {e.count:6d}x  "
-            f"{e.key[:90]}")
-    return busy_us, {e.key: (e.count, e.self_device_time_total) for e in kernels
-                     if any(k in e.key for k in PORT_KERNELS)}
+        f"{launches} kernel launches")
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][1])
+    for i, (name, (n, us)) in enumerate(ranked):
+        if i < 8 or any(k in name for k in PORT_KERNELS):
+            log(f"[profile]   {f'#{i + 1}':>4} {us / 1e3:8.2f} ms {n:6d}x  {name[:90]}")
+    return busy_us, {name: nu for name, nu in kernels.items()
+                     if any(k in name for k in PORT_KERNELS)}
 
 
 def compare_q(out, ref, bf16_ulps: int = Q_BF16_ULPS) -> tuple:
@@ -966,8 +1009,7 @@ def device_ms(fns, iters: int) -> tuple:
             for i in range(iters):
                 fns[i % len(fns)]()
             torch.cuda.synchronize()
-        busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                      if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+        busy_us = sum(us for _, us in device_kernels(prof).values())
         if busy_us > 0:
             break
     if busy_us <= 0:
@@ -991,8 +1033,7 @@ def not_below_bound(label, device, loop, bound) -> float:
 def quant_bound_ms(wbytes, M, K, N, dtype, flops) -> tuple:
     elem = torch.tensor([], dtype=dtype).element_size()
     nbytes = wbytes + elem * M * (K + N)  # weights, x read once; y written once
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    t_ops, t_bytes = ops_s(flops, dtype), nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -1103,6 +1144,28 @@ QMM_CASES = [  # name, bits, M, N, K, dtype: the routed shapes of phases 5 and 6
     ("orpheus_gateup_m32_bf16", 4, 32, 16384, 3072, torch.bfloat16),
     ("orpheus_down_m32_bf16", 4, 32, 3072, 8192, torch.bfloat16),
     ("orpheus_lm_head_m32_bf16", 4, 32, 156940, 3072, torch.bfloat16),
+    # CSM-1B int4 (phase 14): the residual stream is float32 (the quantized
+    # embeddings dequantize to float32, as in the JAX package). The backbone's
+    # fused q/k/v (N = 2048 + 2 x 512) and o_proj, codebook0_head (N = 2051:
+    # a ragged last block), the projection at the depth decoder's two-token
+    # seed, the decoder's q/k/v (N = 1024 + 2 x 256) and o_proj, at M = 1;
+    # the batcher's eight slots (M = 8, the decoder's seed M = 16) and a
+    # 64-row prompt bucket on the tensor-core GEMM; bf16 x for the M = 1
+    # GEMV too
+    ("csm_qkv_m1_f32", 4, 1, 3072, 2048, torch.float32),
+    ("csm_oproj_m1_f32", 4, 1, 2048, 2048, torch.float32),
+    ("csm_cb0_head_m1_f32", 4, 1, 2051, 2048, torch.float32),
+    ("csm_cb0_head_m1_bf16", 4, 1, 2051, 2048, torch.bfloat16),
+    ("csm_proj_m2_f32", 4, 2, 1024, 2048, torch.float32),
+    ("csm_dec_qkv_m1_f32", 4, 1, 1536, 1024, torch.float32),
+    ("csm_dec_qkv_m2_f32", 4, 2, 1536, 1024, torch.float32),
+    ("csm_dec_oproj_m1_f32", 4, 1, 1024, 1024, torch.float32),
+    ("csm_qkv_m1_bf16", 4, 1, 3072, 2048, torch.bfloat16),
+    ("csm_qkv_m8_f32", 4, 8, 3072, 2048, torch.float32),
+    ("csm_cb0_head_m8_f32", 4, 8, 2051, 2048, torch.float32),
+    ("csm_dec_qkv_m16_f32", 4, 16, 1536, 1024, torch.float32),
+    ("csm_qkv_m64_f32", 4, 64, 3072, 2048, torch.float32),
+    ("csm_down_m64_f32", 4, 64, 2048, 8192, torch.float32),
 ]
 # groups other than 64: K = 1040 is 65 groups of 16
 QMM_GROUP = {"q6_k1040_m1_f32": 16, "g32_m64_bf16": 32, "q6_g128_m96_f32": 128,
@@ -1112,7 +1175,8 @@ QMM_GROUP = {"q6_k1040_m1_f32": 16, "g32_m64_bf16": 32, "q6_g128_m96_f32": 128,
 # int4 and a 6-bit case of the tensor-core GEMM)
 QMM_PLANTED = ("qkv_m1_f32", "qkv_m1_bf16", "q6_qkv_m1_f32", "q6_qkv_m1_bf16",
                "qkv_prefill_bf16", "q6_qkv_prefill_f32", "whisper_qkv_m1_bf16",
-               "orpheus_lm_head_m1_bf16", "orpheus_lm_head_m32_bf16")
+               "orpheus_lm_head_m1_bf16", "orpheus_lm_head_m32_bf16",
+               "csm_cb0_head_m1_f32", "csm_cb0_head_m1_bf16", "csm_cb0_head_m8_f32")
 # The talker's prefill bucket: bench.py's text gives the talker an
 # 8-position prompt (the text itself streams in a token a frame), which
 # `_prefill` pads to 32 rows; `phase_qwen_slice` checks it. The text
@@ -1160,6 +1224,14 @@ QMLP_CASES = [  # name, bits, M, K, I, N, dtype
     ("orpheus_mlp_m1_bf16", 4, 1, 3072, 8192, 3072, torch.bfloat16),
     ("orpheus_mlp_m4_bf16", 4, 4, 3072, 8192, 3072, torch.bfloat16),
     ("orpheus_mlp_m16_bf16", 4, 16, 3072, 8192, 3072, torch.bfloat16),
+    # CSM-1B int4 (phase 14), float32 x: the backbone's step and the
+    # batcher's eight slots; the depth decoder's step, its two-token seed
+    # and the batcher's seed (M = 16)
+    ("csm_mlp_m1_f32", 4, 1, 2048, 8192, 2048, torch.float32),
+    ("csm_mlp_m8_f32", 4, 8, 2048, 8192, 2048, torch.float32),
+    ("csm_dec_mlp_m1_f32", 4, 1, 1024, 8192, 1024, torch.float32),
+    ("csm_dec_mlp_m2_f32", 4, 2, 1024, 8192, 1024, torch.float32),
+    ("csm_dec_mlp_m16_f32", 4, 16, 1024, 8192, 1024, torch.float32),
 ]
 # Orpheus-3B's shapes, timed (phase 2) beside their bound, plain version and
 # bf16 `F.linear`: name, M, N, K (bf16 x); and the fused MLP at M = 1 and 4
@@ -1167,7 +1239,18 @@ ORPHEUS_GEMV = [("qkv", 1, 5120, 3072), ("o_proj", 1, 3072, 3072),
                 ("lm_head", 1, 156940, 3072), ("qkv", 4, 5120, 3072),
                 ("o_proj", 4, 3072, 3072), ("lm_head", 4, 156940, 3072)]
 ORPHEUS_MMA = [("gate_up", 32, 16384, 3072), ("down", 32, 3072, 8192),
-               ("lm_head", 32, 156940, 3072)]
+               ("lm_head", 32, 156940, 3072), ("qkv", 32, 5120, 3072),
+               ("o_proj", 32, 3072, 3072)]
+# CSM-1B int4's shapes, timed (phase 2) in float32 x, the path's: name, M,
+# N, K; the GEMV at M = 1 (M = 2 at the seed's projection), the tensor-core
+# GEMM at the batcher's eight slots (16 rows at the decoder's seed) and the
+# 64-row prompt bucket; and the fused MLP's (M, K, I)
+CSM_QMM = [("qkv", 1, 3072, 2048), ("o_proj", 1, 2048, 2048), ("cb0_head", 1, 2051, 2048),
+           ("proj", 2, 1024, 2048), ("dec_qkv", 1, 1536, 1024), ("dec_o_proj", 1, 1024, 1024),
+           ("qkv", 8, 3072, 2048), ("cb0_head", 8, 2051, 2048), ("dec_qkv", 16, 1536, 1024),
+           ("qkv", 64, 3072, 2048)]
+CSM_QMLP = [("mlp", 1, 2048, 8192), ("mlp", 8, 2048, 8192), ("dec_mlp", 1, 1024, 8192),
+            ("dec_mlp", 16, 1024, 8192)]
 ORPHEUS_MLP = dict(K=3072, I=8192, N=3072)
 
 
@@ -1197,9 +1280,8 @@ def launched_kernels(fn, calls: int = 3, sessions: int = 3) -> list:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        keys = [e.key for e in prof.key_averages()
-                if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-                and any(k in e.key for k in PORT_KERNELS)]
+        keys = [name for name in device_kernels(prof)
+                if any(k in name for k in PORT_KERNELS)]
         if keys:
             return keys
     return keys
@@ -1327,7 +1409,49 @@ def phase_quant_kernels():
     timing["qmlp"] = time_qmlp(1)
     timing["qmlp_m8"] = time_qmlp(SERVE_M)
     timing.update(time_orpheus())
+    timing.update(time_csm())
     return errs, timing
+
+
+def time_csm() -> dict:
+    """CSM-1B int4's shapes in float32 x (CSM_QMM, CSM_QMLP), each beside
+    its bound, plain version and bf16 `F.linear` on the dequantized
+    weight."""
+    from mlx_audio_tpu_torch.ops.cuda.quant_matmul import (quantized_matmul,
+                                                           quantized_matmul_reference)
+
+    timing = {}
+    f32 = torch.float32
+    for shape, M, N, K in CSM_QMM:
+        key = f"csm_{shape}_m{M}"
+        g = torch.Generator(device="cuda").manual_seed(480 + M)
+        sets = [quant_weights(N, K, 4, g)]
+        wbytes = weight_bytes(*sets[0])
+        sets += [tuple(t.clone() for t in sets[0]) for _ in range(int(2 * L2_BYTES // wbytes))]
+        x = torch.randn(M, K, generator=g, device="cuda")
+        w_dense = quantized_matmul_reference(torch.eye(K, device="cuda"), *sets[0],
+                                             group_size=GROUP).T.contiguous().bfloat16()
+        dense = [w_dense] + [w_dense.clone() for _ in range(int(2 * L2_BYTES // (2 * N * K)))]
+        xb = x.bfloat16()
+        ms, loop = device_ms([lambda w=w: quantized_matmul(x, *w, group_size=GROUP)
+                              for w in sets], 200)
+        plain, _ = device_ms([lambda w=w: quantized_matmul_reference(x, *w, group_size=GROUP)
+                              for w in sets], 20)
+        yard, _ = device_ms([lambda d=d: F.linear(xb, d) for d in dense], 200)
+        route = "qmm_gemv" if M <= 4 else "qmm_mma"
+        bound, by = quant_bound_ms(wbytes, M, K, N, f32, 2.0 * M * N * K)
+        ms = not_below_bound(key, ms, loop, bound)
+        timing[key] = dict(kernel=route, ms=ms, plain_ms=plain, library_ms=None,
+                           yardstick_ms=yard, bound_ms=bound, bound_by=by, host_loop_ms=loop)
+        log(f"[time] {key}: {route} int4 M={M} N={N} K={K} float32 x, device time per call "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, yardstick F.linear on the bf16 dequantized "
+            f"weight {yard:.4f} ms, bound {bound:.4f} ms ({by}, {wbytes / 1e6:.2f} MB of "
+            f"weights, scales and biases); at {100 * bound / ms:.1f}% of bound")
+        del sets, dense, w_dense
+    for shape, M, K, I in CSM_QMLP:
+        timing[f"csm_{shape}_m{M}"] = time_qmlp(M, K=K, I=I, N=K)
+    torch.cuda.empty_cache()
+    return timing
 
 
 def time_orpheus() -> dict:
@@ -1457,10 +1581,7 @@ def time_prefill(cases=None) -> dict:
         plain, _ = device_ms([lambda w=w: quantized_matmul_reference(
             x, *w, bits=bits, group_size=GROUP) for w in sets], 20)
         yard, _ = device_ms([lambda d=d: F.linear(xb, d) for d in dense], 400)
-        flops = 2.0 * M * N * K * (3 if dtype == torch.float32 else 1)
-        elem = torch.tensor([], dtype=dtype).element_size()
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, (wbytes + elem * M * (K + N)) / PEAK_BYTES
-        bound, by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+        bound, by = quant_bound_ms(wbytes, M, K, N, dtype, 2.0 * M * N * K)
         timing[key] = dict(ms=ms, plain_ms=plain, library_ms=None, yardstick_ms=yard,
                            tiled_ms=tiled, bound_ms=bound, bound_by=by, host_loop_ms=loop)
         log(f"[time] {key}: {bits}-bit M={M} N={N} K={K} {str(dtype)[6:]} x (weights cycled "
@@ -1900,8 +2021,7 @@ def relu2_bound_ms(B, G, N, D, E, dtype) -> tuple:
     flops = 2.0 * B * G * N * N * (D + E)
     elem = torch.tensor([], dtype=dtype).element_size()
     nbytes = elem * B * G * N * (2 * D + 2 * E)  # q, k, v read once; out written once
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    t_ops, t_bytes = ops_s(flops, dtype), nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -4772,12 +4892,739 @@ def phase_orpheus(smi: str, keep) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: Sesame / CSM-1B and the Mimi codec
+# ---------------------------------------------------------------------------
+
+CSM_TEXT = "The quick brown fox jumps over the lazy dog."
+CSM_REF_TEXT = "A seeded reference line that the model never heard."
+CSM_REF_S = 5.0
+CSM_MAX_MS = 5120  # 64 frames of 80 ms
+CSM_FRAMES = 64
+CSM_STREAM_INTERVAL = 0.5  # 6 frames a chunk
+CSM_PROFILE_MS = 640  # 8 frames, profiled
+CSM_WARM_MS = 320  # 4 frames warm the path (the eager loop compiles nothing)
+CSM_TIMED = 1
+# the two-layer float32 copy, card against CPU: frames checked, and the
+# share of what the layers add that a logit may part by (phase 13's bar)
+CSM_CPU_FRAMES = 4
+CSM_LAYER_BAR = 1e-2
+# the audio head's spread: logits of O(1) over the decoder's 1024 normed
+# dimensions (the JAX package starts it at zero, which decodes every
+# codebook past the first to 0)
+CSM_HEAD_STD = 1024 ** -0.5
+# bench.py's bench_sesame_serving: 8 streams of 64 frames, ticks of 8, a
+# 1024-row pool, 48-token prompts, sampled at 0.9 / top-k 50 (the
+# sequential run alone takes ~100 s at ~190 ms a frame); greedy streams of
+# 4 frames for the batched-against-sequential check
+CSM_STREAMS, CSM_SERVE_FRAMES, CSM_TICK, CSM_POOL, CSM_PROMPT = 8, 64, 8, 1024, 48
+CSM_GREEDY_FRAMES = 4
+CSM_INT4_FRAMES = 16
+CSM_SERVED_FRAMES = 16
+MIMI_FRAMES = 64
+ICL_FRAMES = 16
+ICL_REF_TEXT = "A short reference line."
+
+
+def csm_upstream_key(k: str) -> str:
+    """The JAX package's name of a CSM parameter → the upstream
+    checkpoint's (what `Model.sanitize` maps back)."""
+    k = k[len("model."):]
+    k = k.replace("self_attn", "attn").replace("o_proj", "output_proj")
+    k = k.replace("gate_proj", "w1").replace("down_proj", "w2").replace("up_proj", "w3")
+    k = k.replace("input_layernorm", "sa_norm").replace("post_attention_layernorm", "mlp_norm")
+    if k.endswith("norm.weight"):
+        k = k[: -len(".weight")] + ".scale"
+    return k
+
+
+def mimi_kyutai_key(k: str) -> str:
+    """The JAX package's name of a Mimi parameter → kyutai's (the inverse
+    of `Mimi.sanitize`'s index map, for the published four SEANet ratios)."""
+    k = k.replace(".block.1.", ".block.3.").replace(".block.0.", ".block.1.")
+    for side in ("encoder", "decoder"):
+        k = k.replace(f"{side}.init_conv1d.", f"{side}.model.0.")
+        k = k.replace(f"{side}.final_conv1d.", f"{side}.model.14.")
+    for pat, at in ((r"encoder\.layers\.(\d)\.residuals\.0\.", ("encoder", 1)),
+                    (r"encoder\.layers\.(\d)\.downsample\.", ("encoder", 3)),
+                    (r"decoder\.layers\.(\d)\.upsample\.", ("decoder", 2)),
+                    (r"decoder\.layers\.(\d)\.residuals\.0\.", ("decoder", 3))):
+        k = re.sub(pat, lambda m, a=at: f"{a[0]}.model.{a[1] + 3 * int(m.group(1))}.", k)
+    k = k.replace(".conv.", ".conv.conv.").replace(".convtr.", ".convtr.convtr.")
+    k = k.replace("transformer_layers.", "transformer.layers.")
+    k = k.replace(".gating.linear", ".linear").replace(".in_proj.weight", ".in_proj_weight")
+    return k.replace(".codebook.", "._codebook.")
+
+
+def mimi_torch_layout(k: str, v):
+    """A JAX-layout Mimi conv weight in torch's layout: Conv1d (O, I, K),
+    ConvTranspose1d (I, O/g, K); the top-level upsample is depthwise."""
+    if v.ndim != 3:
+        return v
+    t = torch.as_tensor(v)
+    if ".convtr." in k:
+        o, kk, i_g = t.shape
+        g = o // i_g if k.startswith("upsample.") else 1
+        return (t.reshape(g, o // g, kk, i_g).permute(0, 3, 1, 2)
+                .reshape(g * i_g, o // g, kk).contiguous())
+    return t.permute(0, 2, 1).contiguous()
+
+
+def csm_config():
+    """CSM-1B's published configuration, `ModelConfig()`."""
+    from mlx_audio_tpu_torch.tts.models.sesame.sesame import ModelConfig
+
+    return ModelConfig()
+
+
+def csm_seeded(seed: int = 14):
+    """CSM-1B at the published widths on the card, in bf16, with weights
+    drawn from `seed` (the audio head too, at CSM_HEAD_STD). The heads draw
+    all 2051 codes; Mimi decodes the three past its 2048 bins as its last
+    one, as the JAX package does."""
+    from mlx_audio_tpu_torch.nn.module import cast_floats
+    from mlx_audio_tpu_torch.tts.models.sesame import Model
+
+    model = Model(csm_config(), device="cuda", seed=seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    with torch.no_grad():
+        model.model.audio_head.normal_(0.0, CSM_HEAD_STD, generator=g)
+    return cast_floats(model, torch.bfloat16)
+
+
+def mimi_seeded(seed: int = 15):
+    """Mimi at `mimi_202407(32)` on the card in float32, the codebooks
+    drawn from `seed` (the JAX package starts them at zero)."""
+    from mlx_audio_tpu_torch.codec.models.mimi.mimi import Mimi, mimi_202407
+
+    mimi = Mimi(mimi_202407(32), device="cuda", seed=seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, p in mimi.named_parameters():
+            if name.endswith("embedding_sum"):
+                p.normal_(0.0, 1.0, generator=g)
+    return mimi
+
+
+def write_csm(path: Path, reduced: Path, model, mimi) -> tuple:
+    """The CSM checkpoint in the upstream key layout (config.json with
+    model_type "csm", a Llama-3 style tokenizer.json and its
+    tokenizer_config.json, Mimi's safetensors in kyutai's layout in mimi/,
+    where the model looks for its codec), and a
+    copy whose backbone and depth decoder keep two layers each. → (seconds,
+    bytes)."""
+    from mlx_audio_tpu_torch import convert, safetensors_io
+    from mlx_audio_tpu_torch.codec.models.mimi.mimi import DEFAULT_FILENAME
+    from mlx_audio_tpu_torch.nn.module import flatten_params
+
+    t0 = time.perf_counter()
+    flat = {csm_upstream_key(k): v for k, v in flatten_params(model).items()}
+    keep = re.compile(r"^(backbone|decoder)\.layers\.(\d+)\.")
+    two = {k: v for k, v in flat.items()
+           if not (m := keep.match(k)) or int(m.group(2)) < 2}
+    cfg = dataclass_dict(model.config)
+    for where, weights, c in ((path, flat, cfg), (reduced, two, dict(
+            cfg, num_hidden_layers=2,
+            depth_decoder_config=dict(cfg["depth_decoder_config"], num_hidden_layers=2)))):
+        convert.save_model(where, weights, dict(c, model_type="csm"))
+        write_tokenizer_json(where, "llama3")
+        (where / "tokenizer_config.json").write_text(json.dumps(
+            {"bos_token": "<|begin_of_text|>", "eos_token": "<|end_of_text|>"}))
+    kyutai = {mimi_kyutai_key(k): mimi_torch_layout(k, v)
+              for k, v in flatten_params(mimi).items()}
+    (path / "mimi").mkdir()
+    safetensors_io.save_file(kyutai, path / "mimi" / DEFAULT_FILENAME)
+    del flat, two
+    return time.perf_counter() - t0, checkpoint_bytes(path) + checkpoint_bytes(path / "mimi")
+
+
+def dataclass_dict(cfg) -> dict:
+    import dataclasses
+
+    out = dataclasses.asdict(cfg)
+    out.pop("model_path", None)
+    return out
+
+
+def csm_prompt(model, seed: int = 5, text_len: int = 20, audio_frames: int = 12):
+    """A seeded prompt of `text_len` text tokens then `audio_frames` frames
+    of audio codes, as token and mask frames (1, T, 33) on the host."""
+    K = model.config.audio_num_codebooks
+    rng = np.random.default_rng(seed)
+    T = text_len + audio_frames
+    tokens = np.zeros((1, T, K + 1), np.int64)
+    mask = np.zeros((1, T, K + 1), bool)
+    tokens[0, :text_len, -1] = rng.integers(5, 128000, text_len)
+    mask[0, :text_len, -1] = True
+    tokens[0, text_len:, :K] = rng.integers(1, model.config.audio_vocab_size, (audio_frames, K))
+    mask[0, text_len:, :K] = True
+    return tokens, mask
+
+
+def csm_logit_rows(model, tokens, mask, frames: int, seed: int = 0):
+    """Greedy frames of the direct loop, keeping every logits row the
+    frames were drawn from (codebook 0's, then the depth decoder's) and the
+    same row with the layers skipped (what the layers add is the distance
+    between them). → (frames (n, K), [(logits, plant)] on the host)."""
+    from mlx_audio_tpu_torch.tts.models.sesame import sesame as ses
+
+    sm = model.model
+    V = sm.args.audio_vocab_size
+    rows = []
+
+    def rec(logits, _gen):
+        rows.append(logits[0].float().cpu())
+        return torch.argmax(logits, dim=-1)
+
+    dev = model.device
+    with torch.inference_mode():
+        tok, msk = torch.as_tensor(tokens, device=dev), torch.as_tensor(mask, device=dev)
+        caches = sm.make_backbone_caches(1, tokens.shape[1] + frames + 1)
+        h = ses._prefill(sm, caches, tok, msk)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        out, n = ses._generate_frames(sm, caches, h, gen, frames, 0.0, 0, sampler=rec)
+        out = out[0, :n]
+        head = sm.audio_head_f32()
+        plants, last = [], sm.embed_frames(tok, msk)[:, -1]
+        for f in range(n):
+            frame = out[f:f + 1]
+            plants.append(sm.codebook0_head(sm.backbone.norm(last))[0].float().cpu())
+            for i in range(1, frame.shape[1]):
+                inp = sm.projection(sm.audio_embeddings(frame[:, i - 1] + (i - 1) * V))
+                plants.append((sm.decoder.norm(inp).float() @ head[i - 1])[0].cpu())
+            last = sm.frame_embedding(frame)[:, -1]
+    return out.cpu().numpy(), list(zip(rows, plants))
+
+
+def csm_gaps(got, want) -> list:
+    """(max|d|, the row's peak, what the layers add) per logits row."""
+    return [((g - w).abs().max().item(), w.abs().max().item(), (w - p).abs().max().item())
+            for (g, _), (w, p) in zip(got, want)]
+
+
+def csm_within(gaps) -> bool:
+    return all(d <= CARD_VS_CPU_ATOL * peak and d <= CSM_LAYER_BAR * add
+               for d, peak, add in gaps)
+
+
+def csm_two_layer(reduced: Path) -> dict:
+    """The two-layer copy at full width in float32 (TF32 off): greedy
+    frames of the direct loop card against CPU, identical, with every
+    logits row held to both bars; a planted off-by-one codebook offset (each
+    codebook reading its predecessor's rows of the shared audio table) must
+    break them."""
+    t0 = time.perf_counter()
+    cpu, cpu_load = timed_load(str(reduced), device="cpu", dtype=torch.float32)
+    tokens, mask = csm_prompt(cpu)
+    want_frames, want = csm_logit_rows(cpu, tokens, mask, CSM_CPU_FRAMES)
+    del cpu
+    card, _ = timed_load(str(reduced), device="cuda", dtype=torch.float32)
+    frames, got = csm_logit_rows(card, tokens, mask, CSM_CPU_FRAMES)
+    gaps = csm_gaps(got, want)
+    emb = card.model.audio_embeddings
+    V = card.config.audio_vocab_size
+    forward = emb.forward
+    emb.forward = lambda x: forward(torch.where(x >= V, x - V, x))
+    try:
+        bad_frames, bad = csm_logit_rows(card, tokens, mask, CSM_CPU_FRAMES)
+    finally:
+        del emb.forward
+    fault = csm_gaps(bad, want)
+    worst = max(g[0] / min(CARD_VS_CPU_ATOL * g[1], CSM_LAYER_BAR * g[2]) for g in gaps)
+    log(f"[csm] two-layer copy, float32, card against CPU: {len(gaps)} logits rows "
+        f"({CSM_CPU_FRAMES} frames x {card.config.audio_num_codebooks} codebooks), max|d| {max(g[0] for g in gaps):.3e}, "
+        f"peaks >= {min(g[1] for g in gaps):.2f} (bar {CARD_VS_CPU_ATOL:g} of each), what the "
+        f"layers add >= {min(g[2] for g in gaps):.3f} (bar {CSM_LAYER_BAR:g} of each), worst "
+        f"share of its bar {worst:.3f}; greedy frames identical: "
+        f"{np.array_equal(frames, want_frames)}; a planted off-by-one codebook offset parts "
+        f"them by {max(g[0] for g in fault):.3e} ({time.perf_counter() - t0:.1f} s, the CPU "
+        f"load {cpu_load:.1f} s)")
+    if not csm_within(gaps) or not np.array_equal(frames, want_frames) \
+            or frames.shape != (CSM_CPU_FRAMES, card.config.audio_num_codebooks):
+        raise SystemExit("chip_smoke: the CSM two-layer copy parts card from CPU")
+    if csm_within(fault) and np.array_equal(bad_frames, want_frames):
+        raise SystemExit("chip_smoke: the CSM check passes an off-by-one codebook offset")
+    del card
+    return {"logits_max_abs_err": max(g[0] for g in gaps), "layers_add": min(g[2] for g in gaps),
+            "worst_share_of_bar": worst, "offset_fault_gap": max(g[0] for g in fault),
+            "frames": frames.tolist(), "wall_s": time.perf_counter() - t0}
+
+
+def mimi_checks(mimi, ref) -> dict:
+    """Mimi at the published widths, float32: the decode of MIMI_FRAMES
+    seeded frames card against CPU; the streaming decode (a frame a step,
+    the 250-slot rings not yet wrapped) against the offline one; a planted
+    ring fault (each position's keys written one slot on) must part them; the
+    reference's codes card against CPU (counted)."""
+    from mlx_audio_tpu_torch.codec.models.mimi.mimi import Mimi, MimiStreamingDecoder
+    from mlx_audio_tpu_torch.lm import cache as lcache
+
+    t0 = time.perf_counter()
+    cpu = Mimi(mimi.cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in mimi.state_dict().items()})
+    nq, bins = mimi.cfg.quantizer_nq, mimi.cfg.quantizer_bins
+    codes = np.random.default_rng(11).integers(0, bins, (1, nq, MIMI_FRAMES))
+    card_wav = mimi.decode(codes).cpu()
+    cpu_wav = cpu.decode(codes)
+    peak = cpu_wav.abs().max().item()
+    d = (card_wav - cpu_wav).abs().max().item()
+
+    def streamed():
+        dec = MimiStreamingDecoder(mimi)
+        return torch.cat([dec.decode_frames(codes[0, :, i:i + 1]).cpu()
+                          for i in range(MIMI_FRAMES)], dim=-1)
+
+    ts = time.perf_counter()
+    stream = streamed()
+    stream_s = time.perf_counter() - ts
+    ds = (stream - card_wav).abs().max().item()
+    update = lcache.RingKVCache.update
+
+    def off_by_one(self, k, v):  # position p's keys and values land in slot p + 1
+        written = self.pos + torch.arange(k.shape[2], device=k.device)
+        self.k[:, :, (written + 1) % self.window] = k.to(self.k.dtype)
+        self.v[:, :, (written + 1) % self.window] = v.to(self.v.dtype)
+        self.pos_buf[written % self.window] = written
+        self.pos += k.shape[2]
+        return self.k, self.v, self
+
+    lcache.RingKVCache.update = off_by_one
+    try:
+        bad = (streamed() - card_wav).abs().max().item()
+    finally:
+        lcache.RingKVCache.update = update
+    enc_card = mimi.encode(ref[None, None]).cpu().numpy()
+    enc_cpu = cpu.encode(ref[None, None]).numpy()
+    agree = float((enc_card == enc_cpu).mean())
+    log(f"[mimi] mimi_202407(32), float32: decode of {MIMI_FRAMES} frames card against CPU "
+        f"max|d| {d:.3e} of peak {peak:.3f} (bar {CARD_VS_CPU_ATOL:g} of it); streaming decode "
+        f"a frame a step ({stream_s:.3f} s) against offline max|d| {ds:.3e} (same bar); keys "
+        f"written one ring slot on part them by {bad:.3e}; the {CSM_REF_S:g} s "
+        f"reference's codes {enc_card.shape} agree card against CPU at {100 * agree:.2f}% "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if (d > CARD_VS_CPU_ATOL * peak or ds > CARD_VS_CPU_ATOL * peak
+            or card_wav.shape != (1, 1, MIMI_FRAMES * mimi.frame_size)):
+        raise SystemExit("chip_smoke: Mimi parts card from CPU, or streaming from offline")
+    if bad <= CARD_VS_CPU_ATOL * peak:
+        raise SystemExit("chip_smoke: the Mimi streaming check passes keys written one ring "
+                         "slot on")
+    return {"decode_max_abs_err": d, "peak": peak, "stream_max_abs_err": ds,
+            "stream_s": stream_s, "ring_fault_gap": bad, "encode_agreement": agree}
+
+
+def csm_reference(seconds=CSM_REF_S, seed=12) -> np.ndarray:
+    sr = 24000
+    t = np.arange(int(seconds * sr)) / sr
+    rng = np.random.default_rng(seed)
+    return (0.3 * np.sin(2 * np.pi * 160 * t) * (1 + 0.5 * np.sin(2 * np.pi * 2 * t))
+            + 0.05 * rng.standard_normal(t.size)).astype(np.float32)
+
+
+def csm_generate(csm, mimi, ref, smi) -> dict:
+    """`Model.generate` with the seeded reference (Mimi-encoded on the card)
+    and its text: greedy and at temperature 0.9 / top-k 50, CSM_MAX_MS;
+    wall, frames/s, RTF; one profiled run; the stream at 0.5 s, each
+    chunk's frames the monolithic decode's; the watermark found on the
+    output and not on unmarked audio."""
+    from mlx_audio_tpu_torch.tts.models.sesame import watermarking as wm
+
+    seen = {"offline": [], "stream": []}
+    decode, step = mimi.decode, mimi.decode_step
+    mimi.decode = lambda c: (seen["offline"].append(np.asarray(torch.as_tensor(c).cpu())),
+                             decode(c))[1]
+    mimi.decode_step = lambda c, s: (seen["stream"].append(np.asarray(torch.as_tensor(c).cpu())),
+                                     step(c, s))[1]
+
+    def run(**kw):
+        kw = dict(dict(ref_audio=ref, ref_text=CSM_REF_TEXT, max_audio_length_ms=CSM_MAX_MS),
+                  **kw)
+        with torch.inference_mode():
+            out = list(csm.generate(CSM_TEXT, **kw))
+        torch.cuda.synchronize()
+        return out
+
+    try:
+        run(temperature=0.0, max_audio_length_ms=CSM_WARM_MS)  # warm-up
+        walls, res = [], None
+        for _ in range(CSM_TIMED):
+            seen["offline"].clear()
+            t0 = time.perf_counter()
+            res = run(temperature=0.0)
+            walls.append(time.perf_counter() - t0)
+        greedy = seen["offline"][-1][0].T  # (n, 32)
+        t0 = time.perf_counter()
+        sampled = run(temperature=0.9, top_k=50, seed=1)
+        sampled_s = time.perf_counter() - t0
+        _, kernels = profile_one_run(lambda: run(temperature=0.0,
+                                                 max_audio_length_ms=CSM_PROFILE_MS),
+                                     f"one CSM-1B generate of {CSM_PROFILE_MS // 80} frames")
+        prof = dict(profile_one_run.last)
+        seen["stream"].clear()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            gen = csm.generate(CSM_TEXT, ref_audio=ref, ref_text=CSM_REF_TEXT,
+                               max_audio_length_ms=CSM_MAX_MS, temperature=0.0, stream=True,
+                               streaming_interval=CSM_STREAM_INTERVAL, apply_watermark=False)
+            first = next(gen)
+            ttfa = time.perf_counter() - t0
+            chunks = [first] + list(gen)
+        stream_s = time.perf_counter() - t0
+    finally:
+        del mimi.decode, mimi.decode_step
+    streamed = np.concatenate([c[0].T for c in seen["stream"]])
+    audio = res[0].audio
+    unmarked = np.concatenate([c.audio for c in chunks])
+    key = wm.CSM_1B_GH_WATERMARK
+    marked_found = wm.verify(wm.load_watermarker(), audio, 24000, key)
+    plain_found = wm.verify(wm.load_watermarker(), unmarked, 24000, key)
+    ref_found = wm.verify(wm.load_watermarker(), ref, 24000, key)
+    wall = statistics.median(walls)
+    audio_s = len(audio) / 24000
+    n = res[0].token_count
+    log(f"[csm] generate (greedy, ref_audio {CSM_REF_S:g} s + ref_text, watermarked), "
+        f"prompt {res[0].prompt['tokens']} positions: {n} frames, {audio_s:.3f} s of audio, "
+        f"wall {wall:.4f} s of {walls} ({n / wall:.2f} frames/s, RTF {wall / audio_s:.4f}); "
+        f"sampled (0.9, top-k 50) {sampled[0].token_count} frames in {sampled_s:.4f} s "
+        f"({sampled[0].token_count / sampled_s:.2f} frames/s) ({smi})")
+    frames_prof = CSM_PROFILE_MS // 80
+    log(f"[csm] profiled {frames_prof} frames: device busy {prof['device_ms']:.1f} ms of "
+        f"{prof['wall_ms']:.1f} ms wall (idle share {100 * prof['idle_share']:.1f}%), "
+        f"{prof['launches']} launches, {prof['launches'] / frames_prof:.0f} a frame with the "
+        f"prefill, the reference's encode and the decode spread over them")
+    log(f"[csm] stream=True at {CSM_STREAM_INTERVAL} s: time to first audio {ttfa:.4f} s, "
+        f"{len(chunks)} chunks of {[c.token_count for c in chunks]} frames, wall "
+        f"{stream_s:.4f} s; the streamed frames equal the monolithic greedy frames: "
+        f"{np.array_equal(streamed, greedy)}; watermark found on the output {marked_found}, on "
+        f"the unmarked stream {plain_found}, on the reference {ref_found}")
+    if (n != CSM_FRAMES or len(audio) != CSM_FRAMES * 1920 or not np.isfinite(audio).all()
+            or sampled[0].token_count != CSM_FRAMES or not np.array_equal(streamed, greedy)
+            or greedy.shape != (CSM_FRAMES, csm.config.audio_num_codebooks)):
+        raise SystemExit("chip_smoke: CSM generate gave the wrong frames, or the stream parts "
+                         "from the monolithic decode")
+    if not marked_found or plain_found or ref_found:
+        raise SystemExit("chip_smoke: the watermark is not found on the output, or found on "
+                         "unmarked audio")
+    return {"frames": n, "audio_s": audio_s, "wall_s": wall, "walls_s": walls,
+            "frames_per_s": n / wall, "rtf": wall / audio_s, "sampled_wall_s": sampled_s,
+            "profile": prof, "port_kernels": {k: v[0] for k, v in kernels.items()},
+            "ttfa_s": ttfa, "stream_wall_s": stream_s, "chunks": len(chunks),
+            "prompt_positions": res[0].prompt["tokens"]}
+
+
+def csm_serving(csm) -> dict:
+    """bench.py's bench_sesame_serving on the port: a warm wave, then 8
+    streams of 64 sampled frames one at a time and all at once through one
+    `SesameBatcher` (one trial, where bench.py takes the median of 3); then
+    8 greedy streams of CSM_GREEDY_FRAMES, batched against sequential
+    through the same pool (identical frames)."""
+    rng = np.random.default_rng(3)
+    K = csm.config.audio_num_codebooks
+    prompts = []
+    for _ in range(CSM_STREAMS):
+        toks = np.zeros((1, CSM_PROMPT, K + 1), np.int64)
+        toks[:, :, -1] = rng.integers(5, 1000, CSM_PROMPT)
+        mask = np.zeros((1, CSM_PROMPT, K + 1), bool)
+        mask[:, :, -1] = True
+        prompts.append((toks, mask))
+    batcher = csm.make_batcher(slots=CSM_STREAMS, max_len=CSM_POOL, tick_frames=CSM_TICK)
+    try:
+        results_in_time([batcher.submit(t, m, max_frames=CSM_TICK, temp=0.9, top_k=50, seed=0)
+                         for t, m in prompts])
+        t0 = time.perf_counter()
+        for i, (t, m) in enumerate(prompts):
+            batcher.submit(t, m, max_frames=CSM_SERVE_FRAMES, temp=0.9, top_k=50,
+                           seed=i).result(timeout=SERVE_TIMEOUT)
+        seq_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        frames = results_in_time([batcher.submit(t, m, max_frames=CSM_SERVE_FRAMES, temp=0.9,
+                                                 top_k=50, seed=i)
+                                  for i, (t, m) in enumerate(prompts)])
+        bat_s = time.perf_counter() - t0
+        seq_greedy = [batcher.submit(t, m, max_frames=CSM_GREEDY_FRAMES, temp=0.0,
+                                     top_k=0).result(timeout=SERVE_TIMEOUT)
+                      for t, m in prompts]
+        bat_greedy = results_in_time([batcher.submit(t, m, max_frames=CSM_GREEDY_FRAMES,
+                                                     temp=0.0, top_k=0)
+                                      for t, m in prompts])
+    finally:
+        batcher.close()
+    total = sum(f.shape[0] for f in frames)
+    speedup = seq_s / bat_s
+    same = all(np.array_equal(a, b) for a, b in zip(seq_greedy, bat_greedy))
+    log(f"[csm] bench_sesame_serving on the port ({CSM_STREAMS} streams x {CSM_SERVE_FRAMES} "
+        f"sampled frames, tick {CSM_TICK}, pool {CSM_POOL}, {CSM_PROMPT}-token prompts): "
+        f"sequential {seq_s:.4f} s, batched {bat_s:.4f} s (one trial): speedup {speedup:.2f}x "
+        f"against bench.py's 2x target, {total / bat_s:.1f} frames/s aggregate "
+        f"({total / seq_s:.1f} sequential); greedy {CSM_GREEDY_FRAMES}-frame streams batched "
+        f"equal to sequential: {same}")
+    if total != CSM_STREAMS * CSM_SERVE_FRAMES or not same \
+            or any(f.shape != (CSM_GREEDY_FRAMES, K) for f in bat_greedy):
+        raise SystemExit("chip_smoke: bench_sesame_serving lost frames, or greedy batched "
+                         "frames part from sequential")
+    return {"sequential_wall_s": seq_s, "batched_wall_s": bat_s, "speedup": speedup,
+            "target": 2.0, "frames_per_s": total / bat_s,
+            "sequential_frames_per_s": total / seq_s}
+
+
+def csm_launches(cfg, prompt_rows: int, frames: int) -> dict:
+    """The quantized launches of the int4 direct loop from the code: the
+    prefill (M = prompt_rows) and `frames` backbone steps (M = 1), and per
+    frame codebook0_head (M = 1), the projection and the depth decoder at M
+    = 2 (the two-token seed) and then K - 1 steps at M = 1. Each layer's
+    fused q/k/v and o_proj take qmm where `qmm_routable` admits the shape
+    (the GEMV at M <= 4, the tensor-core GEMM above); its MLP the fused
+    kernel where `fused_mlp_routable` admits it, else gate/up and down
+    through qmm."""
+    from mlx_audio_tpu_torch.nn.quantized import fused_mlp_routable, qmm_routable
+
+    got = {"qmm": 0, "qmlp": 0, "qmm_kernel": 0, "qmm_gemv": 0, "qmm_mma": 0}
+
+    def qmm(N, K, M, n=1):
+        if qmm_routable(4, GROUP, N, K, M):
+            got["qmm"] += n
+            got["qmm_gemv" if M <= 4 else "qmm_mma"] += n
+
+    def layers(D, I, heads, kv, hd, count, M, n=1):
+        for _ in range(count):
+            qmm((heads + 2 * kv) * hd, D, M, n)
+            qmm(D, heads * hd, M, n)
+            if fused_mlp_routable(4, GROUP, D, I, D, M):
+                got["qmlp"] += n
+            else:
+                qmm(2 * I, D, M, n)
+                qmm(D, I, M, n)
+
+    d = cfg.depth_decoder_config
+    K = cfg.audio_num_codebooks
+    bb = (cfg.hidden_size, cfg.intermediate_size, cfg.num_attention_heads,
+          cfg.num_key_value_heads, cfg.head_dim, cfg.num_hidden_layers)
+    dec = (d.hidden_size, d.intermediate_size, d.num_attention_heads, d.num_key_value_heads,
+           d.head_dim, d.num_hidden_layers)
+    layers(*bb, prompt_rows)
+    layers(*bb, 1, frames)
+    qmm(cfg.audio_vocab_size, cfg.hidden_size, 1, frames)  # codebook0_head
+    qmm(d.hidden_size, cfg.hidden_size, 2, frames)  # the seed's projection
+    layers(*dec, 2, frames)
+    qmm(d.hidden_size, cfg.hidden_size, 1, frames * (K - 1))
+    layers(*dec, 1, frames * (K - 1))
+    return got
+
+
+def csm_int4(path: Path, tmp: Path) -> dict:
+    """`convert(quantize=True)` of the phase's directory (int4 g64, every
+    2-D weight), loaded by `utils.load_model`, then CSM_INT4_FRAMES greedy
+    frames of the direct loop after an 80-position prompt, with its
+    quantized launches held to `csm_launches` (the counts set to 0 just
+    before it)."""
+    from mlx_audio_tpu_torch import convert
+    from mlx_audio_tpu_torch.ops.cuda import quant_matmul as qk
+    from mlx_audio_tpu_torch.tts.models.sesame import sesame as ses
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        q = convert.convert(str(path), str(tmp / "csm-1b-int4"), quantize=True)
+    convert_s = time.perf_counter() - t0
+    model, load_s = timed_load(str(q))
+    tokens, mask = csm_prompt(model, seed=6, audio_frames=60)
+    dev = model.device
+    with torch.inference_mode():
+        tok, msk = torch.as_tensor(tokens, device=dev), torch.as_tensor(mask, device=dev)
+
+        def loop(frames):
+            caches = model.model.make_backbone_caches(1, tokens.shape[1] + frames + 1)
+            h = ses._prefill(model.model, caches, tok, msk)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            return ses._generate_frames(model.model, caches, h, gen, frames, 0.0, 0)
+
+        loop(2)  # warm-up
+        torch.cuda.synchronize()
+        qk.reset_launches()
+        t1 = time.perf_counter()
+        frames, n = loop(CSM_INT4_FRAMES)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    got = quant_counts(4)
+    predicted = csm_launches(model.config, tokens.shape[1], CSM_INT4_FRAMES)
+    codes = frames[0, :n].cpu().numpy()
+    log(f"[csm] int4 g64 by convert(quantize=True) in {convert_s:.1f} s "
+        f"({checkpoint_bytes(q) / 1e9:.3f} GB), loaded in {load_s:.1f} s; the direct loop, "
+        f"{tokens.shape[1]}-position prompt and {n} greedy frames in {wall:.4f} s "
+        f"({n / wall:.2f} frames/s): launches {got}, from the code {predicted}")
+    if got != predicted or n != CSM_INT4_FRAMES or not (
+            (codes >= 0) & (codes < model.config.audio_vocab_size)).all():
+        raise SystemExit(f"chip_smoke: the int4 CSM launched {got}, the code says {predicted}, "
+                         f"or gave {n} frames")
+    del model
+    shutil.rmtree(q, ignore_errors=True)
+    return {"convert_s": convert_s, "load_s": load_s, "frames": n, "wall_s": wall,
+            "frames_per_s": n / wall, "launches": got, "prompt_positions": tokens.shape[1]}
+
+
+def csm_served(csm, path: Path, tmp: Path, ref) -> dict:
+    """One streamed speech request (ref_audio as a wav path and its text,
+    greedy) through `server.py` with the provider's SesameBatcher; the
+    served samples equal the in-memory model's through an identical pool,
+    int16 for int16. The pool is sized so that it ends the request after
+    CSM_SERVED_FRAMES frames: the speech route has no frame cap."""
+    from mlx_audio_tpu_torch import audio_io, server
+    from mlx_audio_tpu_torch.tts.models.sesame import Model, Segment
+    from mlx_audio_tpu_torch.tts.models.sesame.batcher import SesameBatcher
+
+    wav = tmp / "csm-ref.wav"
+    audio_io.write(wav, ref, 24000)
+    seg = csm._tokenize_segment(Segment(speaker=0, text=f"{CSM_REF_TEXT} {CSM_TEXT}",
+                                        audio=audio_io.read(wav)[0]), add_eos=False)
+    pool = seg[0].shape[0] + CSM_SERVED_FRAMES + 1
+    make = Model.make_batcher
+    Model.make_batcher = lambda self, **kw: SesameBatcher(self, **dict(dict(max_len=pool), **kw))
+    provider = server.ModelProvider()
+    httpd = server.serve_stdlib("127.0.0.1", 0, provider)
+    url = "http://127.0.0.1:%d" % httpd.server_address[1]
+    name = str(path)
+    try:
+        rec = load_served(url, provider, name)
+        body, ttfb, wall = http_speech_timed(url, {
+            "model": name, "input": CSM_TEXT, "ref_audio": str(wav), "ref_text": CSM_REF_TEXT,
+            "temperature": 0.0, "response_format": "wav",
+            "streaming_interval": CSM_STREAM_INTERVAL})
+        unload_served(url, provider, name)
+        batcher = csm.make_batcher().install()
+        try:
+            with torch.inference_mode():
+                want = np.concatenate([r.audio for r in csm.generate(
+                    CSM_TEXT, ref_audio=str(wav), ref_text=CSM_REF_TEXT, temperature=0.0,
+                    stream=True, streaming_interval=CSM_STREAM_INTERVAL)])
+        finally:
+            batcher.close()
+    finally:
+        Model.make_batcher = make
+        httpd.shutdown()
+        httpd.server_close()
+        for n in provider.list_models():
+            provider.unload(n)
+    if body[:4] != b"RIFF" or body[44:] != pcm16(want) \
+            or len(want) != CSM_SERVED_FRAMES * 1920:
+        raise SystemExit(f"chip_smoke: the served CSM speech ({len(body)} bytes) is not the "
+                         f"in-memory model's samples ({len(want)} samples)")
+    log(f"[csm] served over HTTP (streamed, SesameBatcher, pool {pool}): "
+        f"{len(want) / 24000:.3f} s of audio, time to first byte {ttfb:.4f} s, wall "
+        f"{wall:.4f} s (load {rec['load_s']:.1f} s, batcher warm-up {rec['warmup_s']:.1f} s); "
+        f"equal int16 for int16 to the in-memory model's")
+    return {"ttfb_s": ttfb, "wall_s": wall, "audio_s": len(want) / 24000, **rec}
+
+
+def icl_checks(keep) -> dict:
+    """Qwen3-TTS ICL on phase 13's int4 Base model: a speech-tokenizer
+    encoder at `Qwen3TTSTokenizerEncoderConfig()`'s widths (seeded), its
+    reference codes card against CPU in float32 (identical), then
+    ICL_FRAMES frames of ICL synthesis with ref_audio + ref_text."""
+    from mlx_audio_tpu_torch.nn.module import cast_floats
+    from mlx_audio_tpu_torch.tts.models.qwen3_tts.speech_tokenizer import (
+        Qwen3TTSSpeechTokenizerEncoder)
+
+    t0 = time.perf_counter()
+    model = keep.get("qwen3_int4") or qwen_model(4)
+    enc = model.speech_tokenizer.build_encoder(seed=21)
+    g = torch.Generator(device="cuda").manual_seed(22)
+    with torch.no_grad():
+        for name, p in enc.named_parameters():
+            if name.endswith("embedding_sum"):
+                p.normal_(0.0, 1.0, generator=g)
+    cfg = model.config.tokenizer_config.encoder_config
+    state = {k: v.float().cpu() for k, v in enc.state_dict().items()}
+    ref = csm_reference(3.0, seed=13)
+    codes = {}
+    for side, dev in (("cpu", "cpu"), ("card", "cuda")):
+        e = cast_floats(Qwen3TTSSpeechTokenizerEncoder(cfg, device=dev), torch.float32)
+        e.load_state_dict(state)
+        with torch.inference_mode():
+            codes[side] = e.encode(torch.as_tensor(ref, device=dev)[None, None]).cpu().numpy()
+        del e
+    t1 = time.perf_counter()
+    res = list(model.generate(QWEN_TEXT, ref_audio=ref, ref_text=ICL_REF_TEXT,
+                              max_tokens=ICL_FRAMES, temperature=0.9, top_k=50))
+    wall = time.perf_counter() - t1
+    n = sum(r.token_count for r in res)
+    log(f"[icl] Qwen3-TTS int4 Base, speech-tokenizer encoder at the published widths "
+        f"(seeded): reference codes {codes['cpu'].shape} card against CPU (float32) identical: "
+        f"{np.array_equal(codes['cpu'], codes['card'])}; ICL synthesis with ref_audio + "
+        f"ref_text: {n} frames in {wall:.4f} s ({time.perf_counter() - t0:.1f} s)")
+    frames = math.ceil(len(ref) / 1920)  # the edge-padded downsample rounds up
+    if not np.array_equal(codes["cpu"], codes["card"]) \
+            or codes["cpu"].shape != (1, min(16, cfg.num_quantizers), frames):
+        raise SystemExit("chip_smoke: the speech-tokenizer encoder's codes part card from CPU")
+    if len(res) != 1 or not 0 < n <= ICL_FRAMES or not np.isfinite(res[0].audio).all():
+        raise SystemExit(f"chip_smoke: ICL synthesis gave {[r.token_count for r in res]} frames")
+    del model.speech_tokenizer.encoder
+    return {"codes_identical": True, "frames": n, "wall_s": wall}
+
+
+def phase_csm(smi: str, keep) -> dict:
+    """Phase 14 (see the module docstring)."""
+    from mlx_audio_tpu_torch.codec.models.mimi.mimi import Mimi
+    from mlx_audio_tpu_torch.tts.models.sesame import Model as Csm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+
+    def mark(what):
+        log(f"[csm] {time.perf_counter() - t_phase:.1f} s into phase 14 after {what}")
+
+    tmp = Path(tempfile.mkdtemp(prefix="csm-"))
+    try:
+        path, reduced = tmp / "csm-1b", tmp / "csm-1b-2layer"
+        source, mimi_src = csm_seeded(), mimi_seeded()
+        write_s, nbytes = write_csm(path, reduced, source, mimi_src)
+        csm, load_s = timed_load(str(path))
+        same_parameters(csm, source, "CSM-1B")
+        del source
+        mimi = Mimi.from_pretrained(str(path / "mimi"), device="cuda")
+        same_parameters(mimi, mimi_src, "Mimi")
+        del mimi_src
+        n_params = sum(p.numel() for p in csm.parameters())
+        log(f"[csm] CSM-1B bf16 (backbone 16 x 2048, depth decoder 4 x 1024, 32 codebooks of "
+            f"2051, llama3 rope) and Mimi mimi_202407(32) float32, seeded: {n_params / 1e6:.1f} "
+            f"M parameters, {nbytes / 1e9:.3f} GB written in the upstream and kyutai layouts "
+            f"in {write_s:.1f} s (with the two-layer copy), loaded by utils.load_model in "
+            f"{load_s:.2f} s and Mimi.from_pretrained, equal to the sources")
+        mark("writing and loading")
+        cpu = csm_two_layer(reduced)
+        mark("the two-layer copy")
+        ref = csm_reference()
+        mimi_rec = mimi_checks(mimi, ref)
+        mark("Mimi")
+        csm.set_runtime(mimi=mimi)
+        gen = csm_generate(csm, mimi, ref, smi)
+        mark("generate")
+        serving = csm_serving(csm)
+        mark("bench_sesame_serving")
+        int4 = csm_int4(path, tmp)
+        mark("int4")
+        served = csm_served(csm, path, tmp, ref)
+        mark("the served request")
+        del csm
+        Csm._mimi = Csm._text_tokenizer = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    icl = icl_checks(keep)
+    mark("ICL")
+    rec = {"write_s": write_s, "checkpoint_bytes": nbytes, "load_s": load_s,
+           "card_vs_cpu": cpu, "mimi": mimi_rec, "generate": gen, "serving": serving,
+           "int4": int4, "served": served, "icl": icl,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"[csm] phase 14 wall {rec['phase_s']:.1f} s")
+    return rec
+
+
 QUANT_SOURCE = "mlx_audio_tpu_torch/csrc/quant_matmul.cu"
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
                     help="comma-separated subset to run (12 runs 10 first for its checkpoint "
                          "directories); a subset prints no result")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
@@ -4841,7 +5688,10 @@ def run_phases(phases, smi, keep, ckpt: Path) -> None:
     if 13 in phases:
         orpheus = phase_orpheus(smi, keep)
         took(13)
-    if phases != set(range(1, 14)):
+    if 14 in phases:
+        csm = phase_csm(smi, keep)
+        took(14)
+    if phases != set(range(1, 15)):
         log(f"[device] {smi}")
         sys.exit(f"chip_smoke: ran phases {sorted(phases)} only; no result")
     record = {"kernels": [{
@@ -4931,6 +5781,18 @@ def run_phases(phases, smi, keep, ckpt: Path) -> None:
         "batched_launches": orpheus["batched"]["launches"]["qmlp"],
         "max_abs_err": qerrs["orpheus_mlp_m1_bf16"],
         "shapes": {f"m{M}": qtiming[f"orpheus_qmlp_m{M}"] for M in (1, 4)}}
+    # CSM-1B int4 (phase 14): the direct loop's launches (a prompt and 16
+    # frames) and the kernels' times at its shapes (phase 2, float32 x)
+    qmm["csm"] = {
+        "launches": {k: csm["int4"]["launches"][k] for k in ("qmm", "qmm_gemv", "qmm_mma",
+                                                              "qmm_kernel")},
+        "max_abs_err": qerrs["csm_cb0_head_m1_f32"],
+        "shapes": {key[len("csm_"):]: qtiming[key] for key in qtiming
+                   if key.startswith("csm_") and "mlp" not in key}}
+    qmlp["csm"] = {
+        "launches": csm["int4"]["launches"]["qmlp"], "max_abs_err": qerrs["csm_mlp_m1_f32"],
+        "shapes": {key[len("csm_"):]: qtiming[key] for key in qtiming
+                   if key.startswith("csm_") and "mlp" in key}}
     qmlp["serving"] = {"launches": serving["qwen3_int4"]["launches"]["qmlp"],
                        "m8": {"max_abs_err": qerrs["mlp_m8_f32"], **qtiming["qmlp_m8"]}}
     record["kernels"].append({
@@ -4953,6 +5815,7 @@ def run_phases(phases, smi, keep, ckpt: Path) -> None:
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"server": served}), flush=True)
     print(json.dumps({"orpheus": orpheus}), flush=True)
+    print(json.dumps({"csm": csm}), flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,11 +12,14 @@ while `min_tokens` keeps EOS out.
 
 Ported: `generate` with the base, custom_voice and voice_design routes,
 streaming and not, alone or through an installed serving batcher
-(`make_batcher`, `batcher.py`), and x-vector voice cloning on Base
-checkpoints (`ref_audio` without `ref_text`: the ECAPA-TDNN speaker encoder
-of `speaker_encoder.py` over `mel_spectrogram`). Not yet: ICL voice cloning
-(`ref_audio` + `ref_text`, which needs the Mimi-based speech-tokenizer
-encoder); it raises NotImplementedError.
+(`make_batcher`, `batcher.py`); x-vector voice cloning on Base checkpoints
+(`ref_audio` without `ref_text`: the ECAPA-TDNN speaker encoder of
+`speaker_encoder.py` over `mel_spectrogram`); and ICL voice cloning
+(`ref_audio` + `ref_text`): the reference codes from the speech tokenizer's
+Mimi-based encoder go into the prefill, with the stronger repetition
+penalty. The JAX package always builds that encoder; the port builds it
+where a checkpoint carries its weights (`sanitize`) or a caller asks
+(`speech_tokenizer.build_encoder()`), and ICL without it raises.
 """
 
 from __future__ import annotations
@@ -44,11 +47,14 @@ from .talker import Qwen3TTSTalkerForConditionalGeneration
 
 __all__ = ["Model", "ModelConfig", "checkpoint_quant_predicate", "mel_spectrogram"]
 
-# JAX parameter prefixes of parts this port does not build yet
+# the JAX parameter prefix of the speech-tokenizer encoder, which the port
+# builds only where a checkpoint carries it or a caller asks
 NOT_BUILT = ("speech_tokenizer.encoder.",)
 
-_ICL_TODO = ("ICL voice cloning (ref_audio + ref_text) needs the Mimi-based "
-             "speech-tokenizer encoder, which is not ported yet")
+_ICL_NEEDS_ENCODER = (
+    "ICL voice cloning (ref_audio + ref_text) needs the speech tokenizer's encoder: load a "
+    "checkpoint that carries its weights (speech_tokenizer.encoder.*), or call "
+    "model.speech_tokenizer.build_encoder() and load them")
 
 
 def mel_spectrogram(audio, n_fft: int = 1024, num_mels: int = 128, sample_rate: int = 24000,
@@ -191,9 +197,11 @@ class Model(nn.Module):
 
     @property
     def NOT_BUILT(self):
-        """Checkpoint prefixes the loader drops: the speech-tokenizer encoder,
-        and the speaker encoder where the config builds none."""
-        return NOT_BUILT + (("speaker_encoder.",) if self.speaker_encoder is None else ())
+        """Checkpoint prefixes the loader drops: the speech-tokenizer encoder
+        where none is built, and the speaker encoder where the config builds
+        none."""
+        enc = () if hasattr(self.speech_tokenizer, "encoder") else NOT_BUILT
+        return enc + (("speaker_encoder.",) if self.speaker_encoder is None else ())
 
     @classmethod
     def post_load_hook(cls, model, model_path):
@@ -231,6 +239,10 @@ class Model(nn.Module):
                 out["speech_tokenizer." + k[len("tokenizer."):]] = v
             else:
                 out["talker." + k] = v
+        # a checkpoint that carries the speech-tokenizer encoder gets it
+        # built here, in the model's dtype, so the loader fills it
+        if any(k.startswith(NOT_BUILT) for k in out):
+            self.speech_tokenizer.build_encoder()
         return orient_weights_to_model(self, out)
 
     def _stacked_heads(self) -> torch.Tensor:
@@ -462,9 +474,12 @@ class Model(nn.Module):
     def _generate_segment(self, input_embeds, trailing, tts_pad, *, segment_idx: int,
                           stream: bool, streaming_interval: float, max_tokens: int,
                           temperature: float, top_k: int, top_p: float,
-                          repetition_penalty: float, seed: int = 0, min_tokens: int = 0):
+                          repetition_penalty: float, seed: int = 0, min_tokens: int = 0,
+                          ref_codes=None):
         """One AR segment: one final result, or streaming chunks decoded with
-        25 frames of left context."""
+        25 frames of left context. `ref_codes` (ICL, (1, K, Tref)) are
+        decoded ahead of the generated codes, and their share of the audio
+        cut off in proportion to their frames."""
         t0 = time.perf_counter()
         context = 25
         up = self.speech_tokenizer.decode_upsample_rate
@@ -494,7 +509,14 @@ class Model(nn.Module):
                 codes = np.concatenate(chunks, axis=0) if chunks else None
             if codes is None or codes.shape[0] == 0:
                 return
-            audio = self._decode_codes(codes)
+            if ref_codes is not None:
+                ref_t = np.asarray(ref_codes)[0].T  # (Tref, K)
+                full = np.concatenate([ref_t, codes], axis=0)
+                audio = self._decode_codes(full)
+                cut = int(ref_t.shape[0] / max(full.shape[0], 1) * len(audio))
+                audio = audio[cut:] if 0 < cut < len(audio) else audio
+            else:
+                audio = self._decode_codes(codes)
             yield self._result(audio, codes.shape[0], segment_idx, time.perf_counter() - t0)
             return
 
@@ -530,11 +552,10 @@ class Model(nn.Module):
                  streaming_interval: float = 2.0, **kwargs):
         """Routes by model type as the JAX package does: voice_design (voice
         described by `instruct`), custom_voice (a named speaker, optional
-        `instruct`), base (one segment per `split_pattern` piece, with the
-        x-vector of `ref_audio` as the speaker where the checkpoint has the
-        speaker encoder)."""
-        if ref_audio is not None and ref_text is not None:
-            raise NotImplementedError(_ICL_TODO)
+        `instruct`), base: ICL voice cloning with `ref_audio` + `ref_text`,
+        else one segment per `split_pattern` piece, with the x-vector of
+        `ref_audio` as the speaker where the checkpoint has the speaker
+        encoder."""
         if ref_audio is not None and isinstance(ref_audio, str):
             from ....utils import load_audio
 
@@ -559,6 +580,16 @@ class Model(nn.Module):
             yield from self.generate_custom_voice(text=text, speaker=voice,
                                                   language=lang_code, instruct=instruct,
                                                   **common)
+            return
+
+        if ref_audio is not None and ref_text is not None:
+            # ICL voice cloning, with the stronger repetition penalty that keeps
+            # codes from degenerating after a long reference prefill
+            if not hasattr(self.speech_tokenizer, "encoder"):
+                raise ValueError(_ICL_NEEDS_ENCODER)
+            common["repetition_penalty"] = max(repetition_penalty, 1.5)
+            yield from self._generate_icl(text=text, ref_audio=ref_audio, ref_text=ref_text,
+                                          language=lang_code, **common)
             return
 
         segments = [s.strip() for s in text.split(split_pattern) if s.strip()]
@@ -608,6 +639,86 @@ class Model(nn.Module):
             max_tokens=self._effective_max_tokens(text, max_tokens),
             temperature=temperature, top_k=top_k, top_p=top_p,
             repetition_penalty=repetition_penalty, seed=seed)
+
+    @torch.inference_mode()
+    def _prepare_icl_generation_inputs(self, text: str, ref_audio, ref_text: str,
+                                       language: str = "auto"):
+        """The ICL voice-cloning prefill: role, the codec prefix (think /
+        speaker / pad / bos), then all the text (the reference's and the
+        target's, plus tts_eos) over codec_pad, then codec_bos and the sum
+        over codebooks of the reference codes' embeddings over tts_pad →
+        (input_embeds, trailing, tts_pad, ref_codes (1, K, Tref) numpy)."""
+        cfg = self.config.talker_config
+        ra = np.asarray(ref_audio, np.float32).reshape(-1)
+        ref_codes = self.speech_tokenizer.encode(ra[None, None, :]).cpu().numpy()
+
+        ref_ids = self.tokenizer.encode(f"<|im_start|>assistant\n{ref_text}<|im_end|>\n")
+        ref_text_ids = ref_ids[3:-2]
+        target_ids = self.tokenizer.encode(
+            f"<|im_start|>assistant\n{text}<|im_end|>\n<|im_start|>assistant\n")
+        text_ids = target_ids[3:-5]
+        tts = self._text_embed([self.config.tts_bos_token_id, self.config.tts_eos_token_id,
+                                self.config.tts_pad_token_id])
+        tts_bos, tts_eos, tts_pad = tts[:, 0:1], tts[:, 1:2], tts[:, 2:3]
+        text_embed = torch.cat([self._text_embed(list(ref_text_ids) + list(text_ids)),
+                                tts_eos], dim=1)
+        D = text_embed.shape[-1]
+
+        # the codec side: the sum over codebooks of the reference codes' embeddings
+        codes = torch.as_tensor(ref_codes, dtype=torch.long, device=self.device)
+        cp = self.talker.code_predictor
+        ref_codec_embed = self.talker.model.codec_embedding(codes[:, 0])
+        for i in range(cfg.num_code_groups - 1):
+            ref_codec_embed = ref_codec_embed + cp.codec_embedding[i](codes[:, i + 1])
+        codec_embed_icl = torch.cat([self._codec_embed([cfg.codec_bos_id]), ref_codec_embed],
+                                    dim=1)
+        codec_pad = self._codec_embed([cfg.codec_pad_id])
+        # the non-streaming overlay: all the text over codec_pad, then all
+        # the codec over tts_pad
+        icl_embed = torch.cat([text_embed + codec_pad.expand(1, text_embed.shape[1], D),
+                               codec_embed_icl + tts_pad.expand(1, codec_embed_icl.shape[1], D)],
+                              dim=1)
+
+        language_id = None
+        if language.lower() != "auto" and cfg.codec_language_id:
+            language_id = cfg.codec_language_id.get(language.lower())
+        speaker_embed = (self.extract_speaker_embedding(ra)
+                         if self.speaker_encoder is not None else None)
+        if language_id is None:
+            prefill = [cfg.codec_nothink_id, cfg.codec_think_bos_id, cfg.codec_think_eos_id]
+        else:
+            prefill = [cfg.codec_think_id, cfg.codec_think_bos_id, language_id,
+                       cfg.codec_think_eos_id]
+        parts = [self._codec_embed(prefill)]
+        if speaker_embed is not None:
+            parts.append(speaker_embed.reshape(1, 1, -1).to(parts[0].dtype))
+        parts.append(self._codec_embed([cfg.codec_pad_id, cfg.codec_bos_id]))
+        codec_prefix = torch.cat(parts, dim=1)
+
+        role_embed = self._text_embed(list(target_ids[:3]))
+        pad_count = codec_prefix.shape[1] - 2
+        combined_prefix = torch.cat([tts_pad.expand(1, pad_count, D), tts_bos],
+                                    dim=1) + codec_prefix[:, :-1]
+        input_embeds = torch.cat([role_embed, combined_prefix, icl_embed], dim=1)
+        return input_embeds, tts_pad, tts_pad, ref_codes
+
+    def _generate_icl(self, text: str, ref_audio, ref_text: str, language: str = "auto",
+                      temperature: float = 0.9, top_k: int = 50, top_p: float = 1.0,
+                      repetition_penalty: float = 1.5, max_tokens: int = 4096,
+                      stream: bool = False, streaming_interval: float = 2.0, seed: int = 0,
+                      **_):
+        """ICL voice cloning: the reference codes in the prefill; the
+        non-streamed decode puts them ahead of the generated codes and cuts
+        their audio off. `min_tokens` is not taken, as in the JAX package."""
+        input_embeds, trailing, tts_pad, ref_codes = self._prepare_icl_generation_inputs(
+            text=text, ref_audio=ref_audio, ref_text=ref_text, language=language)
+        yield from self._generate_segment(
+            input_embeds, trailing, tts_pad, segment_idx=0, stream=stream,
+            streaming_interval=streaming_interval,
+            max_tokens=self._effective_max_tokens(text, max_tokens),
+            temperature=temperature, top_k=top_k, top_p=top_p,
+            repetition_penalty=repetition_penalty, seed=seed,
+            ref_codes=None if stream else ref_codes)
 
     def make_batcher(self, **kwargs):
         """Serving batcher: continuous (slot-based) batching of concurrent

@@ -1,11 +1,13 @@
-"""Qwen3-TTS speech tokenizer, the decoder: RVQ codes → 24 kHz waveform.
-Counterpart of `mlx_audio_tpu/tts/models/qwen3_tts/speech_tokenizer.py`
-(the decoder and `chunked_decode`), with the same parameter names.
+"""Qwen3-TTS speech tokenizer: RVQ codes ↔ 24 kHz waveform. Counterpart of
+`mlx_audio_tpu/tts/models/qwen3_tts/speech_tokenizer.py`, with the same
+parameter names.
 
-Split RVQ dequantize → causal pre-conv → sliding-window transformer →
-ConvNeXt upsampling → SnakeBeta conv decoder; channels-last (B, T, C). The
-Mimi-based encoder (reference codes for ICL voice cloning) is not ported
-yet: it waits for the Mimi codec.
+The decoder: split RVQ dequantize → causal pre-conv → sliding-window
+transformer → ConvNeXt upsampling → SnakeBeta conv decoder; channels-last
+(B, T, C). The encoder (reference codes for ICL voice cloning) is built
+from Mimi's pieces (`codec/models/mimi`): a SEANet encoder, a windowed
+transformer, the `edge`-padded downsample and a split RVQ, of whose 32
+quantizers the first 16 are kept.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ from torch import nn
 from ....nn import Conv1d, ConvTranspose1d, Embedding, LayerNorm, Linear, RMSNorm
 from ....ops.attention import scaled_dot_product_attention
 from ....ops.rope import apply_rope, rope_cos_sin
-from .config import Qwen3TTSTokenizerConfig, Qwen3TTSTokenizerDecoderConfig
+from .config import (Qwen3TTSTokenizerConfig, Qwen3TTSTokenizerDecoderConfig,
+                     Qwen3TTSTokenizerEncoderConfig)
 from .talker import TalkerMLP
 
 __all__ = ["Qwen3TTSSpeechTokenizer"]
@@ -365,10 +368,80 @@ class Qwen3TTSSpeechTokenizerDecoder(nn.Module):
         return torch.clamp(h[..., 0], -1.0, 1.0)
 
 
+class Qwen3TTSSpeechTokenizerEncoder(nn.Module):
+    """The Mimi-architecture encoder of ICL reference codes."""
+
+    def __init__(self, cfg: Qwen3TTSTokenizerEncoderConfig, device=None):
+        super().__init__()
+        from ....codec.models.mimi.mimi import (ProjectedTransformer, SeanetConfig,
+                                                SeanetEncoder, StreamableConv1d,
+                                                TransformerConfig)
+        from ....codec.models.mimi.mimi import SplitResidualVectorQuantizer as MimiSplitRVQ
+
+        seanet = SeanetConfig(
+            dimension=cfg.hidden_size, channels=cfg.audio_channels, causal=True,
+            nfilters=cfg.num_filters, nresidual_layers=cfg.num_residual_layers,
+            ratios=list(cfg.upsampling_ratios), ksize=cfg.kernel_size,
+            residual_ksize=cfg.residual_kernel_size, last_ksize=cfg.last_kernel_size,
+            dilation_base=cfg.dilation_growth_rate, pad_mode="constant",
+            true_skip=not cfg.use_conv_shortcut, compress=cfg.compress)
+        self.encoder = SeanetEncoder(seanet, device=device)
+        tcfg = TransformerConfig(
+            d_model=cfg.hidden_size, num_heads=cfg.num_attention_heads,
+            num_layers=cfg.num_hidden_layers, context=cfg.sliding_window,
+            max_period=cfg.rope_theta, dim_feedforward=cfg.intermediate_size,
+            layer_scale=cfg.layer_scale_initial_scale)
+        self.encoder_transformer = ProjectedTransformer(
+            tcfg, input_dim=cfg.hidden_size, output_dims=[cfg.hidden_size], device=device)
+        encoder_frame_rate = cfg.sampling_rate / math.prod(cfg.upsampling_ratios)
+        stride = int(encoder_frame_rate / cfg.frame_rate)
+        self.downsample = StreamableConv1d(cfg.hidden_size, cfg.hidden_size, 2 * stride,
+                                           stride, 1, 1, False, True, "edge", device=device)
+        self.quantizer = MimiSplitRVQ(dim=cfg.codebook_dim, input_dim=cfg.hidden_size,
+                                      output_dim=cfg.hidden_size, nq=cfg.num_quantizers,
+                                      bins=cfg.codebook_size, device=device)
+        self.valid_num_quantizers = 16
+
+    def encode(self, audio: torch.Tensor) -> torch.Tensor:
+        """audio (B, 1, T) → codes (B, 16, T') int64."""
+        x = audio.transpose(1, 2)
+        w = self.encoder.init_conv1d.conv.weight
+        h = self.encoder(x.to(w.dtype))
+        outs, _ = self.encoder_transformer(h)
+        codes = self.quantizer.encode(self.downsample(outs[0]))
+        return codes[:, :self.valid_num_quantizers]
+
+
 class Qwen3TTSSpeechTokenizer(nn.Module):
+    """The decoder, and the encoder once `build_encoder` is called (the
+    loader calls it for a checkpoint that carries the encoder's weights)."""
+
     def __init__(self, cfg: Qwen3TTSTokenizerConfig, device=None):
         super().__init__()
+        self.config = cfg
         self.decoder = Qwen3TTSSpeechTokenizerDecoder(cfg.decoder_config, device)
+
+    def build_encoder(self, seed: int = 0) -> "Qwen3TTSSpeechTokenizerEncoder":
+        """Build the encoder at the config's widths on the decoder's device
+        and in its dtype, with weights drawn from `seed` (a checkpoint's
+        replace them)."""
+        if not hasattr(self, "encoder"):
+            from ....nn.module import cast_floats, init_weights
+
+            w = self.decoder.pre_conv.conv.weight
+            enc = Qwen3TTSSpeechTokenizerEncoder(self.config.encoder_config, w.device)
+            gen = torch.Generator(device=w.device)
+            gen.manual_seed(seed)
+            init_weights(enc, gen)
+            self.encoder = cast_floats(enc, w.dtype)
+        return self.encoder
+
+    @torch.inference_mode()
+    def encode(self, audio) -> torch.Tensor:
+        """audio (B, 1, T) (numpy or tensor) → reference codes (B, 16, T')."""
+        dev = self.decoder.pre_conv.conv.weight.device
+        return self.encoder.encode(torch.as_tensor(np.asarray(audio, np.float32), device=dev)
+                                   if not isinstance(audio, torch.Tensor) else audio.to(dev))
 
     @property
     def decode_upsample_rate(self) -> int:

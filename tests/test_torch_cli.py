@@ -121,8 +121,8 @@ def test_tts_main_matches_jax(qwen_jax, tmp_path, capsys, jax_tokenizer, port_to
 def test_tts_join_audio_and_refusals(qwen_jax, tmp_path, port_tokenizer):
     """`join_audio` writes one file; `--play` raises where `sounddevice` (or
     an output device) is missing, as here; a reference audio without its text is transcribed with an STT
-    model loaded through the port's loader, before the ICL route, which is
-    not ported, raises."""
+    model loaded through the port's loader, before the ICL route raises for
+    want of the speech tokenizer's encoder, which this checkpoint lacks."""
     _, d = qwen_jax
     res = ptts.generate_audio(TEXT, model_path=str(d), temperature=0.0, max_tokens=4,
                               join_audio=True, output_path=str(tmp_path), verbose=False,
@@ -139,7 +139,7 @@ def test_tts_join_audio_and_refusals(qwen_jax, tmp_path, port_tokenizer):
             seen.append(wav.shape)
             return type("R", (), {"text": "hello"})()
 
-    with pytest.raises(NotImplementedError, match="ICL"):
+    with pytest.raises(ValueError, match="ICL"):
         ptts.generate_audio(TEXT, model_path=str(d), ref_audio=str(tmp_path / "audio.wav"),
                             stt_model=Stt(), output_path=str(tmp_path), device="cpu")
     assert seen == [(-(-x.shape[0] * 16000 // 24000),)]  # resample_poly rounds up

@@ -12,6 +12,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "mlx_audio_tpu_torch"
 
@@ -159,6 +161,7 @@ def _tiny_entry_points():
     from mlx_audio_tpu_torch.tts.models.llama import Model as Orpheus
     from mlx_audio_tpu_torch.tts.models.qwen3 import Model as Vyvo
     from mlx_audio_tpu_torch.tts.models.qwen3_tts import Model as Qwen3TTS
+    from mlx_audio_tpu_torch.tts.models.sesame import Model as Sesame
 
     whisper = dict(n_mels=80, n_audio_ctx=8, n_audio_state=16, n_audio_head=2,
                    n_audio_layer=1, n_vocab=64, n_text_ctx=8, n_text_state=16,
@@ -182,9 +185,16 @@ def _tiny_entry_points():
                     max_position_embeddings=16, num_hidden_layers=1, embedding_size=8))
     lm = dict(hidden_size=16, num_hidden_layers=1, intermediate_size=32,
               num_attention_heads=2, num_key_value_heads=1, vocab_size=32)
+    sesame = dict(text_vocab_size=16, audio_vocab_size=8, audio_num_codebooks=2,
+                  hidden_size=16, intermediate_size=32, num_hidden_layers=1,
+                  num_attention_heads=2, num_key_value_heads=1, head_dim=8,
+                  depth_decoder_config=dict(
+                      backbone_hidden_size=16, hidden_size=16, intermediate_size=32,
+                      num_hidden_layers=1, num_attention_heads=2, num_key_value_heads=1,
+                      head_dim=8, num_codebooks=2, vocab_size=8))
     return [(Whisper, whisper), (Qwen3TTS, qwen3), (MossFormer2SE, mossformer2_se),
             (Kokoro, kokoro), (Orpheus, dict(lm, model_type="llama")),
-            (Vyvo, dict(lm, model_type="qwen3"))]
+            (Vyvo, dict(lm, model_type="qwen3")), (Sesame, sesame)]
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
@@ -193,12 +203,20 @@ def test_entry_points_default_to_the_card(monkeypatch):
     import pytest
     import torch
 
-    from mlx_audio_tpu_torch.codec.models import SNAC
+    from mlx_audio_tpu_torch.codec.models import SNAC, Mimi
+    from mlx_audio_tpu_torch.codec.models.mimi import mimi
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     snac = dict(encoder_dim=4, encoder_rates=[2], decoder_dim=8, decoder_rates=[2],
                 attn_window_size=None, codebook_size=8, codebook_dim=2, vq_strides=[1])
-    for cls, cfg in _tiny_entry_points() + [(lambda c, **kw: SNAC(**c, **kw), snac)]:
+    tiny_mimi = mimi.MimiConfig(
+        sample_rate=1600.0, frame_rate=200.0,
+        seanet=mimi.SeanetConfig(dimension=8, nfilters=2, ratios=[2, 2]),
+        transformer=mimi.TransformerConfig(d_model=8, num_heads=2, num_layers=1,
+                                           dim_feedforward=16, context=4),
+        quantizer_nq=2, quantizer_bins=4, quantizer_dim=4)
+    for cls, cfg in _tiny_entry_points() + [(lambda c, **kw: SNAC(**c, **kw), snac),
+                                            (Mimi, tiny_mimi)]:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cls(cfg)
         assert cls(cfg, device="cpu").device.type == "cpu"
@@ -310,3 +328,19 @@ def test_lm_core_slice_modules_are_scanned():
     encoder are among the modules the import and scan tests cover."""
     names = {name for _, name in _modules()}
     assert set(LM_CORE_SLICE_MODULES) <= names
+
+
+MIMI_SESAME_SLICE_MODULES = (
+    "mlx_audio_tpu_torch.codec.models.mimi", "mlx_audio_tpu_torch.codec.models.mimi.mimi",
+    "mlx_audio_tpu_torch.tts.models.sesame", "mlx_audio_tpu_torch.tts.models.sesame.sesame",
+    "mlx_audio_tpu_torch.tts.models.sesame.batcher",
+    "mlx_audio_tpu_torch.tts.models.sesame.watermarking",
+    "mlx_audio_tpu_torch.tts.models.qwen3_tts.speech_tokenizer")
+
+
+@pytest.mark.parametrize("name", MIMI_SESAME_SLICE_MODULES)
+def test_mimi_sesame_slice_modules_are_scanned(name):
+    """Mimi, Sesame (the model, its batcher and the watermark) and the
+    speech tokenizer with its Mimi-based encoder are among the modules the
+    import and scan tests cover."""
+    assert name in {n for _, n in _modules()}

@@ -102,8 +102,10 @@ def test_ref_audio_without_ref_text_generates_as_jax(base_pair, tmp_path):
 
 
 def test_icl_still_raises(base_pair):
+    """Without the speech tokenizer's encoder (not in this checkpoint), ICL
+    raises; tests/test_torch_qwen3_icl.py holds the route with it."""
     _, pm = base_pair
-    with pytest.raises(NotImplementedError, match="ICL"):
+    with pytest.raises(ValueError, match="ICL"):
         list(pm.generate(TEXT, ref_audio=_ref(), ref_text="hi"))
 
 

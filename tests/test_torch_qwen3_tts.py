@@ -95,8 +95,8 @@ def _pair(fresh, bits=None):
 
 @pytest.fixture(scope="module")
 def jax_fresh():
-    # without the speech-tokenizer encoder (ICL only, not ported): the
-    # config object skips it, the dict would fill in a default one
+    # without the speech-tokenizer encoder (ICL only, tests/test_torch_qwen3_icl.py):
+    # the config object skips it, the dict would fill in a default one
     cfg = JaxConfig.from_dict(CFG)
     cfg.tokenizer_config.encoder_config = None
     return JaxModel(cfg)
@@ -295,11 +295,13 @@ def test_streaming_gives_the_same_codes(pair_int4):
 
 
 def test_unported_routes_raise(pair):
-    """ICL (ref_audio with ref_text) still raises. ref_audio alone no longer
-    does: a config without the speaker encoder ignores it, as the JAX
-    package does (tests/test_torch_qwen3_speaker.py holds the Base route)."""
+    """ICL (ref_audio with ref_text) raises on a model built without the
+    speech tokenizer's encoder (tests/test_torch_qwen3_icl.py holds the ICL
+    route). ref_audio alone does not: a config without the speaker encoder
+    ignores it, as the JAX package does (tests/test_torch_qwen3_speaker.py
+    holds the Base route)."""
     jm, pm = pair
-    with pytest.raises(NotImplementedError, match="ICL"):
+    with pytest.raises(ValueError, match="ICL"):
         list(pm.generate(TEXT, ref_audio=np.zeros(2400, np.float32), ref_text="hi"))
     assert pm.speaker_encoder is None
     (with_ref,), _ = _codes(pm, ref_audio=np.zeros(2400, np.float32))
