@@ -77,10 +77,10 @@ Phases, each printing its own lines:
      directories phase 10 wrote, each with a tokenizer.json the script
      writes (read by the port's own reader: the card has no `tokenizers`),
      models loaded through POST /v1/models and their batchers warmed:
-     Whisper-large-v3-turbo (bf16) transcribing a 30 s 44.1 kHz stereo
+     Whisper-large-v3-turbo (bf16) transcribing a 15 s 44.1 kHz stereo
      upload (the text and tokens of the in-memory phase 4 model, flash
-     launches 32 per batched encode), 8 concurrent requests, the first as
-     NDJSON, each its own seeded upload of 8-11.5 s (each transcription
+     launches 32 per batched encode), 4 concurrent requests, the first as
+     NDJSON, each its own seeded upload of 8-9.5 s (each transcription
      the in-memory model's sequential one of the same upload, or a stated
      near-tie at the decode where the two part), and the realtime WebSocket route (its
      final = `generate` on the same buffer) inside `profiling.trace`; int4
@@ -133,13 +133,37 @@ Phases, each printing its own lines:
      frames/s, RTF), profiled, streamed at 0.5 s (each chunk's frames the
      monolithic decode's, time to first audio), the watermark found on the
      output and not on unmarked audio; `bench_sesame_serving` at bench.py's
-     settings (8 x 64 frames, tick 8, pool 1024, one trial; greedy batched
+     settings cut in depth (8 x 32 frames where bench.py decodes 64, tick
+     8, pool 1024, one trial; greedy batched
      frames equal to sequential); `convert(quantize=True)` to int4, loaded,
      with the direct loop's quantized launches held to the code's count; one
      streamed request served over HTTP, equal to the in-memory model's
      samples; Qwen3-TTS ICL on phase 13's int4 Base model with a
      speech-tokenizer encoder at its published widths (reference codes card
-     against CPU, then 16 frames).
+     against CPU, then 16 frames);
+ 15. the DAC codec and its two families. DAC at 44.1 kHz (descript's
+     published widths, 9 codebooks) in float32: `decode_codes` of 86 frames
+     card against CPU, a reference's codes card against CPU, a code of 1024
+     decoded as the last bin. Dia-1.6B (`DiaConfig()`: encoder 12 x 1024,
+     decoder 18 x 2048) in bf16, seeded (channel 0's EOS column zeroed, so a
+     run takes its cap), written in the JAX package's layout with that DAC
+     in dac/ and loaded by `utils.load_model`: a two-layer float32 copy card
+     against CPU (every decoder call's logits over a prompt and 8 steps at
+     both bars, the greedy frames identical, [uncond, cond] swapped
+     rejected); `generate` of a two-speaker text at 256 frames, greedy and
+     sampled (1.3, cfg 3.0, top-k 35), profiled at 32 frames, a voice clone
+     from 5 s (DAC encode, then the prefill); `DiaBatcher` at 4 slots x 64
+     frames, batched equal to alone. Llama-OuteTTS-1.0-1B (Llama-3.2-1B's
+     16 x 2048, tied embeddings over Llama-3's vocabulary and OuteTTS's added
+     tokens) in bf16 with a planted greedy path of 100 c1/c2 pairs
+     (`plant_outetts`), a tokenizer.json with those tokens and the 24 kHz
+     DAC (2 codebooks) in dac/: `generate` greedy and sampled, profiled,
+     streamed at 0.5 s, with a speaker made by `create_speaker` from 5 s;
+     `LMContinuousBatcher` with 4 prompts, each equal to its sequential
+     tokens; int4 by `convert`, 16 tokens with the quantized launches held
+     to the code's count; a two-layer float32 copy card against CPU. Neither
+     bf16 path launches a kernel of the port, and the script holds them to
+     none.
 Phase 2 also holds the ReLU² attention kernel to its plain version and
 flash at B = 1, and the serving shapes: flash bf16 at B = 8, `qmm_mma` and
 the fused MLP at M = 8 (the batcher's tick), ReLU² f32 at B = 8, G = 2;
@@ -156,13 +180,14 @@ batcher's M = 8 and 16 and a 64-row prompt, the fused MLP at K = 2048 and
 hold phase 8's numbers ({"kokoro": ...}), the bf16 Qwen3-TTS step's
 ({"qwen3_bf16": ...}), phase 9's ({"whisper_rest": ...}), phase 10's
 ({"loaded": ...}), phase 11's ({"serving": ...}), phase 12's ({"server":
-...}), phase 13's ({"orpheus": ...}), phase 14's ({"csm": ...}) and the
-kernels' JSON record, in that order;
+...}), phase 13's ({"orpheus": ...}), phase 14's ({"csm": ...}), phase
+15's ({"dia_outetts": ...}) and the kernels' JSON record, in that order;
 the last line is {"ok": true, "device": {...}}. Any failure raises and exits non-zero. It
 needs one CUDA card and the checkout's `mlx_audio_tpu_torch/` package.
 `--phases 1,2` runs a subset (a first check of new kernels), `--phases
 1,12` the server (with phase 10 before it), `--phases 1,13` Orpheus,
-`--phases 1,14` CSM-1B and Mimi; the default runs all of them.
+`--phases 1,14` CSM-1B and Mimi, `--phases 1,15` DAC, Dia and OuteTTS;
+the default runs all of them.
 """
 
 from __future__ import annotations
@@ -384,6 +409,33 @@ def llama3_added_tokens():
     return base, [(n, base + i, True) for i, n in enumerate(names)]
 
 
+# OuteTTS-1.0's added tokens after Llama-3's 128,256, in the formats of
+# tts/models/outetts/tokens.py: its 16 markers, <|c1_0|> .. <|c1_1024|> and
+# <|c2_0|> .. <|c2_1024|> (prompt_processor.py's 1025 codes a codebook), the
+# word times <|t_0.00|> .. <|t_10.00|>, and energy, spectral centroid and
+# pitch at 0 .. 100 each
+OUTETTS_TIMES = 1001
+
+
+def outetts_added_tokens():
+    """(base vocabulary size, [(content, id, special)]): Llama-3's, then
+    OuteTTS's tokens from 128256 on, 3370 of them."""
+    from mlx_audio_tpu_torch.tts.models.outetts.tokens import SpecialTokens
+
+    base, added = llama3_added_tokens()
+    st = SpecialTokens()
+    names = [st.bos, st.eos, st.text_start, st.text_end, st.voice_characteristic_start,
+             st.voice_characteristic_end, st.emotion_start, st.emotion_end, st.audio_start,
+             st.audio_end, st.code, st.word_start, st.word_end, st.features,
+             st.global_features_start, st.global_features_end]
+    names += [st.c1.format(i) for i in range(1025)] + [st.c2.format(i) for i in range(1025)]
+    names += [st.time.format(i / 100) for i in range(OUTETTS_TIMES)]
+    for fmt in (st.energy, st.spectral_centroid, st.pitch):
+        names += [fmt.format(i) for i in range(101)]
+    first = base + len(added)
+    return base, added + [(n, first + i, False) for i, n in enumerate(names)]
+
+
 def train_merges(n_merges: int, seed: int) -> list:
     """Byte-level BPE merges learned from a seeded text: the most frequent
     adjacent pair first, ties to the larger pair; words both bare and after
@@ -432,12 +484,13 @@ def write_tokenizer_json(path, style: str, seed: int = 0,
     pre-tokenizer, merges as "a b" strings, Whisper-large-v3's added tokens),
     "qwen2" (NFC, Qwen2's Split pattern, merges as pairs, the chat tokens)
     or "llama3" (Llama-3's Split pattern, merges as pairs, its special
-    tokens, and a post-processor that puts <|begin_of_text|> first)."""
+    tokens, and a post-processor that puts <|begin_of_text|> first), or
+    "outetts" (llama3 with OuteTTS's added tokens after Llama-3's)."""
     from mlx_audio_tpu_torch.tokenizer_json import (LLAMA3_PATTERN, QWEN2_PATTERN,
                                                     bytes_to_unicode)
 
     base, added = {"whisper": whisper_added_tokens, "qwen2": qwen_added_tokens,
-                   "llama3": llama3_added_tokens}[style]()
+                   "llama3": llama3_added_tokens, "outetts": outetts_added_tokens}[style]()
     vocab = {c: b for b, c in bytes_to_unicode().items()}
     merges = train_merges(n_merges, seed)
     for a, b in merges:
@@ -458,7 +511,7 @@ def write_tokenizer_json(path, style: str, seed: int = 0,
             dict(byte_level, use_regex=False, trim_offsets=False)]}
         merges = [[a, b] for a, b in merges]
     post = dict(byte_level, trim_offsets=False)
-    if style == "llama3":
+    if style in ("llama3", "outetts"):
         bos = "<|begin_of_text|>"
         post = {"type": "Sequence", "processors": [
             dict(byte_level, add_prefix_space=True, trim_offsets=False), {
@@ -1166,6 +1219,12 @@ QMM_CASES = [  # name, bits, M, N, K, dtype: the routed shapes of phases 5 and 6
     ("csm_dec_qkv_m16_f32", 4, 16, 1536, 1024, torch.float32),
     ("csm_qkv_m64_f32", 4, 64, 3072, 2048, torch.float32),
     ("csm_down_m64_f32", 4, 64, 2048, 8192, torch.float32),
+    # Llama-OuteTTS-1.0-1B int4's 19-token prompt (phase 15; its decode
+    # steps are CSM's backbone shapes at M = 1, float32 x)
+    ("outetts_qkv_m19_f32", 4, 19, 3072, 2048, torch.float32),
+    ("outetts_oproj_m19_f32", 4, 19, 2048, 2048, torch.float32),
+    ("outetts_gate_up_m19_f32", 4, 19, 16384, 2048, torch.float32),
+    ("outetts_down_m19_f32", 4, 19, 2048, 8192, torch.float32),
 ]
 # groups other than 64: K = 1040 is 65 groups of 16
 QMM_GROUP = {"q6_k1040_m1_f32": 16, "g32_m64_bf16": 32, "q6_g128_m96_f32": 128,
@@ -1251,6 +1310,10 @@ CSM_QMM = [("qkv", 1, 3072, 2048), ("o_proj", 1, 2048, 2048), ("cb0_head", 1, 20
            ("qkv", 64, 3072, 2048)]
 CSM_QMLP = [("mlp", 1, 2048, 8192), ("mlp", 8, 2048, 8192), ("dec_mlp", 1, 1024, 8192),
             ("dec_mlp", 16, 1024, 8192)]
+# Llama-OuteTTS-1.0-1B int4's 19-token prompt, float32 x (its decode steps
+# are CSM_QMM's and CSM_QMLP's backbone shapes at M = 1)
+OUTETTS_QMM = [("qkv", 19, 3072, 2048), ("o_proj", 19, 2048, 2048),
+               ("gate_up", 19, 16384, 2048), ("down", 19, 2048, 8192)]
 ORPHEUS_MLP = dict(K=3072, I=8192, N=3072)
 
 
@@ -1410,20 +1473,21 @@ def phase_quant_kernels():
     timing["qmlp_m8"] = time_qmlp(SERVE_M)
     timing.update(time_orpheus())
     timing.update(time_csm())
+    timing.update(time_csm(OUTETTS_QMM, "outetts", ()))
     return errs, timing
 
 
-def time_csm() -> dict:
-    """CSM-1B int4's shapes in float32 x (CSM_QMM, CSM_QMLP), each beside
-    its bound, plain version and bf16 `F.linear` on the dequantized
-    weight."""
+def time_csm(cases=CSM_QMM, prefix: str = "csm", mlp_cases=CSM_QMLP) -> dict:
+    """CSM-1B int4's shapes in float32 x (CSM_QMM, CSM_QMLP), or another
+    family's `cases` under its `prefix`, each beside its bound, plain
+    version and bf16 `F.linear` on the dequantized weight."""
     from mlx_audio_tpu_torch.ops.cuda.quant_matmul import (quantized_matmul,
                                                            quantized_matmul_reference)
 
     timing = {}
     f32 = torch.float32
-    for shape, M, N, K in CSM_QMM:
-        key = f"csm_{shape}_m{M}"
+    for shape, M, N, K in cases:
+        key = f"{prefix}_{shape}_m{M}"
         g = torch.Generator(device="cuda").manual_seed(480 + M)
         sets = [quant_weights(N, K, 4, g)]
         wbytes = weight_bytes(*sets[0])
@@ -1448,8 +1512,8 @@ def time_csm() -> dict:
             f"weight {yard:.4f} ms, bound {bound:.4f} ms ({by}, {wbytes / 1e6:.2f} MB of "
             f"weights, scales and biases); at {100 * bound / ms:.1f}% of bound")
         del sets, dense, w_dense
-    for shape, M, K, I in CSM_QMLP:
-        timing[f"csm_{shape}_m{M}"] = time_qmlp(M, K=K, I=I, N=K)
+    for shape, M, K, I in mlp_cases:
+        timing[f"{prefix}_{shape}_m{M}"] = time_qmlp(M, K=K, I=I, N=K)
     torch.cuda.empty_cache()
     return timing
 
@@ -3440,8 +3504,10 @@ def phase_serving(keep) -> dict:
 
 # Phase 12: serving over HTTP and WebSocket (`server.py`, stdlib transport)
 # on the checkpoint directories phase 10 wrote, each with its tokenizer.json
-HTTP_WHISPER_S, HTTP_STREAMS = 30.0, 8
-# the 8 concurrent uploads: one window each, each its own seed, level and
+# cut in depth to make room for phase 15: a 15 s upload (one window, 30 s
+# and two windows until then) and 4 concurrent uploads (8 until then)
+HTTP_WHISPER_S, HTTP_STREAMS = 15.0, 4
+# the concurrent uploads: one window each, each its own seed, level and
 # length
 HTTP_CONC_S = tuple(8.0 + 0.5 * i for i in range(HTTP_STREAMS))
 # the int4 Whisper's upload: one 30 s window (a 30 s upload can take two);
@@ -3753,14 +3819,15 @@ def http_whisper(url, provider, tmp: Path, keep, smi) -> dict:
             raise SystemExit(f"chip_smoke: the served text {one['text'][:80]!r} is not the "
                              f"in-memory model's {want.text[:80]!r}")
         log(f"[server] whisper: POST /v1/models {rec['load_s']:.2f} s, warm-up "
-            f"{rec['warmup_s']:.2f} s; one 30 s 44.1 kHz stereo transcription {one_s:.4f} s "
+            f"{rec['warmup_s']:.2f} s; one {HTTP_WHISPER_S:g} s 44.1 kHz stereo transcription "
+            f"{one_s:.4f} s "
             f"({HTTP_WHISPER_S / one_s:.1f}x real time), {dispatches} batched decode(s), flash "
             f"launches {launches} ({FLASH_PER_ENCODE} per encode); text = the reader's decode "
             f"of the in-memory model's {len(seg_tokens(want.segments))} tokens "
             f"({len(one['segments'])} segments, temperatures "
             f"{[s['temperature'] for s in one['segments']]})")
 
-        # 8 concurrent requests, each its own seeded upload and length (one
+        # HTTP_STREAMS concurrent requests, each its own seeded upload and length (one
         # window each): one batched encode and decode a step of the seek
         # loops, each transcription the in-memory model's sequential one of
         # the same upload, or a stated near-tie. The seeded weights decode
@@ -3793,7 +3860,7 @@ def http_whisper(url, provider, tmp: Path, keep, smi) -> dict:
         conc_s = time.perf_counter() - t0
         c_launches, c_dispatches = flash_attention.launches, batcher.dispatch_count - d0
         if c_launches != FLASH_PER_ENCODE * c_dispatches:
-            raise SystemExit(f"chip_smoke: 8 served transcriptions launched flash {c_launches} "
+            raise SystemExit(f"chip_smoke: the served transcriptions launched flash {c_launches} "
                              f"times over {c_dispatches} batched dispatches")
         ref_decodes = WindowDecodes(ref)
         t0 = time.perf_counter()
@@ -3805,7 +3872,7 @@ def http_whisper(url, provider, tmp: Path, keep, smi) -> dict:
         seq_s = time.perf_counter() - t0
         keys = [transcript_key(w.text, w.duration, w.segments) for w, _ in wants]
         if len(set(keys)) != HTTP_STREAMS:
-            raise SystemExit("chip_smoke: two of the 8 uploads have the same transcription, so "
+            raise SystemExit("chip_smoke: two of the uploads have the same transcription, so "
                              "a response sent to the other request could pass")
         distinct_tokens = len({tuple(seg_tokens(w.segments)) for w, _ in wants})
         parted = check_served_windows(ref, outs, wants, served_decodes.by_thread.values(), tok())
@@ -4913,11 +4980,12 @@ CSM_LAYER_BAR = 1e-2
 # dimensions (the JAX package starts it at zero, which decodes every
 # codebook past the first to 0)
 CSM_HEAD_STD = 1024 ** -0.5
-# bench.py's bench_sesame_serving: 8 streams of 64 frames, ticks of 8, a
-# 1024-row pool, 48-token prompts, sampled at 0.9 / top-k 50 (the
-# sequential run alone takes ~100 s at ~190 ms a frame); greedy streams of
-# 4 frames for the batched-against-sequential check
-CSM_STREAMS, CSM_SERVE_FRAMES, CSM_TICK, CSM_POOL, CSM_PROMPT = 8, 64, 8, 1024, 48
+# bench.py's bench_sesame_serving: 8 streams, ticks of 8, a 1024-row pool,
+# 48-token prompts, sampled at 0.9 / top-k 50, cut in depth to 32 frames a
+# stream (bench.py's 64 until phase 15 came: the sequential run alone took
+# ~100 s at ~190 ms a frame); greedy streams of 4 frames for the
+# batched-against-sequential check
+CSM_STREAMS, CSM_SERVE_FRAMES, CSM_TICK, CSM_POOL, CSM_PROMPT = 8, 32, 8, 1024, 48
 CSM_GREEDY_FRAMES = 4
 CSM_INT4_FRAMES = 16
 CSM_SERVED_FRAMES = 16
@@ -5212,8 +5280,7 @@ def mimi_checks(mimi, ref) -> dict:
             "stream_s": stream_s, "ring_fault_gap": bad, "encode_agreement": agree}
 
 
-def csm_reference(seconds=CSM_REF_S, seed=12) -> np.ndarray:
-    sr = 24000
+def csm_reference(seconds=CSM_REF_S, seed=12, sr: int = 24000) -> np.ndarray:
     t = np.arange(int(seconds * sr)) / sr
     rng = np.random.default_rng(seed)
     return (0.3 * np.sin(2 * np.pi * 160 * t) * (1 + 0.5 * np.sin(2 * np.pi * 2 * t))
@@ -5313,7 +5380,7 @@ def csm_generate(csm, mimi, ref, smi) -> dict:
 
 def csm_serving(csm) -> dict:
     """bench.py's bench_sesame_serving on the port: a warm wave, then 8
-    streams of 64 sampled frames one at a time and all at once through one
+    streams of CSM_SERVE_FRAMES sampled frames one at a time and all at once through one
     `SesameBatcher` (one trial, where bench.py takes the median of 3); then
     8 greedy streams of CSM_GREEDY_FRAMES, batched against sequential
     through the same pool (identical frames)."""
@@ -5619,12 +5686,748 @@ def phase_csm(smi: str, keep) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the DAC codec, Dia-1.6B and Llama-OuteTTS-1.0-1B
+# ---------------------------------------------------------------------------
+
+# OuteTTS ties its head to the embedding (Llama-3.2-1B), so the planted path
+# lives in the layers: every embedding row is drawn N(0, 1); every residual
+# branch's output projection is scaled by OUTETTS_RESIDUAL_SCALE; and layer
+# 0's MLP is a lookup whose unit i fires (gate OUTETTS_GATE) on token t_i's
+# embedding and writes e[s_i] - e[t_i], so the last hidden state points at
+# the successor s_i's row and the tied head takes it by a margin of ~D.
+OUTETTS_GATE = 20.0
+OUTETTS_RESIDUAL_SCALE = 1e-2
+
+
+def outetts_path(tok, frames: int, seed: int = 0) -> list:
+    """The planted path's token ids: `frames` c1/c2 pairs of distinct codes,
+    <|c1_1024|> among them (past the 1024-entry codebook: the DAC's decode
+    clamps it), then <|audio_end|>."""
+    rng = np.random.default_rng(seed)
+    c1 = rng.permutation(1025)[:frames]
+    if 1024 not in c1:
+        c1[frames // 2] = 1024
+    c2 = rng.permutation(1024)[:frames]
+    ids = []
+    for a, b in zip(c1, c2):
+        ids += [tok.token_to_id(f"<|c1_{a}|>"), tok.token_to_id(f"<|c2_{b}|>")]
+    return ids + [tok.token_to_id("<|audio_end|>")]
+
+
+@torch.no_grad()
+def plant_outetts(model, succ: dict, seed: int = 0):
+    """Plant the greedy successor map `succ` {token: next token} in a
+    tied-embedding `CausalLM` (in place; see OUTETTS_GATE)."""
+    lm = model.model
+    E = lm.embed_tokens.weight
+    D = E.shape[1]
+    g = torch.Generator(device=E.device).manual_seed(seed)
+    E.normal_(0.0, 1.0, generator=g)
+    for layer in lm.layers:
+        layer.self_attn.o_proj.weight.mul_(OUTETTS_RESIDUAL_SCALE)
+        layer.mlp.down_proj.weight.mul_(OUTETTS_RESIDUAL_SCALE)
+    mlp = lm.layers[0].mlp
+    t = torch.as_tensor(list(succ), device=E.device)
+    a_t = E[t].float()
+    a_s = E[torch.as_tensor(list(succ.values()), device=E.device)].float()
+    P = len(t)
+    if P > mlp.gate_proj.weight.shape[0]:
+        raise ValueError(f"{P} planted tokens exceed the MLP's units")
+    w = mlp.gate_proj.weight
+    w[:P] = (OUTETTS_GATE * a_t / D).to(w.dtype)
+    mlp.up_proj.weight[:P] = (a_t / D).to(w.dtype)
+    silu = OUTETTS_GATE / (1 + math.exp(-OUTETTS_GATE))
+    mlp.down_proj.weight[:, :P] = ((a_s - a_t) / silu).T.to(w.dtype)
+    return model
+
+
+# DAC at the two published widths the families load: descript's 44.1 kHz
+# model (Dia: mlx-community/descript-audio-codec-44khz; hop 512, 86 frames
+# a second) and the 24 kHz 1.5 kbps speech model (OuteTTS:
+# mlx-community/dac-speech-24khz-1.5kbps; the class defaults, 2 codebooks,
+# hop 320, 75 frames a second)
+DAC_44K = dict(encoder_dim=64, encoder_rates=[2, 4, 8, 8], latent_dim=1024, decoder_dim=1536,
+               decoder_rates=[8, 8, 4, 2], n_codebooks=9, codebook_size=1024, codebook_dim=8,
+               sample_rate=44100)
+DAC_24K = dict(n_codebooks=2, sample_rate=24000)
+DAC_FRAMES = 86  # one second at 44.1 kHz
+DAC_ATOL = 1e-5  # of the peak, card against CPU, float32
+# a code the card's and the CPU's encode may choose apart only at a near-tie
+# of the two codes' cosine similarities (float32 sums in other orders)
+DAC_TIE = 1e-5
+# Dia-1.6B, `DiaConfig()`: a two-speaker text, 256 frames (the EOS column of
+# channel 0's logits is zeroed in the seeded checkpoint, so every run takes
+# its cap), greedy then sampled at the defaults (1.3, cfg 3.0, top-k 35)
+DIA_TEXT = ("[S1] The quick brown fox jumps over the lazy dog. "
+            "[S2] And the lazy dog jumps over the quick brown fox.")
+DIA_FRAMES = 256
+DIA_PROFILE_FRAMES = 32
+DIA_REF_S = 5.0
+DIA_REF_TEXT = "[S1] A seeded reference line."
+DIA_CLONE_FRAMES = 32
+DIA_SLOTS, DIA_BATCH_FRAMES, DIA_TICK = 4, 64, 8
+DIA_TEXTS = (DIA_TEXT, "[S1] Hello world. [S2] The model turns text into speech.",
+             "[S1] A concurrent stream. [S2] Another one, its own words.",
+             "[S1] The lazy dog. [S2] The quick brown fox jumps over it.")
+# the two-layer float32 copy: a seeded 8-frame delayed prompt, then 8 greedy
+# steps, every decoder call's logits card against CPU
+DIA_CPU_PROMPT, DIA_CPU_STEPS = 8, 8
+DIA_LAYER_BAR = 1e-2
+# Llama-OuteTTS-1.0-1B: Llama-3.2-1B's published widths, tied embeddings
+OUTETTS_CFG = dict(
+    model_type="llama", hidden_size=2048, num_hidden_layers=16, intermediate_size=8192,
+    num_attention_heads=32, num_key_value_heads=8, head_dim=64, vocab_size=131626,
+    rms_norm_eps=1e-5, rope_theta=500000.0, max_position_embeddings=131072,
+    tie_word_embeddings=True,
+    rope_scaling={"factor": 32.0, "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                  "original_max_position_embeddings": 8192, "rope_type": "llama3"})
+OUTETTS_FRAMES = 100  # planted c1/c2 pairs: 201 tokens with <|audio_end|>
+OUTETTS_PROFILE_TOKENS = 64
+OUTETTS_STREAM_INTERVAL = 0.5  # s of tokens a streamed chunk: 68 tokens
+OUTETTS_REF_S = 5.0
+OUTETTS_REF_TEXT = "A seeded reference line that the model never heard."
+# the batched wave: prompts entering the path at these tokens; 16-step ticks
+OUTETTS_ENTRIES, OUTETTS_TICK = (100, 130, 160, 180), 16
+OUTETTS_INT4_TOKENS = 16
+OUTETTS_CPU_TOKENS = 16
+OUTETTS_LAYER_BAR = 1e-2
+
+
+def zero_port_launches() -> None:
+    from mlx_audio_tpu_torch.ops.cuda import quant_matmul as qk
+    from mlx_audio_tpu_torch.ops.cuda.flash_attention import flash_attention
+    from mlx_audio_tpu_torch.ops.cuda.relu2_attention import relu2_attention
+
+    flash_attention.launches = relu2_attention.launches = 0
+    qk.reset_launches()
+
+
+def no_port_launches(label) -> dict:
+    got = port_kernel_launches()
+    if any(got.values()):
+        raise SystemExit(f"chip_smoke: {label} launched the port's kernels {got}; its path has "
+                         "none")
+    return got
+
+
+def dac_first_parting(cpu, audio, card_codes, cpu_codes) -> dict:
+    """At the first quantizer whose codes part card from CPU, its first
+    parting frame: the CPU's cosine similarities of the two codes."""
+    with torch.inference_mode():
+        z = cpu.encoder(torch.as_tensor(audio))
+        residual = z
+        for i, q in enumerate(cpu.quantizer.quantizers):
+            diff = np.nonzero(card_codes[0, i] != cpu_codes[0, i])[0]
+            z_e = q.in_proj(residual)
+            if len(diff):
+                t = int(diff[0])
+                enc = z_e[0, :, t] / z_e[0, :, t].norm().clamp(min=1e-12)
+                cb = q.codebook.weight / q.codebook.weight.norm(dim=-1, keepdim=True)
+                sim = cb @ enc
+                a, b = int(card_codes[0, i, t]), int(cpu_codes[0, i, t])
+                return {"quantizer": i, "frame": t, "card_code": a, "cpu_code": b,
+                        "card_sim": float(sim[a]), "cpu_sim": float(sim[b])}
+            z_q, _ = q.decode_latents(z_e)
+            residual = residual - q.out_proj(z_q)
+    return {}
+
+
+def dac_checks(dac) -> dict:
+    """The 44.1 kHz DAC in float32 (TF32 off): `decode_codes` of DAC_FRAMES
+    seeded frames card against CPU within DAC_ATOL of the peak; the codes of
+    a 1 s reference card against CPU (identical, or parted first at a
+    near-tie, whose two similarities are reported); a code of 1024 decodes as
+    the last bin with no device assert; the decode and encode timed."""
+    from mlx_audio_tpu_torch.codec.models import DAC
+
+    t0 = time.perf_counter()
+    cpu = DAC(**DAC_44K, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in dac.state_dict().items()})
+    codes = np.random.default_rng(13).integers(0, 1024, (1, 9, DAC_FRAMES))
+    card_wav = dac.decode_codes(codes).cpu()
+    cpu_wav = cpu.decode_codes(codes)
+    peak = cpu_wav.abs().max().item()
+    d = (card_wav - cpu_wav).abs().max().item()
+    past = codes.copy()
+    past[0, :, 10] = 1024
+    last = codes.copy()
+    last[0, :, 10] = 1023
+    past_wav = dac.decode_codes(past)
+    torch.cuda.synchronize()  # a device-side assert would surface here
+    # cuDNN's transposed convolutions may sum in another order from call to call
+    clamped = (past_wav - dac.decode_codes(last)).abs().max().item() <= DAC_ATOL * peak
+    ref = csm_reference(1.0, 14, sr=44100)[None, None]
+    x = dac.preprocess(ref)
+    card_codes = dac.encode(x)[1].cpu().numpy()
+    cpu_codes = cpu.encode(x.cpu())[1].numpy()
+    parted = int((card_codes != cpu_codes).sum())
+    first = dac_first_parting(cpu, x.cpu(), card_codes, cpu_codes) if parted else {}
+    decode_ms = time_ms(lambda: dac.decode_codes(codes), iters=3, warmup=1)
+    encode_ms = time_ms(lambda: dac.encode(x), iters=3, warmup=1)
+    log(f"[dac] 44.1 kHz (encoder 64 x [2, 4, 8, 8], latent 1024, decoder 1536 x [8, 8, 4, 2], "
+        f"9 x 1024 codes of dim 8), float32: decode_codes of {DAC_FRAMES} frames card against "
+        f"CPU max|d| {d:.3e} of peak {peak:.4f} (bar {DAC_ATOL:g} of it); a code of 1024 "
+        f"decodes as the last bin: {clamped}; the 1 s reference's codes {card_codes.shape} "
+        f"part card from CPU at {parted} of {card_codes.size}{f' (first {first})' if first else ''}"
+        f"; decode {decode_ms:.2f} ms, encode {encode_ms:.2f} ms a call (CUDA events, "
+        f"{time.perf_counter() - t0:.1f} s)")
+    if d > DAC_ATOL * peak or card_wav.shape != (1, 1, DAC_FRAMES * 512) or not clamped:
+        raise SystemExit("chip_smoke: the DAC's decode parts card from CPU, or a code of 1024 "
+                         "does not decode as the last bin")
+    if parted and abs(first["card_sim"] - first["cpu_sim"]) > DAC_TIE:
+        raise SystemExit(f"chip_smoke: the DAC's codes part card from CPU away from a near-tie "
+                         f"{first}")
+    del cpu
+    return {"decode_max_abs_err": d, "peak": peak, "code_1024_is_last_bin": clamped,
+            "encode_codes_parted": parted, "first_parting": first, "decode_ms": decode_ms,
+            "encode_ms": encode_ms, "frames": DAC_FRAMES}
+
+
+def dia_seeded(seed: int = 16):
+    """Dia-1.6B at `DiaConfig()` on the card in bf16, weights drawn from
+    `seed`; channel 0's EOS column of the logits zeroed (random weights would
+    otherwise end a run wherever they draw it)."""
+    from mlx_audio_tpu_torch.nn.module import cast_floats
+    from mlx_audio_tpu_torch.tts.models.dia import DiaConfig, Model
+
+    model = Model(DiaConfig(), device="cuda", seed=seed)
+    with torch.no_grad():
+        model.model.decoder.logits_dense.weight[:, 0, model.config.data.audio_eos_value] = 0
+    return cast_floats(model, torch.bfloat16)
+
+
+def write_dia(path: Path, reduced: Path, model, dac) -> tuple:
+    """Dia in the JAX package's checkpoint layout (config.json with model
+    type dia, the DAC in dac/) and a copy with two encoder and two decoder
+    layers. → (seconds, bytes)."""
+    import dataclasses
+
+    from mlx_audio_tpu_torch.convert import save_model
+    from mlx_audio_tpu_torch.nn.module import flatten_params
+
+    t0 = time.perf_counter()
+    flat = flatten_params(model)
+    keep = re.compile(r"^model\.(encoder|decoder)\.layers\.(\d+)\.")
+    two = {k: v for k, v in flat.items() if not (m := keep.match(k)) or int(m.group(2)) < 2}
+    cfg = dataclasses.asdict(model.config)
+    small = json.loads(json.dumps(cfg))
+    small["model"]["encoder"]["n_layer"] = small["model"]["decoder"]["n_layer"] = 2
+    dac_flat = flatten_params(dac)
+    for where, weights, c in ((path, flat, cfg), (reduced, two, small)):
+        save_model(where, weights, dict(c, model_type="dia"))
+        save_model(where / "dac", dac_flat, dict(DAC_44K))
+    del flat, two
+    return time.perf_counter() - t0, checkpoint_bytes(path) + checkpoint_bytes(path / "dac")
+
+
+def dia_logit_rows(model, fault: bool = False):
+    """The two-layer copy's decoder calls over a seeded 8-frame delayed prompt
+    and DIA_CPU_STEPS greedy steps: (frames, [(logits, plant)]) on the host,
+    `plant` the same call's logits with the layers skipped (what the layers
+    add is the distance between them). `fault` swaps [uncond, cond] in the
+    CFG combine."""
+    from mlx_audio_tpu_torch.lm.cache import KVCache
+    from mlx_audio_tpu_torch.tts.models.dia import audio as daudio
+    from mlx_audio_tpu_torch.tts.models.dia import dia
+
+    dm, data, dec = model.model, model.config.data, model.config.model.decoder
+    dev = model.device
+    rows = []
+    forward = dm.decoder.forward
+
+    def recorded(tgt_ids, *a, **kw):
+        logits, caches = forward(tgt_ids, *a, **kw)
+        x = sum(dm.decoder.embeddings[i](tgt_ids[..., i]) for i in range(data.channels))
+        plant = dm.decoder.logits_dense(dm.decoder.norm(x)).float()
+        rows.append((logits.cpu(), plant.cpu()))
+        return logits, caches
+
+    cfg_pred = dia._cfg_pred
+    dm.decoder.forward = recorded
+    if fault:
+        dia._cfg_pred = lambda last, *a: cfg_pred(last.flip(0), *a)
+    try:
+        with torch.inference_mode():
+            src, mask = model._prepare_text(DIA_TEXT)
+            src2, pos, enc, cross = dia._text_pair(src, mask, dev)
+            _, ckv = dia._encode_text(dm, src2, pos, enc)
+            codes = np.random.default_rng(9).integers(0, 1024, (1, DIA_CPU_PROMPT, data.channels))
+            prompt = daudio.apply_audio_delay(torch.as_tensor(codes, device=dev),
+                                              data.delay_pattern, data.audio_bos_value,
+                                              data.audio_pad_value)
+            bos = torch.full((1, 1, data.channels), data.audio_bos_value, device=dev)
+            prompt = torch.cat([bos, prompt], dim=1)
+            P = prompt.shape[1]
+            caches = [KVCache(2, dec.kv_heads, P + DIA_CPU_STEPS + 64, dec.gqa_head_dim,
+                              dtype=torch.float32, device=dev) for _ in range(dec.n_layer)]
+            dm.decoder(prompt.expand(2, P, -1)[:, :-1],
+                       torch.arange(P - 1, device=dev)[None].expand(2, -1), caches, ckv,
+                       self_mask=caches[0].attention_mask(P - 1), cross_mask=cross)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            frames, n = dia._generate_loop(
+                dm, caches, ckv, cross, prompt[0, -1], P - 1, gen, DIA_CPU_STEPS, 3.0, 0.0, 35,
+                data.audio_eos_value, data.audio_pad_value, data.audio_bos_value,
+                tuple(data.delay_pattern))
+    finally:
+        del dm.decoder.forward
+        dia._cfg_pred = cfg_pred
+    return frames.cpu().numpy(), rows
+
+
+def dia_two_layer(reduced: Path) -> dict:
+    """The two-layer copy at full width in float32 (TF32 off): every decoder
+    call's logits (the prompt's and each step's) card against CPU at both
+    bars, the greedy frames identical; [uncond, cond] swapped in the CFG
+    combine must break the check."""
+    t0 = time.perf_counter()
+    cpu, cpu_load = timed_load(str(reduced), device="cpu", dtype=torch.float32)
+    want_frames, want = dia_logit_rows(cpu)
+    del cpu
+    card, _ = timed_load(str(reduced), device="cuda", dtype=torch.float32)
+    frames, got = dia_logit_rows(card)
+    bad_frames, bad = dia_logit_rows(card, fault=True)
+    gaps = csm_gaps(got, want)
+    fault = csm_gaps(bad, want)
+
+    def ok(g):
+        return all(d <= CARD_VS_CPU_ATOL * peak and d <= DIA_LAYER_BAR * add for d, peak, add in g)
+
+    worst = max(g[0] / min(CARD_VS_CPU_ATOL * g[1], DIA_LAYER_BAR * g[2]) for g in gaps)
+    log(f"[dia] two-layer copy, float32, card against CPU: {len(gaps)} decoder calls (an "
+        f"{DIA_CPU_PROMPT}-frame prompt, {DIA_CPU_STEPS} greedy steps), max|d| "
+        f"{max(g[0] for g in gaps):.3e}, peaks >= {min(g[1] for g in gaps):.3f} (bar "
+        f"{CARD_VS_CPU_ATOL:g} of each), what the layers add >= {min(g[2] for g in gaps):.4f} "
+        f"(bar {DIA_LAYER_BAR:g} of each), worst share of its bar {worst:.3f}; greedy frames "
+        f"identical: {np.array_equal(frames, want_frames)}; [uncond, cond] swapped parts them by "
+        f"{max(g[0] for g in fault):.3e}, frames identical {np.array_equal(bad_frames, want_frames)}"
+        f" ({time.perf_counter() - t0:.1f} s, the CPU load {cpu_load:.1f} s)")
+    if not ok(gaps) or not np.array_equal(frames, want_frames) or frames.shape[0] != DIA_CPU_STEPS:
+        raise SystemExit("chip_smoke: the Dia two-layer copy parts card from CPU")
+    if ok(fault) and np.array_equal(bad_frames, want_frames):
+        raise SystemExit("chip_smoke: the Dia check passes [uncond, cond] swapped")
+    del card
+    return {"logits_max_abs_err": max(g[0] for g in gaps), "layers_add": min(g[2] for g in gaps),
+            "worst_share_of_bar": worst, "swap_fault_gap": max(g[0] for g in fault),
+            "frames": frames.tolist(), "wall_s": time.perf_counter() - t0}
+
+
+def dia_generate(dia, smi) -> dict:
+    """`Model.generate` of DIA_TEXT (one segment: two turns) at DIA_FRAMES,
+    greedy and sampled; a profiled run of DIA_PROFILE_FRAMES; a voice clone
+    from a DIA_REF_S reference (DAC encode, then its prefill). The DAC is
+    the checkpoint's dac/, read by `Model.dac_model`."""
+    def run(**kw):
+        with torch.inference_mode():
+            out = list(dia.generate(DIA_TEXT, **dict(dict(temperature=0.0,
+                                                          max_tokens=DIA_FRAMES), **kw)))
+        torch.cuda.synchronize()
+        return out
+
+    run(max_tokens=16)  # warm-up (the DAC loads from dac/ here)
+    zero_port_launches()
+    t0 = time.perf_counter()
+    greedy = run()
+    wall = time.perf_counter() - t0
+    launches = no_port_launches("Dia's greedy generate")
+    t0 = time.perf_counter()
+    sampled = run(temperature=1.3, cfg_scale=3.0, cfg_filter_top_k=35)
+    sampled_s = time.perf_counter() - t0
+    _, _ = profile_one_run(lambda: run(max_tokens=DIA_PROFILE_FRAMES),
+                           f"one Dia-1.6B generate of {DIA_PROFILE_FRAMES} frames")
+    prof = dict(profile_one_run.last)
+    ref = csm_reference(DIA_REF_S, 15, sr=44100)
+    x = dia.dac_model.preprocess(ref[None, None])
+    encode_s = time_ms(lambda: dia.dac_model.encode(x), iters=1, warmup=1) / 1e3
+    t0 = time.perf_counter()
+    clone = run(ref_audio=ref, ref_text=DIA_REF_TEXT, max_tokens=DIA_CLONE_FRAMES)
+    clone_s = time.perf_counter() - t0
+    n, audio = greedy[0].token_count, greedy[0].audio
+    audio_s = len(audio) / 44100
+    per_frame = DIA_PROFILE_FRAMES
+    log(f"[dia] generate (greedy, {len(greedy)} segment of two turns): {n} frames, "
+        f"{audio_s:.3f} s of audio, wall {wall:.4f} s ({n / wall:.2f} frames/s, RTF "
+        f"{wall / audio_s:.4f}); sampled (1.3, cfg 3.0, top-k 35) {sampled[0].token_count} "
+        f"frames in {sampled_s:.4f} s ({sampled[0].token_count / sampled_s:.2f} frames/s); the "
+        f"port's kernels launched {launches} ({smi})")
+    log(f"[dia] profiled {per_frame} frames: device busy {prof['device_ms']:.1f} ms of "
+        f"{prof['wall_ms']:.1f} ms wall (idle share {100 * prof['idle_share']:.1f}%), "
+        f"{prof['launches']} launches, {prof['launches'] / per_frame:.0f} and "
+        f"{prof['device_ms'] / per_frame:.3f} ms of device time a step with the text encode and "
+        f"the DAC decode spread over them")
+    log(f"[dia] voice clone: a {DIA_REF_S:g} s reference DAC-encoded in {encode_s:.4f} s "
+        f"({x.shape[-1] // 512} frames, prefilled with the text), then {clone[0].token_count} "
+        f"greedy frames: wall {clone_s:.4f} s")
+    if (n != DIA_FRAMES or len(audio) != (DIA_FRAMES - 15) * 512 or not np.isfinite(audio).all()
+            or clone[0].token_count != DIA_CLONE_FRAMES or not np.isfinite(clone[0].audio).all()
+            or not np.isfinite(sampled[0].audio).all()):
+        raise SystemExit("chip_smoke: Dia's generate gave the wrong frames or non-finite audio")
+    return {"frames": n, "audio_s": audio_s, "wall_s": wall, "frames_per_s": n / wall,
+            "rtf": wall / audio_s, "sampled_frames": sampled[0].token_count,
+            "sampled_wall_s": sampled_s, "launches": launches, "profile": prof,
+            "profile_frames": per_frame, "clone_encode_s": encode_s, "clone_wall_s": clone_s,
+            "clone_frames": clone[0].token_count}
+
+
+def dia_batched(dia) -> dict:
+    """`DiaBatcher` at DIA_SLOTS slots: four greedy requests of
+    DIA_BATCH_FRAMES frames at once, each equal to its frames alone through
+    the same pool."""
+    b = dia.make_batcher(slots=DIA_SLOTS, tick_frames=DIA_TICK, max_tokens_cap=DIA_BATCH_FRAMES)
+    try:
+        b.warmup()
+        inputs = [dia._prepare_text(t) for t in DIA_TEXTS]
+
+        def submit(src_mask):
+            return b.submit(*src_mask, max_tokens=DIA_BATCH_FRAMES, temperature=0.0)
+
+        t0, s0 = time.perf_counter(), b.steps
+        futs = [submit(sm) for sm in inputs]
+        batched = [f.result(timeout=SERVE_TIMEOUT) for f in futs]
+        batched_s, ticks = time.perf_counter() - t0, b.steps - s0
+        t0 = time.perf_counter()
+        alone = [submit(sm).result(timeout=SERVE_TIMEOUT) for sm in inputs]
+        alone_s = time.perf_counter() - t0
+    finally:
+        b.close()
+    same = [np.array_equal(x, y) for x, y in zip(batched, alone)]
+    frames = sum(len(x) for x in batched)
+    log(f"[dia] DiaBatcher ({DIA_SLOTS} slots, tick {DIA_TICK}): {len(batched)} x "
+        f"{DIA_BATCH_FRAMES} greedy frames in {batched_s:.4f} s ({frames / batched_s:.1f} "
+        f"frames/s aggregate, {ticks} ticks), one after another {alone_s:.4f} s "
+        f"({frames / alone_s:.1f} frames/s): speedup {alone_s / batched_s:.2f}x; batched = "
+        f"alone: {same}")
+    if not all(same) or any(len(x) != DIA_BATCH_FRAMES for x in batched) or len(
+            {x.tobytes() for x in batched}) != len(batched):
+        raise SystemExit("chip_smoke: DiaBatcher's frames part from each request's frames alone")
+    return {"slots": DIA_SLOTS, "frames": DIA_BATCH_FRAMES, "batched_s": batched_s,
+            "alone_s": alone_s, "speedup": alone_s / batched_s, "ticks": ticks}
+
+
+def outetts_succ(tok, path) -> dict:
+    """The planted successor map: both prompt endings (a plain prompt's last
+    "\\n", a speaker prompt's <|word_start|>) lead onto the path."""
+    succ = {tok.encode("\n", add_special_tokens=False)[-1]: path[0],
+            tok.token_to_id("<|word_start|>"): path[0]}
+    succ.update(zip(path, path[1:]))
+    return succ
+
+
+def write_outetts(path: Path, reduced: Path, tok_dir: Path, seed: int = 17) -> tuple:
+    """Llama-OuteTTS-1.0-1B in bf16 with the planted path, a tokenizer.json
+    with OuteTTS's added tokens and the 24 kHz DAC in dac/, and its first two
+    layers as a copy. → (seconds, bytes, path's token ids)."""
+    from mlx_audio_tpu_torch.codec.models import DAC
+    from mlx_audio_tpu_torch.convert import save_model
+    from mlx_audio_tpu_torch.nn.module import cast_floats, flatten_params
+    from mlx_audio_tpu_torch.tokenizer_json import load
+    from mlx_audio_tpu_torch.tts.models.outetts import Model
+
+    t0 = time.perf_counter()
+    tok = load(write_tokenizer_json(tok_dir, "outetts"))
+    planted = outetts_path(tok, OUTETTS_FRAMES)
+    model = plant_outetts(Model(OUTETTS_CFG, device="cuda", seed=seed),
+                          outetts_succ(tok, planted), seed)
+    flat = flatten_params(cast_floats(model, torch.bfloat16))
+    del model
+    dac = flatten_params(DAC(**DAC_24K, device="cuda", seed=seed + 1))
+    two = {k: v for k, v in flat.items()
+           if not k.startswith("model.layers.") or int(k.split(".")[2]) < 2}
+    for where, weights, c in ((path, flat, OUTETTS_CFG),
+                              (reduced, two, dict(OUTETTS_CFG, num_hidden_layers=2))):
+        save_model(where, weights, c)
+        shutil.copy(tok_dir / "tokenizer.json", where / "tokenizer.json")
+        save_model(where / "dac", dac, dict(DAC_24K))
+    del flat, two
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t0, checkpoint_bytes(path), planted
+
+
+def outetts_launches(layers: int, calls) -> dict:
+    """`orpheus_launches` without the head: a tied int4 head is a
+    `QuantizedEmbedding`, whose `as_linear` dequantizes the table and takes
+    `F.linear`, no kernel."""
+    got = orpheus_launches(layers, calls)
+    for M, n in calls:
+        got["qmm"] -= n
+        got["qmm_gemv" if M <= 4 else "qmm_mma"] -= n
+    return got
+
+
+def outetts_logit_rows(model, ids, tokens: int):
+    """Greedy tokens of `generate_tokens` with every call's last-position
+    logits and the same logits with the layers skipped: (tokens, [(logits,
+    plant)]) on the host."""
+    from mlx_audio_tpu_torch.lm.generate import generate_tokens
+
+    rows = []
+
+    def call(m, x, caches):
+        logits, caches = m(x, caches)
+        plant = m.logits(m.model.norm(m.model.embed_tokens(x)))
+        rows.append((logits[0, -1].float().cpu(), plant[0, -1].float().cpu()))
+        return logits, caches
+
+    with torch.inference_mode():
+        toks, _ = generate_tokens(model, ids, max_tokens=tokens, repetition_penalty=1.1,
+                                  repetition_context_size=64, model_call=call)
+    return toks[0].tolist(), rows
+
+
+def outetts_checks(path: Path, reduced: Path, tmp: Path, planted, smi) -> dict:
+    """Phase 15's OuteTTS part (see the module docstring)."""
+    from mlx_audio_tpu_torch import convert
+    from mlx_audio_tpu_torch.lm.generate import generate_tokens
+    from mlx_audio_tpu_torch.tts.models.outetts import Model
+
+    rec = {}
+    model, load_s = timed_load(str(path))
+    rec["load_s"] = load_s
+    pp, tok = model.prompt_processor, model.tokenizer
+    ids = tok.encode(pp.get_completion_prompt(HTTP_TEXT), add_special_tokens=False)
+    want_codes = pp.extract_audio_from_tokens(planted)
+
+    def run(**kw):
+        with torch.inference_mode():
+            out = list(model.generate(HTTP_TEXT, **dict(dict(temperature=0.0), **kw)))
+        torch.cuda.synchronize()
+        return out
+
+    run(max_tokens=16)  # warm-up (the DAC loads from dac/ here)
+    zero_port_launches()
+    t0 = time.perf_counter()
+    greedy = run()
+    wall = time.perf_counter() - t0
+    launches = no_port_launches("OuteTTS's bf16 generate")
+    want_audio = model.codec.decode_codes(torch.as_tensor([want_codes])).float().cpu().numpy()
+    audio = greedy[0].audio
+    # cuDNN's transposed convolutions may sum in another order from call to call
+    # (the stride-5 transposed conv makes a frame 320 samples less a few at
+    # the ends, as in the JAX package)
+    decode_d = (float(np.abs(audio - want_audio.reshape(-1)).max())
+                if audio.size == want_audio.size else float("inf"))
+    decoded = decode_d <= DAC_ATOL * float(np.abs(want_audio).max())
+    n = greedy[0].token_count
+    t0 = time.perf_counter()
+    sampled = run(temperature=0.4, top_p=0.9, top_k=40, min_p=0.05, repetition_penalty=1.1,
+                  repetition_context_size=64)
+    sampled_s = time.perf_counter() - t0
+    _, _ = profile_one_run(lambda: run(max_tokens=OUTETTS_PROFILE_TOKENS),
+                           f"one OuteTTS generate of {OUTETTS_PROFILE_TOKENS} tokens")
+    prof = dict(profile_one_run.last)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        gen = model.generate(HTTP_TEXT, temperature=0.0, stream=True,
+                             streaming_interval=OUTETTS_STREAM_INTERVAL)
+        first = next(gen)
+        ttfa = time.perf_counter() - t0
+        chunks = [first] + list(gen)
+    stream_s = time.perf_counter() - t0
+    streamed_tokens = sum(c.token_count for c in chunks)
+    streamed_samples = sum(c.samples for c in chunks)
+    ref = csm_reference(OUTETTS_REF_S, 16)
+    t0 = time.perf_counter()
+    speaker = model.create_speaker(ref, OUTETTS_REF_TEXT)
+    speaker_s = time.perf_counter() - t0
+    spk_path = tmp / "speaker.json"
+    model.save_speaker(speaker, str(spk_path))
+    cloned = run(voice=str(spk_path))
+    audio_s = len(audio) / 24000
+    log(f"[outetts] generate (greedy, repetition 1.1 over 64), prompt {len(ids)} tokens: {n} "
+        f"tokens to <|audio_end|>, {audio_s:.3f} s of audio, wall {wall:.4f} s ({n / wall:.1f} "
+        f"tokens/s, RTF {wall / audio_s:.4f}); the planted codes, <|c1_1024|> clamped, decode to "
+        f"the same samples: {decoded} (max|d| {decode_d:.2e}); sampled (0.4, "
+        f"top-p 0.9, top-k 40, min-p 0.05) {sampled[0].token_count} tokens in {sampled_s:.4f} s; "
+        f"the port's kernels launched {launches} ({smi})")
+    log(f"[outetts] profiled {OUTETTS_PROFILE_TOKENS} tokens: device busy {prof['device_ms']:.1f} "
+        f"ms of {prof['wall_ms']:.1f} ms wall (idle share {100 * prof['idle_share']:.1f}%), "
+        f"{prof['launches']} launches, {prof['launches'] / OUTETTS_PROFILE_TOKENS:.0f} and "
+        f"{prof['device_ms'] / OUTETTS_PROFILE_TOKENS:.3f} ms of device time a token with the "
+        f"prefill and the DAC decode spread over them")
+    log(f"[outetts] stream=True at {OUTETTS_STREAM_INTERVAL} s: time to first audio {ttfa:.4f} s, "
+        f"{len(chunks)} chunks of {[c.token_count for c in chunks]} tokens, wall {stream_s:.4f} "
+        f"s; a speaker from the {OUTETTS_REF_S:g} s reference (create_speaker, DAC encode) in "
+        f"{speaker_s:.4f} s: {len(speaker['words'])} words, "
+        f"{sum(len(w['c1']) for w in speaker['words'])} code pairs; generate with it: "
+        f"{cloned[0].token_count} tokens")
+    if (n != len(planted) or not decoded
+            # a last chunk of <|audio_end|> alone brings no samples and is not yielded
+            or streamed_tokens not in (n - 1, n) or streamed_samples != len(audio)
+            or cloned[0].token_count != len(planted) or len(audio) != want_audio.size):
+        raise SystemExit(f"chip_smoke: OuteTTS's generate left the planted path, or the stream "
+                         f"parts from it: {n} tokens, decoded {decoded}, streamed "
+                         f"{streamed_tokens} tokens and {streamed_samples} samples of "
+                         f"{len(audio)}, cloned {cloned[0].token_count}")
+    rec.update(tokens=n, audio_s=audio_s, wall_s=wall, tokens_per_s=n / wall,
+               rtf=wall / audio_s, sampled_tokens=sampled[0].token_count,
+               sampled_wall_s=sampled_s, launches=launches, profile=prof,
+               profile_tokens=OUTETTS_PROFILE_TOKENS, ttfa_s=ttfa, stream_wall_s=stream_s,
+               chunks=len(chunks), speaker_s=speaker_s, prompt_tokens=len(ids))
+
+    # the batched wave: four prompts entering the path at their own tokens
+    prompts = [ids + [planted[k]] for k in OUTETTS_ENTRIES]
+    kw = dict(max_tokens=len(planted), eos_ids=(planted[-1],), repetition_penalty=1.1)
+    b = model.make_batcher(slots=4, max_len=512, tick_tokens=OUTETTS_TICK)
+    try:
+        b.warmup()
+        t0, s0 = time.perf_counter(), b.dispatch_count
+        futs = [b.submit(p, **kw) for p in prompts]
+        outs = [f.result(timeout=SERVE_TIMEOUT) for f in futs]
+        batched_s, ticks = time.perf_counter() - t0, b.dispatch_count - s0
+    finally:
+        b.close()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        alone = [generate_tokens(model, p, max_tokens=len(planted), repetition_penalty=1.1,
+                                 eos_token_ids=(planted[-1],))[0][0].tolist() for p in prompts]
+    alone_s = time.perf_counter() - t0
+    total = sum(len(o) for o in outs)
+    log(f"[outetts] LMContinuousBatcher (4 slots, tick {OUTETTS_TICK}): {total} tokens of 4 "
+        f"requests in {batched_s:.4f} s ({total / batched_s:.1f} tokens/s aggregate, {ticks} "
+        f"ticks), sequential {alone_s:.4f} s ({total / alone_s:.1f} tokens/s): speedup "
+        f"{alone_s / batched_s:.2f}x; each equal to its sequential greedy tokens: "
+        f"{[o == a for o, a in zip(outs, alone)]}")
+    if any(o != a or o != planted[planted.index(p[-1]) + 1:]
+           for o, a, p in zip(outs, alone, prompts)):
+        raise SystemExit("chip_smoke: OuteTTS's batched tokens part from their sequential ones")
+    rec["batched"] = {"tokens": total, "batched_s": batched_s, "alone_s": alone_s,
+                      "speedup": alone_s / batched_s, "ticks": ticks}
+    del model
+    Model._tokenizer = Model._codec = Model._prompt_processor = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # int4 by convert: OUTETTS_INT4_TOKENS tokens, launches from the code
+    from mlx_audio_tpu_torch.ops.cuda import quant_matmul as qk
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        q = convert.convert(str(path), str(tmp / "llama-outetts-1.0-1b-4bit"), quantize=True)
+    convert_s = time.perf_counter() - t0
+    q4, q_load_s = timed_load(str(q))
+    head = type(q4.model.embed_tokens).__name__
+    with torch.inference_mode():
+        generate_tokens(q4, ids, max_tokens=2)  # warm-up
+        torch.cuda.synchronize()
+        qk.reset_launches()
+        t0 = time.perf_counter()
+        toks, n4 = generate_tokens(q4, ids, max_tokens=OUTETTS_INT4_TOKENS)
+        torch.cuda.synchronize()
+        wall4 = time.perf_counter() - t0
+    got = quant_counts(4)
+    predicted = outetts_launches(OUTETTS_CFG["num_hidden_layers"],
+                                 [(len(ids), 1), (1, OUTETTS_INT4_TOKENS)])
+    head_ms = time_ms(lambda: q4.logits(torch.zeros(1, 1, OUTETTS_CFG["hidden_size"],
+                                                    device="cuda")), iters=5, warmup=1)
+    log(f"[outetts] int4 g64 by convert(quantize=True) in {convert_s:.1f} s, loaded in "
+        f"{q_load_s:.1f} s; {n4} greedy tokens after the {len(ids)}-token prompt in "
+        f"{wall4:.4f} s ({n4 / wall4:.1f} tokens/s): launches {got}, from the code {predicted}; "
+        f"the tied head is a {head} whose as_linear dequantizes the table and takes F.linear: "
+        f"{head_ms:.3f} ms a step (CUDA events, float32 x)")
+    if got != predicted or n4 != OUTETTS_INT4_TOKENS:
+        raise SystemExit(f"chip_smoke: the int4 OuteTTS launched {got}, the code says {predicted}")
+    rec["int4"] = {"convert_s": convert_s, "load_s": q_load_s, "tokens": n4, "wall_s": wall4,
+                   "tokens_per_s": n4 / wall4, "launches": got, "head": head,
+                   "head_ms": head_ms}
+    del q4
+    shutil.rmtree(q, ignore_errors=True)
+    Model._tokenizer = Model._codec = Model._prompt_processor = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the two-layer copy in float32, card against CPU
+    t0 = time.perf_counter()
+    cpu, _ = timed_load(str(reduced), device="cpu", dtype=torch.float32)
+    want_toks, want = outetts_logit_rows(cpu, ids, OUTETTS_CPU_TOKENS)
+    del cpu
+    card, _ = timed_load(str(reduced), device="cuda", dtype=torch.float32)
+    got_toks, got_rows = outetts_logit_rows(card, ids, OUTETTS_CPU_TOKENS)
+    del card
+    gaps = csm_gaps(got_rows, want)
+    ok = all(d <= CARD_VS_CPU_ATOL * peak and d <= OUTETTS_LAYER_BAR * add for d, peak, add in gaps)
+    log(f"[outetts] two-layer copy, float32, card against CPU: {len(gaps)} calls' logits (the "
+        f"prompt's and {OUTETTS_CPU_TOKENS} steps'), max|d| {max(g[0] for g in gaps):.3e}, peaks "
+        f">= {min(g[1] for g in gaps):.1f} (bar {CARD_VS_CPU_ATOL:g} of each), what the layers "
+        f"add >= {min(g[2] for g in gaps):.1f} (bar {OUTETTS_LAYER_BAR:g} of each); greedy "
+        f"tokens identical: {got_toks == want_toks}, on the path: "
+        f"{got_toks == planted[:OUTETTS_CPU_TOKENS]} ({time.perf_counter() - t0:.1f} s)")
+    if not ok or got_toks != want_toks or got_toks != planted[:OUTETTS_CPU_TOKENS]:
+        raise SystemExit("chip_smoke: the OuteTTS two-layer copy parts card from CPU")
+    rec["card_vs_cpu"] = {"logits_max_abs_err": max(g[0] for g in gaps),
+                          "layers_add": min(g[2] for g in gaps),
+                          "wall_s": time.perf_counter() - t0}
+    Model._tokenizer = Model._codec = Model._prompt_processor = None
+    return rec
+
+
+def phase_dia_outetts(smi: str) -> dict:
+    """Phase 15 (see the module docstring)."""
+    from mlx_audio_tpu_torch.codec.models import DAC
+    from mlx_audio_tpu_torch.tts.models.dia import Model as Dia
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+
+    def mark(what):
+        log(f"[dia] {time.perf_counter() - t_phase:.1f} s into phase 15 after {what}")
+
+    tmp = Path(tempfile.mkdtemp(prefix="dia-"))
+    try:
+        dac = DAC(**DAC_44K, device="cuda", seed=18).eval()
+        dac_rec = dac_checks(dac)
+        mark("the DAC")
+        path, reduced = tmp / "dia-1.6b", tmp / "dia-1.6b-2layer"
+        source = dia_seeded()
+        write_s, nbytes = write_dia(path, reduced, source, dac)
+        dia, load_s = timed_load(str(path))
+        same_parameters(dia, source, "Dia-1.6B")
+        del source, dac
+        log(f"[dia] Dia-1.6B bf16 (encoder 12 x 1024, decoder 18 x 2048, 16/4 heads of 128, 9 "
+            f"channels of 1028) and the 44.1 kHz DAC float32 in dac/, seeded: "
+            f"{sum(p.numel() for p in dia.parameters()) / 1e6:.1f} M parameters, "
+            f"{nbytes / 1e9:.3f} GB written in {write_s:.1f} s (with the two-layer copy), "
+            f"loaded by utils.load_model in {load_s:.2f} s, equal to the source")
+        mark("writing and loading Dia")
+        cpu = dia_two_layer(reduced)
+        mark("the Dia two-layer copy")
+        Dia._dac = None  # the checkpoint's own dac/
+        gen = dia_generate(dia, smi)
+        mark("Dia's generate")
+        batched = dia_batched(dia)
+        mark("DiaBatcher")
+        del dia
+        Dia._dac = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        opath, oreduced = tmp / "llama-outetts-1.0-1b", tmp / "llama-outetts-1.0-1b-2layer"
+        tok_dir = tmp / "tokenizer"
+        tok_dir.mkdir()
+        owrite_s, obytes, planted = write_outetts(opath, oreduced, tok_dir)
+        log(f"[outetts] Llama-OuteTTS-1.0-1B bf16 (16 x 2048, 32/8 heads of 64, tied "
+            f"embeddings over {OUTETTS_CFG['vocab_size']} tokens, llama3 rope), the planted path "
+            f"of {OUTETTS_FRAMES} c1/c2 pairs, a tokenizer.json with OuteTTS's added tokens and "
+            f"the 24 kHz DAC (2 codebooks) in dac/, seeded: {obytes / 1e9:.3f} GB written in "
+            f"{owrite_s:.1f} s (with the two-layer copy)")
+        outetts = outetts_checks(opath, oreduced, tmp, planted, smi)
+        mark("OuteTTS")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = {"dac": dac_rec, "dia": {"write_s": write_s, "checkpoint_bytes": nbytes,
+                                   "load_s": load_s, "card_vs_cpu": cpu, "generate": gen,
+                                   "batched": batched},
+           "outetts": dict(outetts, write_s=owrite_s, checkpoint_bytes=obytes),
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"[dia] phase 15 wall {rec['phase_s']:.1f} s")
+    return rec
+
+
 QUANT_SOURCE = "mlx_audio_tpu_torch/csrc/quant_matmul.cu"
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
                     help="comma-separated subset to run (12 runs 10 first for its checkpoint "
                          "directories); a subset prints no result")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
@@ -5691,7 +6494,10 @@ def run_phases(phases, smi, keep, ckpt: Path) -> None:
     if 14 in phases:
         csm = phase_csm(smi, keep)
         took(14)
-    if phases != set(range(1, 15)):
+    if 15 in phases:
+        dia_outetts = phase_dia_outetts(smi)
+        took(15)
+    if phases != set(range(1, 16)):
         log(f"[device] {smi}")
         sys.exit(f"chip_smoke: ran phases {sorted(phases)} only; no result")
     record = {"kernels": [{
@@ -5710,7 +6516,7 @@ def run_phases(phases, smi, keep, ckpt: Path) -> None:
         "seek_word_timing_30s": 2 * TURBO["n_audio_layer"] * rest["word_timing"]["seek_windows"],
         "streaming_10s": TURBO["n_audio_layer"] * int(REST_STREAM_S)}
     # B = 8: the serving batcher's encode of eight windows (phase 11)
-    record["kernels"][0]["server"] = {  # phase 12: one served upload, then eight
+    record["kernels"][0]["server"] = {  # phase 12: one served upload, then HTTP_STREAMS
         "launches": served["whisper"]["flash_launches"],
         "concurrent_launches": served["whisper"]["concurrent_flash_launches"]}
     record["kernels"][0]["serving"] = {
@@ -5793,6 +6599,16 @@ def run_phases(phases, smi, keep, ckpt: Path) -> None:
         "launches": csm["int4"]["launches"]["qmlp"], "max_abs_err": qerrs["csm_mlp_m1_f32"],
         "shapes": {key[len("csm_"):]: qtiming[key] for key in qtiming
                    if key.startswith("csm_") and "mlp" in key}}
+    # Llama-OuteTTS-1.0-1B int4 (phase 15): a prompt and 16 greedy tokens; the
+    # tied head dequantizes and takes F.linear, no kernel
+    o4 = dia_outetts["outetts"]["int4"]
+    qmm["outetts"] = {"launches": {k: o4["launches"][k] for k in (
+        "qmm", "qmm_gemv", "qmm_mma", "qmm_kernel")}, "head": o4["head"],
+        "head_ms": o4["head_ms"], "max_abs_err": qerrs["outetts_qkv_m19_f32"],
+        "shapes": {key[len("outetts_"):]: qtiming[key] for key in qtiming
+                   if key.startswith("outetts_")},
+        "m1_shapes": "the CSM backbone's (csm_qkv_m1, csm_o_proj_m1)"}
+    qmlp["outetts"] = {"launches": o4["launches"]["qmlp"], "m1_shape": "csm_mlp_m1"}
     qmlp["serving"] = {"launches": serving["qwen3_int4"]["launches"]["qmlp"],
                        "m8": {"max_abs_err": qerrs["mlp_m8_f32"], **qtiming["qmlp_m8"]}}
     record["kernels"].append({
@@ -5816,6 +6632,7 @@ def run_phases(phases, smi, keep, ckpt: Path) -> None:
     print(json.dumps({"server": served}), flush=True)
     print(json.dumps({"orpheus": orpheus}), flush=True)
     print(json.dumps({"csm": csm}), flush=True)
+    print(json.dumps({"dia_outetts": dia_outetts}), flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,8 +14,9 @@ The JAX package's contract: `load_config`, `load_weight_files`
 - a model is built on an explicit device (`device=None` is the card) and
   in one float dtype (`dtype=None` takes the checkpoint's);
 - only the families the port has resolve (`whisper`, `qwen3_tts`,
-  `kokoro`, `llama` (Orpheus), `qwen3` (VyvoTTS) and `sesame` (CSM, also
-  as `csm`)); any other raises the
+  `kokoro`, `llama` (Orpheus), `qwen3` (VyvoTTS), `sesame` (CSM, also
+  as `csm`), `dia` and `outetts` (a `llama` config in a directory whose
+  name carries `outetts`)); any other raises the
   JAX package's "not supported" error;
 - `resample_audio` is scipy's `resample_poly`, the JAX package's second
   route (its first is its native C resampler, not loaded here);
@@ -45,7 +46,8 @@ T = TypeVar("T")
 logger = logging.getLogger(__name__)
 
 # the model families the port has, by category
-PORTED = {"stt": ("whisper",), "tts": ("qwen3_tts", "kokoro", "llama", "qwen3", "sesame")}
+PORTED = {"stt": ("whisper",),
+          "tts": ("qwen3_tts", "kokoro", "llama", "qwen3", "sesame", "dia", "outetts")}
 
 NO_DOWNLOAD = ("the PyTorch port reads local checkpoint directories only and does not "
                "download: fetch {!r} first and pass its directory")

@@ -161,6 +161,8 @@ def _tiny_entry_points():
     from mlx_audio_tpu_torch.tts.models.llama import Model as Orpheus
     from mlx_audio_tpu_torch.tts.models.qwen3 import Model as Vyvo
     from mlx_audio_tpu_torch.tts.models.qwen3_tts import Model as Qwen3TTS
+    from mlx_audio_tpu_torch.tts.models.dia import Model as Dia
+    from mlx_audio_tpu_torch.tts.models.outetts import Model as OuteTTS
     from mlx_audio_tpu_torch.tts.models.sesame import Model as Sesame
 
     whisper = dict(n_mels=80, n_audio_ctx=8, n_audio_state=16, n_audio_head=2,
@@ -192,9 +194,17 @@ def _tiny_entry_points():
                       backbone_hidden_size=16, hidden_size=16, intermediate_size=32,
                       num_hidden_layers=1, num_attention_heads=2, num_key_value_heads=1,
                       head_dim=8, num_codebooks=2, vocab_size=8))
+    dia = {"model": {"encoder": {"n_layer": 1, "n_embd": 16, "n_hidden": 32, "n_head": 2,
+                                 "head_dim": 8},
+                     "decoder": {"n_layer": 1, "n_embd": 16, "n_hidden": 32,
+                                 "gqa_query_heads": 2, "kv_heads": 1, "gqa_head_dim": 8,
+                                 "cross_query_heads": 2, "cross_head_dim": 8}},
+           "data": {"text_length": 128, "audio_length": 128, "channels": 2,
+                    "delay_pattern": [0, 1]}}
     return [(Whisper, whisper), (Qwen3TTS, qwen3), (MossFormer2SE, mossformer2_se),
             (Kokoro, kokoro), (Orpheus, dict(lm, model_type="llama")),
-            (Vyvo, dict(lm, model_type="qwen3")), (Sesame, sesame)]
+            (Vyvo, dict(lm, model_type="qwen3")), (Sesame, sesame), (Dia, dia),
+            (OuteTTS, dict(lm, model_type="llama", tie_word_embeddings=True))]
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
@@ -203,7 +213,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
     import pytest
     import torch
 
-    from mlx_audio_tpu_torch.codec.models import SNAC, Mimi
+    from mlx_audio_tpu_torch.codec.models import DAC, SNAC, Mimi
     from mlx_audio_tpu_torch.codec.models.mimi import mimi
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -215,8 +225,11 @@ def test_entry_points_default_to_the_card(monkeypatch):
         transformer=mimi.TransformerConfig(d_model=8, num_heads=2, num_layers=1,
                                            dim_feedforward=16, context=4),
         quantizer_nq=2, quantizer_bins=4, quantizer_dim=4)
+    dac = dict(encoder_dim=4, encoder_rates=[2], decoder_dim=8, decoder_rates=[2],
+               n_codebooks=2, codebook_size=8, codebook_dim=2)
     for cls, cfg in _tiny_entry_points() + [(lambda c, **kw: SNAC(**c, **kw), snac),
-                                            (Mimi, tiny_mimi)]:
+                                            (Mimi, tiny_mimi),
+                                            (lambda c, **kw: DAC(**c, **kw), dac)]:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cls(cfg)
         assert cls(cfg, device="cpu").device.type == "cpu"
@@ -268,6 +281,27 @@ def test_server_slice_modules_are_scanned():
     assert set(SERVER_SLICE_MODULES) <= names
     assert (PKG / "ui" / "index.html").is_file()
     assert '"ui/*.html"' in (REPO / "pyproject.toml").read_text()
+
+
+CODEC_SLICE_MODULES = ("mlx_audio_tpu_torch.codec.models.descript.dac",
+                       "mlx_audio_tpu_torch.tts.models.dia.config",
+                       "mlx_audio_tpu_torch.tts.models.dia.audio",
+                       "mlx_audio_tpu_torch.tts.models.dia.layers",
+                       "mlx_audio_tpu_torch.tts.models.dia.dia",
+                       "mlx_audio_tpu_torch.tts.models.dia.batcher",
+                       "mlx_audio_tpu_torch.tts.models.outetts.tokens",
+                       "mlx_audio_tpu_torch.tts.models.outetts.prompt_processor",
+                       "mlx_audio_tpu_torch.tts.models.outetts.outetts")
+
+
+def test_codec_slice_modules_are_scanned():
+    """DAC, Dia (with its batcher) and OuteTTS are among the modules the
+    import and scan tests cover, and the loader resolves both families."""
+    from mlx_audio_tpu_torch.utils import PORTED
+
+    names = {name for _, name in _modules()}
+    assert set(CODEC_SLICE_MODULES) <= names
+    assert {"dia", "outetts"} <= set(PORTED["tts"])
 
 
 def test_no_tokenizers_or_transformers_import_anywhere():
