@@ -84,8 +84,10 @@ Phases, each printing its own lines:
      the in-memory model's sequential one of the same upload, or a stated
      near-tie at the decode where the two part), and the realtime WebSocket route (its
      final = `generate` on the same buffer) inside `profiling.trace`; int4
-     Qwen3-TTS served as CustomVoice (greedy, streamed wav: time to first
-     byte; then a wave of four texts in the server's four-slot pool, the
+     Qwen3-TTS served as CustomVoice, each request capped at
+     HTTP_QWEN_FRAMES (32; its text's 128 until phase 16 came) (greedy,
+     streamed wav: time to first byte; then a wave of four texts in the
+     server's four-slot pool, the
      WebSocket route, the model's `generate` in process and two HTTP
      requests, each equal to its own text's one-slot samples, their
      quantized launches held to the routing table);
@@ -163,7 +165,29 @@ Phases, each printing its own lines:
      tokens; int4 by `convert`, 16 tokens with the quantized launches held
      to the code's count; a two-layer float32 copy card against CPU. Neither
      bf16 path launches a kernel of the port, and the script holds them to
-     none.
+     none;
+ 16. EnCodec and Bark-small. EnCodec at `EncodecConfig()` (facebook/
+     encodec_24khz: 32 filters, ratios [8, 5, 4, 2], a 2-layer LSTM of 512,
+     32 codebooks of 1024 x 128) in float32, seeded: a 5 s reference encoded
+     at 6 kbps (8 codebooks) card against CPU with the codes identical,
+     their decode within 1e-5 of the peak, a code of 1024 decoded as the
+     last bin. Bark-small (suno/bark-small's widths: three GPTs of 12 x 768;
+     semantic 129,600 tokens in, 10,048 out; coarse 12,096; fine 1,056 over
+     8 codebooks) in float32, seeded, the semantic stop planted after 150
+     tokens (`plant_bark_stop`: 450 coarse steps in 8 windows, 225 frames,
+     3.0 s), written in the JAX package's layout with a WordPiece
+     tokenizer.json of 119,547 entries and that EnCodec in encodec/, loaded
+     by `utils.load_model`: a two-layer float32 copy card against CPU (the
+     teacher-forced logits of all three stages at both bars, an off-by-one
+     decode position rejected); `generate` sampled three times (median wall,
+     RTF, the four stages' split), no kernel of the port launched; 32
+     semantic steps profiled; the semantic stage run to its 768-step cap
+     (its last step reads position 1024: no device assert); `BarkBatcher`
+     with 4 requests, each one's codes equal to its run alone through the
+     pool; one request served over HTTP after the batcher's warm-up;
+     int4 by `convert` (16 semantic steps, a coarse window, a fine chunk:
+     the quantized launches held to the code's count, the logits to the
+     float32 model on the dequantized weights).
 Phase 2 also holds the ReLU² attention kernel to its plain version and
 flash at B = 1, and the serving shapes: flash bf16 at B = 8, `qmm_mma` and
 the fused MLP at M = 8 (the batcher's tick), ReLU² f32 at B = 8, G = 2;
@@ -181,13 +205,14 @@ hold phase 8's numbers ({"kokoro": ...}), the bf16 Qwen3-TTS step's
 ({"qwen3_bf16": ...}), phase 9's ({"whisper_rest": ...}), phase 10's
 ({"loaded": ...}), phase 11's ({"serving": ...}), phase 12's ({"server":
 ...}), phase 13's ({"orpheus": ...}), phase 14's ({"csm": ...}), phase
-15's ({"dia_outetts": ...}) and the kernels' JSON record, in that order;
+15's ({"dia_outetts": ...}), phase 16's ({"bark": ...}) and the kernels'
+JSON record, in that order;
 the last line is {"ok": true, "device": {...}}. Any failure raises and exits non-zero. It
 needs one CUDA card and the checkout's `mlx_audio_tpu_torch/` package.
 `--phases 1,2` runs a subset (a first check of new kernels), `--phases
 1,12` the server (with phase 10 before it), `--phases 1,13` Orpheus,
-`--phases 1,14` CSM-1B and Mimi, `--phases 1,15` DAC, Dia and OuteTTS;
-the default runs all of them.
+`--phases 1,14` CSM-1B and Mimi, `--phases 1,15` DAC, Dia and OuteTTS,
+`--phases 1,16` EnCodec and Bark; the default runs all of them.
 """
 
 from __future__ import annotations
@@ -1225,6 +1250,25 @@ QMM_CASES = [  # name, bits, M, N, K, dtype: the routed shapes of phases 5 and 6
     ("outetts_oproj_m19_f32", 4, 19, 2048, 2048, torch.float32),
     ("outetts_gate_up_m19_f32", 4, 19, 16384, 2048, torch.float32),
     ("outetts_down_m19_f32", 4, 19, 2048, 8192, torch.float32),
+    # Bark-small int4 (phase 16), float32 x: a decode step's att_proj (N =
+    # 3 x 768), out_proj, the MLP's in_proj and out_proj (K = 3072) and the
+    # semantic and coarse heads at M = 1 and at the batcher's four rows; the
+    # semantic prefill (257 rows), the coarse prefill (317) and the fine
+    # stack's 512-frame chunk with its heads (N = 1056) on the tensor-core
+    # GEMM
+    ("bark_att_proj_m1_f32", 4, 1, 2304, 768, torch.float32),
+    ("bark_out_proj_m1_f32", 4, 1, 768, 768, torch.float32),
+    ("bark_in_proj_m1_f32", 4, 1, 3072, 768, torch.float32),
+    ("bark_mlp_out_m1_f32", 4, 1, 768, 3072, torch.float32),
+    ("bark_sem_head_m1_f32", 4, 1, 10048, 768, torch.float32),
+    ("bark_coarse_head_m1_f32", 4, 1, 12096, 768, torch.float32),
+    ("bark_att_proj_m4_f32", 4, 4, 2304, 768, torch.float32),
+    ("bark_sem_head_m4_f32", 4, 4, 10048, 768, torch.float32),
+    ("bark_att_proj_m257_f32", 4, 257, 2304, 768, torch.float32),
+    ("bark_mlp_out_m257_f32", 4, 257, 768, 3072, torch.float32),
+    ("bark_in_proj_m317_f32", 4, 317, 3072, 768, torch.float32),
+    ("bark_att_proj_m512_f32", 4, 512, 2304, 768, torch.float32),
+    ("bark_fine_head_m512_f32", 4, 512, 1056, 768, torch.float32),
 ]
 # groups other than 64: K = 1040 is 65 groups of 16
 QMM_GROUP = {"q6_k1040_m1_f32": 16, "g32_m64_bf16": 32, "q6_g128_m96_f32": 128,
@@ -1235,7 +1279,8 @@ QMM_GROUP = {"q6_k1040_m1_f32": 16, "g32_m64_bf16": 32, "q6_g128_m96_f32": 128,
 QMM_PLANTED = ("qkv_m1_f32", "qkv_m1_bf16", "q6_qkv_m1_f32", "q6_qkv_m1_bf16",
                "qkv_prefill_bf16", "q6_qkv_prefill_f32", "whisper_qkv_m1_bf16",
                "orpheus_lm_head_m1_bf16", "orpheus_lm_head_m32_bf16",
-               "csm_cb0_head_m1_f32", "csm_cb0_head_m1_bf16", "csm_cb0_head_m8_f32")
+               "csm_cb0_head_m1_f32", "csm_cb0_head_m1_bf16", "csm_cb0_head_m8_f32",
+               "bark_sem_head_m1_f32", "bark_att_proj_m512_f32")
 # The talker's prefill bucket: bench.py's text gives the talker an
 # 8-position prompt (the text itself streams in a token a frame), which
 # `_prefill` pads to 32 rows; `phase_qwen_slice` checks it. The text
@@ -1314,6 +1359,12 @@ CSM_QMLP = [("mlp", 1, 2048, 8192), ("mlp", 8, 2048, 8192), ("dec_mlp", 1, 1024,
 # are CSM_QMM's and CSM_QMLP's backbone shapes at M = 1)
 OUTETTS_QMM = [("qkv", 19, 3072, 2048), ("o_proj", 19, 2048, 2048),
                ("gate_up", 19, 16384, 2048), ("down", 19, 2048, 8192)]
+# Bark-small int4's shapes, timed (phase 2) in float32 x: the GEMV at a
+# decode step (M = 1), the tensor-core GEMM at the semantic prefill and the
+# fine chunk
+BARK_QMM = [("att_proj", 1, 2304, 768), ("out_proj", 1, 768, 768), ("mlp_out", 1, 768, 3072),
+            ("sem_head", 1, 10048, 768), ("att_proj", 257, 2304, 768),
+            ("fine_head", 512, 1056, 768)]
 ORPHEUS_MLP = dict(K=3072, I=8192, N=3072)
 
 
@@ -1474,6 +1525,7 @@ def phase_quant_kernels():
     timing.update(time_orpheus())
     timing.update(time_csm())
     timing.update(time_csm(OUTETTS_QMM, "outetts", ()))
+    timing.update(time_csm(BARK_QMM, "bark", ()))
     return errs, timing
 
 
@@ -3526,6 +3578,10 @@ HTTP_TEXTS = (HTTP_TEXT, "The lazy dog jumps over the quick brown fox.",
 # here), where the Base route runs to EOS or 4096 frames, which seeded
 # weights may never draw
 QWEN_SPEAKER, QWEN_SPEAKER_ID = "smoke", 3000
+# the speech route has no frame cap: the served model's cap by the text's
+# length (128 frames here) is set to this, for the request alone, the wave
+# and the one-slot references alike (cut in depth to make room for phase 16)
+HTTP_QWEN_FRAMES = 32
 HTTP_STREAM_INTERVAL = 0.8  # s of audio a streamed chunk: 10 frames
 FLASH_PER_ENCODE = TURBO["n_audio_layer"]
 
@@ -3960,6 +4016,7 @@ def http_qwen(url, provider, tmp: Path, smi) -> dict:
     name = str(d)
     rec = load_served(url, provider, name)
     model = provider.load_model(name)
+    model._effective_max_tokens = lambda text, max_tokens: min(HTTP_QWEN_FRAMES, max_tokens)
     batcher = get_infer_hook(model)
     req = {"model": name, "input": HTTP_TEXT, "voice": QWEN_SPEAKER, "temperature": 0.0,
            "streaming_interval": HTTP_STREAM_INTERVAL}
@@ -6422,12 +6479,689 @@ def phase_dia_outetts(smi: str) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: EnCodec 24 kHz and Bark-small
+# ---------------------------------------------------------------------------
+
+# a gain of the planted stop row over the final norm's output: its logit is
+# ~gain·sqrt(D) where the plant sits and ~gain·N(0, 1) elsewhere
+BARK_PLANT_SCALE = 1e4
+
+
+def plant_bark_stop(model, tokens: int, gain: float = 1.0, seed: int = 0):
+    """Plant the semantic stage's stop after `tokens` tokens, whatever the
+    text: the position whose logits draw step `tokens` (256 + tokens: the
+    257-row prefill's last position draws step 0) carries
+    BARK_PLANT_SCALE times a zero-mean unit direction v, which then rules
+    the final norm's output there, and the stop token's head row is
+    gain·v. → the planted row's added vector (to lift the plant again)."""
+    from mlx_audio_tpu_torch.tts.models.bark.bark import SEMANTIC_PAD_TOKEN
+
+    gpt = model.semantic
+    w = gpt.position_embeds_layer.weight
+    g = torch.Generator(device=w.device).manual_seed(seed)
+    v = torch.randn(w.shape[1], generator=g, device=w.device)
+    v = v - v.mean()
+    v = v / v.norm()
+    with torch.no_grad():
+        w[256 + tokens] += BARK_PLANT_SCALE * v
+        gpt.lm_head.weight[SEMANTIC_PAD_TOKEN] = gain * v
+    return BARK_PLANT_SCALE * v
+
+
+# Bark-small's published widths (suno/bark-small: three GPTs of 12 x 768, 12
+# heads of 64, a 1024-row position table, no bias), in the JAX package's
+# config names
+BARK_GPT = dict(block_size=1024, n_layer=12, n_head=12, n_embd=768, bias=False)
+BARK_CFG = dict(
+    model_type="bark",
+    semantic_config=dict(BARK_GPT, model_type="semantic", input_vocab_size=129600,
+                         output_vocab_size=10048),
+    coarse_acoustics_config=dict(BARK_GPT, model_type="coarse_acoustics",
+                                 input_vocab_size=12096, output_vocab_size=12096),
+    fine_acoustics_config=dict(BARK_GPT, model_type="fine_acoustics", input_vocab_size=1056,
+                               output_vocab_size=1056, n_codes_total=8, n_codes_given=1))
+BARK_STAGES = ("semantic_config", "coarse_acoustics_config", "fine_acoustics_config")
+# bert-base-multilingual-cased's vocabulary size: TEXT_PAD_TOKEN = 10,048 +
+# 119,547 (bark.py:33)
+BARK_WORDPIECE = 119547
+BARK_TEXT = HTTP_TEXT
+# the planted stop: 150 semantic tokens give 450 coarse steps in 8 windows
+# of 60 (the last takes 30), 225 frames in one fine chunk, 72,000 samples
+BARK_TOKENS = 150
+BARK_FRAMES = 225
+BARK_TIMED = 3
+BARK_PROFILE_STEPS = 32
+# the two-layer copy: teacher-forced decode steps of each causal stage
+BARK_CPU_STEPS = 8
+BARK_LAYER_BAR = 1e-2
+# int4: 16 semantic tokens, one coarse window, one fine chunk; its logits
+# against F.linear on the dequantized weights, at this share of each peak
+BARK_INT4_TOKENS = 16
+BARK_INT4_BAR = 1e-3
+BARK_BATCH = 4
+ENCODEC_S = 5.0
+ENCODEC_BANDWIDTH = 6.0  # kbps: 8 codebooks at 75 Hz
+ENCODEC_ATOL = 1e-5  # of the peak, card against CPU, float32
+
+
+def write_bark_tokenizer(path) -> Path:
+    """A WordPiece tokenizer.json of BARK_WORDPIECE entries laid out as
+    bert-base-multilingual-cased's begins ([PAD] 0, [unused1-99], [UNK] 100,
+    [CLS] 101, [SEP] 102, [MASK] 103), then printable ASCII and its `##`
+    continuations, the phase's words, and fill entries up to the count;
+    cased, accents kept, CJK split, as `tokenizers` writes
+    BertWordPieceTokenizer's."""
+    vocab = {"[PAD]": 0}
+    for i in range(1, 100):
+        vocab[f"[unused{i}]"] = i
+    for t in ("[UNK]", "[CLS]", "[SEP]", "[MASK]"):
+        vocab[t] = len(vocab)
+    chars = [chr(c) for c in range(33, 127)]
+    words = sorted({w for t in HTTP_TEXTS for w in re.findall(r"[A-Za-z]+", t)})
+    for t in chars + ["##" + c for c in chars if c.isalnum()] + words:
+        vocab.setdefault(t, len(vocab))
+    for k in range(BARK_WORDPIECE - len(vocab)):
+        vocab[f"[fill{k}]"] = len(vocab)
+    assert len(vocab) == BARK_WORDPIECE
+    special = ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]")
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": vocab[t], "content": t, "single_word": False, "lstrip": False,
+                          "rstrip": False, "normalized": False, "special": True}
+                         for t in special],
+        "normalizer": {"type": "BertNormalizer", "clean_text": True,
+                       "handle_chinese_chars": True, "strip_accents": None,
+                       "lowercase": False},
+        "pre_tokenizer": {"type": "BertPreTokenizer"},
+        "post_processor": {"type": "BertProcessing", "sep": ["[SEP]", vocab["[SEP]"]],
+                           "cls": ["[CLS]", vocab["[CLS]"]]},
+        "decoder": {"type": "WordPiece", "prefix": "##", "cleanup": True},
+        "model": {"type": "WordPiece", "unk_token": "[UNK]", "continuing_subword_prefix": "##",
+                  "max_input_chars_per_word": 100, "vocab": vocab}}
+    path = Path(path)
+    if path.suffix != ".json":
+        path = path / "tokenizer.json"
+    path.write_text(json.dumps(spec, ensure_ascii=False), encoding="utf-8")
+    return path
+
+
+def encodec_seeded(seed: int = 19):
+    """EnCodec at `EncodecConfig()` (facebook/encodec_24khz) on the card,
+    weights drawn from `seed`, each convolution scaled to unit gain (√3, and
+    √(3·stride) for a transposed one: the initialiser's 1/fan-in bound
+    leaves 1e-6 at the decoder's output), the codebooks drawn N(0, σ²) at
+    the encoder's output spread σ on the phase's reference (the JAX package
+    starts them at zero, which decodes everything to one vector)."""
+    from mlx_audio_tpu_torch.codec.models import Encodec, EncodecConfig
+    from mlx_audio_tpu_torch.codec.models.encodec.encodec import (EncodecConv1d,
+                                                                  EncodecConvTranspose1d)
+
+    enc = Encodec(EncodecConfig(), device="cuda", seed=seed).eval()
+    with torch.no_grad():
+        for m in enc.modules():
+            if isinstance(m, (EncodecConv1d, EncodecConvTranspose1d)):
+                stride = m.conv.stride if isinstance(m, EncodecConvTranspose1d) else 1
+                m.conv.weight.mul_(math.sqrt(3 * stride))
+    ref = torch.as_tensor(csm_reference(ENCODEC_S, 17), device="cuda")[None, None]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.inference_mode():
+        std = enc.encoder(ref).std()
+    with torch.no_grad():
+        for layer in enc.quantizer.layers:
+            e = layer.codebook.embed
+            e.copy_(torch.randn(e.shape, generator=g, device="cuda") * std)
+    return enc
+
+
+def encodec_checks(enc) -> dict:
+    """EnCodec 24 kHz in float32 (TF32 off): a ENCODEC_S s reference encoded
+    at ENCODEC_BANDWIDTH kbps card against CPU, the codes identical; those
+    codes decoded card against CPU within ENCODEC_ATOL of the peak; a code of
+    1024 decodes as the last bin with no device assert; encode and decode
+    timed."""
+    from mlx_audio_tpu_torch.codec.models import Encodec, EncodecConfig
+
+    t0 = time.perf_counter()
+    cpu = Encodec(EncodecConfig(), device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in enc.state_dict().items()})
+    ref = csm_reference(ENCODEC_S, 17)[None, None]
+    codes, _ = enc.encode(ref, bandwidth=ENCODEC_BANDWIDTH)
+    cpu_codes, _ = cpu.encode(ref, bandwidth=ENCODEC_BANDWIDTH)
+    codes = codes.cpu()
+    parted = int((codes != cpu_codes).sum())
+    card_wav = enc.decode(codes).cpu()
+    cpu_wav = cpu.decode(codes)
+    peak = cpu_wav.abs().max().item()
+    d = (card_wav - cpu_wav).abs().max().item()
+    past, last = codes.clone(), codes.clone()
+    past[..., 10] = 1024
+    last[..., 10] = 1023
+    past_wav = enc.decode(past)
+    torch.cuda.synchronize()  # a device-side assert would surface here
+    # cuDNN's transposed convolutions may sum in another order from call to call
+    clamped = (past_wav - enc.decode(last)).abs().max().item() <= ENCODEC_ATOL * peak
+    encode_ms = time_ms(lambda: enc.encode(ref, bandwidth=ENCODEC_BANDWIDTH), iters=3, warmup=1)
+    decode_ms = time_ms(lambda: enc.decode(codes), iters=3, warmup=1)
+    n = int(ENCODEC_S * 24000)
+    log(f"[encodec] EncodecConfig() (24 kHz, 32 filters, ratios [8, 5, 4, 2], a 2-layer LSTM "
+        f"of 512, 32 codebooks of 1024 x 128), float32: a {ENCODEC_S:g} s reference at "
+        f"{ENCODEC_BANDWIDTH:g} kbps -> codes {tuple(codes.shape)}, card against CPU parted at "
+        f"{parted}; decode card against CPU max|d| {d:.3e} of peak {peak:.4f} (bar "
+        f"{ENCODEC_ATOL:g} of it); a code of 1024 decodes as the last bin: {clamped}; encode "
+        f"{encode_ms:.2f} ms, decode {decode_ms:.2f} ms a call (CUDA events, "
+        f"{time.perf_counter() - t0:.1f} s)")
+    if (parted or d > ENCODEC_ATOL * peak or card_wav.shape != (1, 1, n) or not clamped
+            or codes.shape != (1, 1, 8, n // 320)):
+        raise SystemExit("chip_smoke: EnCodec's codes or decode part card from CPU, or a code "
+                         "of 1024 does not decode as the last bin")
+    del cpu
+    return {"codes_parted": parted, "codes_shape": list(codes.shape), "decode_max_abs_err": d,
+            "peak": peak, "code_1024_is_last_bin": clamped, "encode_ms": encode_ms,
+            "decode_ms": decode_ms, "seconds": ENCODEC_S}
+
+
+def write_bark(path: Path, reduced: Path, model, enc) -> tuple:
+    """Bark in the JAX package's checkpoint layout (config.json with model
+    type bark, the WordPiece tokenizer.json, EnCodec in encodec/) and a copy
+    with two layers in each stage. → (seconds, bytes)."""
+    import dataclasses
+
+    from mlx_audio_tpu_torch.convert import save_model
+    from mlx_audio_tpu_torch.nn.module import flatten_params
+
+    t0 = time.perf_counter()
+    flat = flatten_params(model)
+    keep = re.compile(r"^(semantic|coarse_acoustics|fine_acoustics)\.layers\.(\d+)\.")
+    two = {k: v for k, v in flat.items() if not (m := keep.match(k)) or int(m.group(2)) < 2}
+    small = json.loads(json.dumps(BARK_CFG))
+    for stage in BARK_STAGES:
+        small[stage]["n_layer"] = 2
+    enc_flat, enc_cfg = flatten_params(enc), dataclasses.asdict(enc.config)
+    for where, weights, c in ((path, flat, BARK_CFG), (reduced, two, small)):
+        save_model(where, weights, c)
+        write_bark_tokenizer(where)
+        save_model(where / "encodec", enc_flat, enc_cfg)
+    del flat, two
+    return time.perf_counter() - t0, checkpoint_bytes(path) + checkpoint_bytes(path / "encodec")
+
+
+def bark_logit_rows(model, fault: bool = False, plants: bool = True,
+                    sem_steps: int = BARK_CPU_STEPS, coarse_steps: int = BARK_CPU_STEPS):
+    """Teacher-forced logits of the three stages through their own loops:
+    the semantic prefill of BARK_TEXT and `sem_steps` steps fed seeded
+    tokens, a first coarse window's prefill (pad rows between the context
+    and its 317 rows) and `coarse_steps` steps fed seeded codes, and the
+    fine stack's six codebooks over a seeded 512-frame chunk. → [(logits,
+    plant)] on the host, `plant` the same call's logits with the layers
+    skipped (what the layers add is the distance between them) or None.
+    `fault` feeds each decode step its position plus one."""
+    from mlx_audio_tpu_torch.tts.models.bark import bark as bk
+
+    dev = model.device
+    rng = np.random.default_rng(21)
+    rows, hooks = [], []
+
+    def forced(tokens, vocab):
+        def draw(i):
+            x = torch.zeros(1, vocab, device=dev)
+            x[0, int(tokens[i])] = 1e30
+            return x
+        return draw
+
+    def record(stack, heads, select):
+        x_in = {}
+
+        def pre(mod, args):
+            x_in["x"] = args[0]
+
+        def post(mod, args, out):
+            plant = None
+            if plants:
+                plant = mod.forward(stack.layernorm_final(select(x_in["x"]))).float().cpu()
+            rows.append((out.float().cpu(), plant))
+
+        hooks.append(stack.layers[0].register_forward_pre_hook(pre))
+        hooks.extend(h.register_forward_hook(post) for h in heads)
+
+    def shifted(mod, args):  # a decode step's position, plus one
+        return (args[0] + 1,) if args[0].numel() == 1 else None
+
+    sem, coarse, fine = model.semantic, model.coarse_acoustics, model.fine_acoustics
+    record(sem, [sem.lm_head], lambda x: x[:, -1:])
+    ctx = 257
+    record(coarse, [coarse.lm_head],
+           lambda x: x[:, -1:] if x.shape[1] == 1 else x[:, ctx - 1:ctx])
+    record(fine, list(fine.lm_heads), lambda x: x)
+    if fault:
+        hooks += [g.position_embeds_layer.register_forward_pre_hook(shifted)
+                  for g in (sem, coarse)]
+    ids = torch.as_tensor(model.text_ids(BARK_TEXT)[None], device=dev)
+    hist = torch.full_like(ids, bk.SEMANTIC_PAD_TOKEN)
+    one = torch.ones(1, device=dev)
+    try:
+        with torch.inference_mode():
+            bk.semantic_rows(sem, bk.semantic_prefill(sem, ids, hist), one,
+                             forced(rng.integers(0, 10000, sem_steps), 10001), sem_steps)
+            x_sem = rng.integers(0, 10000, 40)
+            prefill = np.full(317, bk.COARSE_SEMANTIC_PAD_TOKEN)
+            prefill[:40] = x_sem
+            prefill[256] = bk.COARSE_INFER_TOKEN
+            codes = rng.integers(0, 1024, coarse_steps) + 10000 + 1024 * (
+                np.arange(coarse_steps) % 2)
+            lp = lambda v: torch.as_tensor([v], device=dev)  # noqa: E731
+            bk.coarse_window_rows(coarse, torch.as_tensor(prefill[None], device=dev), lp(ctx),
+                                  lp(0), lp(10 ** 6), one, forced(codes, 12096), coarse_steps)
+            idx = torch.as_tensor(rng.integers(0, 1024, (1, 512, 8)), device=dev)
+            for cb in range(bk.N_COARSE_CODEBOOKS, bk.N_FINE_CODEBOOKS):
+                fine(cb, idx)
+    finally:
+        for h in hooks:
+            h.remove()
+    return rows
+
+
+def bark_two_layer(reduced: Path) -> dict:
+    """The two-layer copy at full width in float32 (TF32 off): every stage's
+    teacher-forced logits card against CPU at both bars; an off-by-one
+    decode position must break the check."""
+    from mlx_audio_tpu_torch.tts.models.bark import Model
+
+    t0 = time.perf_counter()
+    Model._tokenizer = Model._codec = None
+    cpu, cpu_load = timed_load(str(reduced), device="cpu", dtype=torch.float32)
+    want = bark_logit_rows(cpu)
+    del cpu
+    card, _ = timed_load(str(reduced), device="cuda", dtype=torch.float32)
+    got = bark_logit_rows(card)
+    bad = bark_logit_rows(card, fault=True, plants=False)
+    gaps, fault = csm_gaps(got, want), csm_gaps(bad, want)
+
+    def ok(g):
+        return all(d <= CARD_VS_CPU_ATOL * peak and d <= BARK_LAYER_BAR * add
+                   for d, peak, add in g)
+
+    worst = max(g[0] / min(CARD_VS_CPU_ATOL * g[1], BARK_LAYER_BAR * g[2]) for g in gaps)
+    log(f"[bark] two-layer copy, float32, card against CPU: {len(gaps)} calls' logits (the "
+        f"semantic prefill and {BARK_CPU_STEPS} teacher-forced steps, a coarse window's prefill "
+        f"and {BARK_CPU_STEPS - 1} steps, the fine stack's 6 codebooks over 512 frames), max|d| "
+        f"{max(g[0] for g in gaps):.3e}, peaks >= {min(g[1] for g in gaps):.3f} (bar "
+        f"{CARD_VS_CPU_ATOL:g} of each), what the layers add >= {min(g[2] for g in gaps):.4f} "
+        f"(bar {BARK_LAYER_BAR:g} of each), worst share of its bar {worst:.3f}; an off-by-one "
+        f"decode position parts them by {max(g[0] for g in fault):.3e} "
+        f"({time.perf_counter() - t0:.1f} s, the CPU load {cpu_load:.1f} s)")
+    if len(gaps) != 2 * BARK_CPU_STEPS + 7 or not ok(gaps):
+        raise SystemExit("chip_smoke: the Bark two-layer copy parts card from CPU")
+    if ok(fault):
+        raise SystemExit("chip_smoke: the Bark check passes an off-by-one decode position")
+    del card
+    Model._tokenizer = Model._codec = None
+    return {"logits_max_abs_err": max(g[0] for g in gaps), "layers_add": min(g[2] for g in gaps),
+            "worst_share_of_bar": worst, "fault_gap": max(g[0] for g in fault), "calls": len(gaps),
+            "wall_s": time.perf_counter() - t0}
+
+
+def bark_generate(bark, plant, smi) -> dict:
+    """`Model.generate` of BARK_TEXT, sampled (0.7, fine 0.5), BARK_TIMED
+    times after a warm-up, each stage timed; 32 semantic steps profiled
+    (less the prefill, profiled alone); the semantic stage run to its
+    768-step cap with the plant lifted (greedy, the stop's head row at 0:
+    its last step reads position 1024)."""
+    from mlx_audio_tpu_torch.tts.models.bark import bark as bk
+
+    stages = ("generate_text_semantic", "generate_coarse", "generate_fine", "decode_codes")
+    split = {s: [] for s in stages}
+
+    def timed(name):
+        orig = getattr(bark, name)
+
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(*a, **kw)
+            torch.cuda.synchronize()
+            split[name].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    for name in stages:
+        setattr(bark, name, timed(name))
+    try:
+        with torch.inference_mode():
+            list(bark.generate(BARK_TEXT, seed=100))  # warm-up (EnCodec loads from encodec/)
+            for s in stages:
+                split[s].clear()
+            zero_port_launches()
+            walls, outs = [], []
+            for seed in range(BARK_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs.append(list(bark.generate(BARK_TEXT, seed=seed)))
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+        launches = no_port_launches("Bark's float32 generate")
+    finally:
+        for name in stages:
+            delattr(bark, name)
+    wall = statistics.median(walls)
+    audio_s = BARK_FRAMES * 320 / 24000
+    med = {s: statistics.median(v) for s, v in split.items()}
+
+    gpt = bark.semantic
+    dev = bark.device
+    ids = torch.as_tensor(bark.text_ids(BARK_TEXT)[None], device=dev)
+    hist = torch.full_like(ids, bk.SEMANTIC_PAD_TOKEN)
+
+    def sem(steps):
+        def run():
+            with torch.inference_mode():
+                gen = torch.Generator(device=dev).manual_seed(0)
+                bk.semantic_rows(gpt, bk.semantic_prefill(gpt, ids, hist),
+                                 torch.full((1,), 0.7, device=dev),
+                                 lambda i: bk.gumbel_rows([gen], (10001,), dev), steps)
+            torch.cuda.synchronize()
+        return run
+
+    sem(BARK_PROFILE_STEPS)()
+    _, _ = profile_one_run(sem(0), "the semantic prefill")
+    pre = dict(profile_one_run.last)
+    _, _ = profile_one_run(sem(BARK_PROFILE_STEPS),
+                           f"the semantic prefill and {BARK_PROFILE_STEPS} steps")
+    prof = dict(profile_one_run.last)
+    steps = BARK_PROFILE_STEPS
+    per_step = {"launches": (prof["launches"] - pre["launches"]) / steps,
+                "device_ms": (prof["device_ms"] - pre["device_ms"]) / steps,
+                "wall_ms": (prof["wall_ms"] - pre["wall_ms"]) / steps}
+
+    w = gpt.position_embeds_layer.weight
+    head = gpt.lm_head.weight
+    stop_row = head[bk.SEMANTIC_PAD_TOKEN].clone()
+    with torch.no_grad():
+        w[256 + BARK_TOKENS] -= plant
+        head[bk.SEMANTIC_PAD_TOKEN] = 0
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        capped = bark.generate_text_semantic(BARK_TEXT, None, temperature=0.0)
+        torch.cuda.synchronize()  # a device-side assert would surface here
+        capped_s = time.perf_counter() - t0
+    finally:
+        with torch.no_grad():
+            w[256 + BARK_TOKENS] += plant
+            head[bk.SEMANTIC_PAD_TOKEN] = stop_row
+    n = [o[0].token_count for o in outs]
+    log(f"[bark] generate (sampled 0.7, fine 0.5), {BARK_TIMED} runs after a warm-up: "
+        f"{n} semantic tokens, {audio_s:.3f} s of audio, median wall {wall:.4f} s (RTF "
+        f"{wall / audio_s:.4f}; walls {[round(x, 4) for x in walls]}); median split: semantic "
+        f"{med['generate_text_semantic']:.4f} s, coarse {med['generate_coarse']:.4f} s, fine "
+        f"{med['generate_fine']:.4f} s, EnCodec decode {med['decode_codes']:.4f} s; the port's "
+        f"kernels launched {launches} ({smi})")
+    log(f"[bark] profiled semantic steps: {per_step['launches']:.0f} launches and "
+        f"{per_step['device_ms']:.3f} ms of device time in {per_step['wall_ms']:.3f} ms of wall "
+        f"a step (idle share {100 * (1 - per_step['device_ms'] / per_step['wall_ms']):.1f}%; the "
+        f"prefill {pre['launches']} launches, {pre['device_ms']:.2f} ms of device time)")
+    log(f"[bark] the semantic stage to its cap (plant lifted, greedy): {len(capped)} tokens in "
+        f"{capped_s:.4f} s, its last step at position 1024, clamped to row 1023, no device "
+        f"assert")
+    if (any(o[0].token_count != BARK_TOKENS or len(o) != 1 for o in outs)
+            or any(o[0].audio.shape != (BARK_FRAMES * 320,) or not np.isfinite(o[0].audio).all()
+                   for o in outs)
+            or len(capped) != bk.SEMANTIC_MAX_STEPS):
+        raise SystemExit("chip_smoke: Bark's generate left the planted length, gave non-finite "
+                         "audio, or the semantic stage stopped short of its cap")
+    return {"tokens": n, "audio_s": audio_s, "wall_s": wall, "walls_s": walls,
+            "rtf": wall / audio_s, "split_s": med, "launches": launches,
+            "semantic_step": per_step, "profile": prof, "prefill_profile": pre,
+            "capped_tokens": len(capped), "capped_s": capped_s}
+
+
+def bark_batched(bark) -> dict:
+    """`BarkBatcher` at BARK_BATCH rows: four sampled requests at once, each
+    one's codes equal to its run alone through the same pool and its audio
+    within ENCODEC_ATOL of the peak (cuDNN's transposed convolutions may sum
+    in another order from call to call); the speedup over the four alone."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    local = threading.local()
+    codes = {}
+    decode = bark.decode_codes
+
+    def spy(fine):
+        codes.setdefault(local.key, []).append(np.array(fine))
+        return decode(fine)
+
+    def one(i, tag):
+        local.key = (tag, i)
+        with torch.inference_mode():
+            return list(bark.generate(HTTP_TEXTS[i], seed=i))[0]
+
+    bark.decode_codes = spy
+    b = bark.make_batcher(max_batch=BARK_BATCH).install()
+    try:
+        b.warmup()
+        d0 = b.dispatch_count
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(BARK_BATCH) as pool:
+            futs = [pool.submit(one, i, "batched") for i in range(BARK_BATCH)]
+            batched = [f.result(timeout=SERVE_TIMEOUT) for f in futs]
+        batched_s, dispatches = time.perf_counter() - t0, b.dispatch_count - d0
+        t0 = time.perf_counter()
+        alone = [one(i, "alone") for i in range(BARK_BATCH)]
+        alone_s = time.perf_counter() - t0
+    finally:
+        b.close()
+        del bark.decode_codes
+    same = [np.array_equal(codes[("batched", i)][0], codes[("alone", i)][0])
+            for i in range(BARK_BATCH)]
+    peak = max(float(np.abs(a.audio).max()) for a in alone)
+    audio_d = max(float(np.abs(x.audio - y.audio).max()) for x, y in zip(batched, alone))
+    log(f"[bark] BarkBatcher ({BARK_BATCH} rows): {BARK_BATCH} sampled requests in "
+        f"{batched_s:.4f} s ({dispatches} fused dispatches), alone through the pool "
+        f"{alone_s:.4f} s: speedup {alone_s / batched_s:.2f}x; codes equal to alone: {same}, "
+        f"audio max|d| {audio_d:.2e} of peak {peak:.4f}")
+    if (not all(same) or audio_d > ENCODEC_ATOL * peak
+            or len({codes[("batched", i)][0].tobytes() for i in range(BARK_BATCH)}) != BARK_BATCH
+            or any(x.token_count != BARK_TOKENS for x in batched)):
+        raise SystemExit("chip_smoke: BarkBatcher's codes part from each request's alone")
+    return {"rows": BARK_BATCH, "batched_s": batched_s, "alone_s": alone_s,
+            "speedup": alone_s / batched_s, "dispatches": dispatches,
+            "audio_max_abs_err": audio_d}
+
+
+def bark_served(bark, path: Path) -> dict:
+    """One speech request through `server.py` after the provider's
+    BarkBatcher warm-up (one call of each stage on padding); the served
+    samples equal the in-memory model's through an identical pool, within
+    one int16 step (cuDNN's transposed convolutions)."""
+    from mlx_audio_tpu_torch import server
+    from mlx_audio_tpu_torch.serving import get_infer_hook
+
+    provider = server.ModelProvider()
+    httpd = server.serve_stdlib("127.0.0.1", 0, provider)
+    url = "http://127.0.0.1:%d" % httpd.server_address[1]
+    name = str(path)
+    try:
+        rec = load_served(url, provider, name)
+        body, ttfb, wall = http_speech_timed(url, {"model": name, "input": BARK_TEXT,
+                                                   "response_format": "wav"})
+        batcher = get_infer_hook(provider.load_model(name))
+        threads = [s._thread for s in (batcher.sem_sched, batcher.coarse_sched,
+                                       batcher.fine_sched)]
+        status, _ = http_json(f"{url}/v1/models/{name}", method="DELETE")
+        for t in threads:
+            t.join(60)
+        if status != 200 or any(t.is_alive() for t in threads):
+            raise SystemExit(f"chip_smoke: DELETE {name} answered {status} or left a "
+                             "BarkBatcher thread alive")
+        b = bark.make_batcher().install()
+        try:
+            with torch.inference_mode():
+                want = list(bark.generate(BARK_TEXT))[0].audio
+        finally:
+            b.close()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        for n in provider.list_models():
+            provider.unload(n)
+    got = np.frombuffer(body[44:], np.int16).astype(np.int32)
+    ref = np.frombuffer(pcm16(want), np.int16).astype(np.int32)
+    steps = int(np.abs(got - ref).max()) if got.shape == ref.shape else -1
+    log(f"[bark] served over HTTP (BarkBatcher, warmed): {len(want) / 24000:.3f} s of audio, "
+        f"time to first byte {ttfb:.4f} s, wall {wall:.4f} s (load {rec['load_s']:.1f} s, "
+        f"warm-up {rec['warmup_s']:.1f} s); the in-memory model's samples within {steps} int16 "
+        f"steps")
+    if body[:4] != b"RIFF" or not 0 <= steps <= 1 or len(want) != BARK_FRAMES * 320:
+        raise SystemExit(f"chip_smoke: the served Bark speech ({len(body)} bytes) is not the "
+                         f"in-memory model's samples ({len(want)})")
+    return {"ttfb_s": ttfb, "wall_s": wall, "int16_steps": steps, **rec}
+
+
+def bark_launches(sem_steps: int, coarse_steps: int) -> dict:
+    """Quantized launches of `bark_logit_rows(plants=False)` on int4 Bark by
+    the routing guard (`route_table`): each layer's att_proj, out_proj,
+    in_proj and the MLP's out_proj, and the head, at each call's rows. The
+    semantic prefill (257 rows, its head on the last row), the steps (one
+    row); the coarse prefill (317 rows, its head on the context's last row),
+    its steps less the last, which computes nothing past its token; the fine
+    stack's six calls over 512 rows. The embeddings dequantize their rows
+    and launch nothing."""
+    n, proj, _ = route_table(4)
+
+    def calls(cfg, M, times=1):
+        D = cfg["n_embd"]
+        for N, K in ((3 * D, D), (D, D), (4 * D, D), (D, 4 * D)):
+            proj(N, K, M, cfg["n_layer"] * times)
+
+    s, c, f = (BARK_CFG[k] for k in BARK_STAGES)
+    calls(s, 257)
+    calls(s, 1, sem_steps)
+    proj(s["output_vocab_size"], s["n_embd"], 1, sem_steps + 1)
+    calls(c, 317)
+    calls(c, 1, coarse_steps - 1)
+    proj(c["output_vocab_size"], c["n_embd"], 1, coarse_steps)
+    calls(f, 512, 6)
+    proj(f["output_vocab_size"], f["n_embd"], 512, 6)
+    return n
+
+
+def bark_int4(path: Path, tmp: Path) -> dict:
+    """int4 g64 by `convert(quantize=True)` (every Linear and embedding table,
+    as the JAX package's convert does), loaded: BARK_INT4_TOKENS semantic
+    steps, one coarse window and one fine chunk, teacher-forced, with the
+    quantized launches held to `bark_launches`; their logits held to the
+    float32 model on the dequantized weights, within BARK_INT4_BAR of each
+    peak."""
+    from mlx_audio_tpu_torch import convert
+    from mlx_audio_tpu_torch.nn.module import load_weights
+    from mlx_audio_tpu_torch.nn.quantized import QuantizedEmbedding
+    from mlx_audio_tpu_torch.ops.cuda import quant_matmul as qk
+    from mlx_audio_tpu_torch.tts.models.bark import Model
+    from mlx_audio_tpu_torch.utils import load_weight_files
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        q = convert.convert(str(path), str(tmp / "bark-small-4bit"), quantize=True)
+    convert_s = time.perf_counter() - t0
+    q4, q_load_s = timed_load(str(q))
+    embeds = type(q4.semantic.input_embeds_layer).__name__
+    deq = Model(BARK_CFG, device="cuda")
+    load_weights(deq, convert.dequantize_weights(load_weight_files(q), 4, GROUP))
+    kw = dict(plants=False, sem_steps=BARK_INT4_TOKENS, coarse_steps=60)
+    bark_logit_rows(q4, **kw)  # warm-up
+    torch.cuda.synchronize()
+    qk.reset_launches()
+    t0 = time.perf_counter()
+    rows = bark_logit_rows(q4, **kw)
+    torch.cuda.synchronize()
+    wall4 = time.perf_counter() - t0
+    got = quant_counts(4)
+    predicted = bark_launches(BARK_INT4_TOKENS, 60)
+    want = bark_logit_rows(deq, **kw)
+    gaps = csm_gaps(rows, [(w, w) for w, _ in want])
+    worst = max(d / peak for d, peak, _ in gaps)
+    log(f"[bark] int4 g64 by convert(quantize=True) in {convert_s:.1f} s, loaded in "
+        f"{q_load_s:.1f} s (tables: {embeds}); {BARK_INT4_TOKENS} semantic steps, a coarse "
+        f"window of 60, a fine chunk of 512, teacher-forced, in {wall4:.4f} s: launches {got}, "
+        f"from the code {predicted}; {len(gaps)} calls' logits against the float32 model on the "
+        f"dequantized weights: max|d| {max(g[0] for g in gaps):.3e}, worst share of the peak "
+        f"{worst:.2e} (bar {BARK_INT4_BAR:g})")
+    if got != predicted or worst > BARK_INT4_BAR or embeds != QuantizedEmbedding.__name__:
+        raise SystemExit(f"chip_smoke: the int4 Bark launched {got} (the code says "
+                         f"{predicted}), or its logits part from the dequantized model's")
+    del q4, deq
+    shutil.rmtree(q, ignore_errors=True)
+    Model._tokenizer = Model._codec = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"convert_s": convert_s, "load_s": q_load_s, "wall_s": wall4, "launches": got,
+            "tables": embeds, "logits_max_abs_err": max(g[0] for g in gaps),
+            "worst_share_of_peak": worst}
+
+
+def phase_bark(smi: str) -> dict:
+    """Phase 16 (see the module docstring)."""
+    from mlx_audio_tpu_torch.tts.models.bark import Model as Bark
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+
+    def mark(what):
+        log(f"[bark] {time.perf_counter() - t_phase:.1f} s into phase 16 after {what}")
+
+    tmp = Path(tempfile.mkdtemp(prefix="bark-"))
+    try:
+        enc = encodec_seeded()
+        enc_rec = encodec_checks(enc)
+        mark("EnCodec")
+        path, reduced = tmp / "bark-small", tmp / "bark-small-2layer"
+        source = Bark(BARK_CFG, device="cuda", seed=20)
+        plant = plant_bark_stop(source, BARK_TOKENS, seed=20)
+        write_s, nbytes = write_bark(path, reduced, source, enc)
+        del enc
+        Bark._tokenizer = Bark._codec = None
+        bark, load_s = timed_load(str(path))
+        same_parameters(bark, source, "Bark-small")
+        del source
+        log(f"[bark] Bark-small float32 (three GPTs of 12 x 768, 12 heads of 64, semantic "
+            f"129,600 in / 10,048 out, coarse 12,096, fine 1,056 over 8 codebooks), the stop "
+            f"planted after {BARK_TOKENS} semantic tokens, a WordPiece tokenizer.json of "
+            f"{BARK_WORDPIECE} entries and EnCodec in encodec/, seeded: "
+            f"{sum(p.numel() for p in bark.parameters()) / 1e6:.1f} M parameters, "
+            f"{nbytes / 1e9:.3f} GB written in {write_s:.1f} s (with the two-layer copy), "
+            f"loaded by utils.load_model in {load_s:.2f} s, equal to the source")
+        mark("writing and loading")
+        cpu = bark_two_layer(reduced)
+        mark("the two-layer copy")
+        gen = bark_generate(bark, plant, smi)
+        mark("generate")
+        batched = bark_batched(bark)
+        mark("BarkBatcher")
+        served = bark_served(bark, path)
+        mark("the served request")
+        del bark
+        Bark._tokenizer = Bark._codec = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        int4 = bark_int4(path, tmp)
+        mark("int4")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        Bark._tokenizer = Bark._codec = None
+    rec = {"encodec": enc_rec, "write_s": write_s, "checkpoint_bytes": nbytes,
+           "load_s": load_s, "card_vs_cpu": cpu, "generate": gen, "batched": batched,
+           "served": served, "int4": int4, "phase_s": time.perf_counter() - t_phase}
+    log(f"[bark] phase 16 wall {rec['phase_s']:.1f} s")
+    return rec
+
+
 QUANT_SOURCE = "mlx_audio_tpu_torch/csrc/quant_matmul.cu"
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
                     help="comma-separated subset to run (12 runs 10 first for its checkpoint "
                          "directories); a subset prints no result")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
@@ -6497,7 +7231,10 @@ def run_phases(phases, smi, keep, ckpt: Path) -> None:
     if 15 in phases:
         dia_outetts = phase_dia_outetts(smi)
         took(15)
-    if phases != set(range(1, 16)):
+    if 16 in phases:
+        bark = phase_bark(smi)
+        took(16)
+    if phases != set(range(1, 17)):
         log(f"[device] {smi}")
         sys.exit(f"chip_smoke: ran phases {sorted(phases)} only; no result")
     record = {"kernels": [{
@@ -6609,6 +7346,13 @@ def run_phases(phases, smi, keep, ckpt: Path) -> None:
                    if key.startswith("outetts_")},
         "m1_shapes": "the CSM backbone's (csm_qkv_m1, csm_o_proj_m1)"}
     qmlp["outetts"] = {"launches": o4["launches"]["qmlp"], "m1_shape": "csm_mlp_m1"}
+    # Bark-small int4 (phase 16): 16 semantic steps, a coarse window and a
+    # fine chunk, float32 x; the MLP is not gated, so no qmlp
+    b4 = bark["int4"]
+    qmm["bark"] = {"launches": {k: b4["launches"][k] for k in (
+        "qmm", "qmm_gemv", "qmm_mma", "qmm_kernel")}, "max_abs_err": qerrs["bark_sem_head_m1_f32"],
+        "shapes": {key[len("bark_"):]: qtiming[key] for key in qtiming
+                   if key.startswith("bark_")}}
     qmlp["serving"] = {"launches": serving["qwen3_int4"]["launches"]["qmlp"],
                        "m8": {"max_abs_err": qerrs["mlp_m8_f32"], **qtiming["qmlp_m8"]}}
     record["kernels"].append({
@@ -6633,6 +7377,7 @@ def run_phases(phases, smi, keep, ckpt: Path) -> None:
     print(json.dumps({"orpheus": orpheus}), flush=True)
     print(json.dumps({"csm": csm}), flush=True)
     print(json.dumps({"dia_outetts": dia_outetts}), flush=True)
+    print(json.dumps({"bark": bark}), flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

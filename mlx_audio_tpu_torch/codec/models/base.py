@@ -1,13 +1,37 @@
 """Shared codec utilities (counterpart of `mlx_audio_tpu/codec/models/base.py`):
-weight-norm folding."""
+weight-norm folding, and the port's convolutions run channels-first."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
+from ...nn import Conv1d as _Conv1d
+from ...nn import ConvTranspose1d as _ConvTranspose1d
 from ...nn.sanitize import as_float32
 
-__all__ = ["fold_weight_norm_pairs"]
+__all__ = ["Conv1d", "ConvTranspose1d", "fold_weight_norm_pairs"]
+
+
+class Conv1d(_Conv1d):
+    """The port's Conv1d (its weight layout and loading), run channels-first:
+    (B, C_in, T) → (B, C_out, T')."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv1d(x, self.weight.to(x.dtype), b, stride=self.stride,
+                        padding=self.padding, dilation=self.dilation, groups=self.groups)
+
+
+class ConvTranspose1d(_ConvTranspose1d):
+    """The port's ConvTranspose1d, run channels-first."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv_transpose1d(x, self.weight.to(x.dtype), b, stride=self.stride,
+                                  padding=self.padding, output_padding=self.output_padding,
+                                  groups=self.groups)
 
 
 def fold_weight_norm_pairs(weights: dict) -> dict:

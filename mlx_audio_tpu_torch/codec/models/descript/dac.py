@@ -36,34 +36,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ....device import resolve_device
-from ....nn import Conv1d as _Conv1d
-from ....nn import ConvTranspose1d as _ConvTranspose1d
 from ....nn import Embedding
 from ....nn.activations import snake
 from ....nn.module import init_weights, load_weights
-from ..base import fold_weight_norm_pairs
+from ..base import Conv1d, ConvTranspose1d, fold_weight_norm_pairs
 
 __all__ = ["DAC", "DACFile"]
-
-
-class Conv1d(_Conv1d):
-    """The port's Conv1d (its weight layout and loading), run channels-first:
-    (B, C_in, T) → (B, C_out, T')."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv1d(x, self.weight.to(x.dtype), b, stride=self.stride,
-                        padding=self.padding, dilation=self.dilation, groups=self.groups)
-
-
-class ConvTranspose1d(_ConvTranspose1d):
-    """The port's ConvTranspose1d, run channels-first."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv_transpose1d(x, self.weight.to(x.dtype), b, stride=self.stride,
-                                  padding=self.padding, output_padding=self.output_padding,
-                                  groups=self.groups)
 
 
 class Snake1d(nn.Module):
@@ -194,8 +172,7 @@ class VectorQuantize(nn.Module):
     def decode_code(self, embed_id):
         """Codes (B, T) → (B, Dc, T). An index past the end takes the last
         row (below -N the first), as the JAX package's gather clamps it."""
-        n = self.codebook.weight.shape[0]
-        return self.codebook.weight[embed_id.clamp(-n, n - 1)].transpose(1, 2)
+        return self.codebook(embed_id).transpose(1, 2)
 
     def decode_latents(self, latents):
         """The nearest code by cosine similarity: the argmax of a float32

@@ -259,7 +259,9 @@ class VectorQuantize(nn.Module):
         return z_q, indices
 
     def decode_code(self, embed_id):
-        return self.codebook.weight[embed_id]
+        """Codes → rows; a code past the codebook takes the last row, as the
+        JAX package's gather clamps it (the embedding's own lookup)."""
+        return self.codebook(embed_id)
 
     def decode_latents(self, latents):
         """The nearest codebook entries by cosine similarity, as float32

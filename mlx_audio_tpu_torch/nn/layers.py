@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Linear", "Embedding", "Conv1d", "ConvTranspose1d", "LayerNorm",
+__all__ = ["clamp_ids", "Linear", "Embedding", "Conv1d", "ConvTranspose1d", "LayerNorm",
            "RMSNorm", "GroupNorm", "InstanceNorm"]
 
 
@@ -50,7 +50,20 @@ class Linear(nn.Module):
         return F.linear(x, self.weight.to(x.dtype), b)
 
 
+def clamp_ids(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """Ids into an n-row table as the JAX package's gather reads them: a
+    negative id counts from the end once (torch's own wrap), and then every
+    id is clamped into the table, so -1 is the last row, -n - 5 the first
+    and n + 5 the last. An unclamped id past the table raises on the CPU
+    and is a device-side assert on the card, which ends the process's CUDA
+    context."""
+    return ids.clamp(-n, n - 1)
+
+
 class Embedding(nn.Module):
+    """A lookup table whose ids are clamped as the JAX package's gather
+    clamps them (`clamp_ids`)."""
+
     def __init__(self, num_embeddings: int, dims: int, device=None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(num_embeddings, dims, device=device))
@@ -59,7 +72,7 @@ class Embedding(nn.Module):
         self.weight.data.normal_(0.0, 0.02, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.weight[x]
+        return self.weight[clamp_ids(x, self.weight.shape[0])]
 
     def as_linear(self, x: torch.Tensor) -> torch.Tensor:
         """Tied-weight output projection: x @ W.T in the input's dtype."""
@@ -134,21 +147,23 @@ class ConvTranspose1d(nn.Module):
 
 class LayerNorm(nn.Module):
     """Affine LayerNorm that normalises in float32 and casts back to the
-    input's dtype."""
+    input's dtype; `bias=False` leaves the shift out (nanoGPT's)."""
 
-    def __init__(self, dims: int, eps: float = 1e-5, device=None):
+    def __init__(self, dims: int, eps: float = 1e-5, bias: bool = True, device=None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(dims, device=device))
-        self.bias = nn.Parameter(torch.empty(dims, device=device))
+        self.bias = nn.Parameter(torch.empty(dims, device=device)) if bias else None
         self.eps = eps
 
     def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
         self.weight.data.fill_(1.0)
-        self.bias.data.zero_()
+        if self.bias is not None:
+            self.bias.data.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), self.weight.shape, self.weight.float(),
-                            self.bias.float(), self.eps).to(x.dtype)
+        b = None if self.bias is None else self.bias.float()
+        return F.layer_norm(x.float(), self.weight.shape, self.weight.float(), b,
+                            self.eps).to(x.dtype)
 
 
 class RMSNorm(nn.Module):

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.cuda.quant_matmul import quantized_matmul, quantized_mlp, unpack_rows
-from .layers import Embedding, Linear
+from .layers import Embedding, Linear, clamp_ids
 
 __all__ = [
     "QuantizedLinear", "QuantizedEmbedding", "QuantizedFusedLinear",
@@ -302,7 +302,9 @@ class QuantizedEmbedding(nn.Module):
                                  self.group_size, self.bits, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # gather the packed rows first, then dequantize only those (float32)
+        # gather the packed rows first, then dequantize only those (float32);
+        # the ids clamp as the JAX package's gather clamps them
+        x = clamp_ids(x, self.weight.shape[0])
         return dequantize_arrays(self.weight[x], self.scales[x], self.biases[x],
                                  self.group_size, self.bits, torch.float32)
 

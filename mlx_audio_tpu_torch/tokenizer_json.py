@@ -1,4 +1,5 @@
-"""A reader of Hugging Face `tokenizer.json` files for byte-level BPE.
+"""A reader of Hugging Face `tokenizer.json` files for byte-level BPE and
+for BERT's WordPiece.
 
 The port's counterpart of what the JAX package gets from
 `tokenizers.Tokenizer.from_file` (Whisper) and `AutoTokenizer` (Qwen3-TTS's
@@ -22,6 +23,14 @@ use:
 - `added_tokens`, split out before pre-tokenizing, with `special`,
   `lstrip`, `rstrip` and `normalized`.
 
+WordPiece (`WordPieceTokenizer`, Bark's text: `bert-base-multilingual-cased`)
+is read from a `tokenizer.json` whose model is `WordPiece` (`BertNormalizer`,
+`BertPreTokenizer`, the `WordPiece` decoder, a `TemplateProcessing` or
+`BertProcessing` post-processor) or from a bare `vocab.txt`. Its reference
+is `transformers.BertTokenizer`, which the JAX package's Bark calls: where
+`tokenizers` differs from it (`BertTokenizer` composes the text to NFC
+before splitting it; `BertNormalizer` does not), `BertTokenizer` decides.
+
 Any other component raises and names itself. The split patterns use
 `\\p{L}` and `\\p{N}`, which neither `re` nor the card has; they run here as
 small scanners over `unicodedata.category` that follow each pattern's
@@ -37,8 +46,8 @@ import unicodedata
 from pathlib import Path
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
-__all__ = ["Tokenizer", "load", "GPT2_PATTERN", "QWEN2_PATTERN", "LLAMA3_PATTERN",
-           "bytes_to_unicode"]
+__all__ = ["Tokenizer", "WordPieceTokenizer", "load", "GPT2_PATTERN", "QWEN2_PATTERN",
+           "LLAMA3_PATTERN", "bytes_to_unicode"]
 
 # Unicode White_Space: Rust's `char::is_whitespace` and Oniguruma's `\s`
 # (str.isspace would add U+001C..U+001F)
@@ -201,7 +210,8 @@ def _split_isolated(text: str, scan: Callable[[str, int], int]) -> List[str]:
 
 def _unsupported(path, what: str, spec) -> ValueError:
     return ValueError(f"{path}: unsupported {what} {json.dumps(spec)[:200]} (the reader "
-                      "covers byte-level BPE as Whisper's, Qwen2's and Llama-3's files use it)")
+                      "covers byte-level BPE as Whisper's, Qwen2's and Llama-3's files use it, "
+                      "and BERT's WordPiece)")
 
 
 def _normalizer(spec, path) -> Callable[[str], str]:
@@ -416,6 +426,8 @@ def _post_processor(spec, path, token_to_id) -> Tuple[List[int], List[int]]:
         if len(templates) > 1:
             raise _unsupported(path, "post-processor sequence of several templates", spec)
         return templates[0] if templates else ([], [])
+    if spec.get("type") == "BertProcessing":
+        return [int(spec["cls"][1])], [int(spec["sep"][1])]
     if spec.get("type") == "TemplateProcessing":
         special = spec.get("special_tokens", {})
         before: List[int] = []
@@ -573,15 +585,299 @@ class Tokenizer:
         return self._decode_tokens(tokens)
 
 
+# ---------------------------------------------------------------------------
+# WordPiece (BERT)
+# ---------------------------------------------------------------------------
+
+
+def _bert_control(c: str) -> bool:
+    """`BertTokenizer`'s control characters: category C*, but tab, newline
+    and carriage return, which count as whitespace."""
+    return c not in "\t\n\r" and unicodedata.category(c)[0] == "C"
+
+
+def _bert_whitespace(c: str) -> bool:
+    return c in " \t\n\r" or unicodedata.category(c) == "Zs"
+
+
+def _bert_punctuation(c: str) -> bool:
+    """Every non-alphanumeric ASCII character, and Unicode category P*."""
+    cp = ord(c)
+    if 33 <= cp <= 47 or 58 <= cp <= 64 or 91 <= cp <= 96 or 123 <= cp <= 126:
+        return True
+    return unicodedata.category(c)[0] == "P"
+
+
+_CJK = ((0x4E00, 0x9FFF), (0x3400, 0x4DBF), (0x20000, 0x2A6DF), (0x2A700, 0x2B73F),
+        (0x2B740, 0x2B81F), (0x2B820, 0x2CEAF), (0xF900, 0xFAFF), (0x2F800, 0x2FA1F))
+
+
+def _cjk(c: str) -> bool:
+    cp = ord(c)
+    return any(lo <= cp <= hi for lo, hi in _CJK)
+
+
+def _strip_accents(text: str) -> str:
+    return "".join(c for c in unicodedata.normalize("NFD", text)
+                   if unicodedata.category(c) != "Mn")
+
+
+class _BertNormalizer:
+    """`BertTokenizer`'s `BasicTokenizer` up to its whitespace split: drop
+    NUL, U+FFFD and control characters and make every whitespace a space
+    (`clean_text`), put spaces around CJK ideographs
+    (`handle_chinese_chars`), compose to NFC, then lowercase and strip
+    accents (`strip_accents` None follows `lowercase`)."""
+
+    def __init__(self, clean_text: bool = True, handle_chinese_chars: bool = True,
+                 strip_accents: Optional[bool] = None, lowercase: bool = False):
+        self.clean_text = clean_text
+        self.chinese = handle_chinese_chars
+        self.strip = lowercase if strip_accents is None else strip_accents
+        self.lowercase = lowercase
+
+    @classmethod
+    def from_spec(cls, spec, path) -> "_BertNormalizer":
+        if (spec or {}).get("type") != "BertNormalizer":
+            raise _unsupported(path, "normalizer", spec)
+        return cls(bool(spec.get("clean_text", True)),
+                   bool(spec.get("handle_chinese_chars", True)),
+                   spec.get("strip_accents"), bool(spec.get("lowercase", True)))
+
+    def __call__(self, text: str) -> str:
+        if self.clean_text:
+            text = "".join(" " if _bert_whitespace(c) else c for c in text
+                           if c not in "\x00\ufffd" and not _bert_control(c))
+        if self.chinese:
+            text = "".join(f" {c} " if _cjk(c) else c for c in text)
+        text = unicodedata.normalize("NFC", text)
+        if self.lowercase:
+            text = text.lower()
+        return _strip_accents(text) if self.strip else text
+
+
+def _bert_words(text: str) -> List[str]:
+    """`BertPreTokenizer`: split at whitespace, then every punctuation
+    character a word of its own."""
+    out: List[str] = []
+    for word in text.split():
+        start = 0
+        for i, c in enumerate(word):
+            if _bert_punctuation(c):
+                if start < i:
+                    out.append(word[start:i])
+                out.append(c)
+                start = i + 1
+        if start < len(word):
+            out.append(word[start:])
+    return out
+
+
+class _WordPiece:
+    """Greedy longest match from the word's start, the continuation pieces
+    prefixed (`##`); a word with a piece outside the vocabulary, or longer
+    than `max_input_chars_per_word` characters, is the unknown token."""
+
+    def __init__(self, vocab: Dict[str, int], unk_token: str = "[UNK]", prefix: str = "##",
+                 max_input_chars_per_word: int = 100):
+        self.vocab = vocab
+        self.unk_token = unk_token
+        self.prefix = prefix
+        self.max_chars = max_input_chars_per_word
+
+    @classmethod
+    def from_spec(cls, spec, path) -> "_WordPiece":
+        if spec.get("type") != "WordPiece":
+            raise _unsupported(path, "model", {"type": spec.get("type")})
+        return cls(dict(spec["vocab"]), spec.get("unk_token", "[UNK]"),
+                   spec.get("continuing_subword_prefix", "##"),
+                   int(spec.get("max_input_chars_per_word", 100)))
+
+    def tokenize(self, word: str) -> List[str]:
+        if len(word) > self.max_chars:
+            return [self.unk_token]
+        pieces: List[str] = []
+        start = 0
+        while start < len(word):
+            end = len(word)
+            while end > start:
+                piece = word[start:end] if start == 0 else self.prefix + word[start:end]
+                if piece in self.vocab:
+                    break
+                end -= 1
+            if end == start:
+                return [self.unk_token]
+            pieces.append(piece)
+            start = end
+        return pieces
+
+
+# the special tokens `BertTokenizer` takes by default, split out of the text
+# before it is normalized
+BERT_SPECIAL_TOKENS = ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]")
+
+
+class WordPieceTokenizer:
+    """BERT's WordPiece with the surface the port's callers use (`encode`,
+    `decode`, `token_to_id`, `id_to_token`, `get_vocab_size`), held to
+    `transformers.BertTokenizer`. Added tokens (the special ones among them)
+    are split out of the raw text first, leftmost and longest; `encode`
+    with `add_special_tokens` wraps the ids as `[CLS] … [SEP]`, as the
+    post-processor says."""
+
+    def __init__(self, model: _WordPiece, normalizer: _BertNormalizer,
+                 added: Sequence[_AddedToken], before: Sequence[int] = (),
+                 after: Sequence[int] = (), cleanup: bool = True,
+                 path: Union[str, Path] = "tokenizer.json"):
+        self.path = str(path)
+        self.model = model
+        self._normalize = normalizer
+        self._added_by_id = {t.id: t for t in added}
+        self._added_by_content = {t.content: t for t in added}
+        self._special = {t.content for t in added if t.special}
+        self._raw = _Matcher({t.content: t for t in added if not t.normalized})
+        self._norm = _Matcher({normalizer(t.content): t for t in added if t.normalized})
+        self._id_to_token = {i: t for t, i in model.vocab.items()}
+        self._before, self._after = list(before), list(after)
+        self._cleanup = cleanup
+        self._unk_id = model.vocab.get(model.unk_token)
+
+    @classmethod
+    def from_spec(cls, spec: dict, path: Union[str, Path] = "tokenizer.json"
+                  ) -> "WordPieceTokenizer":
+        for key in ("truncation", "padding"):
+            if spec.get(key) is not None:
+                raise _unsupported(path, key, spec[key])
+        model = _WordPiece.from_spec(spec.get("model", {}), path)
+        normalizer = _BertNormalizer.from_spec(spec.get("normalizer"), path)
+        if (spec.get("pre_tokenizer") or {}).get("type") != "BertPreTokenizer":
+            raise _unsupported(path, "pre-tokenizer", spec.get("pre_tokenizer"))
+        decoder = spec.get("decoder") or {}
+        if decoder.get("type") != "WordPiece" or decoder.get("prefix", "##") != model.prefix:
+            raise _unsupported(path, "decoder", spec.get("decoder"))
+        added = [_AddedToken(t, path) for t in spec.get("added_tokens", [])]
+        for t in added:
+            if model.vocab.get(t.content, t.id) != t.id:
+                raise ValueError(f"{path}: added token {t.content!r} has id {t.id}, the "
+                                 f"vocabulary {model.vocab[t.content]}")
+        token_to_id = {**model.vocab, **{t.content: t.id for t in added}}
+
+        def require(token: str) -> int:
+            if token not in token_to_id:
+                raise ValueError(f"{path}: the template names {token!r}, which has no id")
+            return token_to_id[token]
+
+        before, after = _post_processor(spec.get("post_processor"), path, require)
+        return cls(model, normalizer, added, before, after,
+                   bool(decoder.get("cleanup", True)), path)
+
+    @classmethod
+    def from_vocab_txt(cls, path: Union[str, Path]) -> "WordPieceTokenizer":
+        """A bare `vocab.txt` (one token a line, its line number its id) as
+        `BertTokenizer(vocab_file, do_lower_case=False)` reads it:
+        `bert-base-multilingual-cased`'s settings (cased, accents kept, CJK
+        split)."""
+        path = Path(path)
+        vocab: Dict[str, int] = {}
+        with open(path, encoding="utf-8") as f:
+            for i, line in enumerate(f):
+                vocab[line.rstrip("\n")] = i
+        added = [_AddedToken({"content": t, "id": vocab[t], "special": True}, path)
+                 for t in BERT_SPECIAL_TOKENS if t in vocab]
+        for t in BERT_SPECIAL_TOKENS[1:4]:
+            if t not in vocab:
+                raise ValueError(f"{path}: the vocabulary has no {t}")
+        return cls(_WordPiece(vocab), _BertNormalizer(), added, [vocab["[CLS]"]],
+                   [vocab["[SEP]"]], True, path)
+
+    # ---- vocabulary ----
+
+    def token_to_id(self, token: str) -> Optional[int]:
+        t = self._added_by_content.get(token)
+        return t.id if t is not None else self.model.vocab.get(token)
+
+    def id_to_token(self, i: int) -> Optional[str]:
+        t = self._added_by_id.get(int(i))
+        return t.content if t is not None else self._id_to_token.get(int(i))
+
+    def get_vocab_size(self, with_added_tokens: bool = True) -> int:
+        ids = set(self._id_to_token)
+        if with_added_tokens:
+            ids |= set(self._added_by_id)
+        return len(ids)
+
+    # ---- encode / decode ----
+
+    def encode(self, text: str, add_special_tokens: bool = True) -> List[int]:
+        ids: List[int] = list(self._before) if add_special_tokens else []
+        for raw, tok in self._raw.split(text):
+            if tok is not None:
+                ids.append(tok.id)
+                continue
+            for piece, ntok in self._norm.split(self._normalize(raw)):
+                if ntok is not None:
+                    ids.append(ntok.id)
+                    continue
+                for word in _bert_words(piece):
+                    ids.extend(self.model.vocab.get(p, self._unk_id)
+                               for p in self.model.tokenize(word))
+        if add_special_tokens:
+            ids.extend(self._after)
+        return ids
+
+    def decode(self, ids: Sequence[int], skip_special_tokens: bool = False) -> str:
+        """`BertTokenizer.decode`: pieces joined by spaces with the `##`
+        continuations glued on, an added token that is not special a piece
+        of its own, then the tokenization spaces cleaned up."""
+        texts: List[str] = []
+        run: List[str] = []
+
+        def flush():
+            if run:
+                s = " ".join(run).replace(" " + self.model.prefix, "").strip()
+                if s:
+                    texts.append(s)
+                run.clear()
+
+        for i in ids:
+            t = self.id_to_token(int(i))
+            if t is None:
+                t = self.model.unk_token
+            if t in self._special:
+                if skip_special_tokens:
+                    continue
+                run.append(t)
+            elif t in self._added_by_content:
+                flush()
+                texts.append(t)
+            else:
+                run.append(t)
+        flush()
+        text = " ".join(texts)
+        if self._cleanup:
+            for a, b in ((" .", "."), (" ?", "?"), (" !", "!"), (" ,", ","), (" ' ", "'"),
+                         (" n't", "n't"), (" 'm", "'m"), (" 's", "'s"), (" 've", "'ve"),
+                         (" 're", "'re")):
+                text = text.replace(a, b)
+        return text
+
+
 @functools.lru_cache(maxsize=8)
-def _load(path: str, mtime_ns: int, size: int) -> Tokenizer:
-    return Tokenizer.from_file(path)
+def _load(path: str, mtime_ns: int, size: int) -> Union[Tokenizer, WordPieceTokenizer]:
+    if Path(path).suffix == ".txt":
+        return WordPieceTokenizer.from_vocab_txt(path)
+    spec = json.loads(Path(path).read_text(encoding="utf-8"))
+    if (spec.get("model") or {}).get("type") == "WordPiece":
+        return WordPieceTokenizer.from_spec(spec, path)
+    return Tokenizer(spec, path)
 
 
-def load(path: Union[str, Path]) -> Tokenizer:
-    """`Tokenizer.from_file`, parsed once per file version: a server builds a
-    tokenizer per request, and a 150k-token vocabulary takes a while to
-    parse in Python."""
+def load(path: Union[str, Path]) -> Union[Tokenizer, WordPieceTokenizer]:
+    """A `tokenizer.json` (byte-level BPE or WordPiece) or a WordPiece
+    `vocab.txt` (read with `bert-base-multilingual-cased`'s settings), parsed
+    once per file version: a server builds a tokenizer per request, and a
+    150k-token vocabulary takes a while to parse in Python. A directory
+    gives its `tokenizer.json`."""
     p = Path(path)
     if p.is_dir():
         p = p / "tokenizer.json"

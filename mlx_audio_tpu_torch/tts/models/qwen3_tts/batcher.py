@@ -100,7 +100,7 @@ def _tick_n(model, state, n: int) -> torch.Tensor:
         cp_cos, cp_sin, tri = s.cp_tables
         for c in s.cp_caches:  # stale entries past `pos` are masked out
             c.pos = 0
-        c0_embed = talker.model.codec_embedding.weight[c0]  # (B, D)
+        c0_embed = talker.model.codec_embedding(c0)  # (B, D)
         dt = torch.promote_types(hidden_last.dtype, c0_embed.dtype)
         seq = torch.stack([hidden_last.to(dt), c0_embed.to(dt)], dim=1)
         h = cp.model(cp.project(seq), s.cp_caches, mask=tri[None, None, 0:2],
@@ -112,7 +112,7 @@ def _tick_n(model, state, n: int) -> torch.Tensor:
             ci = _sample_rows_core(logits_i, s.generators, no_hist, s.temps, s.top_ps,
                                    s.top_ks, no_pen, no_win, stages=cp_stages)
             codes.append(ci)
-            emb_i = cp.codec_embedding[i - 1].weight[ci]  # (B, D)
+            emb_i = cp.codec_embedding[i - 1](ci)  # (B, D)
             emb_sum = emb_sum + emb_i
             p = i + 1  # the cache slot this token takes
             h = cp.model(cp.project(emb_i[:, None]), s.cp_caches, mask=tri[None, None, p:p + 1],

@@ -349,7 +349,7 @@ class Model(nn.Module):
         cos, sin, tri = tables
         for c in caches:  # stale entries past `pos` are masked out
             c.pos = 0
-        c0_embed = talker.model.codec_embedding.weight[c0][None]  # (1, 1, D)
+        c0_embed = talker.model.codec_embedding(c0)[None]  # (1, 1, D)
         dt = torch.promote_types(hidden_last.dtype, c0_embed.dtype)
         seq = torch.cat([hidden_last[:, None].to(dt), c0_embed.to(dt)], dim=1)
         h = cp.model(cp.project(seq), caches, mask=tri[None, None, 0:2],
@@ -360,7 +360,7 @@ class Model(nn.Module):
             logits = torch.matmul(h[:, -1].float(), heads[i - 1].T)
             ci = _sample(logits, generator, *sampling)
             codes.append(ci[0])
-            emb_i = cp.codec_embedding[i - 1].weight[ci]  # (1, D)
+            emb_i = cp.codec_embedding[i - 1](ci)  # (1, D)
             emb_sum = emb_sum + emb_i
             p = i + 1  # the cache slot this token takes
             h = cp.model(cp.project(emb_i[None]), caches, mask=tri[None, None, p:p + 1],

@@ -15,8 +15,8 @@ The JAX package's contract: `load_config`, `load_weight_files`
   in one float dtype (`dtype=None` takes the checkpoint's);
 - only the families the port has resolve (`whisper`, `qwen3_tts`,
   `kokoro`, `llama` (Orpheus), `qwen3` (VyvoTTS), `sesame` (CSM, also
-  as `csm`), `dia` and `outetts` (a `llama` config in a directory whose
-  name carries `outetts`)); any other raises the
+  as `csm`), `dia`, `outetts` (a `llama` config in a directory whose
+  name carries `outetts`) and `bark`); any other raises the
   JAX package's "not supported" error;
 - `resample_audio` is scipy's `resample_poly`, the JAX package's second
   route (its first is its native C resampler, not loaded here);
@@ -47,7 +47,8 @@ logger = logging.getLogger(__name__)
 
 # the model families the port has, by category
 PORTED = {"stt": ("whisper",),
-          "tts": ("qwen3_tts", "kokoro", "llama", "qwen3", "sesame", "dia", "outetts")}
+          "tts": ("qwen3_tts", "kokoro", "llama", "qwen3", "sesame", "dia", "outetts",
+                  "bark")}
 
 NO_DOWNLOAD = ("the PyTorch port reads local checkpoint directories only and does not "
                "download: fetch {!r} first and pass its directory")

@@ -1,0 +1,138 @@
+"""Ids past a lookup table, or negative, in the port against the JAX
+package's gather: a negative id counts from the end once, then every id is
+clamped into the table, so the rows read are the JAX package's. On the card
+an unclamped id would be a device-side assert that ends the process's CUDA
+context.
+
+Each table the port reads by id: `Embedding`, `QuantizedEmbedding` (the
+packed rows, scales and biases gathered before the dequantize), SNAC's
+codebooks, and Qwen3-TTS's code-predictor frame (the talker's codec table
+and the code predictor's), at ids -20, -1, N and N + 90. A scan of the
+port's sources holds every other direct read of a `.weight` by id to the
+clamp.
+"""
+
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mlx_audio_tpu.nn import layers as jl
+from mlx_audio_tpu.nn import quantized as jq
+from mlx_audio_tpu_torch.codec.models.snac.snac import VectorQuantize
+from mlx_audio_tpu_torch.nn import Embedding, load_jax_params
+from mlx_audio_tpu_torch.nn import quantized as pq
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _ids(n):
+    return np.array([[-20, -1, n, n + 90], [3, n - 1, 0, -n]], np.int64)
+
+
+def _jax_rows(table, ids):
+    return np.asarray(jnp.asarray(table)[jnp.asarray(ids)])
+
+
+@pytest.mark.parametrize("n", [10, 64])
+def test_embedding_reads_the_jax_rows(n):
+    rng = np.random.default_rng(n)
+    w = rng.standard_normal((n, 8)).astype(np.float32)
+    emb = Embedding(n, 8, device="cpu")
+    load_jax_params(emb, {"weight": w})
+    ids = _ids(n)
+    with torch.no_grad():
+        got = emb(torch.from_numpy(ids)).numpy()
+    np.testing.assert_array_equal(got, _jax_rows(w, ids))
+
+
+def test_the_jax_gather_wraps_once_then_clamps():
+    """The rule itself, on a 10-row table: 5, -1, -20, 100, 10 read rows 5,
+    9, 0, 9, 9."""
+    w = np.arange(10, dtype=np.float32)[:, None]
+    ids = np.array([5, -1, -20, 100, 10])
+    np.testing.assert_array_equal(_jax_rows(w, ids)[:, 0], [5, 9, 0, 9, 9])
+    emb = Embedding(10, 1, device="cpu")
+    load_jax_params(emb, {"weight": w})
+    with torch.no_grad():
+        np.testing.assert_array_equal(emb(torch.from_numpy(ids)).numpy()[:, 0], [5, 9, 0, 9, 9])
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_quantized_embedding_reads_the_jax_rows(bits):
+    n, d = 40, 128
+    rng = np.random.default_rng(bits)
+    jemb = jl.Embedding(n, d)
+    jemb.weight = jnp.asarray(rng.standard_normal((n, d)).astype(np.float32))
+    jqe = jq.QuantizedEmbedding.from_embedding(jemb, group_size=64, bits=bits)
+    pqe = pq.QuantizedEmbedding(n, d, group_size=64, bits=bits, device="cpu")
+    load_jax_params(pqe, {"weight": np.asarray(jqe.weight), "scales": np.asarray(jqe.scales),
+                          "biases": np.asarray(jqe.biases)})
+    ids = _ids(n)
+    with torch.no_grad():
+        got = pqe(torch.from_numpy(ids)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jqe(jnp.asarray(ids))), atol=1e-6)
+
+
+def test_snac_codebook_reads_the_jax_rows():
+    n = 32
+    rng = np.random.default_rng(1)
+    vq = VectorQuantize(8, n, 4, device="cpu")
+    w = rng.standard_normal((n, 4)).astype(np.float32)
+    load_jax_params(vq.codebook, {"weight": w})
+    ids = _ids(n)
+    with torch.no_grad():
+        got = vq.decode_code(torch.from_numpy(ids)).numpy()
+    np.testing.assert_array_equal(got, _jax_rows(w, ids))
+
+
+def test_qwen3_tts_code_predictor_frame_reads_the_jax_rows():
+    """The frame's first codec embedding and the code predictor's tables:
+    an id past the talker's codec table gives the frame of the row the JAX
+    package reads."""
+    from mlx_audio_tpu_torch.tts.models.qwen3_tts import Model
+    from test_torch_qwen3_tts import CFG
+
+    model = Model(CFG, device="cpu", seed=3)
+    talker = model.talker
+    cp = talker.code_predictor
+    G = talker.config.num_code_groups
+    n = talker.model.codec_embedding.weight.shape[0]
+    j = torch.arange(G + 2)
+    cos, sin = cp.model.rope(j[None])
+    tri = torch.where(j[None, :] <= j[:, None], 0.0, float("-inf"))
+    hidden = torch.randn(1, talker.config.hidden_size, generator=torch.Generator().manual_seed(0))
+
+    def frame(c0):
+        caches = cp.model.make_caches(1, G + 2)
+        with torch.inference_mode():
+            return model._code_predictor_frame(
+                hidden, torch.tensor([c0]), None, model._stacked_heads(), caches,
+                (cos, sin, tri), (0.0, 0, 1.0))
+
+    for c0 in (-20, -1, n, n + 90):
+        row = int(_jax_rows(np.arange(n), np.array(c0)))
+        codes, emb = frame(c0)
+        want_codes, want_emb = frame(row)
+        torch.testing.assert_close(emb, want_emb, rtol=0, atol=0)
+        torch.testing.assert_close(codes[1:], want_codes[1:], rtol=0, atol=0)
+
+
+_DIRECT_READ = re.compile(r"\.(weight|embedding)\[(?!:|\.\.\.)")
+
+
+def test_no_unclamped_table_read_left_in_the_port():
+    """Every direct read of a table by id in the port clamps its ids (the
+    JAX package's rows), on its line or the line before; a lookup through
+    an `Embedding`'s own call clamps in `forward`."""
+    found = []
+    for path in sorted((ROOT / "mlx_audio_tpu_torch").rglob("*.py")):
+        lines = path.read_text().splitlines()
+        for i, line in enumerate(lines, 1):
+            # the clamp on the read's line, or on the line that makes its ids
+            if _DIRECT_READ.search(line) and "clamp" not in line + lines[i - 2]:
+                found.append(f"{path.relative_to(ROOT)}:{i}: {line.strip()}")
+    assert not found, "\n".join(found)

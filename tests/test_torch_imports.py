@@ -164,6 +164,7 @@ def _tiny_entry_points():
     from mlx_audio_tpu_torch.tts.models.dia import Model as Dia
     from mlx_audio_tpu_torch.tts.models.outetts import Model as OuteTTS
     from mlx_audio_tpu_torch.tts.models.sesame import Model as Sesame
+    from mlx_audio_tpu_torch.tts.models.bark import Model as Bark
 
     whisper = dict(n_mels=80, n_audio_ctx=8, n_audio_state=16, n_audio_head=2,
                    n_audio_layer=1, n_vocab=64, n_text_ctx=8, n_text_state=16,
@@ -201,10 +202,12 @@ def _tiny_entry_points():
                                  "cross_query_heads": 2, "cross_head_dim": 8}},
            "data": {"text_length": 128, "audio_length": 128, "channels": 2,
                     "delay_pattern": [0, 1]}}
+    gpt = dict(n_layer=1, n_head=2, n_embd=16, input_vocab_size=64, output_vocab_size=64)
+    bark = dict(semantic_config=gpt, coarse_acoustics_config=gpt, fine_acoustics_config=gpt)
     return [(Whisper, whisper), (Qwen3TTS, qwen3), (MossFormer2SE, mossformer2_se),
             (Kokoro, kokoro), (Orpheus, dict(lm, model_type="llama")),
             (Vyvo, dict(lm, model_type="qwen3")), (Sesame, sesame), (Dia, dia),
-            (OuteTTS, dict(lm, model_type="llama", tie_word_embeddings=True))]
+            (OuteTTS, dict(lm, model_type="llama", tie_word_embeddings=True)), (Bark, bark)]
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
@@ -213,7 +216,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
     import pytest
     import torch
 
-    from mlx_audio_tpu_torch.codec.models import DAC, SNAC, Mimi
+    from mlx_audio_tpu_torch.codec.models import DAC, SNAC, Encodec, Mimi
     from mlx_audio_tpu_torch.codec.models.mimi import mimi
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -227,9 +230,12 @@ def test_entry_points_default_to_the_card(monkeypatch):
         quantizer_nq=2, quantizer_bins=4, quantizer_dim=4)
     dac = dict(encoder_dim=4, encoder_rates=[2], decoder_dim=8, decoder_rates=[2],
                n_codebooks=2, codebook_size=8, codebook_dim=2)
+    encodec = dict(num_filters=2, hidden_size=4, codebook_size=8, codebook_dim=4,
+                   upsampling_ratios=[2])
     for cls, cfg in _tiny_entry_points() + [(lambda c, **kw: SNAC(**c, **kw), snac),
                                             (Mimi, tiny_mimi),
-                                            (lambda c, **kw: DAC(**c, **kw), dac)]:
+                                            (lambda c, **kw: DAC(**c, **kw), dac),
+                                            (Encodec, encodec)]:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cls(cfg)
         assert cls(cfg, device="cpu").device.type == "cpu"
@@ -378,3 +384,42 @@ def test_mimi_sesame_slice_modules_are_scanned(name):
     speech tokenizer with its Mimi-based encoder are among the modules the
     import and scan tests cover."""
     assert name in {n for _, n in _modules()}
+
+
+BARK_SLICE_MODULES = ("mlx_audio_tpu_torch.codec.models.encodec",
+                      "mlx_audio_tpu_torch.codec.models.encodec.encodec",
+                      "mlx_audio_tpu_torch.tts.models.bark",
+                      "mlx_audio_tpu_torch.tts.models.bark.bark",
+                      "mlx_audio_tpu_torch.tts.models.bark.batcher")
+
+
+@pytest.mark.parametrize("name", BARK_SLICE_MODULES)
+def test_bark_slice_modules_are_scanned(name):
+    """EnCodec and Bark (the model and its batcher) are among the modules
+    the import and scan tests cover, and the loader resolves Bark."""
+    from mlx_audio_tpu_torch.utils import PORTED, get_model_class
+
+    assert name in {n for _, n in _modules()}
+    assert "bark" in PORTED["tts"]
+    assert get_model_class("bark", None, "tts", {})[1] == "bark"
+
+
+def test_wordpiece_reads_without_the_missing_packages(tmp_path):
+    """With tokenizers and transformers unimportable, Bark's WordPiece text
+    tokenizer reads a vocab.txt."""
+    (tmp_path / "vocab.txt").write_text("\n".join(
+        ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "hello", "world", "!"]) + "\n")
+    code = (
+        "import sys\n"
+        f"for n in {NOT_ON_THE_CARD!r}:\n"
+        "    sys.modules[n] = None\n"
+        f"sys.path.insert(0, {str(REPO)!r})\n"
+        "from mlx_audio_tpu_torch.tokenizer_json import load\n"
+        f"tok = load({str(tmp_path / 'vocab.txt')!r})\n"
+        "assert tok.encode('hello world!') == [2, 5, 6, 7, 3], tok.encode('hello world!')\n"
+        "print('OK')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "OK"

@@ -5,8 +5,9 @@ to the JAX package's), so that what differs is the LM and the frame layout
 around it.
 
 Random weights would send greedy tokens anywhere in the vocabulary, and a
-code outside its codebook raises in the port (the JAX package clamps it).
-So each pair plants the path `chip_smoke.py` plants at full width: every
+code outside its codebook would decode as the codebook's last row (the port
+clamps it as the JAX package does), not as a frame of the path. So each
+pair plants the path `chip_smoke.py` plants at full width: every
 token's embedding is the lm_head row of its planted successor, scaled up,
 so the argmax follows END_OF_HUMAN, START_OF_AI, START_OF_SPEECH, then
 frames of 7 valid codes, then END_OF_SPEECH. Both packages run the same
