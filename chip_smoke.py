@@ -79,11 +79,11 @@ Phases, each printing its own lines:
      models loaded through POST /v1/models and their batchers warmed:
      Whisper-large-v3-turbo (bf16) transcribing a 15 s 44.1 kHz stereo
      upload (the text and tokens of the in-memory phase 4 model, flash
-     launches 32 per batched encode), 4 concurrent requests, the first as
-     NDJSON, each its own seeded upload of 8-9.5 s (each transcription
+     launches 32 per batched encode), 2 concurrent requests, the first as
+     NDJSON, each its own seeded upload of 8-8.5 s (each transcription
      the in-memory model's sequential one of the same upload, or a stated
      near-tie at the decode where the two part), and the realtime WebSocket route (its
-     final = `generate` on the same buffer) inside `profiling.trace`; int4
+     final = `generate` on the same buffer); int4
      Qwen3-TTS served as CustomVoice, each request capped at
      HTTP_QWEN_FRAMES (32; its text's 128 until phase 16 came) (greedy,
      streamed wav: time to first byte; then a wave of four texts in the
@@ -91,7 +91,9 @@ Phases, each printing its own lines:
      WebSocket route, the model's `generate` in process and two HTTP
      requests, each equal to its own text's one-slot samples, their
      quantized launches held to the routing table);
-     Kokoro-82M in float32 (within one int16 step of the in-memory model);
+     Kokoro-82M in float32 (within one int16 step of the in-memory model;
+     the same request again inside `profiling.trace` and
+     `annotate('request')`, the trace naming the span and device kernels);
      an int4 Whisper converted from the bf16 directory (its quantized
      launches held to the code's count, q/k/v one launch a layer a step as
      the wrapper counts them by shape,
@@ -116,7 +118,7 @@ Phases, each printing its own lines:
      off-by-one cache position, two slots reading each other's caches) that
      the bars must reject; four prompts through `make_batcher` (an
      LMContinuousBatcher at bench_snac_lm_continuous's 4 slots, 16-step
-     ticks, 128 tokens), each equal to its sequential greedy tokens, with
+     ticks, cut to 64 tokens where it takes 128), each equal to its sequential greedy tokens, with
      launches held to the code's count; one request served over HTTP,
      equal to the in-memory samples; SNAC alone card against CPU and its
      decode_stream; Qwen3-TTS Base's x-vector card against CPU in float32,
@@ -131,11 +133,11 @@ Phases, each printing its own lines:
      identical, a planted off-by-one codebook offset rejected); Mimi's decode
      of 64 frames card against CPU and its streaming decode against offline
      (keys written one ring slot on rejected); `generate` with a 5 s
-     reference and its text at 64 frames, greedy and sampled (wall,
-     frames/s, RTF), profiled, streamed at 0.5 s (each chunk's frames the
-     monolithic decode's, time to first audio), the watermark found on the
+     reference and its text, greedy at 64 frames and sampled at 16 (wall,
+     frames/s, RTF), profiled, streamed at 0.5 s to 32 frames (each chunk's
+     frames the monolithic decode's, time to first audio), the watermark found on the
      output and not on unmarked audio; `bench_sesame_serving` at bench.py's
-     settings cut in depth (8 x 32 frames where bench.py decodes 64, tick
+     settings cut in depth (8 x 16 frames where bench.py decodes 64, tick
      8, pool 1024, one trial; greedy batched
      frames equal to sequential); `convert(quantize=True)` to int4, loaded,
      with the direct loop's quantized launches held to the code's count; one
@@ -152,9 +154,9 @@ Phases, each printing its own lines:
      in dac/ and loaded by `utils.load_model`: a two-layer float32 copy card
      against CPU (every decoder call's logits over a prompt and 8 steps at
      both bars, the greedy frames identical, [uncond, cond] swapped
-     rejected); `generate` of a two-speaker text at 256 frames, greedy and
-     sampled (1.3, cfg 3.0, top-k 35), profiled at 32 frames, a voice clone
-     from 5 s (DAC encode, then the prefill); `DiaBatcher` at 4 slots x 64
+     rejected); `generate` of a two-speaker text, greedy at 256 frames and
+     sampled (1.3, cfg 3.0, top-k 35) at 64, profiled at 32 frames, a voice clone
+     from 5 s (DAC encode, then the prefill); `DiaBatcher` at 4 slots x 32
      frames, batched equal to alone. Llama-OuteTTS-1.0-1B (Llama-3.2-1B's
      16 x 2048, tied embeddings over Llama-3's vocabulary and OuteTTS's added
      tokens) in bf16 with a planted greedy path of 100 c1/c2 pairs
@@ -188,6 +190,28 @@ Phases, each printing its own lines:
      int4 by `convert` (16 semantic steps, a coarse window, a fine chunk:
      the quantized launches held to the code's count, the logits to the
      float32 model on the dequantized weights).
+ 17. Vocos, Soprano, Spark-TTS and Wav2Vec2. vocos-mel-24khz (100 mels,
+     backbone 512/1536 x 8) on 5 s and vocos-encodec-24khz (384/1152 x 8,
+     adanorm over 4 bandwidths) on phase 16's EnCodec codes of the same 5 s
+     at 6 kbps, card against CPU in float32, with decode ms. Soprano-1.1
+     (decoder 768/2304 x 8, n_fft 2048, hop 512) with a Qwen3 stand-in LM of
+     ~80M parameters in float32, the path planted (100 tokens, then [STOP]),
+     written with a tokenizer.json and loaded by `utils.load_model`: a
+     two-layer copy card against CPU (hidden states and waveform), greedy
+     `generate` (wall, RTF, no kernel of the port, a profiled step),
+     `SopranoBatcher` with 4 requests each equal to its run alone, one served
+     request. Spark-TTS-0.5B (the LLM at Qwen2.5-0.5B's widths in bf16 with
+     a planted path: 32 global, 150 semantic tokens, eos; BiCodec at the
+     published widths and Wav2Vec2-XLSR-53 in float32, seeded) loaded with
+     BiCodec/ and wav2vec2-large-xlsr-53/ in its directory: the control
+     route, the clone route from 6 s through XLSR-53 and the speaker encoder,
+     BiCodec tokenize and detokenize ms, `LMContinuousBatcher` with 4 prompts
+     each equal to its sequential tokens, XLSR-53 and the base CTC model on
+     30 s (flash_fwd_f32 held to one launch a layer, 24 and 12), one served
+     request, int4 by `convert` (the quantized launches held to the code's
+     count, the logits of the prompt and 16 greedy steps to the float32
+     model on the dequantized weights, the tokens to the planted path, the
+     tied head's ms) and a two-layer float32 copy card against CPU.
 Phase 2 also holds the ReLU² attention kernel to its plain version and
 flash at B = 1, and the serving shapes: flash bf16 at B = 8, `qmm_mma` and
 the fused MLP at M = 8 (the batcher's tick), ReLU² f32 at B = 8, G = 2;
@@ -200,19 +224,23 @@ the tensor-core GEMM at M = 32) and times them, and CSM-1B int4's (float32
 x: the GEMV at M = 1 and 2 on both stacks' q/k/v and o_proj, the
 projection and the 2051-row codebook0_head, the tensor-core GEMM at the
 batcher's M = 8 and 16 and a 64-row prompt, the fused MLP at K = 2048 and
-1024, I = 8192). The lines before the last
+1024, I = 8192), and Spark-TTS int4's (float32 x: the GEMV at a decode
+step's four shapes, K = 896 and 4864, the tensor-core GEMM at the same four
+at its 20-token prompt) and flash f32 at Wav2Vec2's 30 s (B = 1, T = S = 1499, H = 12 and
+16). The lines before the last
 hold phase 8's numbers ({"kokoro": ...}), the bf16 Qwen3-TTS step's
 ({"qwen3_bf16": ...}), phase 9's ({"whisper_rest": ...}), phase 10's
 ({"loaded": ...}), phase 11's ({"serving": ...}), phase 12's ({"server":
 ...}), phase 13's ({"orpheus": ...}), phase 14's ({"csm": ...}), phase
-15's ({"dia_outetts": ...}), phase 16's ({"bark": ...}) and the kernels'
-JSON record, in that order;
+15's ({"dia_outetts": ...}), phase 16's ({"bark": ...}), phase 17's
+({"spark_soprano": ...}) and the kernels' JSON record, in that order;
 the last line is {"ok": true, "device": {...}}. Any failure raises and exits non-zero. It
 needs one CUDA card and the checkout's `mlx_audio_tpu_torch/` package.
 `--phases 1,2` runs a subset (a first check of new kernels), `--phases
 1,12` the server (with phase 10 before it), `--phases 1,13` Orpheus,
 `--phases 1,14` CSM-1B and Mimi, `--phases 1,15` DAC, Dia and OuteTTS,
-`--phases 1,16` EnCodec and Bark; the default runs all of them.
+`--phases 1,16` EnCodec and Bark, `--phases 1,17` Vocos, Soprano, Spark-TTS
+and Wav2Vec2; the default runs all of them.
 """
 
 from __future__ import annotations
@@ -461,6 +489,44 @@ def outetts_added_tokens():
     return base, added + [(n, first + i, False) for i, n in enumerate(names)]
 
 
+# Soprano's tokenizer: a byte-level BPE vocabulary with its three markers
+# and an end-of-text token as added tokens
+SOPRANO_ADDED = ("<|endoftext|>", "[STOP]", "[TEXT]", "[START]")
+
+
+def soprano_added_tokens(base: int = 16380):
+    """(base vocabulary size, [(content, id, special)]): Soprano's markers
+    after a `base`-token vocabulary, <|endoftext|> special (its eos)."""
+    return base, [(n, base + i, i == 0) for i, n in enumerate(SOPRANO_ADDED)]
+
+
+# Spark-TTS's added tokens after Qwen2.5's, in the formats spark.py and
+# token_parser.py render: the task and section markers, the attribute
+# labels, <|bicodec_global_0|> .. and <|bicodec_semantic_0|> ..
+SPARK_MARKERS = ("<|start_content|>", "<|end_content|>", "<|start_style_label|>",
+                 "<|end_style_label|>", "<|start_global_token|>", "<|end_global_token|>",
+                 "<|start_semantic_token|>", "<|end_semantic_token|>")
+
+
+def spark_added_tokens(base: int = 151643, n_global: int = 4096, n_semantic: int = 8192):
+    """(base vocabulary size, [(content, id, special)]): Qwen2.5's 22
+    special tokens after a `base`-token vocabulary, then Spark-TTS's."""
+    from mlx_audio_tpu_torch.tts.models.spark.token_parser import (AGE_MAP, EMO_MAP,
+                                                                   TASK_TOKEN_MAP)
+
+    _, qwen = qwen_added_tokens()
+    added = [(c, base + i, sp) for i, (c, _, sp) in enumerate(qwen[:22])]
+    names = list(TASK_TOKEN_MAP.values()) + list(SPARK_MARKERS)
+    names += [f"<|gender_{i}|>" for i in range(2)] + [f"<|age_{i}|>" for i in AGE_MAP.values()]
+    names += [f"<|emotion_{i}|>" for i in EMO_MAP.values()]
+    for label in ("pitch_label", "pitch_var_label", "loudness_label", "speed_label"):
+        names += [f"<|{label}_{i}|>" for i in range(5)]
+    names += [f"<|bicodec_global_{i}|>" for i in range(n_global)]
+    names += [f"<|bicodec_semantic_{i}|>" for i in range(n_semantic)]
+    first = base + len(added)
+    return base, added + [(n, first + i, False) for i, n in enumerate(names)]
+
+
 def train_merges(n_merges: int, seed: int) -> list:
     """Byte-level BPE merges learned from a seeded text: the most frequent
     adjacent pair first, ties to the larger pair; words both bare and after
@@ -504,18 +570,23 @@ def train_merges(n_merges: int, seed: int) -> list:
 
 
 def write_tokenizer_json(path, style: str, seed: int = 0,
-                         n_merges: int = TOKENIZER_MERGES) -> Path:
+                         n_merges: int = TOKENIZER_MERGES, **sizes) -> Path:
     """A byte-level BPE tokenizer.json: style "whisper" (GPT-2's ByteLevel
     pre-tokenizer, merges as "a b" strings, Whisper-large-v3's added tokens),
     "qwen2" (NFC, Qwen2's Split pattern, merges as pairs, the chat tokens)
     or "llama3" (Llama-3's Split pattern, merges as pairs, its special
     tokens, and a post-processor that puts <|begin_of_text|> first), or
-    "outetts" (llama3 with OuteTTS's added tokens after Llama-3's)."""
+    "outetts" (llama3 with OuteTTS's added tokens after Llama-3's), or
+    "soprano" and "spark" (qwen2's pre-tokenizer with their own added
+    tokens; `sizes` passes the vocabulary's sizes to their
+    `*_added_tokens`)."""
     from mlx_audio_tpu_torch.tokenizer_json import (LLAMA3_PATTERN, QWEN2_PATTERN,
                                                     bytes_to_unicode)
 
     base, added = {"whisper": whisper_added_tokens, "qwen2": qwen_added_tokens,
-                   "llama3": llama3_added_tokens, "outetts": outetts_added_tokens}[style]()
+                   "llama3": llama3_added_tokens, "outetts": outetts_added_tokens,
+                   "soprano": soprano_added_tokens,
+                   "spark": spark_added_tokens}[style](**sizes)
     vocab = {c: b for b, c in bytes_to_unicode().items()}
     merges = train_merges(n_merges, seed)
     for a, b in merges:
@@ -529,10 +600,11 @@ def write_tokenizer_json(path, style: str, seed: int = 0,
         normalizer, pre = None, byte_level
         merges = [f"{a} {b}" for a, b in merges]
     else:
-        normalizer = {"type": "NFC"} if style == "qwen2" else None
+        normalizer = {"type": "NFC"} if style in ("qwen2", "soprano", "spark") else None
         pre = {"type": "Sequence", "pretokenizers": [
             {"type": "Split", "behavior": "Isolated", "invert": False, "pattern": {
-                "Regex": QWEN2_PATTERN if style == "qwen2" else LLAMA3_PATTERN}},
+                "Regex": LLAMA3_PATTERN if style in ("llama3", "outetts")
+                else QWEN2_PATTERN}},
             dict(byte_level, use_regex=False, trim_offsets=False)]}
         merges = [[a, b] for a, b in merges]
     post = dict(byte_level, trim_offsets=False)
@@ -702,6 +774,10 @@ def phase_kernels():
         ("d128_whisper_bf16", 4, 20, 1500, 1500, 128, bf16, False),
         ("t777_bf16", 2, 6, 777, 1500, 64, bf16, False),
         ("d40_bf16", 1, 4, 1300, 1333, 40, bf16, False),
+        # Wav2Vec2 on 30 s (1,499 frames), float32: the base CTC model's 12
+        # heads and XLSR-53's 16
+        ("w2v_base_f32", 1, 12, 1499, 1499, 64, f32, False),
+        ("w2v_xlsr_f32", 1, 16, 1499, 1499, 64, f32, False),
     ]
     errs = {}
     for i, (name, B, H, T, S, D, dtype, causal) in enumerate(cases):
@@ -719,10 +795,14 @@ def phase_kernels():
             planted_mask_check(q, k, v, flash_attention_reference)
 
     timing = {}
-    for name, B, dtype in (("whisper_bf16", 4, bf16), ("whisper_f32", 4, f32),
-                           ("whisper_b1_bf16", 1, bf16), ("whisper_b1_f32", 1, f32),
-                           ("whisper_b8_bf16", 8, bf16)):
-        H, T, S, D = 20, 1500, 1500, 64
+    for name, B, dtype, H, T in (("whisper_bf16", 4, bf16, 20, 1500),
+                                 ("whisper_f32", 4, f32, 20, 1500),
+                                 ("whisper_b1_bf16", 1, bf16, 20, 1500),
+                                 ("whisper_b1_f32", 1, f32, 20, 1500),
+                                 ("whisper_b8_bf16", 8, bf16, 20, 1500),
+                                 ("w2v_base_f32", 1, f32, 12, 1499),
+                                 ("w2v_xlsr_f32", 1, f32, 16, 1499)):
+        S, D = T, 64
         q, k, v = attention_inputs(B, H, T, S, D, dtype, seed=100)
         # device time: at B = 1 the kernel is shorter than a Python launch
         # (ctypes and the per-call tensor maps), which CUDA events around a
@@ -735,7 +815,8 @@ def phase_kernels():
         lib = not_below_bound(f"F.sdpa {name}", lib, lib_loop, bound)
         timing[name] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
                             bound_by=by, host_loop_ms=loop)
-        log(f"[time] flash_attention {name} B={B}, device time per call: kernel {ms:.4f} ms, "
+        log(f"[time] flash_attention {name} B={B} H={H} T=S={T}, device time per call: kernel "
+            f"{ms:.4f} ms, "
             f"plain {plain:.4f} ms, F.sdpa {lib:.4f} ms, bound {bound:.4f} ms ({by}); "
             f"kernel at {100 * bound / ms:.1f}% of bound, "
             f"{'faster' if ms < lib else 'slower'} than F.sdpa; a Python loop of launches "
@@ -1269,6 +1350,17 @@ QMM_CASES = [  # name, bits, M, N, K, dtype: the routed shapes of phases 5 and 6
     ("bark_in_proj_m317_f32", 4, 317, 3072, 768, torch.float32),
     ("bark_att_proj_m512_f32", 4, 512, 2304, 768, torch.float32),
     ("bark_fine_head_m512_f32", 4, 512, 1056, 768, torch.float32),
+    # Spark-TTS-0.5B int4 (float32 x): a decode step's fused q/k/v, o_proj,
+    # fused gate/up and down at M = 1 (K = 896 is 14 groups of 64), and the
+    # same four at the 20-token control prompt on the tensor-core GEMM
+    ("spark_qkv_m1_f32", 4, 1, 1152, 896, torch.float32),
+    ("spark_o_proj_m1_f32", 4, 1, 896, 896, torch.float32),
+    ("spark_gate_up_m1_f32", 4, 1, 9728, 896, torch.float32),
+    ("spark_down_m1_f32", 4, 1, 896, 4864, torch.float32),
+    ("spark_qkv_m20_f32", 4, 20, 1152, 896, torch.float32),
+    ("spark_o_proj_m20_f32", 4, 20, 896, 896, torch.float32),
+    ("spark_gate_up_m20_f32", 4, 20, 9728, 896, torch.float32),
+    ("spark_down_m20_f32", 4, 20, 896, 4864, torch.float32),
 ]
 # groups other than 64: K = 1040 is 65 groups of 16
 QMM_GROUP = {"q6_k1040_m1_f32": 16, "g32_m64_bf16": 32, "q6_g128_m96_f32": 128,
@@ -1280,7 +1372,8 @@ QMM_PLANTED = ("qkv_m1_f32", "qkv_m1_bf16", "q6_qkv_m1_f32", "q6_qkv_m1_bf16",
                "qkv_prefill_bf16", "q6_qkv_prefill_f32", "whisper_qkv_m1_bf16",
                "orpheus_lm_head_m1_bf16", "orpheus_lm_head_m32_bf16",
                "csm_cb0_head_m1_f32", "csm_cb0_head_m1_bf16", "csm_cb0_head_m8_f32",
-               "bark_sem_head_m1_f32", "bark_att_proj_m512_f32")
+               "bark_sem_head_m1_f32", "bark_att_proj_m512_f32", "spark_qkv_m1_f32",
+               "spark_down_m20_f32")
 # The talker's prefill bucket: bench.py's text gives the talker an
 # 8-position prompt (the text itself streams in a token a frame), which
 # `_prefill` pads to 32 rows; `phase_qwen_slice` checks it. The text
@@ -1365,6 +1458,12 @@ OUTETTS_QMM = [("qkv", 19, 3072, 2048), ("o_proj", 19, 2048, 2048),
 BARK_QMM = [("att_proj", 1, 2304, 768), ("out_proj", 1, 768, 768), ("mlp_out", 1, 768, 3072),
             ("sem_head", 1, 10048, 768), ("att_proj", 257, 2304, 768),
             ("fine_head", 512, 1056, 768)]
+# Spark-TTS-0.5B int4's shapes, timed in float32 x: a decode step (M = 1) and
+# the control prompt (M = 20); its MLP takes qmm (the fused kernel's guard
+# refuses I = 4864)
+SPARK_QMM = [("qkv", 1, 1152, 896), ("o_proj", 1, 896, 896), ("gate_up", 1, 9728, 896),
+             ("down", 1, 896, 4864), ("qkv", 20, 1152, 896), ("o_proj", 20, 896, 896),
+             ("gate_up", 20, 9728, 896), ("down", 20, 896, 4864)]
 ORPHEUS_MLP = dict(K=3072, I=8192, N=3072)
 
 
@@ -1526,6 +1625,7 @@ def phase_quant_kernels():
     timing.update(time_csm())
     timing.update(time_csm(OUTETTS_QMM, "outetts", ()))
     timing.update(time_csm(BARK_QMM, "bark", ()))
+    timing.update(time_csm(SPARK_QMM, "spark", ()))
     return errs, timing
 
 
@@ -3557,8 +3657,10 @@ def phase_serving(keep) -> dict:
 # Phase 12: serving over HTTP and WebSocket (`server.py`, stdlib transport)
 # on the checkpoint directories phase 10 wrote, each with its tokenizer.json
 # cut in depth to make room for phase 15: a 15 s upload (one window, 30 s
-# and two windows until then) and 4 concurrent uploads (8 until then)
-HTTP_WHISPER_S, HTTP_STREAMS = 15.0, 4
+# and two windows until then) and 4 concurrent uploads (8 until then); 2
+# since phase 17 (each in-memory reference decodes its window at all six
+# fallback temperatures, ~8 s)
+HTTP_WHISPER_S, HTTP_STREAMS = 15.0, 2
 # the concurrent uploads: one window each, each its own seed, level and
 # length
 HTTP_CONC_S = tuple(8.0 + 0.5 * i for i in range(HTTP_STREAMS))
@@ -3944,45 +4046,35 @@ def http_whisper(url, provider, tmp: Path, keep, smi) -> dict:
             f"{c_launches}; transcriptions equal to their own sequential ones: {same}; parted at "
             f"near-ties: {parted}")
 
-        # realtime, one session inside profiling.trace: a seeded burst, then
-        # silence, in 16 kHz int16 frames
+        # realtime, one session: a seeded burst, then silence, in 16 kHz
+        # int16 frames
         burst = (np.clip(np.random.default_rng(22).standard_normal(16000) * 0.3, -1, 1)
                  * 32767).astype("<i2").tobytes()
         silence = bytes(8000)
-        trace_dir = tmp / "trace"
-        t_trace = time.perf_counter()
-        with profiling.trace(trace_dir):
-            with profiling.annotate("request"):
-                sock, conn = ws_open(url, f"/v1/audio/transcriptions/realtime?model={name}")
-                try:
-                    for i in range(0, len(burst), 6400):
-                        conn.send_binary(burst[i:i + 6400])
-                    events = []
-                    t0 = time.perf_counter()
-                    for _ in range(3):
-                        conn.send_binary(silence)
-                    while not any(e.get("type") == "final" for e in events):
-                        events.append(json.loads(conn.recv()[1]))
-                    final_s = time.perf_counter() - t0
-                finally:
-                    sock.close()
-        traced_s = time.perf_counter() - t_trace
-        text = "".join(p.read_text() for p in trace_dir.glob("*.json"))
-        shutil.rmtree(trace_dir)
+        sock, conn = ws_open(url, f"/v1/audio/transcriptions/realtime?model={name}")
+        try:
+            for i in range(0, len(burst), 6400):
+                conn.send_binary(burst[i:i + 6400])
+            events = []
+            t0 = time.perf_counter()
+            for _ in range(3):
+                conn.send_binary(silence)
+            while not any(e.get("type") == "final" for e in events):
+                events.append(json.loads(conn.recv()[1]))
+            final_s = time.perf_counter() - t0
+        finally:
+            sock.close()
         stats, peak = profiling.memory_stats(), profiling.peak_memory_gb()
-        if "request" not in text or "flash_fwd_bf16" not in text or not stats or peak <= 0:
-            raise SystemExit(f"chip_smoke: the trace ({len(text)} bytes) lacks the span or "
-                             f"flash_fwd_bf16, or memory stats are empty ({len(stats)}, {peak})")
+        if not stats or peak <= 0:
+            raise SystemExit(f"chip_smoke: memory stats are empty ({len(stats)}, {peak})")
         buf = np.frombuffer(burst + silence * 2, np.int16).astype(np.float32) / 32768.0
         rt_want = ref.generate(buf, tokenizer=tok()).text
         if events[-1]["text"] != rt_want:
             raise SystemExit(f"chip_smoke: the realtime final {events[-1]['text'][:60]!r} is "
                              f"not generate's {rt_want[:60]!r}")
-        log(f"[server] whisper realtime WebSocket, inside profiling.trace and "
-            f"annotate('request'): {len(events)} event(s), the final {final_s:.4f} s after the "
-            f"silence began, text = generate on the same buffer; {traced_s:.2f} s with the "
-            f"export: {len(text) / 1e6:.1f} MB of Chrome trace naming 'request' and "
-            f"flash_fwd_bf16; memory_stats {len(stats)} keys, peak_memory_gb {peak} ({smi})")
+        log(f"[server] whisper realtime WebSocket: {len(events)} event(s), the final "
+            f"{final_s:.4f} s after the silence began, text = generate on the same buffer; "
+            f"memory_stats {len(stats)} keys, peak_memory_gb {peak} ({smi})")
     finally:
         ref_batcher.close()
     unload_served(url, provider, name)
@@ -3990,8 +4082,7 @@ def http_whisper(url, provider, tmp: Path, keep, smi) -> dict:
                 concurrent_wall_s=conc_s, concurrent_xrt=total / conc_s,
                 concurrent_sequential_wall_s=seq_s,
                 concurrent_dispatches=c_dispatches, concurrent_flash_launches=c_launches,
-                parted=parted, realtime_final_s=final_s, traced_s=traced_s,
-                trace_bytes=len(text), peak_memory_gb=peak)
+                parted=parted, realtime_final_s=final_s, peak_memory_gb=peak)
 
 
 def pcm16(audio) -> bytes:
@@ -4107,7 +4198,11 @@ def http_qwen(url, provider, tmp: Path, smi) -> dict:
 
 def http_kokoro(url, provider, tmp: Path) -> dict:
     """Kokoro-82M (the phase 10 directory, float32) against the in-memory
-    model of the same seed in float32, within one int16 step."""
+    model of the same seed in float32, within one int16 step; then the same
+    request again inside `profiling.trace` and `annotate('request')` (the
+    served request the trace covers: a short one, since a Whisper request's
+    decode at every fallback temperature makes a 470 MB trace)."""
+    from mlx_audio_tpu_torch import profiling
     from mlx_audio_tpu_torch.nn import load_weights
     from mlx_audio_tpu_torch.tts.models.kokoro.kokoro import torch_checkpoint
 
@@ -4131,11 +4226,34 @@ def http_kokoro(url, provider, tmp: Path) -> dict:
     if steps is None or steps > 1 or not want.size:
         raise SystemExit(f"chip_smoke: served Kokoro {got.shape} is not within one int16 step "
                          f"of the in-memory model's {want.shape} ({steps})")
+    trace_dir = tmp / "trace"
+    t_trace = time.perf_counter()
+    with profiling.trace(trace_dir):
+        with profiling.annotate("request"):
+            again = http_speech_timed(url, {"model": name, "input": LOADED_KOKORO_TEXT,
+                                            "voice": "af_smoke", "response_format": "wav"})[0]
+    traced_s = time.perf_counter() - t_trace
+    events = [e for p in trace_dir.glob("*.json")
+              for e in json.loads(p.read_text()).get("traceEvents", [])]
+    trace_bytes = sum(p.stat().st_size for p in trace_dir.glob("*.json"))
+    shutil.rmtree(trace_dir)
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    again = np.frombuffer(again[44:], "<i2")
+    again_steps = (int(np.abs(again.astype(np.int32) - want).max())
+                   if again.shape == want.shape else None)
+    if again_steps is None or again_steps > 1 or not kernels or not any(
+            e.get("name") == "request" for e in events):
+        raise SystemExit(f"chip_smoke: the traced Kokoro request is not within one int16 step "
+                         f"of the in-memory model ({again_steps}), or its trace "
+                         f"({len(events)} events) lacks the span or device kernels")
     log(f"[server] kokoro f32: {want.size / 24000:.2f} s of audio, time to first byte "
         f"{ttfb:.4f} s, wall {wall:.4f} s; max |d| {steps} int16 step(s) from the in-memory "
-        f"model")
+        f"model; the same request inside profiling.trace and annotate('request'): max |d| "
+        f"{again_steps} int16 step(s), {traced_s:.2f} s with the export, {trace_bytes / 1e6:.1f} MB of Chrome trace "
+        f"naming 'request' with {kernels} device kernels")
     unload_served(url, provider, name)
-    return dict(rec, ttfb_s=ttfb, wall_s=wall, max_int16_steps=steps)
+    return dict(rec, ttfb_s=ttfb, wall_s=wall, max_int16_steps=steps, traced_s=traced_s,
+                trace_bytes=trace_bytes, traced_kernels=kernels)
 
 
 def http_whisper_int4(url, provider, tmp: Path) -> dict:
@@ -4360,8 +4478,9 @@ ORPHEUS_LAYER_BAR = 1e-2
 # across 16-step ticks)
 ORPHEUS_CHECK_TOKENS = 40
 ORPHEUS_CHECK_STEPS = (1, 8, 15, 16, 17, 33, 39)
-# bench_snac_lm_continuous's settings (scripts/bench_serving.py:161-231)
-ORPHEUS_SLOTS, ORPHEUS_TICK, ORPHEUS_POOL_LEN, ORPHEUS_BATCH_TOKENS = 4, 16, 256, 128
+# bench_snac_lm_continuous's settings (scripts/bench_serving.py:161-231),
+# cut in depth to 64 tokens a request (its 128 until phase 17 came)
+ORPHEUS_SLOTS, ORPHEUS_TICK, ORPHEUS_POOL_LEN, ORPHEUS_BATCH_TOKENS = 4, 16, 256, 64
 # Qwen3-TTS Base x-vector cloning: a 3 s 24 kHz reference, 16 frames
 XVEC_FRAMES = 16
 
@@ -5025,7 +5144,9 @@ CSM_REF_TEXT = "A seeded reference line that the model never heard."
 CSM_REF_S = 5.0
 CSM_MAX_MS = 5120  # 64 frames of 80 ms
 CSM_FRAMES = 64
+CSM_SAMPLED_MS = 1280  # the sampled run: 16 frames (64 until phase 17 came)
 CSM_STREAM_INTERVAL = 0.5  # 6 frames a chunk
+CSM_STREAM_MS = 2560  # the stream: 32 frames (64 until phase 17 came)
 CSM_PROFILE_MS = 640  # 8 frames, profiled
 CSM_WARM_MS = 320  # 4 frames warm the path (the eager loop compiles nothing)
 CSM_TIMED = 1
@@ -5038,11 +5159,11 @@ CSM_LAYER_BAR = 1e-2
 # codebook past the first to 0)
 CSM_HEAD_STD = 1024 ** -0.5
 # bench.py's bench_sesame_serving: 8 streams, ticks of 8, a 1024-row pool,
-# 48-token prompts, sampled at 0.9 / top-k 50, cut in depth to 32 frames a
-# stream (bench.py's 64 until phase 15 came: the sequential run alone took
-# ~100 s at ~190 ms a frame); greedy streams of 4 frames for the
-# batched-against-sequential check
-CSM_STREAMS, CSM_SERVE_FRAMES, CSM_TICK, CSM_POOL, CSM_PROMPT = 8, 32, 8, 1024, 48
+# 48-token prompts, sampled at 0.9 / top-k 50, cut in depth to two ticks of
+# 8 frames a stream (bench.py's 64 until phase 15 came, when the sequential
+# run alone took ~100 s at ~190 ms a frame; 32 until phase 17 came, ~54 s);
+# greedy streams of 4 frames for the batched-against-sequential check
+CSM_STREAMS, CSM_SERVE_FRAMES, CSM_TICK, CSM_POOL, CSM_PROMPT = 8, 16, 8, 1024, 48
 CSM_GREEDY_FRAMES = 4
 CSM_INT4_FRAMES = 16
 CSM_SERVED_FRAMES = 16
@@ -5346,10 +5467,10 @@ def csm_reference(seconds=CSM_REF_S, seed=12, sr: int = 24000) -> np.ndarray:
 
 def csm_generate(csm, mimi, ref, smi) -> dict:
     """`Model.generate` with the seeded reference (Mimi-encoded on the card)
-    and its text: greedy and at temperature 0.9 / top-k 50, CSM_MAX_MS;
-    wall, frames/s, RTF; one profiled run; the stream at 0.5 s, each
-    chunk's frames the monolithic decode's; the watermark found on the
-    output and not on unmarked audio."""
+    and its text: greedy at CSM_MAX_MS and at temperature 0.9 / top-k 50 at
+    CSM_SAMPLED_MS; wall, frames/s, RTF; one profiled run; the stream at
+    0.5 s to CSM_STREAM_MS, each chunk's frames the monolithic decode's; the
+    watermark found on the output and not on unmarked audio."""
     from mlx_audio_tpu_torch.tts.models.sesame import watermarking as wm
 
     seen = {"offline": [], "stream": []}
@@ -5377,7 +5498,7 @@ def csm_generate(csm, mimi, ref, smi) -> dict:
             walls.append(time.perf_counter() - t0)
         greedy = seen["offline"][-1][0].T  # (n, 32)
         t0 = time.perf_counter()
-        sampled = run(temperature=0.9, top_k=50, seed=1)
+        sampled = run(temperature=0.9, top_k=50, seed=1, max_audio_length_ms=CSM_SAMPLED_MS)
         sampled_s = time.perf_counter() - t0
         _, kernels = profile_one_run(lambda: run(temperature=0.0,
                                                  max_audio_length_ms=CSM_PROFILE_MS),
@@ -5387,8 +5508,9 @@ def csm_generate(csm, mimi, ref, smi) -> dict:
         t0 = time.perf_counter()
         with torch.inference_mode():
             gen = csm.generate(CSM_TEXT, ref_audio=ref, ref_text=CSM_REF_TEXT,
-                               max_audio_length_ms=CSM_MAX_MS, temperature=0.0, stream=True,
-                               streaming_interval=CSM_STREAM_INTERVAL, apply_watermark=False)
+                               max_audio_length_ms=CSM_STREAM_MS, temperature=0.0,
+                               stream=True, streaming_interval=CSM_STREAM_INTERVAL,
+                               apply_watermark=False)
             first = next(gen)
             ttfa = time.perf_counter() - t0
             chunks = [first] + list(gen)
@@ -5418,10 +5540,12 @@ def csm_generate(csm, mimi, ref, smi) -> dict:
     log(f"[csm] stream=True at {CSM_STREAM_INTERVAL} s: time to first audio {ttfa:.4f} s, "
         f"{len(chunks)} chunks of {[c.token_count for c in chunks]} frames, wall "
         f"{stream_s:.4f} s; the streamed frames equal the monolithic greedy frames: "
-        f"{np.array_equal(streamed, greedy)}; watermark found on the output {marked_found}, on "
-        f"the unmarked stream {plain_found}, on the reference {ref_found}")
+        f"{np.array_equal(streamed, greedy[:CSM_STREAM_MS // 80])}; watermark found on the "
+        f"output {marked_found}, on the unmarked stream {plain_found}, on the reference "
+        f"{ref_found}")
     if (n != CSM_FRAMES or len(audio) != CSM_FRAMES * 1920 or not np.isfinite(audio).all()
-            or sampled[0].token_count != CSM_FRAMES or not np.array_equal(streamed, greedy)
+            or sampled[0].token_count != CSM_SAMPLED_MS // 80
+            or not np.array_equal(streamed, greedy[:CSM_STREAM_MS // 80])
             or greedy.shape != (CSM_FRAMES, csm.config.audio_num_codebooks)):
         raise SystemExit("chip_smoke: CSM generate gave the wrong frames, or the stream parts "
                          "from the monolithic decode")
@@ -5819,11 +5943,12 @@ DAC_TIE = 1e-5
 DIA_TEXT = ("[S1] The quick brown fox jumps over the lazy dog. "
             "[S2] And the lazy dog jumps over the quick brown fox.")
 DIA_FRAMES = 256
+DIA_SAMPLED_FRAMES = 64  # 256 until phase 17 came
 DIA_PROFILE_FRAMES = 32
 DIA_REF_S = 5.0
 DIA_REF_TEXT = "[S1] A seeded reference line."
 DIA_CLONE_FRAMES = 32
-DIA_SLOTS, DIA_BATCH_FRAMES, DIA_TICK = 4, 64, 8
+DIA_SLOTS, DIA_BATCH_FRAMES, DIA_TICK = 4, 32, 8  # 64 frames until phase 17 came
 DIA_TEXTS = (DIA_TEXT, "[S1] Hello world. [S2] The model turns text into speech.",
              "[S1] A concurrent stream. [S2] Another one, its own words.",
              "[S1] The lazy dog. [S2] The quick brown fox jumps over it.")
@@ -6070,10 +6195,11 @@ def dia_two_layer(reduced: Path) -> dict:
 
 
 def dia_generate(dia, smi) -> dict:
-    """`Model.generate` of DIA_TEXT (one segment: two turns) at DIA_FRAMES,
-    greedy and sampled; a profiled run of DIA_PROFILE_FRAMES; a voice clone
-    from a DIA_REF_S reference (DAC encode, then its prefill). The DAC is
-    the checkpoint's dac/, read by `Model.dac_model`."""
+    """`Model.generate` of DIA_TEXT (one segment: two turns), greedy at
+    DIA_FRAMES and sampled at DIA_SAMPLED_FRAMES; a profiled run of
+    DIA_PROFILE_FRAMES; a voice clone from a DIA_REF_S reference (DAC
+    encode, then its prefill). The DAC is the checkpoint's dac/, read by
+    `Model.dac_model`."""
     def run(**kw):
         with torch.inference_mode():
             out = list(dia.generate(DIA_TEXT, **dict(dict(temperature=0.0,
@@ -6088,7 +6214,8 @@ def dia_generate(dia, smi) -> dict:
     wall = time.perf_counter() - t0
     launches = no_port_launches("Dia's greedy generate")
     t0 = time.perf_counter()
-    sampled = run(temperature=1.3, cfg_scale=3.0, cfg_filter_top_k=35)
+    sampled = run(temperature=1.3, cfg_scale=3.0, cfg_filter_top_k=35,
+                  max_tokens=DIA_SAMPLED_FRAMES)
     sampled_s = time.perf_counter() - t0
     _, _ = profile_one_run(lambda: run(max_tokens=DIA_PROFILE_FRAMES),
                            f"one Dia-1.6B generate of {DIA_PROFILE_FRAMES} frames")
@@ -7156,12 +7283,761 @@ def phase_bark(smi: str) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: Vocos, Soprano, Spark-TTS, Wav2Vec2
+# ---------------------------------------------------------------------------
+
+# Spark-TTS-0.5B: the LLM at the JAX Model's defaults (Qwen2.5-0.5B), BiCodec
+# at the published BiCodec/config.yaml's widths, Wav2Vec2-XLSR-53
+SPARK_LLM = dict(vocab_size=166000, hidden_size=896, intermediate_size=4864,
+                 num_hidden_layers=24, num_attention_heads=14, num_key_value_heads=2,
+                 rope_theta=1000000.0, tie_word_embeddings=True)
+BICODEC_CFG = {
+    "mel_params": {"sample_rate": 16000, "n_fft": 1024, "win_length": 640, "hop_length": 320,
+                   "mel_fmin": 10, "mel_fmax": None, "num_mels": 128},
+    "encoder": {"input_channels": 1024, "vocos_dim": 384, "vocos_intermediate_dim": 2048,
+                "vocos_num_layers": 12, "out_channels": 1024, "sample_ratios": [1, 1]},
+    "decoder": {"input_channel": 1024, "channels": 1536, "rates": [8, 5, 4, 2],
+                "kernel_sizes": [16, 11, 8, 4]},
+    "quantizer": {"input_dim": 1024, "codebook_size": 8192, "codebook_dim": 8,
+                  "commitment": 0.25, "codebook_loss_weight": 2.0,
+                  "use_l2_normlize": True, "threshold_ema_dead_code": 0.2},
+    "speaker_encoder": {"input_dim": 128, "out_dim": 1024, "latent_dim": 128,
+                        "token_num": 32, "fsq_levels": [4, 4, 4, 4, 4, 4],
+                        "fsq_num_quantizers": 1},
+    "prenet": {"input_channels": 1024, "vocos_dim": 384, "vocos_intermediate_dim": 2048,
+               "vocos_num_layers": 12, "out_channels": 1024, "condition_dim": 1024,
+               "sample_ratios": [1, 1], "use_tanh_at_final": False},
+    "postnet": {"input_channels": 1024, "vocos_dim": 384, "vocos_intermediate_dim": 2048,
+                "vocos_num_layers": 6, "out_channels": 1024, "use_tanh_at_final": False},
+}
+BICODEC_TOP = {"sample_rate": 16000, "ref_segment_duration": 6, "latent_hop_length": 320,
+               "volume_normalize": True}
+XLSR_CFG = dict(model_type="wav2vec2", vocab_size=0, hidden_size=1024, num_hidden_layers=24,
+                num_attention_heads=16, intermediate_size=4096, feat_extract_norm="layer",
+                do_stable_layer_norm=True, conv_bias=True)
+W2V_BASE_CFG = dict(model_type="wav2vec2")  # wav2vec2-base-960h: the ModelConfig defaults
+SPARK_EOS = "<|im_end|>"
+
+
+def spark_succ(tok, n_global: int, n_semantic: int, seed: int = 0) -> tuple:
+    """The planted successor map of a Spark LLM and its paths: the control
+    prompt's <|end_style_label|> leads through n_global distinct global
+    tokens to the semantic path, the clone prompt's <|end_global_token|>
+    straight to it, and n_semantic distinct semantic tokens end at the eos.
+    → (succ, global codes, semantic codes)."""
+    rng = np.random.default_rng(seed)
+    glob = rng.permutation(_count(tok, "global"))[:n_global]
+    sem = rng.permutation(_count(tok, "semantic"))[:n_semantic]
+    g_ids = [tok.token_to_id(f"<|bicodec_global_{int(i)}|>") for i in glob]
+    s_ids = [tok.token_to_id(f"<|bicodec_semantic_{int(i)}|>") for i in sem]
+    succ = {tok.token_to_id("<|end_style_label|>"): g_ids[0],
+            tok.token_to_id("<|end_global_token|>"): s_ids[0]}
+    chain = g_ids + s_ids + [tok.token_to_id(SPARK_EOS)]
+    succ.update(zip(chain, chain[1:]))
+    return succ, glob, sem
+
+
+def _count(tok, kind: str) -> int:
+    """The number of <|bicodec_{kind}_N|> tokens the tokenizer has."""
+    n = 0
+    while tok.token_to_id(f"<|bicodec_{kind}_{n}|>") is not None:
+        n += 1
+    return n
+
+
+def write_spark_dir(path: Path, llm_cfg: dict, llm_flat: dict, bicodec_cfg: dict,
+                    bicodec_flat: dict, w2v_cfg: dict, w2v_flat: dict, tok_path: Path) -> Path:
+    """A Spark-TTS checkpoint directory as the loader reads it: config.json
+    (model_type spark, the LLM's widths) and the LLM's weights under `llm.`,
+    tokenizer.json with a tokenizer_config.json naming the eos, BiCodec/
+    (config.yaml, model.safetensors) and wav2vec2-large-xlsr-53/."""
+    import yaml
+
+    from mlx_audio_tpu_torch.convert import save_model
+    from mlx_audio_tpu_torch.safetensors_io import save_file
+
+    path = Path(path)
+    save_model(path, llm_flat, {"model_type": "spark", "sample_rate": 16000, "llm": llm_cfg})
+    shutil.copy(tok_path, path / "tokenizer.json")
+    (path / "tokenizer_config.json").write_text(json.dumps({"eos_token": SPARK_EOS}))
+    (path / "BiCodec").mkdir(exist_ok=True)
+    (path / "BiCodec" / "config.yaml").write_text(yaml.safe_dump(
+        dict(BICODEC_TOP, audio_tokenizer=bicodec_cfg)))
+    save_file({k: np.ascontiguousarray(np.asarray(v)) for k, v in bicodec_flat.items()},
+              path / "BiCodec" / "model.safetensors")
+    save_model(path / "wav2vec2-large-xlsr-53", w2v_flat, w2v_cfg)
+    return path
+
+
+# Soprano: the decoder at DecoderConfig()'s widths (Soprano-1.1), its LM a
+# Qwen3 stand-in of about 80M parameters (Soprano-1.1-80M's config.json is
+# not in the repository)
+SOPRANO_CFG = dict(model_type="qwen3", vocab_size=16384, hidden_size=512,
+                   intermediate_size=2048, num_hidden_layers=18, num_attention_heads=8,
+                   num_key_value_heads=4, head_dim=64, rope_theta=1000000.0,
+                   tie_word_embeddings=True, sample_rate=32000)
+SOPRANO_TOKENS = 100  # planted: 6.4 s of audio at 32 kHz
+SOPRANO_TEXT = "The quick brown fox jumps over the lazy dog."
+SOPRANO_TEXTS = (SOPRANO_TEXT, "Hello world.", "The model turns text into speech.",
+                 "A seeded line for the batcher.")
+SOPRANO_PROFILE_STEPS = 32
+SOPRANO_BATCH_TOKENS = 48  # each batched request's cap, mid-path
+SPARK_BATCH_TOKENS = 64  # the globals and 31 semantic tokens
+SPARK_TOKENS = 150  # planted: 3.0 s of audio at 50 semantic tokens a second
+SPARK_GLOBALS = 32
+SPARK_TEXT = HTTP_TEXT
+SPARK_TEXTS = (SPARK_TEXT, "Hello world.", "The model turns text into speech.",
+               "A seeded line for the batcher.")
+SPARK_REF_S = 6.0
+SPARK_INT4_TOKENS = 16
+SPARK_PROFILE_STEPS = 32
+SPARK_CPU_TOKENS = 8
+W2V_S = 30.0  # 1,499 frames: past the flash route's 1280
+# upstream's vocos-mel-24khz and vocos-encodec-24khz config.yaml
+VOCOS_MEL_CFG = {
+    "feature_extractor": {"class_path": "vocos.feature_extractors.MelSpectrogramFeatures",
+                          "init_args": {"sample_rate": 24000, "n_fft": 1024, "hop_length": 256,
+                                        "n_mels": 100, "padding": "center"}},
+    "backbone": {"class_path": "vocos.models.VocosBackbone",
+                 "init_args": {"input_channels": 100, "dim": 512, "intermediate_dim": 1536,
+                               "num_layers": 8}},
+    "head": {"class_path": "vocos.heads.ISTFTHead",
+             "init_args": {"dim": 512, "n_fft": 1024, "hop_length": 256, "padding": "center"}}}
+VOCOS_ENCODEC_CFG = {
+    "feature_extractor": {"class_path": "vocos.feature_extractors.EncodecFeatures",
+                          "init_args": {"encodec_model": "encodec_24khz",
+                                        "bandwidths": [1.5, 3.0, 6.0, 12.0]}},
+    "backbone": {"class_path": "vocos.models.VocosBackbone",
+                 "init_args": {"input_channels": 128, "dim": 384, "intermediate_dim": 1152,
+                               "num_layers": 8, "adanorm_num_embeddings": 4}},
+    "head": {"class_path": "vocos.heads.ISTFTHead",
+             "init_args": {"dim": 384, "n_fft": 1280, "hop_length": 320, "padding": "same"}}}
+VOCOS_S = 5.0
+VOCOS_BANDWIDTH_ID = 2  # 6 kbps: 8 codebooks
+
+
+def close_to(got, want) -> tuple:
+    """(max|d|, the reference's peak) of two tensors or arrays."""
+    g = torch.as_tensor(got).float().cpu()
+    w = torch.as_tensor(want).float().cpu()
+    if g.shape != w.shape:
+        raise SystemExit(f"chip_smoke: shapes part: {tuple(g.shape)} against {tuple(w.shape)}")
+    return (g - w).abs().max().item(), w.abs().max().item()
+
+
+def held_close(label, got, want, bar=CARD_VS_CPU_ATOL) -> float:
+    err, peak = close_to(got, want)
+    log(f"[slice17] {label}: max|d| {err:.3e}, {err / max(peak, 1e-30):.2e} of the peak "
+        f"{peak:.4g} (bar {bar:g})")
+    if not err <= bar * peak:
+        raise SystemExit(f"chip_smoke: {label} parts: max|d| {err} over {bar:g} of {peak}")
+    return err / max(peak, 1e-30)
+
+
+def vocos_checks(enc, smi) -> dict:
+    """vocos-mel-24khz on 5 s and vocos-encodec-24khz on phase 16's EnCodec
+    codes of the same 5 s at 6 kbps (bandwidth id 2), card against CPU in
+    float32, with decode ms on the card."""
+    from mlx_audio_tpu_torch.codec.models import Encodec, EncodecConfig, Vocos
+
+    rec = {}
+    audio = torch.as_tensor(csm_reference(VOCOS_S, 21))
+    card = Vocos.from_hparams(VOCOS_MEL_CFG, device="cuda", seed=21)
+    cpu = Vocos.from_hparams(VOCOS_MEL_CFG, device="cpu", seed=21)
+    cpu.load_state_dict(card.state_dict())
+    with torch.inference_mode():
+        feats = card.feature_extractor(audio.cuda())
+        feats_cpu = cpu.feature_extractor(audio)
+    rel_f = held_close("vocos-mel-24khz features (100 mels, 5 s), card against CPU", feats,
+                       feats_cpu)
+    rel = held_close("vocos-mel-24khz decode of those features, card against CPU",
+                     card.decode(feats), cpu.decode(feats_cpu))
+    ms = time_ms(lambda: card.decode(feats), iters=10)
+    whole = time_ms(lambda: card(audio.cuda()), iters=10)
+    log(f"[vocos] vocos-mel-24khz (backbone 512/1536 x 8, n_fft 1024, hop 256), 5 s: decode "
+        f"{ms:.3f} ms, features and decode {whole:.3f} ms ({smi})")
+    rec["mel"] = {"features_rel": rel_f, "decode_rel": rel, "decode_ms": ms,
+                  "features_and_decode_ms": whole}
+
+    enc_cpu = Encodec(EncodecConfig(), device="cpu")
+    enc_cpu.load_state_dict(enc.state_dict())
+    card = Vocos.from_hparams(VOCOS_ENCODEC_CFG, device="cuda", seed=22, encodec=enc)
+    cpu = Vocos.from_hparams(VOCOS_ENCODEC_CFG, device="cpu", seed=22, encodec=enc_cpu)
+    cpu.load_state_dict(card.state_dict())
+    codes = card.get_encodec_codes(audio.cuda(), VOCOS_BANDWIDTH_ID)
+    codes_cpu = cpu.get_encodec_codes(audio, VOCOS_BANDWIDTH_ID)
+    same = torch.equal(codes.cpu(), codes_cpu)
+    log(f"[vocos] vocos-encodec-24khz: EnCodec codes of 5 s at 6 kbps {tuple(codes.shape)}, "
+        f"identical card against CPU: {same}")
+    if not same or codes.shape[0] != 8:
+        raise SystemExit("chip_smoke: the EnCodec codes under Vocos part card from CPU")
+    rel = held_close("vocos-encodec-24khz decode_from_codes (bandwidth id 2), card against CPU",
+                     card.decode_from_codes(codes, bandwidth_id=VOCOS_BANDWIDTH_ID),
+                     cpu.decode_from_codes(codes_cpu, bandwidth_id=VOCOS_BANDWIDTH_ID))
+    ms = time_ms(lambda: card.decode_from_codes(codes, bandwidth_id=VOCOS_BANDWIDTH_ID),
+                 iters=10)
+    log(f"[vocos] vocos-encodec-24khz (backbone 384/1152 x 8, adanorm over 4 bandwidths, n_fft "
+        f"1280, hop 320): decode_from_codes of 5 s {ms:.3f} ms ({smi})")
+    rec["encodec"] = {"codes": list(codes.shape), "decode_rel": rel, "decode_ms": ms}
+    del card, cpu, enc_cpu
+    torch.cuda.empty_cache()
+    return rec
+
+
+def soprano_path(tok, n: int = SOPRANO_TOKENS, seed: int = 0) -> list:
+    """[START], n distinct ordinary tokens, [STOP]."""
+    rng = np.random.default_rng(seed)
+    body = [int(t) for t in rng.permutation(np.arange(400, 16000))[:n]]
+    return [tok.token_to_id("[START]")] + body + [tok.token_to_id("[STOP]")]
+
+
+def write_soprano(path: Path, reduced: Path, tok_dir: Path, seed: int = 23) -> tuple:
+    """Soprano-1.1 with the stand-in LM in float32, the planted path, a
+    tokenizer.json (and its tokenizer_config.json) with Soprano's markers,
+    the LM at the top level (`model.*`) as the published file has it, and
+    its first two layers as a copy. → (seconds, bytes, the path)."""
+    from mlx_audio_tpu_torch.convert import save_model
+    from mlx_audio_tpu_torch.nn.module import flatten_params
+    from mlx_audio_tpu_torch.tokenizer_json import load
+    from mlx_audio_tpu_torch.tts.models.soprano import Model
+
+    t0 = time.perf_counter()
+    tok = load(write_tokenizer_json(tok_dir, "soprano"))
+    (tok_dir / "tokenizer_config.json").write_text(json.dumps({"eos_token": "<|endoftext|>"}))
+    path_ids = soprano_path(tok)
+    model = Model(SOPRANO_CFG, device="cuda", seed=seed)
+    plant_outetts(model.language_model, dict(zip(path_ids, path_ids[1:])), seed)
+    flat = {(k[len("language_model."):] if k.startswith("language_model.") else k): v
+            for k, v in flatten_params(model).items()}
+    del model
+    two = {k: v for k, v in flat.items()
+           if not k.startswith("model.layers.") or int(k.split(".")[2]) < 2}
+    for where, weights, n in ((path, flat, SOPRANO_CFG["num_hidden_layers"]), (reduced, two, 2)):
+        save_model(where, weights, dict(SOPRANO_CFG, num_hidden_layers=n))
+        for name in ("tokenizer.json", "tokenizer_config.json"):
+            shutil.copy(tok_dir / name, where / name)
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t0, checkpoint_bytes(path), path_ids
+
+
+def soprano_checks(tmp: Path, smi: str) -> dict:
+    """Phase 17's Soprano part (see the module docstring)."""
+    from mlx_audio_tpu_torch.tts.models.soprano import Model
+    from mlx_audio_tpu_torch.tts.models.soprano.soprano import _decode_with_hidden
+
+    rec = {}
+    path, reduced = tmp / "Soprano-1.1-80M", tmp / "Soprano-1.1-2layer"
+    tok_dir = tmp / "soprano-tok"
+    tok_dir.mkdir()
+    write_s, nbytes, planted = write_soprano(path, reduced, tok_dir)
+    model, load_s = timed_load(str(path))
+    lm = model.language_model
+    n_lm = sum(p.numel() for p in lm.parameters())
+    n_dec = sum(p.numel() for p in model.decoder.parameters())
+    log(f"[soprano] Soprano-1.1 (decoder 768/2304 x 8, dw kernel 3, n_fft 2048, hop 512, 32 "
+        f"kHz) with a Qwen3 stand-in LM of {n_lm / 1e6:.1f} M parameters (18 x 512, 8 heads, 4 "
+        f"KV heads, 16,384 tokens, tied), float32, the path planted ({SOPRANO_TOKENS} tokens, "
+        f"then [STOP]): decoder {n_dec / 1e6:.1f} M parameters; {nbytes / 1e9:.3f} GB written in "
+        f"{write_s:.1f} s, loaded by utils.load_model in {load_s:.2f} s")
+    if model.config.decoder_config.decoder_dim != 768:
+        raise SystemExit("chip_smoke: the Soprano-1.1 directory did not keep the 768 decoder")
+    s1, s2 = model._stop_ids()
+    ids = model.tokenizer.encode(f"[STOP][TEXT]{model._sentences(SOPRANO_TEXT)[0]}[START]",
+                                 add_special_tokens=False)
+
+    # the two-layer copy in float32, card against CPU
+    t0 = time.perf_counter()
+    cpu, _ = timed_load(str(reduced), device="cpu")
+    card, _ = timed_load(str(reduced), device="cuda")
+    h_cpu, n_cpu = _decode_with_hidden(cpu.language_model, ids, 16, 0.0, 1.0, (s1, s2))
+    h_card, n_card = _decode_with_hidden(card.language_model, ids, 16, 0.0, 1.0, (s1, s2))
+    rel_h = held_close("Soprano two-layer copy, 16 greedy steps' hidden states, card against CPU",
+                       h_card, h_cpu)
+    rel_a = held_close("Soprano two-layer copy, their decoder waveform, card against CPU",
+                       card._decode_audio(h_card), cpu._decode_audio(h_cpu))
+    if not n_cpu == n_card == min(16, SOPRANO_TOKENS):
+        raise SystemExit(f"chip_smoke: the Soprano two-layer copy stopped at {n_card} on the "
+                         f"card, {n_cpu} on the CPU")
+    rec["card_vs_cpu"] = {"hidden_rel": rel_h, "audio_rel": rel_a,
+                          "wall_s": time.perf_counter() - t0}
+    del cpu, card
+
+    # greedy generate on the planted path
+    with torch.inference_mode():
+        list(model.generate(SOPRANO_TEXT, temperature=0.0))  # warm-up
+        torch.cuda.synchronize()
+        zero_port_launches()
+        t0 = time.perf_counter()
+        res = list(model.generate(SOPRANO_TEXT, temperature=0.0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = no_port_launches("Soprano's float32 generate")
+    audio_s = res[0].samples / model.sample_rate
+    dc = model.config.decoder_config
+    want = dc.upscale * SOPRANO_TOKENS * dc.hop_length  # (4n + 1 frames - 1) x hop
+    if len(res) != 1 or res[0].token_count != SOPRANO_TOKENS or res[0].samples != want:
+        raise SystemExit(f"chip_smoke: Soprano generated {[r.token_count for r in res]} tokens, "
+                         f"{[r.samples for r in res]} samples; the path is {SOPRANO_TOKENS} "
+                         f"tokens, {want} samples")
+    if not np.isfinite(res[0].audio).all():
+        raise SystemExit("chip_smoke: Soprano's waveform is not finite")
+    with torch.inference_mode():
+        _, _ = profile_one_run(lambda: _decode_with_hidden(lm, ids, 0, 0.0, 1.0, (s1, s2)),
+                               "Soprano's prefill")
+        pre = dict(profile_one_run.last)
+        _, _ = profile_one_run(lambda: _decode_with_hidden(lm, ids, SOPRANO_PROFILE_STEPS, 0.0,
+                                                           1.0, (s1, s2)),
+                               f"Soprano's prefill and {SOPRANO_PROFILE_STEPS} steps")
+        prof = dict(profile_one_run.last)
+    steps = SOPRANO_PROFILE_STEPS
+    per_step = {k: (prof[k] - pre[k]) / steps for k in ("launches", "device_ms", "wall_ms")}
+    per_step["idle_share"] = 1 - per_step["device_ms"] / per_step["wall_ms"]
+    log(f"[soprano] generate (greedy, {SOPRANO_TOKENS} tokens, {audio_s:.2f} s of audio): wall "
+        f"{wall:.4f} s, RTF {wall / audio_s:.4f}, {SOPRANO_TOKENS / wall:.1f} tokens/s; a decode "
+        f"step: {per_step['launches']:.0f} launches, {per_step['device_ms']:.3f} ms of device "
+        f"time in {per_step['wall_ms']:.3f} ms of wall (idle {100 * per_step['idle_share']:.1f}%)"
+        f"; the port's kernels launched {launches} ({smi})")
+    rec["generate"] = {"wall_s": wall, "audio_s": audio_s, "rtf": wall / audio_s,
+                       "tokens": SOPRANO_TOKENS, "launches": launches, "step": per_step}
+
+    # SopranoBatcher: four requests, each equal to its run alone
+    prompts = [model.tokenizer.encode(f"[STOP][TEXT]{model._sentences(t)[0]}[START]",
+                                      add_special_tokens=False) for t in SOPRANO_TEXTS]
+    n_b = SOPRANO_BATCH_TOKENS
+    t0 = time.perf_counter()
+    alone = [_decode_with_hidden(lm, p, n_b, 0.0, 1.0, (s1, s2)) for p in prompts]
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    b = model.make_batcher(slots=4, max_len=1024, tick_frames=16)
+    try:
+        b.warmup()
+        t0 = time.perf_counter()
+        futs = [b.submit(p, max_tokens=n_b, temperature=0.0, stop_ids=(s1, s2))
+                for p in prompts]
+        got = [f.result(timeout=SERVE_TIMEOUT) for f in futs]
+        batch_s = time.perf_counter() - t0
+        ticks = b.dispatch_count
+    finally:
+        b.close()
+    rels = []
+    for (h, n), g in zip(alone, got):
+        if n != min(n_b, SOPRANO_TOKENS) or g.shape[0] != n + 1:
+            raise SystemExit(f"chip_smoke: a batched Soprano request took {g.shape[0] - 1} "
+                             f"tokens, alone {n}")
+        rels.append(held_close("SopranoBatcher request against its run alone", g, h[0]))
+    log(f"[soprano] SopranoBatcher, 4 requests x {n_b} tokens: {batch_s:.3f} s "
+        f"batched ({ticks} ticks), {seq_s:.3f} s alone one after another: {seq_s / batch_s:.2f}x")
+    rec["batched"] = {"wall_s": batch_s, "sequential_s": seq_s, "speedup": seq_s / batch_s,
+                      "worst_rel": max(rels)}
+    rec["served"] = served_speech(model, path, SOPRANO_TEXT, model.sample_rate, "soprano",
+                                  want_samples=want)
+    rec.update(write_s=write_s, checkpoint_bytes=nbytes, load_s=load_s)
+    del model
+    Model._tokenizer = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def served_speech(model, path: Path, text: str, sr: int, label: str, want_samples: int) -> dict:
+    """One greedy speech request through `server.py` after the provider's
+    batcher warm-up, equal to the in-memory model's samples through its own
+    batcher within one int16 step; DELETE ends the batcher's thread."""
+    from mlx_audio_tpu_torch import server
+
+    provider = server.ModelProvider()
+    httpd = server.serve_stdlib("127.0.0.1", 0, provider)
+    url = "http://127.0.0.1:%d" % httpd.server_address[1]
+    name = str(path)
+    try:
+        rec = load_served(url, provider, name)
+        body, ttfb, wall = http_speech_timed(url, {"model": name, "input": text,
+                                                   "temperature": 0.0,
+                                                   "response_format": "wav"})
+        unload_served(url, provider, name)
+        b = model.make_batcher().install()
+        try:
+            with torch.inference_mode():
+                want = list(model.generate(text, temperature=0.0))[0].audio
+        finally:
+            b.close()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        for n in provider.list_models():
+            provider.unload(n)
+    got = np.frombuffer(body[44:], np.int16).astype(np.int32)
+    ref = np.frombuffer(pcm16(want), np.int16).astype(np.int32)
+    steps = int(np.abs(got - ref).max()) if got.shape == ref.shape else -1
+    log(f"[{label}] served over HTTP (its batcher, warmed): {len(want) / sr:.3f} s of audio, "
+        f"time to first byte {ttfb:.4f} s, wall {wall:.4f} s (load {rec['load_s']:.1f} s, "
+        f"warm-up {rec['warmup_s']:.1f} s); the in-memory model's samples within {steps} int16 "
+        f"steps")
+    if body[:4] != b"RIFF" or not 0 <= steps <= 1 or len(want) != want_samples:
+        raise SystemExit(f"chip_smoke: the served {label} speech ({len(body)} bytes) is not the "
+                         f"in-memory model's samples ({len(want)})")
+    return {"ttfb_s": ttfb, "wall_s": wall, "int16_steps": steps, **rec}
+
+
+def write_spark(path: Path, reduced: Path, tok_dir: Path, seed: int = 24) -> tuple:
+    """Spark-TTS-0.5B: the LLM in bf16 with the planted path, BiCodec and
+    Wav2Vec2-XLSR-53 in float32 (seeded), a tokenizer.json with Spark's
+    tokens; the LLM's first two layers in float32 as a copy. → (seconds,
+    bytes, the planted global and semantic codes)."""
+    from mlx_audio_tpu_torch.convert import save_model
+    from mlx_audio_tpu_torch.nn.module import cast_floats, flatten_params
+    from mlx_audio_tpu_torch.stt.models.wav2vec import Model as W2V
+    from mlx_audio_tpu_torch.tokenizer_json import load
+    from mlx_audio_tpu_torch.tts.models.spark import BiCodec, Model
+
+    t0 = time.perf_counter()
+    tok_path = write_tokenizer_json(tok_dir, "spark")
+    tok = load(tok_path)
+    succ, glob, sem = spark_succ(tok, SPARK_GLOBALS, SPARK_TOKENS, seed)
+    model = Model({"llm": SPARK_LLM}, device="cuda", seed=seed)
+    plant_outetts(model.llm, succ, seed)
+    llm32 = {k[len("llm."):]: v for k, v in flatten_params(model).items()}
+    two = {k: v for k, v in llm32.items()
+           if not k.startswith("model.layers.") or int(k.split(".")[2]) < 2}
+    save_model(reduced, two, {"model_type": "spark", "llm": dict(SPARK_LLM, num_hidden_layers=2)})
+    del llm32, two
+    llm = {k[len("llm."):]: v for k, v in flatten_params(cast_floats(model)).items()}
+    del model
+    bc = flatten_params(BiCodec.from_config(BICODEC_CFG, device="cuda", seed=seed + 1))
+    xlsr = flatten_params(W2V(XLSR_CFG, device="cuda", seed=seed + 2))
+    write_spark_dir(path, SPARK_LLM, llm, BICODEC_CFG, bc, XLSR_CFG, xlsr, tok_path)
+    del llm, bc, xlsr
+    torch.cuda.empty_cache()
+    nbytes = sum(f.stat().st_size for f in Path(path).rglob("*.safetensors"))
+    return time.perf_counter() - t0, nbytes, glob, sem
+
+
+def spark_launches(llm: dict, calls) -> dict:
+    """The quantized launches of int4 Spark LLM calls [(rows M, calls)] from
+    the code: a layer's fused q/k/v, o_proj, fused gate/up and down through
+    qmm where `qmm_routable` takes their shape (the fused MLP kernel's guard
+    refuses I = 4864, not a multiple of 1024), the GEMV at M <= 4 and the
+    tensor-core GEMM above; the tied head a `QuantizedEmbedding`, which
+    takes `F.linear`, no kernel."""
+    from mlx_audio_tpu_torch.nn.quantized import fused_mlp_routable, qmm_routable
+
+    D, inter = llm["hidden_size"], llm["intermediate_size"]
+    hd = D // llm["num_attention_heads"]
+    shapes = [((llm["num_attention_heads"] + 2 * llm["num_key_value_heads"]) * hd, D),
+              (D, llm["num_attention_heads"] * hd), (2 * inter, D), (D, inter)]
+    got = {"qmm": 0, "qmlp": 0, "qmm_kernel": 0, "qmm_gemv": 0, "qmm_mma": 0}
+    for M, n in calls:
+        if fused_mlp_routable(4, GROUP, D, inter, D, M):
+            raise SystemExit("chip_smoke: spark_launches counts the MLP through qmm, and the "
+                             f"fused kernel's guard takes it at M = {M}")
+        k = sum(qmm_routable(4, GROUP, N, K, M) for N, K in shapes) * llm["num_hidden_layers"] * n
+        got["qmm"] += k
+        got["qmm_gemv" if M <= 4 else "qmm_mma"] += k
+    return got
+
+
+def spark_checks(tmp: Path, smi: str) -> dict:
+    """Phase 17's Spark-TTS and Wav2Vec2 parts (see the module docstring)."""
+    from mlx_audio_tpu_torch import convert
+    from mlx_audio_tpu_torch.lm.generate import generate_tokens
+    from mlx_audio_tpu_torch.nn.module import load_weights
+    from mlx_audio_tpu_torch.ops.cuda import quant_matmul as qk
+    from mlx_audio_tpu_torch.ops.cuda.flash_attention import flash_attention
+    from mlx_audio_tpu_torch.stt.models.wav2vec import Model as W2V
+    from mlx_audio_tpu_torch.tts.models.spark import Model
+    from mlx_audio_tpu_torch.utils import load_weight_files
+
+    rec = {}
+    path, reduced = tmp / "Spark-TTS-0.5B", tmp / "Spark-TTS-2layer"
+    tok_dir = tmp / "spark-tok"
+    tok_dir.mkdir()
+    write_s, nbytes, glob, sem = write_spark(path, reduced, tok_dir)
+    spark, load_s = timed_load(str(path))
+    t0 = time.perf_counter()
+    rt = spark._resolve_runtime()
+    rt_s = time.perf_counter() - t0
+    bc, fe, tok = rt["bicodec"], rt["feature_extractor"], rt["tokenizer"]
+    count = lambda m: sum(p.numel() for p in m.parameters()) / 1e6  # noqa: E731
+    log(f"[spark] Spark-TTS-0.5B: the LLM (Qwen2.5-0.5B's widths, 24 x 896, 14 heads, 2 KV "
+        f"heads, 166,000 tokens, tied) {count(spark):.1f} M parameters in bf16 with the planted "
+        f"path ({SPARK_GLOBALS} global, then {SPARK_TOKENS} semantic tokens, then {SPARK_EOS}); "
+        f"BiCodec {count(bc):.1f} M and Wav2Vec2-XLSR-53 {count(fe.model):.1f} M in float32, "
+        f"seeded; {nbytes / 1e9:.3f} GB written in {write_s:.1f} s, loaded by utils.load_model "
+        f"in {load_s:.2f} s, BiCodec and XLSR-53 from the directory in {rt_s:.2f} s")
+
+    # the control route on the planted path
+    kw = dict(temperature=0.0, gender="female", pitch=1.0, speed=1.0)
+    with torch.inference_mode():
+        # a short warm-up: the LLM's and BiCodec's first calls
+        generate_tokens(spark.llm, [1] * 8, max_tokens=8, temp=0.0)
+        bc.detokenize(np.zeros((1, 8), np.int64), np.zeros((1, SPARK_GLOBALS, 1), np.int64))
+        torch.cuda.synchronize()
+        zero_port_launches()
+        t0 = time.perf_counter()
+        res = list(spark.generate(SPARK_TEXT, **kw))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = no_port_launches("Spark's bf16 generate")
+    # a semantic token's samples: the prenet's upsampling times the wave
+    # generator's (1 x 320 at the published widths: 50 tokens a second)
+    hop = int(np.prod(BICODEC_CFG["decoder"]["rates"])
+              * np.prod(BICODEC_CFG["prenet"].get("sample_ratios", [1])))
+    want_samples = SPARK_TOKENS * hop
+    if len(res) != 1 or res[0].token_count != SPARK_TOKENS or res[0].samples != want_samples \
+            or not np.isfinite(res[0].audio).all():
+        raise SystemExit(f"chip_smoke: Spark's control route gave {[r.token_count for r in res]} "
+                         f"semantic tokens, {[r.samples for r in res]} samples")
+    ids = tok.encode(spark.process_prompt_control(SPARK_TEXT, "female", "moderate", "moderate"))
+    eos = spark._eos_ids(tok)
+    gen = dict(temp=0.0, repetition_penalty=1.3, repetition_context_size=20, eos_token_ids=eos)
+    with torch.inference_mode():
+        toks, _ = generate_tokens(spark.llm, ids, max_tokens=400, **gen)
+        want = [tok.token_to_id(f"<|bicodec_global_{int(i)}|>") for i in glob] + [
+            tok.token_to_id(f"<|bicodec_semantic_{int(i)}|>") for i in sem] + list(eos)
+        if toks[0].tolist() != want:
+            raise SystemExit("chip_smoke: Spark's greedy tokens left the planted path")
+        _, _ = profile_one_run(lambda: generate_tokens(spark.llm, ids, max_tokens=1, **gen),
+                               "Spark's prefill and a step")
+        pre = dict(profile_one_run.last)
+        _, _ = profile_one_run(lambda: generate_tokens(spark.llm, ids,
+                                                       max_tokens=1 + SPARK_PROFILE_STEPS, **gen),
+                               f"Spark's prefill and {1 + SPARK_PROFILE_STEPS} steps")
+        prof = dict(profile_one_run.last)
+    per_step = {k: (prof[k] - pre[k]) / SPARK_PROFILE_STEPS
+                for k in ("launches", "device_ms", "wall_ms")}
+    per_step["idle_share"] = 1 - per_step["device_ms"] / per_step["wall_ms"]
+    audio_s = want_samples / 16000
+    steps = SPARK_GLOBALS + SPARK_TOKENS + 1
+    log(f"[spark] control route (greedy, {len(ids)}-token prompt, {steps} tokens: the planted "
+        f"globals, semantics and eos), {audio_s:.2f} s of audio: wall {wall:.4f} s, RTF "
+        f"{wall / audio_s:.4f}, {steps / wall:.1f} tokens/s; a decode step: "
+        f"{per_step['launches']:.0f} launches, {per_step['device_ms']:.3f} ms of device time in "
+        f"{per_step['wall_ms']:.3f} ms of wall (idle {100 * per_step['idle_share']:.1f}%); the "
+        f"port's kernels launched {launches} ({smi})")
+    rec["control"] = {"wall_s": wall, "audio_s": audio_s, "rtf": wall / audio_s,
+                      "prompt_tokens": len(ids), "tokens": steps, "launches": launches,
+                      "step": per_step}
+
+    # the clone route from a 6 s reference, through XLSR-53 and the speaker encoder
+    ref = csm_reference(SPARK_REF_S, 25, sr=16000)
+    with torch.inference_mode():
+        sem_r, glob_r = spark._reference_tokens(rt, bc, ref)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feat = fe(ref.reshape(1, -1))
+        torch.cuda.synchronize()
+        xlsr_ms = (time.perf_counter() - t0) * 1e3
+        clip = bc.get_ref_clip(ref.reshape(1, -1))[None]
+        tok_ms = time_ms(lambda: bc.tokenize(feat, clip), iters=5)
+        det_ms = time_ms(lambda: bc.detokenize(np.asarray([sem[:SPARK_TOKENS]]),
+                                               glob_r.cpu().numpy()), iters=5)
+        t0 = time.perf_counter()
+        clone = list(spark.generate(SPARK_TEXT, ref_audio=ref, temperature=0.0))
+        torch.cuda.synchronize()
+        clone_s = time.perf_counter() - t0
+    ratio = int(np.prod(BICODEC_CFG["encoder"].get("sample_ratios", [1])))
+    if glob_r.shape != (1, SPARK_GLOBALS, 1) or feat.shape[1] != int(SPARK_REF_S * 50) - 1 \
+            or sem_r.shape[1] != feat.shape[1] // ratio \
+            or clone[0].token_count != SPARK_TOKENS or not np.isfinite(clone[0].audio).all():
+        raise SystemExit(f"chip_smoke: Spark's clone route: global tokens {tuple(glob_r.shape)}, "
+                         f"reference semantic tokens {tuple(sem_r.shape)}, "
+                         f"{clone[0].token_count} tokens generated")
+    log(f"[spark] clone route from {SPARK_REF_S:g} s: XLSR-53 features {tuple(feat.shape)} in "
+        f"{xlsr_ms:.1f} ms, BiCodec tokenize {tok_ms:.2f} ms ({sem_r.shape[1]} semantic, "
+        f"{SPARK_GLOBALS} global tokens), detokenize of {SPARK_TOKENS} tokens {det_ms:.2f} ms; "
+        f"generate end to end {clone_s:.4f} s, {SPARK_TOKENS} semantic tokens ({smi})")
+    rec["clone"] = {"wall_s": clone_s, "xlsr_ms": xlsr_ms, "tokenize_ms": tok_ms,
+                    "detokenize_ms": det_ms, "reference_semantic": int(sem_r.shape[1])}
+
+    # LMContinuousBatcher: four prompts, each equal to its sequential tokens
+    prompts = [tok.encode(spark.process_prompt_control(t, "male", "high", "low"))
+               for t in SPARK_TEXTS]
+    t0 = time.perf_counter()
+    n_b = SPARK_BATCH_TOKENS
+    with torch.inference_mode():
+        seq = [generate_tokens(spark.llm, p, max_tokens=n_b, **gen)[0][0].tolist()
+               for p in prompts]
+    seq_s = time.perf_counter() - t0
+    b = spark.make_batcher(slots=4, max_len=512, tick_tokens=16)
+    try:
+        b.warmup()
+        t0 = time.perf_counter()
+        futs = [b.submit(p, max_tokens=n_b, eos_ids=eos, repetition_penalty=1.3,
+                         repetition_context_size=20) for p in prompts]
+        got = [f.result(timeout=SERVE_TIMEOUT) for f in futs]
+        batch_s = time.perf_counter() - t0
+    finally:
+        b.close()
+    if got != seq or any(g != want[:n_b] for g in got):
+        raise SystemExit(f"chip_smoke: LMContinuousBatcher's Spark tokens part from sequential "
+                         f"({[len(g) for g in got]} against {[len(s) for s in seq]})")
+    log(f"[spark] LMContinuousBatcher, 4 prompts x {n_b} tokens: {batch_s:.3f} s batched, "
+        f"{seq_s:.3f} s one after another ({seq_s / batch_s:.2f}x), each equal to its sequential "
+        f"tokens")
+    rec["batched"] = {"wall_s": batch_s, "sequential_s": seq_s, "speedup": seq_s / batch_s}
+
+    # Wav2Vec2 on 30 s: XLSR-53's forward, then the base CTC model
+    w30 = noise(W2V_S, 26)
+    with torch.inference_mode():
+        fe(w30.reshape(1, -1))
+        torch.cuda.synchronize()
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        h = fe(w30.reshape(1, -1))
+        torch.cuda.synchronize()
+        xlsr_s = time.perf_counter() - t0
+    xlsr_flash = flash_attention.launches
+    w2v = W2V(W2V_BASE_CFG, device="cuda", seed=27)
+    w2v.generate(w30)
+    walls = []
+    for _ in range(3):
+        flash_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = w2v.generate(w30)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    base_flash = flash_attention.launches
+    wall = statistics.median(walls)
+    frames = h.shape[1]
+    log(f"[wav2vec2] XLSR-53 (24 x 1024, 16 heads, f32) on {W2V_S:g} s: {frames} frames in "
+        f"{xlsr_s:.4f} s, flash_fwd_f32 launches {xlsr_flash} (one a layer: 24); base CTC "
+        f"(12 x 768, 12 heads, f32) generate median {wall:.4f} s of {[round(w, 4) for w in walls]}"
+        f" ({W2V_S / wall:.1f}x real time, {out.generation_tokens} CTC tokens), flash launches "
+        f"{base_flash} (12) ({smi})")
+    if xlsr_flash != 24 or base_flash != 12 or frames != 1499 or not torch.isfinite(h).all():
+        raise SystemExit(f"chip_smoke: Wav2Vec2 at 30 s launched flash {xlsr_flash} (XLSR-53) "
+                         f"and {base_flash} (base) times, {frames} frames")
+    rec["wav2vec2"] = {"xlsr_s": xlsr_s, "xlsr_flash_launches": xlsr_flash, "base_wall_s": wall,
+                       "base_xrt": W2V_S / wall, "base_flash_launches": base_flash,
+                       "frames": frames}
+    del w2v, h
+    rec["served"] = served_speech(spark, path, SPARK_TEXT, 16000, "spark",
+                                  want_samples=want_samples)
+    del spark, rt, bc, fe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # int4 by convert: the quantized launches held to the code's count
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        q = convert.convert(str(path), str(tmp / "Spark-TTS-0.5B-4bit"), quantize=True)
+    convert_s = time.perf_counter() - t0
+    q4, q_load_s = timed_load(str(q))
+    head = type(q4.llm.model.embed_tokens).__name__
+    rows = []
+
+    def counted(m, x, caches):  # the calls' row counts, for the code's count
+        rows.append(x.shape[1])
+        return m(x, caches)
+
+    with torch.inference_mode():
+        generate_tokens(q4.llm, ids, max_tokens=SPARK_INT4_TOKENS, **gen)  # warm-up
+        torch.cuda.synchronize()
+        qk.reset_launches()
+        t0 = time.perf_counter()
+        toks4, n4 = generate_tokens(q4.llm, ids, max_tokens=SPARK_INT4_TOKENS,
+                                    model_call=counted, **gen)
+        torch.cuda.synchronize()
+        wall4 = time.perf_counter() - t0
+        got = quant_counts(4)
+        hrow = torch.randn(1, 1, SPARK_LLM["hidden_size"], device="cuda")
+        head_ms, _ = device_ms([lambda: q4.llm.logits(hrow)], 20)
+    predicted = spark_launches(SPARK_LLM, [(M, 1) for M in rows])
+    on_path = toks4[0].tolist() == want[:n4]
+    # the same calls' logits against the float32 model on the dequantized
+    # weights (every GEMM of the prompt and the steps held to it)
+    deq = Model({"llm": SPARK_LLM}, device="cuda")
+    load_weights(deq, deq.sanitize(convert.dequantize_weights(load_weight_files(q), 4, GROUP)))
+    got_rows, want_rows = [], []
+    with torch.inference_mode():
+        deq_toks = generate_tokens(deq.llm, ids, max_tokens=SPARK_INT4_TOKENS,
+                                   model_call=logit_rows(want_rows), **gen)[0][0].tolist()
+        generate_tokens(q4.llm, ids, max_tokens=SPARK_INT4_TOKENS,
+                        model_call=logit_rows(got_rows), **gen)
+    del deq
+    gaps = csm_gaps([(g, g) for g in got_rows], [(w, w) for w in want_rows])
+    worst = max(d / peak for d, peak, _ in gaps)
+    log(f"[spark] int4 g64 by convert(quantize=True) in {convert_s:.1f} s, loaded in "
+        f"{q_load_s:.1f} s (tied head: {head}); {n4} greedy tokens in {wall4:.4f} s: launches "
+        f"{got}, from the code {predicted}; {len(gaps)} calls' logits (the prompt's and "
+        f"{len(gaps) - 1} steps') against the float32 model on the dequantized weights: max|d| "
+        f"{max(g[0] for g in gaps):.3e}, worst share of the peak {worst:.2e} (bar "
+        f"{BARK_INT4_BAR:g}); tokens on the bf16 path: {on_path}, the dequantized model's: "
+        f"{deq_toks == want[:n4]}; the tied head's as_linear (dequantize the 166,000 x 896 "
+        f"table, F.linear) {head_ms:.4f} ms of device time a step ({smi})")
+    if got != predicted:
+        raise SystemExit(f"chip_smoke: the int4 Spark launched {got}, the code says {predicted}")
+    if not len(got_rows) == len(want_rows) == len(rows) or worst > BARK_INT4_BAR or not on_path or deq_toks != want[:n4]:
+        raise SystemExit("chip_smoke: the int4 Spark's logits part from the dequantized "
+                         "model's, or its greedy tokens leave the planted path")
+    rec["int4"] = {"convert_s": convert_s, "load_s": q_load_s, "wall_s": wall4, "launches": got,
+                   "head": head, "head_ms": head_ms, "tokens_on_path": on_path,
+                   "logits_max_abs_err": max(g[0] for g in gaps), "worst_share_of_peak": worst}
+    del q4
+    shutil.rmtree(q, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the two-layer copy in float32, card against CPU
+    t0 = time.perf_counter()
+    cpu, _ = timed_load(str(reduced), device="cpu", dtype=torch.float32)
+    want_toks, want_rows = outetts_logit_rows(cpu.llm, ids, SPARK_CPU_TOKENS)
+    del cpu
+    card, _ = timed_load(str(reduced), device="cuda", dtype=torch.float32)
+    got_toks, got_rows = outetts_logit_rows(card.llm, ids, SPARK_CPU_TOKENS)
+    del card
+    gaps = csm_gaps(got_rows, want_rows)
+    ok = all(d <= CARD_VS_CPU_ATOL * peak and d <= OUTETTS_LAYER_BAR * add for d, peak, add in gaps)
+    log(f"[spark] two-layer copy, float32, card against CPU: {len(gaps)} calls' logits (the "
+        f"prompt's and {SPARK_CPU_TOKENS} steps'), max|d| {max(g[0] for g in gaps):.3e}, peaks "
+        f">= {min(g[1] for g in gaps):.1f} (bar {CARD_VS_CPU_ATOL:g} of each), what the layers "
+        f"add >= {min(g[2] for g in gaps):.1f} (bar {OUTETTS_LAYER_BAR:g} of each); greedy "
+        f"tokens identical: {got_toks == want_toks}, on the path: "
+        f"{got_toks == want[:SPARK_CPU_TOKENS]} ({time.perf_counter() - t0:.1f} s)")
+    if not ok or got_toks != want_toks or got_toks != want[:SPARK_CPU_TOKENS]:
+        raise SystemExit("chip_smoke: the Spark two-layer copy parts card from CPU")
+    rec["card_vs_cpu"] = {"logits_max_abs_err": max(g[0] for g in gaps),
+                          "layers_add": min(g[2] for g in gaps),
+                          "wall_s": time.perf_counter() - t0}
+    rec.update(write_s=write_s, checkpoint_bytes=nbytes, load_s=load_s)
+    return rec
+
+
+def phase_spark_soprano(smi: str) -> dict:
+    """Phase 17 (see the module docstring)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+
+    def mark(what):
+        log(f"[slice17] {time.perf_counter() - t_phase:.1f} s into phase 17 after {what}")
+
+    tmp = Path(tempfile.mkdtemp(prefix="slice17-"))
+    try:
+        enc = encodec_seeded()
+        vocos = vocos_checks(enc, smi)
+        del enc
+        mark("Vocos")
+        soprano = soprano_checks(tmp, smi)
+        mark("Soprano")
+        spark = spark_checks(tmp, smi)
+        mark("Spark-TTS and Wav2Vec2")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = {"vocos": vocos, "soprano": soprano, "spark": spark,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"[slice17] phase 17 wall {rec['phase_s']:.1f} s")
+    return rec
+
+
 QUANT_SOURCE = "mlx_audio_tpu_torch/csrc/quant_matmul.cu"
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17",
                     help="comma-separated subset to run (12 runs 10 first for its checkpoint "
                          "directories); a subset prints no result")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
@@ -7234,7 +8110,10 @@ def run_phases(phases, smi, keep, ckpt: Path) -> None:
     if 16 in phases:
         bark = phase_bark(smi)
         took(16)
-    if phases != set(range(1, 17)):
+    if 17 in phases:
+        spark_soprano = phase_spark_soprano(smi)
+        took(17)
+    if phases != set(range(1, 18)):
         log(f"[device] {smi}")
         sys.exit(f"chip_smoke: ran phases {sorted(phases)} only; no result")
     record = {"kernels": [{
@@ -7259,6 +8138,13 @@ def run_phases(phases, smi, keep, ckpt: Path) -> None:
     record["kernels"][0]["serving"] = {
         "launches": serving["whisper"]["flash_launches"][-1],
         "b8": {"max_abs_err": errs["whisper_b8_bf16"], **timing["whisper_b8_bf16"]}}
+    # Wav2Vec2 on 30 s (phase 17), float32: one launch a layer, B = 1
+    w2v = spark_soprano["spark"]["wav2vec2"]
+    record["kernels"][1]["wav2vec2"] = {
+        "launches": {"base_ctc_30s": w2v["base_flash_launches"],
+                     "xlsr53_30s": w2v["xlsr_flash_launches"]},
+        **{key: {"max_abs_err": errs[f"w2v_{key}_f32"], **timing[f"w2v_{key}_f32"]}
+           for key in ("base", "xlsr")}}
     for name, replaces, n, err in (
             ("qmm", "mlx_audio_tpu/ops/pallas/quant_matmul.py:64", qlaunches["qmm"],
              qerrs["qkv_m1_f32"]),
@@ -7353,6 +8239,17 @@ def run_phases(phases, smi, keep, ckpt: Path) -> None:
         "qmm", "qmm_gemv", "qmm_mma", "qmm_kernel")}, "max_abs_err": qerrs["bark_sem_head_m1_f32"],
         "shapes": {key[len("bark_"):]: qtiming[key] for key in qtiming
                    if key.startswith("bark_")}}
+    # Spark-TTS-0.5B int4 (phase 17): the control prompt and 16 greedy tokens,
+    # float32 x; its MLP takes qmm (I = 4864 fails the fused kernel's guard)
+    s4 = spark_soprano["spark"]["int4"]
+    qmm["spark"] = {"launches": {k: s4["launches"][k] for k in (
+        "qmm", "qmm_gemv", "qmm_mma", "qmm_kernel")}, "head": s4["head"],
+        "head_ms": s4["head_ms"], "max_abs_err": qerrs["spark_qkv_m1_f32"],
+        "shapes": {key[len("spark_"):]: qtiming[key] for key in qtiming
+                   if key.startswith("spark_")}}
+    qmlp["spark"] = {"launches": s4["launches"]["qmlp"],
+                     "routing": "I = 4864 is not a multiple of 1024: the guard sends the MLP "
+                                "through qmm"}
     qmlp["serving"] = {"launches": serving["qwen3_int4"]["launches"]["qmlp"],
                        "m8": {"max_abs_err": qerrs["mlp_m8_f32"], **qtiming["qmlp_m8"]}}
     record["kernels"].append({
@@ -7378,6 +8275,7 @@ def run_phases(phases, smi, keep, ckpt: Path) -> None:
     print(json.dumps({"csm": csm}), flush=True)
     print(json.dumps({"dia_outetts": dia_outetts}), flush=True)
     print(json.dumps({"bark": bark}), flush=True)
+    print(json.dumps({"spark_soprano": spark_soprano}), flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,10 @@
 """Neural audio codecs (counterpart of `mlx_audio_tpu/codec/models/`): SNAC,
-Mimi, DAC and EnCodec so far."""
+Mimi, DAC, EnCodec and Vocos so far."""
 
 from .descript import DAC
 from .encodec import Encodec, EncodecConfig
 from .mimi import Mimi, MimiStreamingDecoder
 from .snac import SNAC
+from .vocos import Vocos
 
-__all__ = ["DAC", "Encodec", "EncodecConfig", "Mimi", "MimiStreamingDecoder", "SNAC"]
+__all__ = ["DAC", "Encodec", "EncodecConfig", "Mimi", "MimiStreamingDecoder", "SNAC", "Vocos"]

@@ -266,12 +266,13 @@ def convert(model: str, output_path: Optional[str] = None, quantize: bool = Fals
     )
     save_model(out, weights, config)
     generate_readme(out, model, config)
-    # copy aux files (tokenizer, voices, Bark's EnCodec, …)
+    # copy aux files (tokenizer, voices, Bark's EnCodec, Spark's BiCodec and
+    # Wav2Vec2, …)
     for f in Path(src_path).iterdir():
         if f.suffix in (".json", ".txt", ".model", ".tiktoken") and f.name != "config.json" \
                 and f.name != safetensors_io.INDEX_NAME:
             shutil.copy(f, out / f.name)
-        if f.is_dir() and f.name in ("voices", "encodec"):
+        if f.is_dir() and f.name in ("voices", "encodec", "BiCodec", "wav2vec2-large-xlsr-53"):
             shutil.copytree(f, out / f.name, dirs_exist_ok=True)
     print(f"✓ converted ({domain}) → {out}")
     return out

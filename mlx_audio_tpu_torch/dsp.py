@@ -1,7 +1,7 @@
 """Audio DSP front-end (counterpart of `mlx_audio_tpu/dsp.py`): Hann and
 Hamming windows, STFT (centered and reflect-padded for Whisper, or uncentered
 with a shorter window), ISTFT with the JAX module's window-sum semantics,
-slaney mel filterbank, the Whisper-normalised log-mel, and the
+the htk or slaney mel filterbank, the Whisper-normalised log-mel, and the
 Kaldi-compatible fbank with its deltas and mel banks.
 
 The other windows, `BatchISTFT` and loudness are not ported yet.
@@ -138,21 +138,27 @@ def istft(x: torch.Tensor, hop_length: Optional[int] = None,
 
 @lru_cache(maxsize=None)
 def _mel_filters_np(sample_rate: int, n_fft: int, n_mels: int, f_min: float = 0.0,
-                    f_max: Optional[float] = None) -> np.ndarray:
-    """Slaney-scale triangular mel filterbank with slaney area
-    normalisation over [f_min, f_max] (default: up to Nyquist), shape
-    (n_mels, n_fft//2 + 1), as librosa and Whisper."""
+                    f_max: Optional[float] = None, norm: Optional[str] = None,
+                    mel_scale: str = "htk") -> np.ndarray:
+    """Triangular mel filterbank over [f_min, f_max] (default: up to
+    Nyquist), shape (n_mels, n_fft//2 + 1), on the "htk" or "slaney" mel
+    scale, with slaney area normalisation where `norm` is "slaney"
+    (torchaudio's semantics, and the JAX module's)."""
     f_sp = 200.0 / 3
     min_log_hz = 1000.0
     min_log_mel = min_log_hz / f_sp
     logstep = math.log(6.4) / 27.0
 
     def hz_to_mel(freq: float) -> float:
+        if mel_scale == "htk":
+            return 2595.0 * math.log10(1.0 + freq / 700.0)
         if freq >= min_log_hz:
             return min_log_mel + math.log(freq / min_log_hz) / logstep
         return freq / f_sp
 
     def mel_to_hz(mels: np.ndarray) -> np.ndarray:
+        if mel_scale == "htk":
+            return 700.0 * (10.0 ** (mels / 2595.0) - 1.0)
         return np.where(
             mels >= min_log_mel,
             min_log_hz * np.exp(logstep * (mels - min_log_mel)),
@@ -169,13 +175,19 @@ def _mel_filters_np(sample_rate: int, n_fft: int, n_mels: int, f_min: float = 0.
     down_slopes = (-slopes[:, :-2]) / f_diff[:-1]
     up_slopes = slopes[:, 2:] / f_diff[1:]
     fb = np.maximum(0.0, np.minimum(down_slopes, up_slopes))
-    fb = fb * (2.0 / (f_pts[2 : n_mels + 2] - f_pts[:n_mels]))[None, :]
+    if norm == "slaney":
+        fb = fb * (2.0 / (f_pts[2 : n_mels + 2] - f_pts[:n_mels]))[None, :]
     return fb.T.astype(np.float32)
 
 
 def mel_filters(sample_rate: int, n_fft: int, n_mels: int, f_min: float = 0.0,
-                f_max: Optional[float] = None, device=None) -> torch.Tensor:
-    return torch.from_numpy(_mel_filters_np(sample_rate, n_fft, n_mels, f_min, f_max)).to(device)
+                f_max: Optional[float] = None, norm: Optional[str] = None,
+                mel_scale: str = "htk", device=None) -> torch.Tensor:
+    """The JAX module's signature and defaults: htk scale, no norm. Whisper
+    and Qwen3-TTS ask for slaney with slaney norm (librosa's), Vocos for
+    the defaults, BiCodec for slaney from 10 Hz."""
+    return torch.from_numpy(_mel_filters_np(sample_rate, n_fft, n_mels, f_min, f_max, norm,
+                                            mel_scale)).to(device)
 
 
 def log_mel_spectrogram(
@@ -196,7 +208,8 @@ def log_mel_spectrogram(
     window = hanning(n_fft + 1, periodic=False, device=audio.device)[:-1]
     spec = stft(audio, n_fft, hop_length, window=window)
     magnitudes = spec[..., :-1, :].abs() ** 2  # drop the last frame, as whisper
-    fb = mel_filters(sample_rate, n_fft, n_mels, device=audio.device)
+    fb = mel_filters(sample_rate, n_fft, n_mels, norm="slaney", mel_scale="slaney",
+                     device=audio.device)
     mel_spec = torch.matmul(magnitudes, fb.T)
     log_spec = torch.log10(torch.clamp(mel_spec, min=1e-10))
     row_max = log_spec.amax(dim=(-2, -1), keepdim=True)

@@ -2,8 +2,8 @@
 of `mlx_audio_tpu/lm/continuous.py`): the prompt buckets, `SlotKVCache` (one
 independent stream per batch row), the per-row sampler, and
 `ContinuousBatcher`, the token-level scheduler over a `CausalLM`. The frame
-batcher of Qwen3-TTS (`tts/models/qwen3_tts/batcher.py`) uses the same
-pieces.
+batchers of Qwen3-TTS (`tts/models/qwen3_tts/batcher.py`) and Soprano
+(`tts/models/soprano/batcher.py`) use the same pieces.
 
 `ContinuousBatcher` keeps a pool of B cache slots that decode in lock-step:
 a request joins a free slot at a tick boundary (its prompt prefilled at

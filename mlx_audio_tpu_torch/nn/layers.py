@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["clamp_ids", "Linear", "Embedding", "Conv1d", "ConvTranspose1d", "LayerNorm",
-           "RMSNorm", "GroupNorm", "InstanceNorm"]
+           "RMSNorm", "GroupNorm", "InstanceNorm", "BatchNorm"]
 
 
 def _he_uniform_(w: torch.Tensor, fan_in: int, generator) -> None:
@@ -247,6 +247,42 @@ class InstanceNorm(nn.Module):
             s2 = torch.where(m, xf * xf, 0.0).sum(dim=-2, keepdim=True) / cnt
         var = (s2 - s1 * s1).clamp(min=0.0)
         y = (xf - s1) * torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            y = y * self.weight.float() + self.bias.float()
+        return y.to(x.dtype)
+
+
+class BatchNorm(nn.Module):
+    """Inference-mode BatchNorm over channels-last input (..., C), from the
+    running statistics, in float32, cast back to the input's dtype. The
+    running mean and variance are parameters (never trained), so that
+    `load_weights` carries them across as the JAX package's module holds
+    them."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, affine: bool = True,
+                 device=None):
+        super().__init__()
+        if affine:
+            self.weight = nn.Parameter(torch.empty(num_features, device=device))
+            self.bias = nn.Parameter(torch.empty(num_features, device=device))
+        else:
+            self.weight = self.bias = None
+        self.running_mean = nn.Parameter(torch.empty(num_features, device=device),
+                                         requires_grad=False)
+        self.running_var = nn.Parameter(torch.empty(num_features, device=device),
+                                        requires_grad=False)
+        self.eps = eps
+
+    def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
+        if self.weight is not None:
+            self.weight.data.fill_(1.0)
+            self.bias.data.zero_()
+        self.running_mean.data.zero_()
+        self.running_var.data.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = (x.float() - self.running_mean.float()) * torch.rsqrt(
+            self.running_var.float() + self.eps)
         if self.weight is not None:
             y = y * self.weight.float() + self.bias.float()
         return y.to(x.dtype)

@@ -465,15 +465,17 @@ class FrameBatcherBase:
 
 class LMContinuousBatcher:
     """Continuous batching for AR token-stream models (the SNAC LMs, Orpheus
-    and VyvoTTS): concurrent requests decode in lock-step through
-    `lm.continuous.ContinuousBatcher`; the model routes through
+    and VyvoTTS, OuteTTS, Spark): concurrent requests decode in lock-step
+    through `lm.continuous.ContinuousBatcher` over the model itself or the
+    `lm` it names (Spark's `llm`); the model routes through
     `hook.submit(...)`."""
 
-    def __init__(self, model, slots: int = 4, max_len: int = 4096, **kwargs):
+    def __init__(self, model, slots: int = 4, max_len: int = 4096, lm=None, **kwargs):
         from .lm.continuous import ContinuousBatcher
 
         self.model = model
-        self.cb = ContinuousBatcher(model, slots=slots, max_len=max_len, **kwargs)
+        self.cb = ContinuousBatcher(lm if lm is not None else model, slots=slots,
+                                    max_len=max_len, **kwargs)
 
     def warmup(self):
         """One concurrent wave of tiny requests, one a slot: the smallest

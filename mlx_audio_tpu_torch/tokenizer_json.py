@@ -883,3 +883,17 @@ def load(path: Union[str, Path]) -> Union[Tokenizer, WordPieceTokenizer]:
         p = p / "tokenizer.json"
     st = p.stat()
     return _load(str(p.resolve()), st.st_mtime_ns, st.st_size)
+
+
+def config_token_id(directory: Union[str, Path], tok, name: str) -> Optional[int]:
+    """The id of the special token `name` ("bos_token", "eos_token",
+    "pad_token") that the directory's `tokenizer_config.json` names (a
+    string or an AddedToken dict), as `transformers` gives it as
+    `<name>_id`; None where the file, the entry or its id is absent."""
+    path = Path(directory) / "tokenizer_config.json"
+    if not path.is_file():
+        return None
+    entry = json.loads(path.read_text(encoding="utf-8")).get(name)
+    if isinstance(entry, dict):
+        entry = entry.get("content")
+    return tok.token_to_id(entry) if entry else None

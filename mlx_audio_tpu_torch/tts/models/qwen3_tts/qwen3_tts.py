@@ -70,7 +70,8 @@ def mel_spectrogram(audio, n_fft: int = 1024, num_mels: int = 128, sample_rate: 
     spec = stft(x, n_fft=n_fft, hop_length=hop_size, win_length=win_size,
                 window=hanning(win_size, device=x.device), center=False)
     mag = torch.sqrt(spec.abs() ** 2 + 1e-9)
-    fb = mel_filters(sample_rate, n_fft, num_mels, f_min=fmin, f_max=fmax, device=x.device)
+    fb = mel_filters(sample_rate, n_fft, num_mels, f_min=fmin, f_max=fmax, norm="slaney",
+                     mel_scale="slaney", device=x.device)
     mel = torch.matmul(mag, fb.T)
     return torch.log(mel.clamp(min=1e-5))[None]
 

@@ -44,7 +44,7 @@ def test_log_mel_batch_takes_max_per_row(n_mels):
 
 def test_mel_filters_and_window_match():
     np.testing.assert_array_equal(
-        dsp.mel_filters(16000, 400, 80).numpy(),
+        dsp.mel_filters(16000, 400, 80, norm="slaney", mel_scale="slaney").numpy(),
         np.asarray(jdsp.mel_filters(16000, 400, 80, norm="slaney", mel_scale="slaney")))
     np.testing.assert_array_equal(dsp.hanning(401).numpy(),
                                   np.asarray(jdsp.hanning(401)))

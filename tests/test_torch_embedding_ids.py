@@ -6,8 +6,11 @@ context.
 
 Each table the port reads by id: `Embedding`, `QuantizedEmbedding` (the
 packed rows, scales and biases gathered before the dequantize), SNAC's
-codebooks, and Qwen3-TTS's code-predictor frame (the talker's codec table
-and the code predictor's), at ids -20, -1, N and N + 90. A scan of the
+codebooks, Qwen3-TTS's code-predictor frame (the talker's codec table
+and the code predictor's), Spark's semantic codebook
+(`FactorizedVectorQuantize`) and its LLM's table, the codebooks under an
+EnCodec-driven Vocos's features, and AdaLayerNorm's bandwidth columns, at
+ids -20, -1, N and N + 90. A scan of the
 port's sources holds every other direct read of a `.weight` by id to the
 clamp.
 """
@@ -119,6 +122,58 @@ def test_qwen3_tts_code_predictor_frame_reads_the_jax_rows():
         want_codes, want_emb = frame(row)
         torch.testing.assert_close(emb, want_emb, rtol=0, atol=0)
         torch.testing.assert_close(codes[1:], want_codes[1:], rtol=0, atol=0)
+
+
+def test_spark_semantic_codebook_and_llm_table_read_the_jax_rows():
+    """BiCodec's `FactorizedVectorQuantize.detokenize` reads `codebook.weight`
+    by id (the JAX package indexes it directly, which clamps); Spark's LLM
+    reads its table through `Embedding`."""
+    from mlx_audio_tpu_torch.tts.models.spark import FactorizedVectorQuantize, Model
+
+    n = 24
+    vq = FactorizedVectorQuantize(4, n, 4, device="cpu")  # no projection: rows as read
+    w = np.random.default_rng(2).standard_normal((n, 4)).astype(np.float32)
+    load_jax_params(vq.codebook, {"weight": w})
+    ids = _ids(n)
+    with torch.no_grad():
+        np.testing.assert_array_equal(vq.detokenize(torch.from_numpy(ids)).numpy(),
+                                      _jax_rows(w, ids))
+    spark = Model({"llm": dict(hidden_size=16, num_hidden_layers=1, intermediate_size=32,
+                               num_attention_heads=2, num_key_value_heads=1,
+                               vocab_size=n)}, device="cpu")
+    table = spark.llm.model.embed_tokens
+    with torch.no_grad():
+        np.testing.assert_array_equal(table(torch.from_numpy(ids)).numpy(),
+                                      _jax_rows(table.weight.numpy(), ids))
+
+
+def test_vocos_encodec_features_and_bandwidth_ids_read_the_jax_rows():
+    """An EnCodec-driven Vocos's features sum each codebook's row of a code
+    (clamped), and an AdaLayerNorm reads the clamped id's column."""
+    from mlx_audio_tpu_torch.codec.models import Encodec
+    from mlx_audio_tpu_torch.codec.models.vocos.vocos import AdaLayerNorm, EncodecFeatures
+
+    enc = Encodec(dict(target_bandwidths=[15.0, 30.0], num_filters=4, hidden_size=8,
+                       upsampling_ratios=[4, 2], codebook_size=16, codebook_dim=8,
+                       num_lstm_layers=1), device="cpu", seed=1)
+    fe = EncodecFeatures(enc, bandwidths=[15.0, 30.0])
+    n = 16
+    books = [layer.codebook.embed.detach().numpy() for layer in enc.quantizer.layers[:2]]
+    ids = _ids(n)
+    codes = np.stack([ids[:, :2], ids[:, 2:]])  # (nq = 2, B = 2, T = 2)
+    want = sum(_jax_rows(b, c) for b, c in zip(books, codes))
+    np.testing.assert_array_equal(fe.get_features_from_codes(torch.from_numpy(codes)).numpy(),
+                                  want)
+    ada = AdaLayerNorm(4, 6, device="cpu")
+    w = np.random.default_rng(3).standard_normal((6, 4)).astype(np.float32)
+    load_jax_params(ada, {"scale.weight": w, "scale.bias": np.zeros(6, np.float32),
+                          "shift.weight": w, "shift.bias": np.zeros(6, np.float32)})
+    x = torch.zeros(4, 1, 6)
+    with torch.no_grad():
+        for bw in (-20, -1, 4, 94):
+            got = ada._affine(ada.scale, torch.tensor([bw])).numpy()
+            np.testing.assert_array_equal(got, _jax_rows(w.T, np.array([bw])))
+        assert ada(x, torch.tensor([0, 9, -9, 3])).shape == (4, 1, 6)
 
 
 _DIRECT_READ = re.compile(r"\.(weight|embedding)\[(?!:|\.\.\.)")

@@ -165,6 +165,9 @@ def _tiny_entry_points():
     from mlx_audio_tpu_torch.tts.models.outetts import Model as OuteTTS
     from mlx_audio_tpu_torch.tts.models.sesame import Model as Sesame
     from mlx_audio_tpu_torch.tts.models.bark import Model as Bark
+    from mlx_audio_tpu_torch.stt.models.wav2vec import Model as Wav2Vec2
+    from mlx_audio_tpu_torch.tts.models.soprano import Model as Soprano
+    from mlx_audio_tpu_torch.tts.models.spark import Model as Spark
 
     whisper = dict(n_mels=80, n_audio_ctx=8, n_audio_state=16, n_audio_head=2,
                    n_audio_layer=1, n_vocab=64, n_text_ctx=8, n_text_state=16,
@@ -204,10 +207,18 @@ def _tiny_entry_points():
                     "delay_pattern": [0, 1]}}
     gpt = dict(n_layer=1, n_head=2, n_embd=16, input_vocab_size=64, output_vocab_size=64)
     bark = dict(semantic_config=gpt, coarse_acoustics_config=gpt, fine_acoustics_config=gpt)
+    soprano = dict(lm, model_type="qwen3", tie_word_embeddings=True, decoder_config=dict(
+        decoder_num_layers=1, decoder_dim=8, decoder_intermediate_dim=16, hop_length=4,
+        n_fft=16))
+    spark = dict(llm=dict(lm, vocab_size=32))
+    wav2vec = dict(vocab_size=8, hidden_size=16, num_hidden_layers=1, num_attention_heads=2,
+                   intermediate_size=32, conv_dim=[8], conv_stride=[5], conv_kernel=[10],
+                   num_conv_pos_embeddings=4, num_conv_pos_embedding_groups=2)
     return [(Whisper, whisper), (Qwen3TTS, qwen3), (MossFormer2SE, mossformer2_se),
             (Kokoro, kokoro), (Orpheus, dict(lm, model_type="llama")),
             (Vyvo, dict(lm, model_type="qwen3")), (Sesame, sesame), (Dia, dia),
-            (OuteTTS, dict(lm, model_type="llama", tie_word_embeddings=True)), (Bark, bark)]
+            (OuteTTS, dict(lm, model_type="llama", tie_word_embeddings=True)), (Bark, bark),
+            (Soprano, soprano), (Spark, spark), (Wav2Vec2, wav2vec)]
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
@@ -216,7 +227,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
     import pytest
     import torch
 
-    from mlx_audio_tpu_torch.codec.models import DAC, SNAC, Encodec, Mimi
+    from mlx_audio_tpu_torch.codec.models import DAC, SNAC, Encodec, Mimi, Vocos
+    from mlx_audio_tpu_torch.tts.models.spark import BiCodec
     from mlx_audio_tpu_torch.codec.models.mimi import mimi
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -232,10 +244,19 @@ def test_entry_points_default_to_the_card(monkeypatch):
                n_codebooks=2, codebook_size=8, codebook_dim=2)
     encodec = dict(num_filters=2, hidden_size=4, codebook_size=8, codebook_dim=4,
                    upsampling_ratios=[2])
+    vocos = {"feature_extractor": {"class_path": "MelSpectrogramFeatures",
+                                   "init_args": {"n_mels": 8}},
+             "backbone": {"init_args": dict(input_channels=8, dim=8, intermediate_dim=16,
+                                            num_layers=1)},
+             "head": {"init_args": dict(dim=8, n_fft=16, hop_length=4)}}
+    from test_spark_checkpoint import TINY_CFG
+
     for cls, cfg in _tiny_entry_points() + [(lambda c, **kw: SNAC(**c, **kw), snac),
                                             (Mimi, tiny_mimi),
                                             (lambda c, **kw: DAC(**c, **kw), dac),
-                                            (Encodec, encodec)]:
+                                            (Encodec, encodec), (Vocos.from_hparams, vocos),
+                                            (BiCodec.from_config,
+                                             TINY_CFG["audio_tokenizer"])]:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cls(cfg)
         assert cls(cfg, device="cpu").device.type == "cpu"
@@ -423,3 +444,31 @@ def test_wordpiece_reads_without_the_missing_packages(tmp_path):
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "OK"
+
+
+VOCOS_SPARK_SLICE_MODULES = (
+    "mlx_audio_tpu_torch.codec.models.vocos", "mlx_audio_tpu_torch.codec.models.vocos.vocos",
+    "mlx_audio_tpu_torch.tts.models.soprano", "mlx_audio_tpu_torch.tts.models.soprano.soprano",
+    "mlx_audio_tpu_torch.tts.models.soprano.batcher",
+    "mlx_audio_tpu_torch.tts.models.soprano.text", "mlx_audio_tpu_torch.tts.models.spark",
+    "mlx_audio_tpu_torch.tts.models.spark.spark",
+    "mlx_audio_tpu_torch.tts.models.spark.token_parser",
+    "mlx_audio_tpu_torch.tts.models.spark.files", "mlx_audio_tpu_torch.stt.models.wav2vec",
+    "mlx_audio_tpu_torch.stt.models.wav2vec.wav2vec", "mlx_audio_tpu_torch.stt.models.wav2vec2")
+
+
+@pytest.mark.parametrize("name", VOCOS_SPARK_SLICE_MODULES)
+def test_vocos_spark_slice_modules_are_scanned(name):
+    """Vocos, Soprano (the model, its batcher, its text cleaner), Spark-TTS
+    (the model, BiCodec, the token parser, the file helpers) and Wav2Vec2
+    are among the modules the import and scan tests cover, and the loader
+    resolves each family by its model type or its directory's name."""
+    from mlx_audio_tpu_torch.utils import PORTED, get_model_class
+
+    assert name in {n for _, n in _modules()}
+    assert {"spark", "soprano"} <= set(PORTED["tts"])
+    assert {"wav2vec", "wav2vec2"} <= set(PORTED["stt"])
+    assert get_model_class("spark", None, "tts", {"spark": "spark"})[1] == "spark"
+    assert get_model_class("qwen3", ["soprano", "1.1", "80m"], "tts",
+                           {"soprano": "soprano"})[1] == "soprano"
+    assert get_model_class("wav2vec2", None, "stt", {})[1] == "wav2vec2"
