@@ -85,7 +85,8 @@ Phases, each printing its own lines:
      near-tie at the decode where the two part), and the realtime WebSocket route (its
      final = `generate` on the same buffer); int4
      Qwen3-TTS served as CustomVoice, each request capped at
-     HTTP_QWEN_FRAMES (32; its text's 128 until phase 16 came) (greedy,
+     HTTP_QWEN_FRAMES (24; its text's 128 until phase 16 came, 32 until
+     phase 18) (greedy,
      streamed wav: time to first byte; then a wave of four texts in the
      server's four-slot pool, the
      WebSocket route, the model's `generate` in process and two HTTP
@@ -118,7 +119,7 @@ Phases, each printing its own lines:
      off-by-one cache position, two slots reading each other's caches) that
      the bars must reject; four prompts through `make_batcher` (an
      LMContinuousBatcher at bench_snac_lm_continuous's 4 slots, 16-step
-     ticks, cut to 64 tokens where it takes 128), each equal to its sequential greedy tokens, with
+     ticks, cut to 32 tokens where it takes 128), each equal to its sequential greedy tokens, with
      launches held to the code's count; one request served over HTTP,
      equal to the in-memory samples; SNAC alone card against CPU and its
      decode_stream; Qwen3-TTS Base's x-vector card against CPU in float32,
@@ -133,7 +134,7 @@ Phases, each printing its own lines:
      identical, a planted off-by-one codebook offset rejected); Mimi's decode
      of 64 frames card against CPU and its streaming decode against offline
      (keys written one ring slot on rejected); `generate` with a 5 s
-     reference and its text, greedy at 64 frames and sampled at 16 (wall,
+     reference and its text, greedy at 32 frames and sampled at 16 (wall,
      frames/s, RTF), profiled, streamed at 0.5 s to 32 frames (each chunk's
      frames the monolithic decode's, time to first audio), the watermark found on the
      output and not on unmarked audio; `bench_sesame_serving` at bench.py's
@@ -154,7 +155,7 @@ Phases, each printing its own lines:
      in dac/ and loaded by `utils.load_model`: a two-layer float32 copy card
      against CPU (every decoder call's logits over a prompt and 8 steps at
      both bars, the greedy frames identical, [uncond, cond] swapped
-     rejected); `generate` of a two-speaker text, greedy at 256 frames and
+     rejected); `generate` of a two-speaker text, greedy at 128 frames and
      sampled (1.3, cfg 3.0, top-k 35) at 64, profiled at 32 frames, a voice clone
      from 5 s (DAC encode, then the prefill); `DiaBatcher` at 4 slots x 32
      frames, batched equal to alone. Llama-OuteTTS-1.0-1B (Llama-3.2-1B's
@@ -212,6 +213,21 @@ Phases, each printing its own lines:
      count, the logits of the prompt and 16 greedy steps to the float32
      model on the dequantized weights, the tokens to the planted path, the
      tied head's ms) and a two-layer float32 copy card against CPU.
+ 18. IndexTTS, on `lm/gpt2.py` and BigVGAN: `GPTConfig()` (1024 x 20, 16
+     heads, 8,194 mel codes, 12,000 text tokens), `ConformerArgs()` (256 x 6)
+     with the perceiver's 32 latents, and the ECAPA-conditioned BigVGAN at
+     INDEXTTS_BIGVGAN (1536 channels, rates [4, 4, 4, 4, 2, 2]), in float32,
+     seeded, the stop planted at step 70 (`plant_indextts_stop`: 71 latents,
+     72,704 samples, 3.03 s), written to a checkpoint directory: `generate`
+     from a 6 s reference through a seeded stand-in tokenizer (wall, RTF, the
+     conditioning, decode and BigVGAN split, a profiled prefill and 32
+     steps, the vocoder's device time; no kernel of the port launches);
+     `IndexTTSBatcher` with 4 requests at top-k 1, each equal to its run
+     alone (speedup); a two-layer float32 copy card against CPU (the prompt
+     embedding, 24 steps' logits and latents, BigVGAN over them); int4 by
+     `convert`, loaded by `utils.load_model`, 16 steps with the quantized
+     launches held to the code's count, its embedding, latents and logits to
+     the float32 port on the dequantized weights.
 Phase 2 also holds the ReLU² attention kernel to its plain version and
 flash at B = 1, and the serving shapes: flash bf16 at B = 8, `qmm_mma` and
 the fused MLP at M = 8 (the batcher's tick), ReLU² f32 at B = 8, G = 2;
@@ -227,20 +243,24 @@ batcher's M = 8 and 16 and a 64-row prompt, the fused MLP at K = 2048 and
 1024, I = 8192), and Spark-TTS int4's (float32 x: the GEMV at a decode
 step's four shapes, K = 896 and 4864, the tensor-core GEMM at the same four
 at its 20-token prompt) and flash f32 at Wav2Vec2's 30 s (B = 1, T = S = 1499, H = 12 and
-16). The lines before the last
+16), and IndexTTS int4's (float32 x: the GEMV at a decode step's four
+GPT-2 shapes and the 8,194-row mel head, M = 1 and 4, the tensor-core GEMM at
+its 44-row prompt and at the conformer's and perceiver's shapes). The lines
+before the last
 hold phase 8's numbers ({"kokoro": ...}), the bf16 Qwen3-TTS step's
 ({"qwen3_bf16": ...}), phase 9's ({"whisper_rest": ...}), phase 10's
 ({"loaded": ...}), phase 11's ({"serving": ...}), phase 12's ({"server":
 ...}), phase 13's ({"orpheus": ...}), phase 14's ({"csm": ...}), phase
 15's ({"dia_outetts": ...}), phase 16's ({"bark": ...}), phase 17's
-({"spark_soprano": ...}) and the kernels' JSON record, in that order;
+({"spark_soprano": ...}), phase 18's ({"indextts": ...}) and the kernels'
+JSON record, in that order;
 the last line is {"ok": true, "device": {...}}. Any failure raises and exits non-zero. It
 needs one CUDA card and the checkout's `mlx_audio_tpu_torch/` package.
 `--phases 1,2` runs a subset (a first check of new kernels), `--phases
 1,12` the server (with phase 10 before it), `--phases 1,13` Orpheus,
 `--phases 1,14` CSM-1B and Mimi, `--phases 1,15` DAC, Dia and OuteTTS,
 `--phases 1,16` EnCodec and Bark, `--phases 1,17` Vocos, Soprano, Spark-TTS
-and Wav2Vec2; the default runs all of them.
+and Wav2Vec2, `--phases 1,18` IndexTTS; the default runs all of them.
 """
 
 from __future__ import annotations
@@ -1361,6 +1381,25 @@ QMM_CASES = [  # name, bits, M, N, K, dtype: the routed shapes of phases 5 and 6
     ("spark_o_proj_m20_f32", 4, 20, 896, 896, torch.float32),
     ("spark_gate_up_m20_f32", 4, 20, 9728, 896, torch.float32),
     ("spark_down_m20_f32", 4, 20, 896, 4864, torch.float32),
+    # IndexTTS int4 (float32 x): a decode step's GPT-2 c_attn, attention
+    # c_proj, c_fc and MLP c_proj and the 8,194-row mel head at M = 1, the
+    # batcher's four slots, the 44-row prompt, the conformer's
+    # feed-forward and conv2d-front projection at its 140 rows (6 s), the
+    # perceiver's gated feed-forward at its 32 latents and its keys at 172
+    ("indextts_c_attn_m1_f32", 4, 1, 3072, 1024, torch.float32),
+    ("indextts_c_proj_m1_f32", 4, 1, 1024, 1024, torch.float32),
+    ("indextts_c_fc_m1_f32", 4, 1, 4096, 1024, torch.float32),
+    ("indextts_mlp_proj_m1_f32", 4, 1, 1024, 4096, torch.float32),
+    ("indextts_mel_head_m1_f32", 4, 1, 8194, 1024, torch.float32),
+    ("indextts_c_attn_m4_f32", 4, 4, 3072, 1024, torch.float32),
+    ("indextts_mel_head_m4_f32", 4, 4, 8194, 1024, torch.float32),
+    ("indextts_c_attn_m44_f32", 4, 44, 3072, 1024, torch.float32),
+    ("indextts_c_fc_m44_f32", 4, 44, 4096, 1024, torch.float32),
+    ("indextts_mlp_proj_m44_f32", 4, 44, 1024, 4096, torch.float32),
+    ("indextts_ff_m140_f32", 4, 140, 2048, 256, torch.float32),
+    ("indextts_embed_out_m140_f32", 4, 140, 256, 6144, torch.float32),
+    ("indextts_w1_m32_f32", 4, 32, 2730, 1024, torch.float32),
+    ("indextts_kv_m172_f32", 4, 172, 256, 1024, torch.float32),
 ]
 # groups other than 64: K = 1040 is 65 groups of 16
 QMM_GROUP = {"q6_k1040_m1_f32": 16, "g32_m64_bf16": 32, "q6_g128_m96_f32": 128,
@@ -1373,7 +1412,7 @@ QMM_PLANTED = ("qkv_m1_f32", "qkv_m1_bf16", "q6_qkv_m1_f32", "q6_qkv_m1_bf16",
                "orpheus_lm_head_m1_bf16", "orpheus_lm_head_m32_bf16",
                "csm_cb0_head_m1_f32", "csm_cb0_head_m1_bf16", "csm_cb0_head_m8_f32",
                "bark_sem_head_m1_f32", "bark_att_proj_m512_f32", "spark_qkv_m1_f32",
-               "spark_down_m20_f32")
+               "spark_down_m20_f32", "indextts_mel_head_m1_f32", "indextts_c_fc_m44_f32")
 # The talker's prefill bucket: bench.py's text gives the talker an
 # 8-position prompt (the text itself streams in a token a frame), which
 # `_prefill` pads to 32 rows; `phase_qwen_slice` checks it. The text
@@ -1464,6 +1503,14 @@ BARK_QMM = [("att_proj", 1, 2304, 768), ("out_proj", 1, 768, 768), ("mlp_out", 1
 SPARK_QMM = [("qkv", 1, 1152, 896), ("o_proj", 1, 896, 896), ("gate_up", 1, 9728, 896),
              ("down", 1, 896, 4864), ("qkv", 20, 1152, 896), ("o_proj", 20, 896, 896),
              ("gate_up", 20, 9728, 896), ("down", 20, 896, 4864)]
+# IndexTTS int4's shapes, timed in float32 x: a decode step's four GPT-2
+# projections and the mel head (M = 1), the mel head and c_attn at the
+# batcher's four slots, and two at the 44-row prompt (the conformer's and
+# the perceiver's shapes are checked, not timed)
+INDEXTTS_QMM = [("c_attn", 1, 3072, 1024), ("c_proj", 1, 1024, 1024), ("c_fc", 1, 4096, 1024),
+                ("mlp_proj", 1, 1024, 4096), ("mel_head", 1, 8194, 1024),
+                ("mel_head", 4, 8194, 1024), ("c_attn", 44, 3072, 1024),
+                ("mlp_proj", 44, 1024, 4096)]
 ORPHEUS_MLP = dict(K=3072, I=8192, N=3072)
 
 
@@ -1626,6 +1673,7 @@ def phase_quant_kernels():
     timing.update(time_csm(OUTETTS_QMM, "outetts", ()))
     timing.update(time_csm(BARK_QMM, "bark", ()))
     timing.update(time_csm(SPARK_QMM, "spark", ()))
+    timing.update(time_csm(INDEXTTS_QMM, "indextts", ()))
     return errs, timing
 
 
@@ -3682,8 +3730,9 @@ HTTP_TEXTS = (HTTP_TEXT, "The lazy dog jumps over the quick brown fox.",
 QWEN_SPEAKER, QWEN_SPEAKER_ID = "smoke", 3000
 # the speech route has no frame cap: the served model's cap by the text's
 # length (128 frames here) is set to this, for the request alone, the wave
-# and the one-slot references alike (cut in depth to make room for phase 16)
-HTTP_QWEN_FRAMES = 32
+# and the one-slot references alike (cut in depth to make room for phases 16
+# and 18: 24 frames are two ticks of the batcher's 16)
+HTTP_QWEN_FRAMES = 24
 HTTP_STREAM_INTERVAL = 0.8  # s of audio a streamed chunk: 10 frames
 FLASH_PER_ENCODE = TURBO["n_audio_layer"]
 
@@ -4465,8 +4514,8 @@ ORPHEUS_STREAM_INTERVAL = 0.5  # s of audio a streamed chunk: 63 tokens, 9 frame
 ORPHEUS_TIMED = 1
 ORPHEUS_PROFILE_TOKENS = 2 + 7 * 6
 # the reduced-depth copy's tokens card against CPU (every CPU step
-# dequantizes the 156940 x 3072 lm_head)
-ORPHEUS_CPU_TOKENS = 3
+# dequantizes the 156940 x 3072 lm_head; 3 until phase 18 came)
+ORPHEUS_CPU_TOKENS = 1
 # The layers' share of the planted path's logits is small (the residual
 # branches are scaled by ORPHEUS_RESIDUAL_SCALE), so the float32 two-layer
 # copy's logits are held to ORPHEUS_LAYER_BAR of what its layers add to them
@@ -4479,8 +4528,9 @@ ORPHEUS_LAYER_BAR = 1e-2
 ORPHEUS_CHECK_TOKENS = 40
 ORPHEUS_CHECK_STEPS = (1, 8, 15, 16, 17, 33, 39)
 # bench_snac_lm_continuous's settings (scripts/bench_serving.py:161-231),
-# cut in depth to 64 tokens a request (its 128 until phase 17 came)
-ORPHEUS_SLOTS, ORPHEUS_TICK, ORPHEUS_POOL_LEN, ORPHEUS_BATCH_TOKENS = 4, 16, 256, 64
+# cut in depth to 32 tokens a request, two ticks (its 128 until phase 17
+# came, 64 until phase 18 came)
+ORPHEUS_SLOTS, ORPHEUS_TICK, ORPHEUS_POOL_LEN, ORPHEUS_BATCH_TOKENS = 4, 16, 256, 32
 # Qwen3-TTS Base x-vector cloning: a 3 s 24 kHz reference, 16 frames
 XVEC_FRAMES = 16
 
@@ -5142,8 +5192,8 @@ def phase_orpheus(smi: str, keep) -> dict:
 CSM_TEXT = "The quick brown fox jumps over the lazy dog."
 CSM_REF_TEXT = "A seeded reference line that the model never heard."
 CSM_REF_S = 5.0
-CSM_MAX_MS = 5120  # 64 frames of 80 ms
-CSM_FRAMES = 64
+CSM_MAX_MS = 2560  # 32 frames of 80 ms (64 until phase 18 came)
+CSM_FRAMES = 32
 CSM_SAMPLED_MS = 1280  # the sampled run: 16 frames (64 until phase 17 came)
 CSM_STREAM_INTERVAL = 0.5  # 6 frames a chunk
 CSM_STREAM_MS = 2560  # the stream: 32 frames (64 until phase 17 came)
@@ -5937,12 +5987,13 @@ DAC_ATOL = 1e-5  # of the peak, card against CPU, float32
 # a code the card's and the CPU's encode may choose apart only at a near-tie
 # of the two codes' cosine similarities (float32 sums in other orders)
 DAC_TIE = 1e-5
-# Dia-1.6B, `DiaConfig()`: a two-speaker text, 256 frames (the EOS column of
+# Dia-1.6B, `DiaConfig()`: a two-speaker text, 128 frames (256 until phase
+# 18 came; the EOS column of
 # channel 0's logits is zeroed in the seeded checkpoint, so every run takes
 # its cap), greedy then sampled at the defaults (1.3, cfg 3.0, top-k 35)
 DIA_TEXT = ("[S1] The quick brown fox jumps over the lazy dog. "
             "[S2] And the lazy dog jumps over the quick brown fox.")
-DIA_FRAMES = 256
+DIA_FRAMES = 128
 DIA_SAMPLED_FRAMES = 64  # 256 until phase 17 came
 DIA_PROFILE_FRAMES = 32
 DIA_REF_S = 5.0
@@ -7428,7 +7479,7 @@ def close_to(got, want) -> tuple:
 
 def held_close(label, got, want, bar=CARD_VS_CPU_ATOL) -> float:
     err, peak = close_to(got, want)
-    log(f"[slice17] {label}: max|d| {err:.3e}, {err / max(peak, 1e-30):.2e} of the peak "
+    log(f"[held] {label}: max|d| {err:.3e}, {err / max(peak, 1e-30):.2e} of the peak "
         f"{peak:.4g} (bar {bar:g})")
     if not err <= bar * peak:
         raise SystemExit(f"chip_smoke: {label} parts: max|d| {err} over {bar:g} of {peak}")
@@ -8032,12 +8083,470 @@ def phase_spark_soprano(smi: str) -> dict:
     return rec
 
 
+INDEXTTS_PLANT_SCALE = 1e4
+# IndexTTS-1.5's vocoder as this repository's code reads its config.yaml
+# (not in the repository, so unchecked): 100 mels (the conformer's input
+# too), rates whose product is the GPT's mel_length_compression (1024), the
+# conditioning widths
+INDEXTTS_BIGVGAN = {"num_mels": 100, "upsample_rates": [4, 4, 4, 4, 2, 2],
+                    "upsample_kernel_sizes": [8, 8, 4, 4, 4, 4],
+                    "upsample_initial_channel": 1536, "resblock": "1",
+                    "resblock_kernel_sizes": [3, 7, 11],
+                    "resblock_dilation_sizes": [[1, 3, 5]] * 3, "activation": "snakebeta",
+                    "snake_logscale": True, "gpt_dim": 1024, "speaker_embedding_dim": 512,
+                    "sampling_rate": 24000}
+INDEXTTS_STOP = 70  # the planted stop's step: 71 latents, 72,704 samples, 3.03 s
+INDEXTTS_TEXT = HTTP_TEXT
+INDEXTTS_TEXTS = (INDEXTTS_TEXT, "Hello world.", "The model turns text into speech.",
+                  "A seeded reference line that the model never heard.")
+INDEXTTS_REF_S = 6.0
+INDEXTTS_PROFILE_STEPS = 32
+INDEXTTS_INT4_STEPS = 16
+INDEXTTS_BATCH_TOKENS = 48  # each batched request's cap, before the planted stop
+INDEXTTS_CPU_STEPS = 24  # the two-layer copy: 24 latents, 1.02 s of audio
+INDEXTTS_LATENTS_SEED = 27
+
+
+class IndexTok:
+    """A seeded stand-in for IndexTTS's SentencePiece tokenizer (the
+    published tokenizer.model is not in the repository, and the card's
+    machine has no `sentencepiece`): each space-separated piece of the
+    normalized text maps to an id in 2..11999."""
+
+    def encode(self, text):
+        import zlib
+
+        return [zlib.crc32(w.encode()) % 11998 + 2 for w in text.split()]
+
+
+def plant_indextts_stop(model, step: int, gain: float = 0.5, seed: int = 0):
+    """Plant IndexTTS's stop code at decode step `step` (>= 1), whatever the
+    prompt: the mel position row fed at step - 1 carries
+    INDEXTTS_PLANT_SCALE times a zero-mean unit direction v, which then rules
+    the final norm's output at step `step`, and the stop code's head row is
+    gain·v (its bias 0). → the planted row's added vector."""
+    stop = model.args.gpt.stop_mel_token
+    w = model.mel_pos_embedding.weight
+    g = torch.Generator(device=w.device).manual_seed(seed)
+    v = torch.randn(w.shape[1], generator=g, device=w.device)
+    v = v - v.mean()
+    v = v / v.norm()
+    with torch.no_grad():
+        w[step - 1] += INDEXTTS_PLANT_SCALE * v
+        model.mel_head.weight[stop] = gain * v
+        model.mel_head.bias[stop] = 0.0
+    return INDEXTTS_PLANT_SCALE * v
+
+
+def indextts_config(layers=None) -> dict:
+    """config.json of the slice's IndexTTS: `GPTConfig()` (IndexTTS-1.5's
+    1024 x 20, 16 heads, 8,194 mel codes, 12,000 text tokens; the conformer
+    at `ConformerArgs()`) and INDEXTTS_BIGVGAN."""
+    import dataclasses
+
+    from mlx_audio_tpu_torch.tts.models.indextts import GPTConfig
+
+    gpt = dataclasses.asdict(GPTConfig())
+    if layers is not None:
+        gpt["layers"] = layers
+    return {"model_type": "indextts", "gpt": gpt, "bigvgan": dict(INDEXTTS_BIGVGAN),
+            "sample_rate": 24000}
+
+
+def indextts_seeded(config, device="cuda", seed: int = 25):
+    """IndexTTS from `seed`, its perceiver's latents drawn (the JAX
+    initialiser's zeros make all 32 alike), the stop planted."""
+    from mlx_audio_tpu_torch.tts.models.indextts import Model
+
+    model = Model(config, device=device, seed=seed)
+    g = torch.Generator(device=device).manual_seed(INDEXTTS_LATENTS_SEED)
+    with torch.no_grad():
+        model.perceiver_encoder.latents.normal_(0.0, 0.02, generator=g)
+    plant_indextts_stop(model, INDEXTTS_STOP, seed=seed)
+    return model
+
+
+def indextts_prompt(model, text, mel):
+    from mlx_audio_tpu_torch.tts.models.indextts import normalize
+
+    ids = IndexTok().encode(normalize.tokenize_by_CJK_char(normalize.normalize(text)))
+    return model.prepare_input_embedding(ids, mel)
+
+
+def indextts_replay(model, emb, steps: int, codes=None) -> tuple:
+    """`steps` decode steps of `_indextts_decode` whose draw is the argmax
+    (top-k 1) or, given `codes`, replays them → (latents (steps, D), every
+    step's float32 logits rows on the host, the codes taken)."""
+    from mlx_audio_tpu_torch.tts.models.indextts.indextts import _indextts_decode
+
+    rows, taken = [], []
+    it = iter(codes) if codes is not None else None
+
+    def sampler(logits, gen):
+        rows.append(logits[0].float().cpu())
+        tok = int(logits[0].argmax()) if it is None else next(it)
+        taken.append(tok)
+        return torch.tensor([tok], device=logits.device)
+
+    lat, n = _indextts_decode(model, emb, steps, 1.0, 1, 0, sampler)
+    return lat[:min(n, steps)], rows, taken
+
+
+def conformer_rows(args, mel_frames: int) -> int:
+    """The conditioning encoder's rows after its conv2d front."""
+    from mlx_audio_tpu_torch.tts.models.indextts.indextts import Conv2dSubsampling
+
+    t = mel_frames
+    for ks, stride in Conv2dSubsampling._LAYERS[args.input_layer]:
+        t = (t - ks) // stride + 1
+    return t
+
+
+def indextts_launches(config: dict, mel_frames: int, prompt: int, steps: int) -> dict:
+    """The quantized launches of one int4 `generate` from the code: the
+    conformer's projections at its T_c rows (the conv2d front's output,
+    q/k/v/out and the position projection, the feed-forward pair), the
+    perceiver's (the context projection at T_c, queries, output and the
+    gated feed-forward's w_1 at its 32 latents, keys and values at T_c +
+    32; w_2's K = 1365 is not a multiple of 64, so it stays float32), the
+    GPT's four at the prompt's rows, then each decode step's mel head and
+    the GPT's four at one row, through qmm where `qmm_routable` takes the
+    shape (the GEMV at M <= 4, the tensor-core GEMM above). Tables and
+    convolutions take no kernel."""
+    from mlx_audio_tpu_torch.nn.quantized import qmm_routable
+    from mlx_audio_tpu_torch.tts.models.indextts import ModelArgs
+    from mlx_audio_tpu_torch.tts.models.indextts.indextts import Conv2dSubsampling
+
+    args = ModelArgs(**{k: v for k, v in config.items() if k in ("gpt", "bigvgan")})
+    g, cm = args.gpt, args.gpt.condition_module
+    tc, d, D, L = conformer_rows(cm, mel_frames), cm.output_size, g.model_dim, 32
+    f_out = cm.input_size
+    for ks, stride in Conv2dSubsampling._LAYERS[cm.input_layer]:
+        f_out = (f_out - ks + stride) // stride
+    inner = cm.attention_heads * 64
+    d_ff = (D * cm.perceiver_mult * 2) // 3
+    calls = [(d, d * f_out, tc, 1)]  # N, K, M, calls
+    calls += [(d, d, tc, 5 * cm.num_blocks), (cm.linear_units, d, tc, cm.num_blocks),
+              (d, cm.linear_units, tc, cm.num_blocks)]
+    if d != D:
+        calls.append((D, d, tc, 1))
+    calls += [(inner, D, L, 2), (inner, D, tc + L, 4), (D, inner, L, 2),
+              (2 * d_ff, D, L, 2), (D, d_ff, L, 2)]
+    gpt = [(3 * D, D), (D, D), (4 * D, D), (D, 4 * D)]
+    calls += [(N, K, prompt, g.layers) for N, K in gpt]
+    calls += [(N, K, 1, g.layers * steps) for N, K in gpt]
+    calls.append((g.number_mel_codes, D, 1, steps))
+    got = {"qmm": 0, "qmlp": 0, "qmm_kernel": 0, "qmm_gemv": 0, "qmm_mma": 0}
+    for N, K, M, n in calls:
+        if K % GROUP == 0 and qmm_routable(4, GROUP, N, K, M):
+            got["qmm"] += n
+            got["qmm_gemv" if M <= 4 else "qmm_mma"] += n
+    return got
+
+
+def indextts_generate(model, ref, smi) -> dict:
+    """The float32 run: a warm-up, then `generate` (default sampling, the
+    planted stop) timed; the conditioning, decode and BigVGAN split; a
+    profiled prefill and INDEXTTS_PROFILE_STEPS steps; the vocoder's
+    device time."""
+    from mlx_audio_tpu_torch.tts.models.indextts import log_mel_spectrogram
+    from mlx_audio_tpu_torch.tts.models.indextts.indextts import _indextts_decode
+
+    model.set_runtime(tokenizer=IndexTok())
+    with torch.inference_mode():
+        list(model.generate(INDEXTTS_TEXT, ref_audio=ref, max_tokens=8, seed=0))  # warm-up
+        torch.cuda.synchronize()
+        zero_port_launches()
+        t0 = time.perf_counter()
+        res = list(model.generate(INDEXTTS_TEXT, ref_audio=ref, seed=1))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = no_port_launches("IndexTTS's float32 generate")
+    n = INDEXTTS_STOP + 1
+    want = n * model.args.gpt.mel_length_compression
+    if len(res) != 1 or res[0].token_count != n or res[0].samples != want:
+        raise SystemExit(f"chip_smoke: IndexTTS generated {[r.token_count for r in res]} "
+                         f"latents, {[r.samples for r in res]} samples; the planted stop gives "
+                         f"{n}, {want}")
+    if not np.isfinite(res[0].audio).all() or not np.abs(res[0].audio).max() > 0:
+        raise SystemExit("chip_smoke: IndexTTS's waveform is not finite, or silent")
+    audio_s = res[0].samples / model.sample_rate
+
+    # the same request in its three parts, timed apart
+    with torch.inference_mode():
+        split = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mel = log_mel_spectrogram(ref, n_mels=100, device="cuda")
+        emb = indextts_prompt(model, INDEXTTS_TEXT, mel)
+        torch.cuda.synchronize()
+        split["conditioning_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lat, n_split = _indextts_decode(model, emb, 800, 0.8, 30, 1)
+        torch.cuda.synchronize()
+        split["decode_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        audio = model.bigvgan(lat[None, :n_split], mel)
+        torch.cuda.synchronize()
+        split["bigvgan_s"] = time.perf_counter() - t0
+        rel = held_close("IndexTTS's split run against generate's waveform",
+                         audio[0, :, 0], res[0].audio, bar=CARD_VS_CPU_ATOL)
+        profile_one_run(lambda: _indextts_decode(model, emb, 0, 0.8, 30, 1),
+                        "IndexTTS's GPT prefill")
+        pre = dict(profile_one_run.last)
+        steps = INDEXTTS_PROFILE_STEPS
+        profile_one_run(lambda: _indextts_decode(model, emb, steps, 0.8, 30, 1),
+                        f"IndexTTS's GPT prefill and {steps} steps")
+        prof = dict(profile_one_run.last)
+        profile_one_run(lambda: model.bigvgan(lat[None, :n_split], mel),
+                        f"IndexTTS's BigVGAN on {n_split} latents")
+        voc = dict(profile_one_run.last)
+    per_step = {k: (prof[k] - pre[k]) / steps for k in ("launches", "device_ms", "wall_ms")}
+    per_step["idle_share"] = 1 - per_step["device_ms"] / per_step["wall_ms"]
+    log(f"[indextts] generate (temperature 0.8, top-k 30, {n} latents, {audio_s:.3f} s of "
+        f"audio): wall {wall:.4f} s, RTF {wall / audio_s:.4f}; apart: conditioning "
+        f"{split['conditioning_s']:.4f} s, decode {split['decode_s']:.4f} s "
+        f"({n_split} latents), BigVGAN {split['bigvgan_s']:.4f} s ({voc['device_ms']:.2f} ms of "
+        f"device time, {voc['launches']} launches); a decode step: "
+        f"{per_step['launches']:.0f} launches, {per_step['device_ms']:.3f} ms of device time in "
+        f"{per_step['wall_ms']:.3f} ms of wall (idle {100 * per_step['idle_share']:.1f}%); the "
+        f"port's kernels launched {launches} ({smi})")
+    if n_split != n:
+        raise SystemExit(f"chip_smoke: IndexTTS's split decode took {n_split} latents, not {n}")
+    return {"wall_s": wall, "audio_s": audio_s, "rtf": wall / audio_s, "latents": n,
+            "samples": res[0].samples, "launches": launches, "split": split,
+            "split_audio_rel": rel, "step": per_step,
+            "bigvgan": {"device_ms": voc["device_ms"], "launches": voc["launches"],
+                        "wall_ms": voc["wall_ms"]}}
+
+
+def indextts_two_layer(flat: dict, ref) -> dict:
+    """A two-layer float32 copy at full width (the GPT's first two layers;
+    the conformer, the perceiver and the conditioned BigVGAN whole), card
+    against CPU: the prompt embedding, INDEXTTS_CPU_STEPS decode steps'
+    logits (the card replays the CPU's argmax codes, and takes the same
+    argmax wherever the CPU's top two are apart by more than the gap), the
+    latents, and BigVGAN over them (1.02 s of audio)."""
+    from mlx_audio_tpu_torch.nn import load_weights
+    from mlx_audio_tpu_torch.tts.models.indextts import Model, log_mel_spectrogram
+
+    t0 = time.perf_counter()
+    cfg = indextts_config(layers=2)
+    two = {k: v for k, v in flat.items()
+           if not k.startswith("gpt.h.") or int(k.split(".")[2]) < 2}
+
+    def run(dev, codes=None):
+        m = Model(cfg, device=dev)
+        load_weights(m, two)
+        with torch.inference_mode():
+            mel = log_mel_spectrogram(ref, n_mels=100, device=dev)
+            emb = indextts_prompt(m, INDEXTTS_TEXT, mel)
+            lat, rows, codes = indextts_replay(m, emb, INDEXTTS_CPU_STEPS, codes)
+            audio = m.bigvgan(lat[None], mel)[0, :, 0]
+        return emb.cpu(), lat.cpu(), rows, codes, audio.cpu()
+
+    e_cpu, l_cpu, r_cpu, c_cpu, a_cpu = run("cpu")
+    e_card, l_card, r_card, _, a_card = run("cuda", c_cpu)
+    rec = {"embedding_rel": held_close("IndexTTS two-layer copy, the prompt embedding (the "
+                                       "conformer and perceiver), card against CPU",
+                                       e_card, e_cpu),
+           "latents_rel": held_close(f"IndexTTS two-layer copy, {INDEXTTS_CPU_STEPS} latents, "
+                                     "card against CPU", l_card, l_cpu),
+           "audio_rel": held_close("IndexTTS two-layer copy, the conditioned BigVGAN's "
+                                   f"{a_cpu.numel()} samples, card against CPU", a_card, a_cpu)}
+    worst, parted = 0.0, 0
+    for rc, rg in zip(r_cpu, r_card):
+        err, peak = close_to(rg, rc)
+        worst = max(worst, err / peak)
+        top2 = torch.topk(rc, 2).values
+        if int(rg.argmax()) != int(rc.argmax()):
+            parted += 1
+            if float(top2[0] - top2[1]) > 2 * err:
+                raise SystemExit("chip_smoke: the IndexTTS two-layer copy's card and CPU take "
+                                 "different codes away from a near-tie")
+    log(f"[indextts] two-layer copy, {len(r_cpu)} steps' logits: worst {worst:.2e} of the peak "
+        f"(bar {CARD_VS_CPU_ATOL:g}), argmax parted at {parted} near-tie(s); codes "
+        f"{c_cpu[:8]}... ({time.perf_counter() - t0:.1f} s)")
+    if worst > CARD_VS_CPU_ATOL or len(r_cpu) != INDEXTTS_CPU_STEPS:
+        raise SystemExit("chip_smoke: the IndexTTS two-layer copy's logits part card from CPU")
+    rec.update(logits_worst_rel=worst, argmax_parted=parted,
+               wall_s=time.perf_counter() - t0)
+    return rec
+
+
+def indextts_int4(path: Path, tmp: Path, ref, smi) -> dict:
+    """int4 by the port's `convert`, loaded by `utils.load_model`: a
+    generate of INDEXTTS_INT4_STEPS steps at top-k 1 with its quantized
+    launches held to the code's count; then its prompt embedding, latents
+    and logits held to the float32 port on the dequantized weights (which
+    replays its codes)."""
+    from mlx_audio_tpu_torch import convert
+    from mlx_audio_tpu_torch.nn import load_weights
+    from mlx_audio_tpu_torch.ops.cuda import quant_matmul as qk
+    from mlx_audio_tpu_torch.tts.models.indextts import Model, log_mel_spectrogram
+    from mlx_audio_tpu_torch.utils import load_weight_files
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        q = convert.convert(str(path), str(tmp / "IndexTTS-int4"), quantize=True)
+    convert_s = time.perf_counter() - t0
+    q4, load_s = timed_load(str(q))
+    q4.set_runtime(tokenizer=IndexTok())
+    steps = INDEXTTS_INT4_STEPS
+    with torch.inference_mode():
+        list(q4.generate(INDEXTTS_TEXT, ref_audio=ref, max_tokens=4, top_k=1, seed=0))
+        torch.cuda.synchronize()
+        qk.reset_launches()
+        t0 = time.perf_counter()
+        res = list(q4.generate(INDEXTTS_TEXT, ref_audio=ref, max_tokens=steps, top_k=1, seed=0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = quant_counts(4)
+        mel = log_mel_spectrogram(ref, n_mels=100, device="cuda")
+        emb4 = indextts_prompt(q4, INDEXTTS_TEXT, mel)
+        lat4, rows4, codes = indextts_replay(q4, emb4, steps)
+    predicted = indextts_launches(indextts_config(), mel.shape[1], emb4.shape[1], steps)
+    deq = Model(indextts_config(), device="cuda")
+    load_weights(deq, deq.sanitize(convert.dequantize_weights(load_weight_files(q), 4, GROUP)),
+                 strict=False)
+    with torch.inference_mode():
+        embd = indextts_prompt(deq, INDEXTTS_TEXT, mel)
+        latd, rowsd, _ = indextts_replay(deq, embd, steps, codes)
+    del deq
+    worst = max(close_to(a, b)[0] / close_to(a, b)[1] for a, b in zip(rows4, rowsd))
+    rel_e = held_close("int4 IndexTTS's prompt embedding against the float32 port on the "
+                       "dequantized weights", emb4, embd, bar=BARK_INT4_BAR)
+    rel_l = held_close(f"int4 IndexTTS's {steps} latents against the float32 port on the "
+                       "dequantized weights", lat4, latd, bar=BARK_INT4_BAR)
+    argmax_same = [int(a.argmax()) for a in rowsd] == codes
+    log(f"[indextts] int4 g64 by convert(quantize=True) in {convert_s:.1f} s, loaded in "
+        f"{load_s:.1f} s; generate of {steps} steps at top-k 1 in {wall:.4f} s "
+        f"({res[0].token_count} latents): launches {got}, from the code {predicted}; {steps} "
+        f"steps' logits against the float32 port on the dequantized weights: worst {worst:.2e} "
+        f"of the peak (bar {BARK_INT4_BAR:g}), its argmax the int4 codes: {argmax_same} ({smi})")
+    if got != predicted:
+        raise SystemExit(f"chip_smoke: the int4 IndexTTS launched {got}, the code says "
+                         f"{predicted}")
+    if worst > BARK_INT4_BAR or not argmax_same or res[0].token_count != steps + 1:
+        raise SystemExit("chip_smoke: the int4 IndexTTS parts from the dequantized model")
+    rec = {"convert_s": convert_s, "load_s": load_s, "wall_s": wall, "launches": got,
+           "embedding_rel": rel_e, "latents_rel": rel_l, "logits_worst_rel": worst,
+           "prompt_rows": emb4.shape[1], "conformer_rows": conformer_rows(
+               q4.args.gpt.condition_module, mel.shape[1])}
+    del q4
+    shutil.rmtree(q, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def indextts_batched(model, ref) -> dict:
+    """IndexTTSBatcher with four requests at top-k 1, each capped at
+    INDEXTTS_BATCH_TOKENS, each equal to `_indextts_decode` of the same
+    request alone (latents, and their codes); the speedup over the four
+    alone one after another."""
+    from mlx_audio_tpu_torch.tts.models.indextts import log_mel_spectrogram
+    from mlx_audio_tpu_torch.tts.models.indextts.indextts import _indextts_decode
+
+    n_b = INDEXTTS_BATCH_TOKENS
+    with torch.inference_mode():
+        mel = log_mel_spectrogram(ref, n_mels=100, device="cuda")
+        embs = [indextts_prompt(model, t, mel) for t in INDEXTTS_TEXTS]
+        _indextts_decode(model, embs[0], 4, 0.8, 1, 0)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        alone = [_indextts_decode(model, e, n_b, 0.8, 1, 0) for e in embs]
+        torch.cuda.synchronize()
+        seq_s = time.perf_counter() - t0
+    b = model.make_batcher(slots=4, max_len=1024, tick_frames=16)
+    try:
+        b.warmup()
+        t0 = time.perf_counter()
+        futs = [b.submit(e.cpu().numpy(), max_tokens=n_b, temperature=0.8, top_k=1, seed=i)
+                for i, e in enumerate(embs)]
+        got = [f.result(timeout=SERVE_TIMEOUT) for f in futs]
+        batch_s = time.perf_counter() - t0
+        ticks = b.dispatch_count
+    finally:
+        b.close()
+    rels = []
+    with torch.inference_mode():
+        for (lat, n), g in zip(alone, got):
+            if n != n_b + 1 or g.shape[0] != n_b:
+                raise SystemExit(f"chip_smoke: a batched IndexTTS request kept {g.shape[0]} "
+                                 f"latents, alone {min(n, n_b)}")
+            rels.append(held_close("IndexTTSBatcher request against its run alone", g,
+                                   lat[:n_b]))
+            gc_ = model.mel_head(torch.as_tensor(g, device="cuda")).argmax(-1)
+            if not torch.equal(gc_, model.mel_head(lat[:n_b]).argmax(-1)):
+                raise SystemExit("chip_smoke: a batched IndexTTS request's codes part from "
+                                 "its run alone")
+    log(f"[indextts] IndexTTSBatcher, 4 requests x {n_b} latents at top-k 1: {batch_s:.3f} s "
+        f"batched ({ticks} ticks), {seq_s:.3f} s alone one after another: "
+        f"{seq_s / batch_s:.2f}x; codes identical")
+    return {"wall_s": batch_s, "sequential_s": seq_s, "speedup": seq_s / batch_s,
+            "ticks": ticks, "worst_rel": max(rels)}
+
+
+def phase_indextts(smi: str) -> dict:
+    """Phase 18 (see the module docstring)."""
+    from mlx_audio_tpu_torch.convert import save_model
+    from mlx_audio_tpu_torch.nn.module import flatten_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+
+    def mark(what):
+        log(f"[slice18] {time.perf_counter() - t_phase:.1f} s into phase 18 after {what}")
+
+    tmp = Path(tempfile.mkdtemp(prefix="slice18-"))
+    rec = {}
+    try:
+        t0 = time.perf_counter()
+        model = indextts_seeded(indextts_config())
+        n_par = {k: sum(p.numel() for n, p in model.named_parameters() if n.startswith(k))
+                 for k in ("gpt.", "conditioning_encoder.", "perceiver_encoder.", "bigvgan.")}
+        n_all = sum(p.numel() for p in model.parameters())
+        flat = flatten_params(model)
+        path = tmp / "IndexTTS-1.5"
+        save_model(path, flat, indextts_config())
+        write_s = time.perf_counter() - t0
+        log(f"[indextts] IndexTTS (GPTConfig(): 1024 x 20, 16 heads, 8,194 mel codes, 12,000 "
+            f"text tokens; ConformerArgs(): 256 x 6; BigVGAN 1536 / [4, 4, 4, 4, 2, 2] with "
+            f"ECAPA-TDNN 512), float32, seeded, the stop planted at step {INDEXTTS_STOP}: "
+            f"{n_all / 1e6:.1f} M parameters (GPT {n_par['gpt.'] / 1e6:.1f}, conformer "
+            f"{n_par['conditioning_encoder.'] / 1e6:.1f}, perceiver "
+            f"{n_par['perceiver_encoder.'] / 1e6:.1f}, BigVGAN {n_par['bigvgan.'] / 1e6:.1f}); "
+            f"{checkpoint_bytes(path) / 1e9:.3f} GB written in {write_s:.1f} s")
+        rec.update(parameters=n_all, parameters_by_part=n_par, write_s=write_s,
+                   checkpoint_bytes=checkpoint_bytes(path))
+        ref = csm_reference(INDEXTTS_REF_S, seed=26)
+        rec["generate"] = indextts_generate(model, ref, smi)
+        mark("the float32 generate")
+        rec["batched"] = indextts_batched(model, ref)
+        mark("IndexTTSBatcher")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["card_vs_cpu"] = indextts_two_layer(flat, ref)
+        del flat
+        mark("the two-layer copy")
+        rec["int4"] = indextts_int4(path, tmp, ref, smi)
+        mark("int4")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[slice18] phase 18 wall {rec['phase_s']:.1f} s")
+    return rec
+
+
 QUANT_SOURCE = "mlx_audio_tpu_torch/csrc/quant_matmul.cu"
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18",
                     help="comma-separated subset to run (12 runs 10 first for its checkpoint "
                          "directories); a subset prints no result")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
@@ -8113,7 +8622,10 @@ def run_phases(phases, smi, keep, ckpt: Path) -> None:
     if 17 in phases:
         spark_soprano = phase_spark_soprano(smi)
         took(17)
-    if phases != set(range(1, 18)):
+    if 18 in phases:
+        indextts = phase_indextts(smi)
+        took(18)
+    if phases != set(range(1, 19)):
         log(f"[device] {smi}")
         sys.exit(f"chip_smoke: ran phases {sorted(phases)} only; no result")
     record = {"kernels": [{
@@ -8247,6 +8759,14 @@ def run_phases(phases, smi, keep, ckpt: Path) -> None:
         "head_ms": s4["head_ms"], "max_abs_err": qerrs["spark_qkv_m1_f32"],
         "shapes": {key[len("spark_"):]: qtiming[key] for key in qtiming
                    if key.startswith("spark_")}}
+    # IndexTTS int4 (phase 18): the conditioning, the 44-row prompt and 16
+    # steps at top-k 1, float32 x; the MLP is GELU, so no qmlp
+    i4 = indextts["int4"]
+    qmm["indextts"] = {"launches": {k: i4["launches"][k] for k in (
+        "qmm", "qmm_gemv", "qmm_mma", "qmm_kernel")},
+        "max_abs_err": qerrs["indextts_mel_head_m1_f32"],
+        "shapes": {key[len("indextts_"):]: qtiming[key] for key in qtiming
+                   if key.startswith("indextts_")}}
     qmlp["spark"] = {"launches": s4["launches"]["qmlp"],
                      "routing": "I = 4864 is not a multiple of 1024: the guard sends the MLP "
                                 "through qmm"}
@@ -8276,6 +8796,7 @@ def run_phases(phases, smi, keep, ckpt: Path) -> None:
     print(json.dumps({"dia_outetts": dia_outetts}), flush=True)
     print(json.dumps({"bark": bark}), flush=True)
     print(json.dumps({"spark_soprano": spark_soprano}), flush=True)
+    print(json.dumps({"indextts": indextts}), flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,9 @@
 
 Sequence layout is channels-last (N, L, C) at every public boundary, as in
 the JAX package. Parameters are stored in PyTorch's own layouts (Linear
-(out, in); Conv1d (out, in/groups, k); ConvTranspose1d (in, out, k));
-`nn.module.load_jax_params` carries the JAX package's (out, k, in)
-convolution weights across.
+(out, in); Conv1d (out, in/groups, k); Conv2d (out, in/groups, kh, kw);
+ConvTranspose1d (in, out, k)); `nn.module.load_jax_params` carries the JAX
+package's (out, k, in) and (out, kh, kw, in) convolution weights across.
 
 Every layer is created with empty storage on an explicit device and filled
 by `reset_parameters(generator)`, which draws from the same distributions
@@ -20,8 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["clamp_ids", "Linear", "Embedding", "Conv1d", "ConvTranspose1d", "LayerNorm",
-           "RMSNorm", "GroupNorm", "InstanceNorm", "BatchNorm"]
+__all__ = ["clamp_ids", "Linear", "Embedding", "Conv1d", "Conv2d", "ConvTranspose1d",
+           "LayerNorm", "RMSNorm", "GroupNorm", "InstanceNorm", "BatchNorm"]
 
 
 def _he_uniform_(w: torch.Tensor, fan_in: int, generator) -> None:
@@ -108,6 +108,37 @@ class Conv1d(nn.Module):
                      stride=self.stride, padding=self.padding,
                      dilation=self.dilation, groups=self.groups)
         return y.transpose(1, 2)
+
+
+class Conv2d(nn.Module):
+    """2-D convolution over (N, H, W, C_in) → (N, H', W', C_out), as the JAX
+    package's NHWC layer. The weight is stored in PyTorch's (C_out,
+    C_in/groups, KH, KW) layout."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size, stride=1,
+                 padding=0, dilation=1, groups: int = 1, bias: bool = True, device=None):
+        super().__init__()
+        kh, kw = (kernel_size,) * 2 if isinstance(kernel_size, int) else tuple(kernel_size)
+        self.weight = nn.Parameter(torch.empty(
+            out_channels, in_channels // groups, kh, kw, device=device))
+        self.bias = (nn.Parameter(torch.empty(out_channels, device=device))
+                     if bias else None)
+        self.stride = (stride,) * 2 if isinstance(stride, int) else tuple(stride)
+        self.padding = (padding,) * 2 if isinstance(padding, int) else tuple(padding)
+        self.dilation = (dilation,) * 2 if isinstance(dilation, int) else tuple(dilation)
+        self.groups = groups
+
+    def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
+        o, i, kh, kw = self.weight.shape
+        _he_uniform_(self.weight.data, i * kh * kw, generator)
+        if self.bias is not None:
+            self.bias.data.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype), b, stride=self.stride,
+                     padding=self.padding, dilation=self.dilation, groups=self.groups)
+        return y.permute(0, 2, 3, 1)
 
 
 class ConvTranspose1d(nn.Module):

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .layers import Conv1d, ConvTranspose1d
+from .layers import Conv1d, Conv2d, ConvTranspose1d
 
 __all__ = ["cast_floats", "flatten_params", "init_weights", "jax_param_shapes",
            "load_jax_params", "load_weights"]
@@ -53,6 +53,8 @@ def _to_torch_layout(owner: nn.Module, name: str, w: torch.Tensor) -> torch.Tens
             g = owner.groups
             return (w.reshape(g, o // g, k, i_g).permute(0, 3, 1, 2)
                     .reshape(g * i_g, o // g, k))
+    if name == "weight" and w.ndim == 4 and isinstance(owner, Conv2d):
+        return w.permute(0, 3, 1, 2)  # JAX (O, KH, KW, I) -> torch (O, I, KH, KW)
     return w
 
 
@@ -66,6 +68,8 @@ def _to_jax_layout(owner: nn.Module, name: str, p: torch.Tensor) -> torch.Tensor
             g = owner.groups
             return (p.reshape(g, i // g, o_g, k).permute(0, 2, 3, 1)
                     .reshape(g * o_g, k, i // g))
+    if name == "weight" and p.ndim == 4 and isinstance(owner, Conv2d):
+        return p.permute(0, 2, 3, 1)
     return p
 
 
@@ -87,7 +91,7 @@ def _as_tensor(w) -> torch.Tensor:
 
 def jax_param_shapes(model: nn.Module) -> dict:
     """Each parameter's shape in the JAX package's layout, the layout
-    `load_weights` takes: convolutions (O, K, I/groups)."""
+    `load_weights` takes: convolutions (O, K, I/groups) and (O, KH, KW, I/groups)."""
     modules = dict(model.named_modules())
     shapes = {}
     for key, p in model.named_parameters():

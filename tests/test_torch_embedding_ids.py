@@ -9,8 +9,9 @@ packed rows, scales and biases gathered before the dequantize), SNAC's
 codebooks, Qwen3-TTS's code-predictor frame (the talker's codec table
 and the code predictor's), Spark's semantic codebook
 (`FactorizedVectorQuantize`) and its LLM's table, the codebooks under an
-EnCodec-driven Vocos's features, and AdaLayerNorm's bandwidth columns, at
-ids -20, -1, N and N + 90. A scan of the
+EnCodec-driven Vocos's features, AdaLayerNorm's bandwidth columns, and
+IndexTTS's four tables and its GPT's one-row `wpe`, at ids -20, -1, N and
+N + 90. A scan of the
 port's sources holds every other direct read of a `.weight` by id to the
 clamp.
 """
@@ -174,6 +175,26 @@ def test_vocos_encodec_features_and_bandwidth_ids_read_the_jax_rows():
             got = ada._affine(ada.scale, torch.tensor([bw])).numpy()
             np.testing.assert_array_equal(got, _jax_rows(w.T, np.array([bw])))
         assert ada(x, torch.tensor([0, 9, -9, 3])).shape == (4, 1, 6)
+
+
+@pytest.mark.parametrize("table", ["text_embedding", "text_pos_embedding", "mel_embedding",
+                                   "mel_pos_embedding", "gpt.wpe"])
+def test_indextts_tables_read_the_jax_rows(table):
+    """IndexTTS reads its text and mel tables and their position tables
+    through the embeddings' calls (the JAX package indexes `.weight`
+    directly, which clamps), and its GPT's one-row `wpe` at every decode
+    position (row 0 for all)."""
+    from mlx_audio_tpu_torch.tts.models.indextts import Model
+
+    from test_indextts import tiny_args
+
+    model = Model(tiny_args(), device="cpu")
+    emb = model.get_submodule(table)
+    w = emb.weight.detach().numpy()
+    n = w.shape[0]
+    ids = _ids(n)
+    with torch.no_grad():
+        np.testing.assert_array_equal(emb(torch.from_numpy(ids)).numpy(), _jax_rows(w, ids))
 
 
 _DIRECT_READ = re.compile(r"\.(weight|embedding)\[(?!:|\.\.\.)")

@@ -154,6 +154,11 @@ def test_loader_without_the_missing_packages(tmp_path):
     assert out.stdout.strip() == "OK"
 
 
+TINY_BIGVGAN = dict(num_mels=8, upsample_rates=[2], upsample_kernel_sizes=[4],
+                    upsample_initial_channel=8, resblock_kernel_sizes=[3],
+                    resblock_dilation_sizes=[[1]], gpt_dim=16, speaker_embedding_dim=4)
+
+
 def _tiny_entry_points():
     from mlx_audio_tpu_torch.sts.models.mossformer2_se import Model as MossFormer2SE
     from mlx_audio_tpu_torch.stt.models.whisper import Model as Whisper
@@ -168,6 +173,7 @@ def _tiny_entry_points():
     from mlx_audio_tpu_torch.stt.models.wav2vec import Model as Wav2Vec2
     from mlx_audio_tpu_torch.tts.models.soprano import Model as Soprano
     from mlx_audio_tpu_torch.tts.models.spark import Model as Spark
+    from mlx_audio_tpu_torch.tts.models.indextts import Model as IndexTTS
 
     whisper = dict(n_mels=80, n_audio_ctx=8, n_audio_state=16, n_audio_head=2,
                    n_audio_layer=1, n_vocab=64, n_text_ctx=8, n_text_state=16,
@@ -211,6 +217,12 @@ def _tiny_entry_points():
         decoder_num_layers=1, decoder_dim=8, decoder_intermediate_dim=16, hop_length=4,
         n_fft=16))
     spark = dict(llm=dict(lm, vocab_size=32))
+    indextts = dict(gpt=dict(model_dim=16, heads=2, layers=1, max_mel_tokens=8,
+                             max_text_tokens=8, number_text_tokens=16, number_mel_codes=16,
+                             start_mel_token=14, stop_mel_token=15, condition_num_latent=2,
+                             condition_module=dict(input_size=8, output_size=16, num_blocks=1,
+                                                   linear_units=16, attention_heads=2)),
+                    bigvgan=TINY_BIGVGAN)
     wav2vec = dict(vocab_size=8, hidden_size=16, num_hidden_layers=1, num_attention_heads=2,
                    intermediate_size=32, conv_dim=[8], conv_stride=[5], conv_kernel=[10],
                    num_conv_pos_embeddings=4, num_conv_pos_embedding_groups=2)
@@ -218,7 +230,7 @@ def _tiny_entry_points():
             (Kokoro, kokoro), (Orpheus, dict(lm, model_type="llama")),
             (Vyvo, dict(lm, model_type="qwen3")), (Sesame, sesame), (Dia, dia),
             (OuteTTS, dict(lm, model_type="llama", tie_word_embeddings=True)), (Bark, bark),
-            (Soprano, soprano), (Spark, spark), (Wav2Vec2, wav2vec)]
+            (Soprano, soprano), (Spark, spark), (Wav2Vec2, wav2vec), (IndexTTS, indextts)]
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
@@ -227,7 +239,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
     import pytest
     import torch
 
-    from mlx_audio_tpu_torch.codec.models import DAC, SNAC, Encodec, Mimi, Vocos
+    from mlx_audio_tpu_torch.codec.models import DAC, SNAC, BigVGAN, Encodec, Mimi, Vocos
     from mlx_audio_tpu_torch.tts.models.spark import BiCodec
     from mlx_audio_tpu_torch.codec.models.mimi import mimi
 
@@ -256,7 +268,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
                                             (lambda c, **kw: DAC(**c, **kw), dac),
                                             (Encodec, encodec), (Vocos.from_hparams, vocos),
                                             (BiCodec.from_config,
-                                             TINY_CFG["audio_tokenizer"])]:
+                                             TINY_CFG["audio_tokenizer"]),
+                                            (BigVGAN, TINY_BIGVGAN)]:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cls(cfg)
         assert cls(cfg, device="cpu").device.type == "cpu"
@@ -472,3 +485,24 @@ def test_vocos_spark_slice_modules_are_scanned(name):
     assert get_model_class("qwen3", ["soprano", "1.1", "80m"], "tts",
                            {"soprano": "soprano"})[1] == "soprano"
     assert get_model_class("wav2vec2", None, "stt", {})[1] == "wav2vec2"
+
+
+INDEXTTS_SLICE_MODULES = (
+    "mlx_audio_tpu_torch.lm.gpt2", "mlx_audio_tpu_torch.codec.models.bigvgan",
+    "mlx_audio_tpu_torch.codec.models.bigvgan.bigvgan", "mlx_audio_tpu_torch.tts.models.indextts",
+    "mlx_audio_tpu_torch.tts.models.indextts.indextts",
+    "mlx_audio_tpu_torch.tts.models.indextts.batcher",
+    "mlx_audio_tpu_torch.tts.models.indextts.normalize")
+
+
+@pytest.mark.parametrize("name", INDEXTTS_SLICE_MODULES)
+def test_indextts_slice_modules_are_scanned(name):
+    """GPT-2, BigVGAN and IndexTTS (the model, its batcher, its normalizer)
+    are among the modules the import and scan tests cover, and the loader
+    and the TTS registry find IndexTTS by its model type."""
+    from mlx_audio_tpu_torch.tts.utils import get_available_models
+    from mlx_audio_tpu_torch.utils import PORTED, get_model_class
+
+    assert name in {n for _, n in _modules()}
+    assert "indextts" in PORTED["tts"] and "indextts" in get_available_models()
+    assert get_model_class("indextts", None, "tts", {})[1] == "indextts"
