@@ -85,8 +85,8 @@ Phases, each printing its own lines:
      near-tie at the decode where the two part), and the realtime WebSocket route (its
      final = `generate` on the same buffer); int4
      Qwen3-TTS served as CustomVoice, each request capped at
-     HTTP_QWEN_FRAMES (24; its text's 128 until phase 16 came, 32 until
-     phase 18) (greedy,
+     HTTP_QWEN_FRAMES (16; its text's 128 until phase 16 came, 32 until
+     phase 18, 24 until phase 19) (greedy,
      streamed wav: time to first byte; then a wave of four texts in the
      server's four-slot pool, the
      WebSocket route, the model's `generate` in process and two HTTP
@@ -135,10 +135,10 @@ Phases, each printing its own lines:
      of 64 frames card against CPU and its streaming decode against offline
      (keys written one ring slot on rejected); `generate` with a 5 s
      reference and its text, greedy at 32 frames and sampled at 16 (wall,
-     frames/s, RTF), profiled, streamed at 0.5 s to 32 frames (each chunk's
+     frames/s, RTF), profiled, streamed at 0.5 s to 16 frames (each chunk's
      frames the monolithic decode's, time to first audio), the watermark found on the
      output and not on unmarked audio; `bench_sesame_serving` at bench.py's
-     settings cut in depth (8 x 16 frames where bench.py decodes 64, tick
+     settings cut in depth (8 x 8 frames where bench.py decodes 64, tick
      8, pool 1024, one trial; greedy batched
      frames equal to sequential); `convert(quantize=True)` to int4, loaded,
      with the direct loop's quantized launches held to the code's count; one
@@ -160,7 +160,7 @@ Phases, each printing its own lines:
      from 5 s (DAC encode, then the prefill); `DiaBatcher` at 4 slots x 32
      frames, batched equal to alone. Llama-OuteTTS-1.0-1B (Llama-3.2-1B's
      16 x 2048, tied embeddings over Llama-3's vocabulary and OuteTTS's added
-     tokens) in bf16 with a planted greedy path of 100 c1/c2 pairs
+     tokens) in bf16 with a planted greedy path of 50 c1/c2 pairs
      (`plant_outetts`), a tokenizer.json with those tokens and the 24 kHz
      DAC (2 codebooks) in dac/: `generate` greedy and sampled, profiled,
      streamed at 0.5 s, with a speaker made by `create_speaker` from 5 s;
@@ -182,7 +182,7 @@ Phases, each printing its own lines:
      tokenizer.json of 119,547 entries and that EnCodec in encodec/, loaded
      by `utils.load_model`: a two-layer float32 copy card against CPU (the
      teacher-forced logits of all three stages at both bars, an off-by-one
-     decode position rejected); `generate` sampled three times (median wall,
+     decode position rejected); `generate` sampled twice (median wall,
      RTF, the four stages' split), no kernel of the port launched; 32
      semantic steps profiled; the semantic stage run to its 768-step cap
      (its last step reads position 1024: no device assert); `BarkBatcher`
@@ -202,7 +202,7 @@ Phases, each printing its own lines:
      `generate` (wall, RTF, no kernel of the port, a profiled step),
      `SopranoBatcher` with 4 requests each equal to its run alone, one served
      request. Spark-TTS-0.5B (the LLM at Qwen2.5-0.5B's widths in bf16 with
-     a planted path: 32 global, 150 semantic tokens, eos; BiCodec at the
+     a planted path: 32 global, 75 semantic tokens, eos; BiCodec at the
      published widths and Wav2Vec2-XLSR-53 in float32, seeded) loaded with
      BiCodec/ and wav2vec2-large-xlsr-53/ in its directory: the control
      route, the clone route from 6 s through XLSR-53 and the speaker encoder,
@@ -228,6 +228,27 @@ Phases, each printing its own lines:
      `convert`, loaded by `utils.load_model`, 16 steps with the quantized
      launches held to the code's count, its embedding, latents and logits to
      the float32 port on the dequantized weights.
+ 19. S3Tokenizer, S3Gen and Chatterbox: T3 at `T3Config.english_only()` on
+     Llama-520M (1024 x 30, 16 heads of 64, MLP 4096, 704 text and 8,194
+     speech tokens, the perceiver and emotion_adv on), `S3Token2Wav()` (the
+     conformer 512 x (6 + 4), the estimator 256 channels x 12 mid blocks,
+     10 CFG Euler steps at 0.7, HiFT at [8, 5, 3], CAM++), `VoiceEncoder()`
+     and S3TokenizerV2 at `ModelConfig()` (128 mels, 1280 x 6, 20 heads),
+     in float32, seeded, the stop planted after 75 speech tokens
+     (`plant_chatterbox`: 150 mel frames, 72,000 samples, 3.0 s), written
+     in the release's layout (ve/t3_cfg/s3gen.safetensors, a stand-in
+     tokenizer.json of Chatterbox's assumed components, s3tokenizer/):
+     `generate` from a seeded 10 s reference at the defaults (wall, RTF,
+     the conditioning, T3, flow and HiFT split, a profiled T3 step, the
+     flow's and HiFT's device time; no kernel of the port launches);
+     `T3Batcher` with 4 requests at temperature 0, each equal to its decode
+     alone (speedup), and `generate` through the installed batcher equal to
+     the direct route; a copy at full width cut in depth (T3 2 layers,
+     S3Tokenizer 1, the conformer 1 + 1, the estimator 1 mid block, HiFT
+     on 1 s) card against CPU; int4 by `chatterbox.convert --quantize`,
+     loaded by `tts.load_model` and run by `generate_audio` for 16 steps,
+     the quantized launches held to the code's count, the logits to the
+     float32 port on the dequantized weights.
 Phase 2 also holds the ReLU² attention kernel to its plain version and
 flash at B = 1, and the serving shapes: flash bf16 at B = 8, `qmm_mma` and
 the fused MLP at M = 8 (the batcher's tick), ReLU² f32 at B = 8, G = 2;
@@ -245,14 +266,18 @@ step's four shapes, K = 896 and 4864, the tensor-core GEMM at the same four
 at its 20-token prompt) and flash f32 at Wav2Vec2's 30 s (B = 1, T = S = 1499, H = 12 and
 16), and IndexTTS int4's (float32 x: the GEMV at a decode step's four
 GPT-2 shapes and the 8,194-row mel head, M = 1 and 4, the tensor-core GEMM at
-its 44-row prompt and at the conformer's and perceiver's shapes). The lines
+its 44-row prompt and at the conformer's and perceiver's shapes), and
+Chatterbox T3 int4's (float32 x: the GEMV and the fused MLP at the CFG
+pair's M = 2, the tensor-core GEMM at the pair's 57-row prompt, M = 114,
+and the batcher's M = 8). The lines
 before the last
 hold phase 8's numbers ({"kokoro": ...}), the bf16 Qwen3-TTS step's
 ({"qwen3_bf16": ...}), phase 9's ({"whisper_rest": ...}), phase 10's
 ({"loaded": ...}), phase 11's ({"serving": ...}), phase 12's ({"server":
 ...}), phase 13's ({"orpheus": ...}), phase 14's ({"csm": ...}), phase
 15's ({"dia_outetts": ...}), phase 16's ({"bark": ...}), phase 17's
-({"spark_soprano": ...}), phase 18's ({"indextts": ...}) and the kernels'
+({"spark_soprano": ...}), phase 18's ({"indextts": ...}), phase 19's
+({"chatterbox": ...}) and the kernels'
 JSON record, in that order;
 the last line is {"ok": true, "device": {...}}. Any failure raises and exits non-zero. It
 needs one CUDA card and the checkout's `mlx_audio_tpu_torch/` package.
@@ -260,7 +285,8 @@ needs one CUDA card and the checkout's `mlx_audio_tpu_torch/` package.
 1,12` the server (with phase 10 before it), `--phases 1,13` Orpheus,
 `--phases 1,14` CSM-1B and Mimi, `--phases 1,15` DAC, Dia and OuteTTS,
 `--phases 1,16` EnCodec and Bark, `--phases 1,17` Vocos, Soprano, Spark-TTS
-and Wav2Vec2, `--phases 1,18` IndexTTS; the default runs all of them.
+and Wav2Vec2, `--phases 1,18` IndexTTS, `--phases 1,19` S3Tokenizer, S3Gen
+and Chatterbox; the default runs all of them.
 """
 
 from __future__ import annotations
@@ -1400,6 +1426,17 @@ QMM_CASES = [  # name, bits, M, N, K, dtype: the routed shapes of phases 5 and 6
     ("indextts_embed_out_m140_f32", 4, 140, 256, 6144, torch.float32),
     ("indextts_w1_m32_f32", 4, 32, 2730, 1024, torch.float32),
     ("indextts_kv_m172_f32", 4, 172, 256, 1024, torch.float32),
+    # Chatterbox T3 int4 (phase 19), float32 x: a CFG decode step (the
+    # cond/uncond pair, M = 2) on the fused q/k/v and o_proj, the batcher's
+    # four pairs (M = 8), and the pair's 57-row prompt (M = 114) on all four
+    # projections (the fused MLP's guard refuses M > 16)
+    ("chatterbox_qkv_m2_f32", 4, 2, 3072, 1024, torch.float32),
+    ("chatterbox_o_proj_m2_f32", 4, 2, 1024, 1024, torch.float32),
+    ("chatterbox_qkv_m8_f32", 4, 8, 3072, 1024, torch.float32),
+    ("chatterbox_qkv_m114_f32", 4, 114, 3072, 1024, torch.float32),
+    ("chatterbox_o_proj_m114_f32", 4, 114, 1024, 1024, torch.float32),
+    ("chatterbox_gate_up_m114_f32", 4, 114, 8192, 1024, torch.float32),
+    ("chatterbox_down_m114_f32", 4, 114, 1024, 4096, torch.float32),
 ]
 # groups other than 64: K = 1040 is 65 groups of 16
 QMM_GROUP = {"q6_k1040_m1_f32": 16, "g32_m64_bf16": 32, "q6_g128_m96_f32": 128,
@@ -1460,6 +1497,10 @@ QMLP_CASES = [  # name, bits, M, K, I, N, dtype
     ("orpheus_mlp_m1_bf16", 4, 1, 3072, 8192, 3072, torch.bfloat16),
     ("orpheus_mlp_m4_bf16", 4, 4, 3072, 8192, 3072, torch.bfloat16),
     ("orpheus_mlp_m16_bf16", 4, 16, 3072, 8192, 3072, torch.bfloat16),
+    # Chatterbox T3 int4 (phase 19), float32 x: the CFG pair's decode step
+    # and the batcher's four pairs
+    ("chatterbox_mlp_m2_f32", 4, 2, 1024, 4096, 1024, torch.float32),
+    ("chatterbox_mlp_m8_f32", 4, 8, 1024, 4096, 1024, torch.float32),
     # CSM-1B int4 (phase 14), float32 x: the backbone's step and the
     # batcher's eight slots; the depth decoder's step, its two-token seed
     # and the batcher's seed (M = 16)
@@ -1511,6 +1552,16 @@ INDEXTTS_QMM = [("c_attn", 1, 3072, 1024), ("c_proj", 1, 1024, 1024), ("c_fc", 1
                 ("mlp_proj", 1, 1024, 4096), ("mel_head", 1, 8194, 1024),
                 ("mel_head", 4, 8194, 1024), ("c_attn", 44, 3072, 1024),
                 ("mlp_proj", 44, 1024, 4096)]
+# Chatterbox T3 int4's shapes (Llama-520M: 1024 wide, 16 heads of 64, MLP
+# 4096), timed in float32 x: a CFG decode step (M = 2) and the pair's 57-row
+# prompt (M = 114; CHATTERBOX_PROMPT_ROWS), and the fused MLP at M = 2 and 8
+CHATTERBOX_PROMPT_ROWS = 57  # 34 conditioning rows, 22 text ids, the bos
+CHATTERBOX_QMM = [("qkv", 2, 3072, 1024), ("o_proj", 2, 1024, 1024),
+                  ("qkv", 2 * CHATTERBOX_PROMPT_ROWS, 3072, 1024),
+                  ("o_proj", 2 * CHATTERBOX_PROMPT_ROWS, 1024, 1024),
+                  ("gate_up", 2 * CHATTERBOX_PROMPT_ROWS, 8192, 1024),
+                  ("down", 2 * CHATTERBOX_PROMPT_ROWS, 1024, 4096)]
+CHATTERBOX_QMLP = [("mlp", 2, 1024, 4096), ("mlp", 8, 1024, 4096)]
 ORPHEUS_MLP = dict(K=3072, I=8192, N=3072)
 
 
@@ -1674,6 +1725,7 @@ def phase_quant_kernels():
     timing.update(time_csm(BARK_QMM, "bark", ()))
     timing.update(time_csm(SPARK_QMM, "spark", ()))
     timing.update(time_csm(INDEXTTS_QMM, "indextts", ()))
+    timing.update(time_csm(CHATTERBOX_QMM, "chatterbox", CHATTERBOX_QMLP))
     return errs, timing
 
 
@@ -3730,9 +3782,10 @@ HTTP_TEXTS = (HTTP_TEXT, "The lazy dog jumps over the quick brown fox.",
 QWEN_SPEAKER, QWEN_SPEAKER_ID = "smoke", 3000
 # the speech route has no frame cap: the served model's cap by the text's
 # length (128 frames here) is set to this, for the request alone, the wave
-# and the one-slot references alike (cut in depth to make room for phases 16
-# and 18: 24 frames are two ticks of the batcher's 16)
-HTTP_QWEN_FRAMES = 24
+# and the one-slot references alike (cut in depth to make room for phases
+# 16, 18 and 19: 16 frames are one tick of the batcher's 16, 24 until phase
+# 19 came)
+HTTP_QWEN_FRAMES = 16
 HTTP_STREAM_INTERVAL = 0.8  # s of audio a streamed chunk: 10 frames
 FLASH_PER_ENCODE = TURBO["n_audio_layer"]
 
@@ -5196,7 +5249,7 @@ CSM_MAX_MS = 2560  # 32 frames of 80 ms (64 until phase 18 came)
 CSM_FRAMES = 32
 CSM_SAMPLED_MS = 1280  # the sampled run: 16 frames (64 until phase 17 came)
 CSM_STREAM_INTERVAL = 0.5  # 6 frames a chunk
-CSM_STREAM_MS = 2560  # the stream: 32 frames (64 until phase 17 came)
+CSM_STREAM_MS = 1280  # the stream: 16 frames (64 until phase 17 came, 32 until 19)
 CSM_PROFILE_MS = 640  # 8 frames, profiled
 CSM_WARM_MS = 320  # 4 frames warm the path (the eager loop compiles nothing)
 CSM_TIMED = 1
@@ -5211,10 +5264,11 @@ CSM_HEAD_STD = 1024 ** -0.5
 # bench.py's bench_sesame_serving: 8 streams, ticks of 8, a 1024-row pool,
 # 48-token prompts, sampled at 0.9 / top-k 50, cut in depth to two ticks of
 # 8 frames a stream (bench.py's 64 until phase 15 came, when the sequential
-# run alone took ~100 s at ~190 ms a frame; 32 until phase 17 came, ~54 s);
-# greedy streams of 4 frames for the batched-against-sequential check
-CSM_STREAMS, CSM_SERVE_FRAMES, CSM_TICK, CSM_POOL, CSM_PROMPT = 8, 16, 8, 1024, 48
-CSM_GREEDY_FRAMES = 4
+# run alone took ~100 s at ~190 ms a frame; 32 until phase 17 came, ~54 s;
+# 16, two ticks, until phase 19 came); greedy streams of 2 frames (4 until 19) for the
+# batched-against-sequential check
+CSM_STREAMS, CSM_SERVE_FRAMES, CSM_TICK, CSM_POOL, CSM_PROMPT = 8, 8, 8, 1024, 48
+CSM_GREEDY_FRAMES = 2  # 4 until phase 19 came
 CSM_INT4_FRAMES = 16
 CSM_SERVED_FRAMES = 16
 MIMI_FRAMES = 64
@@ -6015,13 +6069,13 @@ OUTETTS_CFG = dict(
     tie_word_embeddings=True,
     rope_scaling={"factor": 32.0, "low_freq_factor": 1.0, "high_freq_factor": 4.0,
                   "original_max_position_embeddings": 8192, "rope_type": "llama3"})
-OUTETTS_FRAMES = 100  # planted c1/c2 pairs: 201 tokens with <|audio_end|>
+OUTETTS_FRAMES = 50  # planted c1/c2 pairs: 101 tokens with <|audio_end|> (100 until 19)
 OUTETTS_PROFILE_TOKENS = 64
 OUTETTS_STREAM_INTERVAL = 0.5  # s of tokens a streamed chunk: 68 tokens
 OUTETTS_REF_S = 5.0
 OUTETTS_REF_TEXT = "A seeded reference line that the model never heard."
 # the batched wave: prompts entering the path at these tokens; 16-step ticks
-OUTETTS_ENTRIES, OUTETTS_TICK = (100, 130, 160, 180), 16
+OUTETTS_ENTRIES, OUTETTS_TICK = (20, 40, 60, 80), 16
 OUTETTS_INT4_TOKENS = 16
 OUTETTS_CPU_TOKENS = 16
 OUTETTS_LAYER_BAR = 1e-2
@@ -6708,7 +6762,7 @@ BARK_TEXT = HTTP_TEXT
 # of 60 (the last takes 30), 225 frames in one fine chunk, 72,000 samples
 BARK_TOKENS = 150
 BARK_FRAMES = 225
-BARK_TIMED = 3
+BARK_TIMED = 2  # 3 until phase 19 came
 BARK_PROFILE_STEPS = 32
 # the two-layer copy: teacher-forced decode steps of each causal stage
 BARK_CPU_STEPS = 8
@@ -7435,7 +7489,7 @@ SOPRANO_TEXTS = (SOPRANO_TEXT, "Hello world.", "The model turns text into speech
 SOPRANO_PROFILE_STEPS = 32
 SOPRANO_BATCH_TOKENS = 48  # each batched request's cap, mid-path
 SPARK_BATCH_TOKENS = 64  # the globals and 31 semantic tokens
-SPARK_TOKENS = 150  # planted: 3.0 s of audio at 50 semantic tokens a second
+SPARK_TOKENS = 75  # planted: 1.5 s of audio at 50 semantic tokens a second (150 until 19)
 SPARK_GLOBALS = 32
 SPARK_TEXT = HTTP_TEXT
 SPARK_TEXTS = (SPARK_TEXT, "Hello world.", "The model turns text into speech.",
@@ -8541,12 +8595,616 @@ def phase_indextts(smi: str) -> dict:
     return rec
 
 
+CHATTERBOX_SPECIALS = ("[STOP]", "[UNK]", "[SPACE]", "[PAD]", "[SEP]", "[CLS]", "[MASK]")
+CHATTERBOX_VOCAB = 704  # T3Config.english_only()'s text table
+CHATTERBOX_START = 255  # T3Config's start_text_token; [STOP] is 0
+
+
+def write_chatterbox_tokenizer(path, seed: int = 0, n_merges: int = 300) -> Path:
+    """A stand-in for Chatterbox's English tokenizer.json (the published file
+    is not in the repository) in the components this repository's reader
+    assumes it has: a character-level BPE with [UNK], the `Whitespace`
+    pre-tokenizer, no normalizer, decoder or post-processor, and the
+    special tokens as added tokens at their vocabulary ids ([STOP] 0,
+    [START] 255), 704 entries in all. Merges are learned from seeded words
+    as `train_merges` learns them."""
+    from collections import Counter
+
+    rng = np.random.default_rng(seed)
+    vocab = {t: i for i, t in enumerate(CHATTERBOX_SPECIALS)}
+    for c in (chr(i) for i in range(33, 127)):
+        vocab[c] = len(vocab)
+    syll = ["ka", "to", "ri", "en", "st", "an", "qu", "er", "ing", "th", "ou", "ch"]
+    words = [w for w in TOKENIZER_WORDS for _ in range(8)]
+    words += ["".join(rng.choice(syll, rng.integers(1, 4))) for _ in range(400)]
+    counts = Counter(tuple(w) for w in words)
+    merges = []
+    while len(merges) < n_merges:
+        pairs = Counter()
+        for w, c in counts.items():
+            for pair in zip(w, w[1:]):
+                pairs[pair] += c
+        if not pairs:
+            break
+        best = max(pairs.items(), key=lambda kv: (kv[1], kv[0]))[0]
+        merges.append(best)
+        if len(vocab) == CHATTERBOX_START:
+            vocab["[START]"] = CHATTERBOX_START
+        vocab.setdefault(best[0] + best[1], len(vocab))
+        merged = Counter()
+        for w, c in counts.items():
+            out, i = [], 0
+            while i < len(w):
+                if i + 1 < len(w) and (w[i], w[i + 1]) == best:
+                    out.append(w[i] + w[i + 1])
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            merged[tuple(out)] += c
+        counts = merged
+    if "[START]" not in vocab:
+        while len(vocab) < CHATTERBOX_START:
+            vocab[f"<fill{len(vocab)}>"] = len(vocab)
+        vocab["[START]"] = CHATTERBOX_START
+    while len(vocab) < CHATTERBOX_VOCAB:
+        vocab[f"<fill{len(vocab)}>"] = len(vocab)
+    specials = CHATTERBOX_SPECIALS + ("[START]",)
+    spec = {"version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": [{"id": vocab[t], "content": t, "single_word": False,
+                              "lstrip": False, "rstrip": False, "normalized": False,
+                              "special": True} for t in specials],
+            "normalizer": None, "pre_tokenizer": {"type": "Whitespace"},
+            "post_processor": None, "decoder": None,
+            "model": {"type": "BPE", "dropout": None, "unk_token": "[UNK]",
+                      "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                      "fuse_unk": False, "byte_fallback": False, "ignore_merges": False,
+                      "vocab": vocab, "merges": [f"{a} {b}" for a, b in merges]}}
+    path = Path(path)
+    if path.suffix != ".json":
+        path = path / "tokenizer.json"
+    path.write_text(json.dumps(spec, ensure_ascii=False), encoding="utf-8")
+    return path
+
+
+def write_chatterbox_upstream(path: Path, model, s3tok) -> Path:
+    """`model` (the port's Chatterbox) in the release's layout: ve.safetensors
+    with torch's LSTM names, t3_cfg.safetensors with the Llama model's
+    (`tfmr.layers...`, its unused `embed_tokens` included), s3gen.safetensors
+    with the S3Tokenizer's own keys beside S3Gen's (the converter drops
+    them), tokenizer.json, and the S3TokenizerV2 weights with their widths
+    in s3tokenizer/."""
+    import dataclasses
+    import re as _re
+
+    from mlx_audio_tpu_torch.convert import save_model
+    from mlx_audio_tpu_torch.nn.module import flatten_params
+    from mlx_audio_tpu_torch.safetensors_io import save_file
+
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    names = {"Wx": "weight_ih", "Wh": "weight_hh", "bias_ih": "bias_ih", "bias_hh": "bias_hh"}
+    ve = {}
+    for k, v in flatten_params(model.ve).items():
+        m = _re.fullmatch(r"lstm\.(\d+)\.(Wx|Wh|bias_ih|bias_hh)", k)
+        ve[f"lstm.{names[m.group(2)]}_l{m.group(1)}" if m else k] = v
+    ve["similarity_weight"] = np.ones(1, np.float32)
+    save_file(ve, path / "ve.safetensors")
+    save_file(flatten_params(model.t3), path / "t3_cfg.safetensors")
+    gen = dict(flatten_params(model.s3gen))
+    gen["tokenizer.quantizer.codebook"] = np.zeros((4, 4), np.float32)
+    save_file(gen, path / "s3gen.safetensors")
+    write_chatterbox_tokenizer(path)
+    save_model(path / "s3tokenizer", flatten_params(s3tok), dataclasses.asdict(s3tok.config))
+    return path
+
+
+CHATTERBOX_TEXT = HTTP_TEXT
+CHATTERBOX_TEXTS = (CHATTERBOX_TEXT, "Hello world.", "The model turns text into speech.",
+                    "A seeded reference line that the model never heard.")
+CHATTERBOX_REF_S = 10.0  # ModelConfig's dec_cond_len (its enc_cond_len is 6 s)
+CHATTERBOX_STOP = 75  # planted: 75 speech tokens, 150 mel frames, 72,000 samples, 3.0 s
+CHATTERBOX_OFFSET = 40.0  # the speech embeddings' shared direction u
+CHATTERBOX_SUPPRESS = 5.0  # the head rows from SOS on: -5·u
+CHATTERBOX_PLANT_SCALE = 1e4
+CHATTERBOX_PROFILE_STEPS = 32
+CHATTERBOX_INT4_STEPS = 16
+CHATTERBOX_BATCH_TOKENS = 32  # two ticks of 16
+CHATTERBOX_CPU_STEPS = 8
+CHATTERBOX_CPU_REF_S = 2.0  # the copy cut in depth: a 2 s reference, HiFT on 1 s
+# the copy cut in depth: T3 2 layers, S3Tokenizer 1, the conformer 1 + 1
+# blocks, the estimator 1 mid block
+CHATTERBOX_CUT_SIZES = {"encoder": dict(num_blocks=1, num_up_blocks=1),
+                        "estimator": dict(num_mid_blocks=1)}
+
+
+def plant_chatterbox(model, stop: int = CHATTERBOX_STOP, seed: int = 0):
+    """Make a seeded T3 decode valid speech codes and stop after `stop`
+    of them, whatever it samples: every speech embedding carries
+    CHATTERBOX_OFFSET·u (u a zero-mean unit direction) and the head rows
+    from SOS on are -CHATTERBOX_SUPPRESS·u, so no step takes a token past
+    the codebook; the learned speech position row `stop` (fed with the code
+    before it) carries CHATTERBOX_PLANT_SCALE·v (v a unit direction
+    orthogonal to u), which then rules the final norm's output (about
+    sqrt(D)·v), and the stop's head row is 16/sqrt(D)·v: a stop logit of
+    ~16 there against the codes' ~N(0, 0.6)."""
+    t3 = model.t3
+    hp = t3.hp
+    w = t3.speech_emb.weight
+    g = torch.Generator(device=w.device).manual_seed(seed)
+    u = torch.randn(w.shape[1], generator=g, device=w.device)
+    u = u - u.mean()
+    u = u / u.norm()
+    v = torch.randn(w.shape[1], generator=g, device=w.device)
+    v = v - v.mean()
+    v = v - (v @ u) * u
+    v = v / v.norm()
+    with torch.no_grad():
+        w += CHATTERBOX_OFFSET * u
+        t3.speech_pos_emb.emb.weight[stop] += CHATTERBOX_PLANT_SCALE * v
+        t3.speech_head.weight[hp.start_speech_token:] = -CHATTERBOX_SUPPRESS * u
+        t3.speech_head.weight[hp.stop_speech_token] = 16.0 / w.shape[1] ** 0.5 * v
+
+
+def chatterbox_config(t3_layers=None) -> dict:
+    """config.json of the slice's Chatterbox: `ModelConfig()` (T3 at
+    `T3Config.english_only()` on LLAMA_520M_CONFIG), T3 cut to `t3_layers`
+    where given."""
+    t3 = {} if t3_layers is None else {"llama_overrides": {"num_hidden_layers": t3_layers}}
+    return {"model_type": "chatterbox", "t3_config": t3}
+
+
+def chatterbox_seeded(device="cuda", seed: int = 28):
+    """Chatterbox from `seed` at the published widths (`ModelConfig()`,
+    `S3Token2Wav()`, `VoiceEncoder()`), the perceiver's queries drawn (the
+    JAX initialiser's zeros make all 32 alike), the stop planted; and the
+    S3TokenizerV2 at its `ModelConfig()` (128 mels, 1280 x 6, 20 heads)."""
+    from mlx_audio_tpu_torch.codec.models.s3tokenizer import ModelConfig, S3TokenizerV2
+    from mlx_audio_tpu_torch.tts.models.chatterbox import Model
+
+    model = Model(chatterbox_config(), device=device, seed=seed)
+    g = torch.Generator(device=device).manual_seed(seed + 2)
+    with torch.no_grad():
+        model.t3.cond_enc.perceiver.pre_attention_query.normal_(0.0, 0.02, generator=g)
+    plant_chatterbox(model, seed=seed)
+    s3tok = S3TokenizerV2(config=ModelConfig(), device=device, seed=seed + 3)
+    return model, s3tok
+
+
+def chatterbox_launches(cfg, prompt_rows: int, steps: int) -> dict:
+    """The quantized launches of one int4 T3 decode from the code: the CFG
+    pair's prompt (M = 2·T0 rows: q/k/v fused, o_proj, gate/up fused, down
+    on the tensor-core GEMM, the fused MLP's guard refusing M > 16), then
+    each step's pair (M = 2: q/k/v and o_proj on the GEMV, the MLP one
+    fused launch); the loop feeds every sampled token back, the last one
+    included. Only T3's Llama layers are quantized."""
+    from mlx_audio_tpu_torch.nn.quantized import fused_mlp_routable, qmm_routable
+
+    D, I, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
+    got = {"qmm": 0, "qmlp": 0, "qmm_kernel": 0, "qmm_gemv": 0, "qmm_mma": 0}
+    for M, n in ((2 * prompt_rows, L), (2, L * steps)):
+        mlp_fused = fused_mlp_routable(4, GROUP, D, I, D, M)
+        for N, K in [(3 * D, D), (D, D)] + ([] if mlp_fused else [(2 * I, D), (D, I)]):
+            if qmm_routable(4, GROUP, N, K, M):
+                got["qmm"] += n
+                got["qmm_gemv" if M <= 4 else "qmm_mma"] += n
+        got["qmlp"] += n if mlp_fused else 0
+    return got
+
+
+def chatterbox_split(model, ref, seed: int = 1) -> dict:
+    """One generate's parts, each timed apart: the conditioning (the
+    mels, two S3Tokenizer windows, CAM++, the voice encoder), T3, the flow
+    (the conformer and ten estimator calls at batch 2) and HiFT."""
+    from mlx_audio_tpu_torch.tts.models.chatterbox import drop_invalid_tokens
+
+    out = {}
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        conds = model.prepare_conditionals(ref, 24000, exaggeration=0.5)
+        torch.cuda.synchronize()
+        out["conditioning_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        # `generate`'s defaults (its top-p is 1.0; `T3.inference`'s is 0.95)
+        toks = model.t3.inference(conds.t3, model.text_ids(CHATTERBOX_TEXT),
+                                  max_new_tokens=1000, temperature=0.8, top_p=1.0, min_p=0.05,
+                                  repetition_penalty=1.2, cfg_weight=0.5, seed=seed)
+        out["t3_s"] = time.perf_counter() - t0
+        tokens = drop_invalid_tokens(toks, sos=model.t3.hp.start_speech_token,
+                                     eos=model.t3.hp.stop_speech_token)
+        t0 = time.perf_counter()
+        mel = model.s3gen.flow_inference(tokens[None], conds.gen)
+        torch.cuda.synchronize()
+        out["flow_s"] = time.perf_counter() - t0
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        t0 = time.perf_counter()
+        wav, _ = model.s3gen.hift_inference(mel, generator=gen)
+        torch.cuda.synchronize()
+        out["hift_s"] = time.perf_counter() - t0
+    return out, conds, tokens, mel
+
+
+def chatterbox_generate(model, ref, smi) -> dict:
+    """The float32 run: a warm-up, then `generate` from the 10 s reference
+    at the defaults (temperature 0.8, CFG 0.5, min-p 0.05, repetition
+    penalty 1.2) to the planted stop, timed; its parts apart; a profiled
+    prefill and CHATTERBOX_PROFILE_STEPS steps, and the flow's and HiFT's
+    device time. No kernel of the port is on this path."""
+    with torch.inference_mode():
+        list(model.generate(CHATTERBOX_TEXT, ref_audio=ref, audio_prompt_sr=24000,
+                            max_new_tokens=4, seed=0))
+        torch.cuda.synchronize()
+        zero_port_launches()
+        t0 = time.perf_counter()
+        res = list(model.generate(CHATTERBOX_TEXT, ref_audio=ref, audio_prompt_sr=24000,
+                                  exaggeration=0.5, seed=1))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = no_port_launches("Chatterbox's float32 generate")
+    want = CHATTERBOX_STOP * 2 * 480
+    if len(res) != 1 or res[0].samples != want:
+        raise SystemExit(f"chip_smoke: Chatterbox generated {[r.samples for r in res]} "
+                         f"samples; the planted stop gives {want}")
+    audio = res[0].audio
+    if not np.isfinite(audio).all() or not np.abs(audio).max() > 0:
+        raise SystemExit("chip_smoke: Chatterbox's waveform is not finite, or silent")
+    audio_s = res[0].samples / model.sample_rate
+    split, conds, tokens, mel = chatterbox_split(model, ref)
+    if tokens.size != CHATTERBOX_STOP or mel.shape[1] != 2 * CHATTERBOX_STOP:
+        raise SystemExit(f"chip_smoke: Chatterbox's split run took {tokens.size} tokens and "
+                         f"{mel.shape[1]} mel frames")
+    with torch.inference_mode():
+        emb = model.t3.build_prefill_embeds(conds.t3, model.text_ids(CHATTERBOX_TEXT))
+        args = (1.0, 1.0, 0.05, 1.2, 0.5, 0)
+        profile_one_run(lambda: model.t3.decode(emb, 0, *args), "T3's CFG prefill")
+        pre = dict(profile_one_run.last)
+        steps = CHATTERBOX_PROFILE_STEPS
+        profile_one_run(lambda: model.t3.decode(emb, steps, *args),
+                        f"T3's CFG prefill and {steps} steps")
+        prof = dict(profile_one_run.last)
+        profile_one_run(lambda: model.s3gen.flow_inference(tokens[None], conds.gen),
+                        "S3Gen's flow (the conformer, ten estimator calls at batch 2)")
+        flow = dict(profile_one_run.last)
+        profile_one_run(lambda: model.s3gen.hift_inference(mel), f"HiFT on {mel.shape[1]} frames")
+        hift = dict(profile_one_run.last)
+    per_step = {k: (prof[k] - pre[k]) / steps for k in ("launches", "device_ms", "wall_ms")}
+    per_step["idle_share"] = 1 - per_step["device_ms"] / per_step["wall_ms"]
+    log(f"[chatterbox] generate from a {CHATTERBOX_REF_S:.0f} s reference (temperature 0.8, CFG "
+        f"0.5, min-p 0.05, repetition 1.2; {CHATTERBOX_STOP} speech tokens, {audio_s:.3f} s of "
+        f"audio): wall {wall:.4f} s, RTF {wall / audio_s:.4f}; apart: conditioning "
+        f"{split['conditioning_s']:.4f} s, T3 {split['t3_s']:.4f} s, flow {split['flow_s']:.4f} s "
+        f"({flow['device_ms']:.2f} ms of device time, {flow['launches']} launches), HiFT "
+        f"{split['hift_s']:.4f} s ({hift['device_ms']:.2f} ms, {hift['launches']} launches); a "
+        f"T3 step (the CFG pair): {per_step['launches']:.0f} launches, "
+        f"{per_step['device_ms']:.3f} ms of device time in {per_step['wall_ms']:.3f} ms of wall "
+        f"(idle {100 * per_step['idle_share']:.1f}%); the port's kernels launched {launches} "
+        f"({smi})")
+    return {"wall_s": wall, "audio_s": audio_s, "rtf": wall / audio_s,
+            "speech_tokens": CHATTERBOX_STOP, "samples": res[0].samples, "launches": launches,
+            "split": split, "step": per_step, "prompt_rows": emb.shape[1],
+            "flow": {k: flow[k] for k in ("device_ms", "launches", "wall_ms")},
+            "hift": {k: hift[k] for k in ("device_ms", "launches", "wall_ms")}}
+
+
+def chatterbox_batched(model, ref) -> dict:
+    """T3Batcher with four requests at temperature 0, each capped at
+    CHATTERBOX_BATCH_TOKENS, each equal to `T3.decode` of the same request
+    alone (the argmax); the speedup over the four alone one after another;
+    then `generate` through the installed batcher (the serving infer hook)
+    against the direct route."""
+    from mlx_audio_tpu_torch.serving import get_infer_hook
+
+    n_b = CHATTERBOX_BATCH_TOKENS
+    greedy = dict(temperature=0.0, top_p=1.0, min_p=0.0, repetition_penalty=1.2,
+                  cfg_weight=0.5)
+    with torch.inference_mode():
+        conds = model.prepare_conditionals(ref, 24000, exaggeration=0.5)
+        embs = [model.t3.build_prefill_embeds(conds.t3, model.text_ids(t))
+                for t in CHATTERBOX_TEXTS]
+
+        def alone(e, n):
+            return model.t3.decode(e, n, 0.0, 1.0, 0.0, 1.2, 0.5, 0,
+                                   sampler=lambda lg, g: lg.argmax(-1))
+
+        alone(embs[0], 4)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = [alone(e, n_b) for e in embs]
+        seq_s = time.perf_counter() - t0
+    b = model.make_batcher(slots=4, max_len=512, tick_frames=16)
+    try:
+        b.warmup()
+        t0 = time.perf_counter()
+        futs = [b.submit(e.cpu().numpy(), max_tokens=n_b, seed=i, **greedy)
+                for i, e in enumerate(embs)]
+        got = [f.result(timeout=SERVE_TIMEOUT) for f in futs]
+        batch_s = time.perf_counter() - t0
+        ticks = b.dispatch_count
+        b.install()
+        kw = dict(ref_audio=ref, audio_prompt_sr=24000, max_new_tokens=16, seed=3,
+                  temperature=1e-5, min_p=0.05)
+        served = list(model.generate(CHATTERBOX_TEXTS[1], **kw))[0]
+        served_ticks = b.dispatch_count - ticks
+    finally:
+        b.close()
+    if get_infer_hook(model) is not None or served_ticks < 1:
+        raise SystemExit("chip_smoke: generate did not take the installed T3Batcher")
+    direct = list(model.generate(CHATTERBOX_TEXTS[1], **kw))[0]
+    rel = held_close("generate through the installed T3Batcher against the direct route",
+                     served.audio, direct.audio)
+    for w, g in zip(want, got):
+        if w.tolist() != np.asarray(g).tolist():
+            raise SystemExit(f"chip_smoke: a batched T3 request's tokens {list(g)[:8]}... part "
+                             f"from its run alone {w.tolist()[:8]}...")
+    log(f"[chatterbox] T3Batcher, 4 requests x {n_b} tokens at temperature 0: {batch_s:.3f} s "
+        f"batched ({ticks} ticks), {seq_s:.3f} s alone one after another: "
+        f"{seq_s / batch_s:.2f}x; tokens identical; generate through the installed batcher "
+        f"({served_ticks} ticks) equals the direct route's audio")
+    return {"wall_s": batch_s, "sequential_s": seq_s, "speedup": seq_s / batch_s,
+            "ticks": ticks, "served_ticks": served_ticks, "served_audio_rel": rel}
+
+
+def chatterbox_cut_copy(flat: dict, s3flat: dict, ref) -> dict:
+    """A copy at full width cut in depth (T3 2 layers, S3Tokenizer 1, the
+    conformer 1 + 1 blocks, the estimator 1 mid block), card against CPU
+    in float32 on a CHATTERBOX_CPU_REF_S reference: the S3Tokenizer's codes
+    (a code may part only where its digit is within TOKEN_TIE_BAR of the
+    rounding boundary), CAM++'s x-vector, the voice encoder, T3's prompt and
+    CHATTERBOX_CPU_STEPS steps' logits (the card replays the CPU's argmax),
+    the flow's mel (the same noise) and HiFT on its first second (the same
+    draws)."""
+    from mlx_audio_tpu_torch.codec.models.s3tokenizer import (ModelConfig, S3TokenizerV2,
+                                                              log_mel_spectrogram, padding)
+    from mlx_audio_tpu_torch.nn import load_weights
+    from mlx_audio_tpu_torch.tts.models.chatterbox import Model
+
+    t0 = time.perf_counter()
+    deep = re.compile(r"^(t3\.tfmr\.layers|s3gen\.flow\.encoder\.(?:up_)?encoders|"
+                      r"encoder\.blocks)\.(\d+)\.")
+
+    def kept(k):
+        m = deep.match(k)
+        return m is None or int(m.group(2)) < (2 if m.group(1).startswith("t3") else 1)
+
+    two = {k: v for k, v in flat.items()
+           if kept(k) and (".mid_blocks_" not in k or ".mid_blocks_0." in k)}
+    s3two = {k: v for k, v in s3flat.items() if kept(k)}
+    ref = ref[: int(CHATTERBOX_CPU_REF_S * 24000)]
+    noise = draws = None
+    rec = {}
+
+    def run(dev):
+        nonlocal noise, draws
+        m = Model(chatterbox_config(t3_layers=2), device=dev, s3gen_sizes=CHATTERBOX_CUT_SIZES)
+        load_weights(m, two)
+        s3 = S3TokenizerV2(config=ModelConfig(n_audio_layer=1), device=dev)
+        load_weights(s3, s3two)
+        out = {}
+        with torch.inference_mode():
+            mel, mel_len = padding([log_mel_spectrogram(ref[:32000], device=dev)])
+            h, _ = s3.encoder(torch.as_tensor(mel, device=dev), torch.as_tensor(mel_len,
+                                                                                 device=dev))
+            out["fsq"] = s3.fsq_codebook.project(h).cpu()
+            m.set_runtime(s3_tokenizer=s3)
+            conds = m.prepare_conditionals(ref, 24000)
+            out["xvector"] = conds.gen["embedding"].cpu()
+            out["speaker"] = conds.t3.speaker_emb.cpu()
+            out["prompt_tokens"] = conds.gen["prompt_token"].cpu()
+            emb = m.t3.build_prefill_embeds(conds.t3, np.array([[255, 5, 6, 7, 8, 0]]))
+            out["prompt"] = emb.cpu()
+            rows, taken = [], []
+            it = iter(rec["codes"]) if "codes" in rec else None
+
+            def sampler(logits, gen):
+                rows.append(logits[0].float().cpu())
+                tok = int(logits[0].argmax()) if it is None else next(it)
+                taken.append(tok)
+                return torch.tensor([tok], device=logits.device)
+
+            m.t3.decode(emb, CHATTERBOX_CPU_STEPS, 0.8, 1.0, 0.05, 1.2, 0.5, 0, sampler)
+            out["rows"], rec["codes"] = rows, taken
+            tokens = np.array([t for t in taken if t < 6561] or [1])
+            T = 2 * (conds.gen["prompt_token"].shape[1] + tokens.size)
+            if noise is None:
+                g = torch.Generator().manual_seed(5)
+                noise = torch.randn(1, T, 80, generator=g)
+            out["mel"] = m.s3gen.flow_inference(tokens[None], conds.gen,
+                                                noise=noise.to(dev)).cpu()
+            out["prompt_mel"] = conds.gen["prompt_feat"].cpu()
+            frames = conds.gen["prompt_feat"][:, :50]  # 1 s
+            sg = m.s3gen.mel2wav.m_source.l_sin_gen
+            if draws is None:
+                draws = sg.draws(1, 50 * m.s3gen.mel2wav.f0_upsample_scale, "cpu",
+                                 torch.Generator().manual_seed(6))
+            wav, _ = m.s3gen.hift_inference(frames, draws=tuple(d.to(dev) for d in draws))
+            out["wav"] = wav.cpu()
+        return out
+
+    cpu = run("cpu")
+    cpu_s = time.perf_counter() - t0
+    card = run("cuda")
+    f_cpu, f_card = cpu["fsq"].numpy(), card["fsq"].numpy()
+    codes_cpu = (np.round(f_cpu) + 1)
+    codes_card = (np.round(f_card) + 1)
+    parted = codes_cpu != codes_card
+    margin = np.abs(np.abs(f_cpu) - 0.5)
+    rec["fsq_rel"] = held_close("cut copy, S3Tokenizer (1 layer) pre-round projection, card "
+                                "against CPU", f_card, f_cpu)
+    if parted.any() and margin[parted].max() > TOKEN_TIE_BAR:
+        raise SystemExit("chip_smoke: the cut copy's S3Tokenizer digits part away from a "
+                         f"rounding tie (margin {margin[parted].max():.3e})")
+    rec["fsq_digits_parted"] = int(parted.sum())
+    for key, label in (("xvector", "CAM++ x-vector"), ("speaker", "voice encoder embedding"),
+                       ("prompt_mel", "the 24 kHz prompt mel"), ("prompt", "T3 prompt pair"),
+                       ("mel", "the flow's mel"), ("wav", "HiFT on 1 s")):
+        rec[f"{key}_rel"] = held_close(f"cut copy, {label}, card against CPU", card[key],
+                                       cpu[key])
+    if not torch.equal(card["prompt_tokens"], cpu["prompt_tokens"]):
+        raise SystemExit("chip_smoke: the cut copy's S3Tokenizer prompt tokens part card "
+                         "from CPU")
+    worst = max(close_to(a, b)[0] / close_to(a, b)[1]
+                for a, b in zip(card["rows"], cpu["rows"]))
+    log(f"[chatterbox] cut copy (T3 2 layers, S3Tokenizer 1, conformer 1 + 1, estimator 1 mid "
+        f"block), {CHATTERBOX_CPU_STEPS} T3 steps' logits card against CPU: worst {worst:.2e} "
+        f"of the peak (bar {CARD_VS_CPU_ATOL:g}); FSQ digits parted at ties: "
+        f"{rec['fsq_digits_parted']}; CPU side {cpu_s:.1f} s, all {time.perf_counter() - t0:.1f} s")
+    if worst > CARD_VS_CPU_ATOL:
+        raise SystemExit("chip_smoke: the cut copy's T3 logits part card from CPU")
+    rec.update(logits_worst_rel=worst, cpu_s=cpu_s, wall_s=time.perf_counter() - t0)
+    return rec
+
+
+def chatterbox_int4(src: Path, tmp: Path, ref, smi) -> dict:
+    """The release files through `chatterbox.convert --quantize` (T3's Llama
+    layers int4 g64), loaded by `tts.load_model` and run by
+    `tts.generate.generate_audio` for CHATTERBOX_INT4_STEPS steps, the
+    quantized launches held to the code's count; then the prompt's and
+    every step's logits held to the float32 port on the dequantized
+    weights (which replays the int4 model's tokens)."""
+    from mlx_audio_tpu_torch import convert
+    from mlx_audio_tpu_torch.nn import load_weights
+    from mlx_audio_tpu_torch.ops.cuda import quant_matmul as qk
+    from mlx_audio_tpu_torch.tts import generate as tts_generate
+    from mlx_audio_tpu_torch.tts import utils as tts_utils
+    from mlx_audio_tpu_torch.tts.models.chatterbox import Model
+    from mlx_audio_tpu_torch.tts.models.chatterbox.convert import convert as cb_convert
+    from mlx_audio_tpu_torch.utils import load_weight_files
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        q = cb_convert(str(src), str(tmp / "chatterbox-int4"), quantize=True)
+    convert_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q4 = tts_utils.load_model(str(q))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    steps = CHATTERBOX_INT4_STEPS
+    kw = dict(ref_audio=ref, audio_prompt_sr=24000, lang_code="en", verbose=False,
+              output_path=str(tmp / "int4-out"))
+    with torch.inference_mode(), contextlib.redirect_stdout(sys.stderr):
+        tts_generate.generate_audio(CHATTERBOX_TEXT, model=q4, max_new_tokens=4, seed=0, **kw)
+        torch.cuda.synchronize()
+        qk.reset_launches()
+        t0 = time.perf_counter()
+        res = tts_generate.generate_audio(CHATTERBOX_TEXT, model=q4, max_new_tokens=steps,
+                                          seed=0, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = quant_counts(4)
+        conds = q4.prepare_conditionals(ref, 24000, exaggeration=0.5)
+        emb = q4.t3.build_prefill_embeds(conds.t3, q4.text_ids(CHATTERBOX_TEXT))
+    predicted = chatterbox_launches(q4.t3.cfg, emb.shape[1], steps)
+
+    def replay(model, codes_in=None):
+        rows, taken = [], []
+        it = iter(codes_in) if codes_in is not None else None
+
+        def sampler(logits, gen):
+            rows.append(logits[0].float().cpu())
+            tok = int(logits[0].argmax()) if it is None else next(it)
+            taken.append(tok)
+            return torch.tensor([tok], device=logits.device)
+
+        model.t3.decode(model.t3.build_prefill_embeds(conds.t3, q4.text_ids(CHATTERBOX_TEXT)),
+                        steps, 1.0, 1.0, 0.0, 1.2, 0.5, 0, sampler)
+        return rows, taken
+
+    with torch.inference_mode():
+        rows4, codes = replay(q4)
+    deq = Model(chatterbox_config(), device="cuda")
+    load_weights(deq, deq.sanitize(convert.dequantize_weights(load_weight_files(q), 4, GROUP)),
+                 strict=False)
+    with torch.inference_mode():
+        rowsd, _ = replay(deq, codes)
+    del deq
+    worst = max(close_to(a, b)[0] / close_to(a, b)[1] for a, b in zip(rows4, rowsd))
+    argmax_same = [int(a.argmax()) for a in rowsd] == codes
+    log(f"[chatterbox] int4 g64 by chatterbox.convert --quantize in {convert_s:.1f} s, loaded "
+        f"by tts.load_model in {load_s:.1f} s; generate_audio of {steps} steps {wall:.4f} s "
+        f"({res[0].samples} samples): launches {got}, from the code {predicted}; the prompt's "
+        f"and {steps} steps' logits against "
+        f"the float32 port on the dequantized weights: worst {worst:.2e} of the peak (bar "
+        f"{BARK_INT4_BAR:g}), its argmax the int4 tokens: {argmax_same} ({smi})")
+    if got != predicted:
+        raise SystemExit(f"chip_smoke: the int4 T3 launched {got}, the code says {predicted}")
+    if worst > BARK_INT4_BAR or not argmax_same or not np.isfinite(res[0].audio).all():
+        raise SystemExit("chip_smoke: the int4 Chatterbox parts from the dequantized model")
+    rec = {"convert_s": convert_s, "load_s": load_s, "wall_s": wall,
+           "launches": got, "logits_worst_rel": worst, "prompt_rows": emb.shape[1],
+           "samples": res[0].samples}
+    del q4
+    shutil.rmtree(q, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_chatterbox(smi: str) -> dict:
+    """Phase 19 (see the module docstring)."""
+    import dataclasses
+
+    from mlx_audio_tpu_torch.nn.module import flatten_params
+    from mlx_audio_tpu_torch.tts.models.chatterbox import EnTokenizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+
+    def mark(what):
+        log(f"[slice19] {time.perf_counter() - t_phase:.1f} s into phase 19 after {what}")
+
+    tmp = Path(tempfile.mkdtemp(prefix="slice19-"))
+    rec = {}
+    try:
+        t0 = time.perf_counter()
+        model, s3tok = chatterbox_seeded()
+        parts = {"t3": model.t3, "s3gen": model.s3gen, "ve": model.ve, "s3tokenizer": s3tok,
+                 "campplus": model.s3gen.speaker_encoder, "flow": model.s3gen.flow,
+                 "hift": model.s3gen.mel2wav}
+        n_par = {k: sum(p.numel() for p in m.parameters()) for k, m in parts.items()}
+        src = write_chatterbox_upstream(tmp / "chatterbox-release", model, s3tok)
+        model.set_runtime(tokenizer=EnTokenizer(src / "tokenizer.json"), s3_tokenizer=s3tok)
+        write_s = time.perf_counter() - t0
+        log(f"[chatterbox] Chatterbox (T3 at T3Config.english_only() on Llama-520M: 1024 x 30, "
+            f"16 heads of 64, MLP 4096, 704 text and 8,194 speech tokens; S3Token2Wav(): the "
+            f"conformer 512 x (6 + 4), the estimator 256 channels x 12 mid blocks, HiFT [8, 5, "
+            f"3], CAM++; VoiceEncoder()), float32, seeded, the stop planted after "
+            f"{CHATTERBOX_STOP} tokens; S3TokenizerV2 at {dataclasses.asdict(s3tok.config)}: "
+            f"parameters (M) " + ", ".join(f"{k} {v / 1e6:.1f}" for k, v in n_par.items())
+            + f"; the release files written in {write_s:.1f} s")
+        rec.update(parameters=n_par, write_s=write_s)
+        ref = csm_reference(CHATTERBOX_REF_S, seed=29)
+        rec["generate"] = chatterbox_generate(model, ref, smi)
+        if rec["generate"]["prompt_rows"] != CHATTERBOX_PROMPT_ROWS:
+            raise SystemExit(f"chip_smoke: T3's prompt has {rec['generate']['prompt_rows']} rows; "
+                             f"phase 2 times {CHATTERBOX_PROMPT_ROWS}")
+        mark("the float32 generate")
+        rec["batched"] = chatterbox_batched(model, ref)
+        mark("T3Batcher")
+        flat, s3flat = flatten_params(model), flatten_params(s3tok)
+        del model, s3tok
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["card_vs_cpu"] = chatterbox_cut_copy(flat, s3flat, ref)
+        del flat, s3flat
+        mark("the copy cut in depth")
+        rec["int4"] = chatterbox_int4(src, tmp, ref, smi)
+        mark("int4")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[slice19] phase 19 wall {rec['phase_s']:.1f} s")
+    return rec
+
+
 QUANT_SOURCE = "mlx_audio_tpu_torch/csrc/quant_matmul.cu"
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19",
                     help="comma-separated subset to run (12 runs 10 first for its checkpoint "
                          "directories); a subset prints no result")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
@@ -8625,7 +9283,10 @@ def run_phases(phases, smi, keep, ckpt: Path) -> None:
     if 18 in phases:
         indextts = phase_indextts(smi)
         took(18)
-    if phases != set(range(1, 19)):
+    if 19 in phases:
+        chatterbox = phase_chatterbox(smi)
+        took(19)
+    if phases != set(range(1, 20)):
         log(f"[device] {smi}")
         sys.exit(f"chip_smoke: ran phases {sorted(phases)} only; no result")
     record = {"kernels": [{
@@ -8767,6 +9428,20 @@ def run_phases(phases, smi, keep, ckpt: Path) -> None:
         "max_abs_err": qerrs["indextts_mel_head_m1_f32"],
         "shapes": {key[len("indextts_"):]: qtiming[key] for key in qtiming
                    if key.startswith("indextts_")}}
+    # Chatterbox T3 int4 (phase 19): a generate of 16 steps, float32 x; the
+    # CFG pair's decode step on the GEMV and the fused MLP, its prompt on
+    # the tensor-core GEMM
+    c4 = chatterbox["int4"]
+    qmm["chatterbox"] = {"launches": {k: c4["launches"][k] for k in (
+        "qmm", "qmm_gemv", "qmm_mma", "qmm_kernel")},
+        "max_abs_err": qerrs["chatterbox_qkv_m2_f32"],
+        "mma_max_abs_err": qerrs["chatterbox_qkv_m114_f32"],
+        "shapes": {key[len("chatterbox_"):]: qtiming[key] for key in qtiming
+                   if key.startswith("chatterbox_") and "mlp" not in key}}
+    qmlp["chatterbox"] = {
+        "launches": c4["launches"]["qmlp"], "max_abs_err": qerrs["chatterbox_mlp_m2_f32"],
+        "shapes": {key[len("chatterbox_"):]: qtiming[key] for key in qtiming
+                   if key.startswith("chatterbox_") and "mlp" in key}}
     qmlp["spark"] = {"launches": s4["launches"]["qmlp"],
                      "routing": "I = 4864 is not a multiple of 1024: the guard sends the MLP "
                                 "through qmm"}
@@ -8797,6 +9472,7 @@ def run_phases(phases, smi, keep, ckpt: Path) -> None:
     print(json.dumps({"bark": bark}), flush=True)
     print(json.dumps({"spark_soprano": spark_soprano}), flush=True)
     print(json.dumps({"indextts": indextts}), flush=True)
+    print(json.dumps({"chatterbox": chatterbox}), flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

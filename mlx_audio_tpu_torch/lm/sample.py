@@ -6,7 +6,7 @@ distribution (greedy ones exactly)."""
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -51,12 +51,15 @@ def min_p_filter(logits: torch.Tensor, min_p: float,
 
 
 def apply_repetition_penalty(logits: torch.Tensor, history: torch.Tensor,
-                             penalty: float) -> torch.Tensor:
+                             penalty: Union[float, torch.Tensor]) -> torch.Tensor:
     """Divide positive and multiply negative logits of the tokens in
     `history` (B, W), a fixed window padded with -1. Pads map out of range,
     as in the JAX package: a torch index of -1 would wrap to the last
-    token."""
-    if penalty == 1.0:
+    token. `penalty` is one float, or a (B,) tensor of per-row penalties
+    (a row at 1.0 is left as it is)."""
+    if isinstance(penalty, torch.Tensor):
+        penalty = penalty.to(logits.dtype)[:, None]
+    elif penalty == 1.0:
         return logits
     B, V = logits.shape
     hist = torch.where(history < 0, V, history).long()

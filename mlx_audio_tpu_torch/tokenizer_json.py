@@ -18,6 +18,10 @@ use:
   with Qwen2's pattern or Llama-3's (Qwen2's with runs of up to three
   digits);
 - decoder: `ByteLevel`;
+- a character-level BPE with no byte mapping: the `Whitespace`
+  pre-tokenizer (`\\w+|[^\\w\\s]+`) and no decoder (the tokens joined
+  with spaces, as `tokenizers` joins them), as Chatterbox's English file is
+  read here (its published file is not in the repository);
 - post-processor: `ByteLevel`, null, `TemplateProcessing` (single), or a
   `Sequence` of them with at most one template (Llama-3's);
 - `added_tokens`, split out before pre-tokenizing, with `special`,
@@ -181,6 +185,29 @@ def _scan_qwen2(text: str, i: int, digits: int = 1) -> int:
     return _space_tail(text, i)
 
 
+def _word(c: str) -> bool:
+    """Rust's `\\w`: letters, marks, decimal digits, connector punctuation
+    and the joiners."""
+    cat = unicodedata.category(c)
+    return cat[0] in "LM" or cat in ("Nd", "Nl", "Pc") or c in "\u200c\u200d"
+
+
+def _split_whitespace(text: str) -> List[str]:
+    """The `Whitespace` pre-tokenizer: runs of word characters and runs of
+    other non-space characters; the spaces go."""
+    out, i, n = [], 0, len(text)
+    while i < n:
+        c = text[i]
+        if c in WHITE_SPACE:
+            i += 1
+            continue
+        word = _word(c)
+        j = _run(text, i, lambda ch: ch not in WHITE_SPACE and _word(ch) == word)
+        out.append(text[i:j])
+        i = j
+    return out
+
+
 _SCANNERS = {GPT2_PATTERN: _scan_gpt2, QWEN2_PATTERN: _scan_qwen2,
              LLAMA3_PATTERN: functools.partial(_scan_qwen2, digits=3)}
 
@@ -246,6 +273,8 @@ def _pre_tokenizer(spec, path) -> Tuple[List[Callable[[str], List[str]]], bool]:
     kind = spec.get("type")
     if kind == "ByteLevel":
         return [_byte_level_step(spec, path)], True
+    if kind == "Whitespace":
+        return [_split_whitespace], False
     if kind == "Split":
         pattern = spec.get("pattern", {})
         scan = _SCANNERS.get(pattern.get("Regex"))
@@ -448,8 +477,10 @@ def _post_processor(spec, path, token_to_id) -> Tuple[List[int], List[int]]:
     raise _unsupported(path, "post-processor", spec)
 
 
-def _decoder(spec, path) -> Callable[[List[str]], str]:
-    if (spec or {}).get("type") != "ByteLevel":
+def _decoder(spec, path, byte_level: bool) -> Callable[[List[str]], str]:
+    if spec is None and not byte_level:  # `tokenizers`' default: joined by spaces
+        return " ".join
+    if (spec or {}).get("type") != "ByteLevel" or not byte_level:
         raise _unsupported(path, "decoder", spec)
     char_bytes = {c: b for b, c in bytes_to_unicode().items()}
 
@@ -471,7 +502,8 @@ def _decoder(spec, path) -> Callable[[List[str]], str]:
 
 
 class Tokenizer:
-    """`tokenizer.json` for byte-level BPE, with the surface the port's
+    """`tokenizer.json` for byte-level BPE (or the character-level BPE of a
+    `Whitespace` pre-tokenizer with no decoder), with the surface the port's
     callers use: `encode`, `decode`, `token_to_id`, `id_to_token` (the
     `tokenizers.Tokenizer` names; `encode` returns the ids, as
     `AutoTokenizer.encode` does)."""
@@ -484,11 +516,12 @@ class Tokenizer:
         self.model = _BPE(spec.get("model", {}), path)
         self._normalize = _normalizer(spec.get("normalizer"), path)
         self._pre_steps, byte_level = _pre_tokenizer(spec.get("pre_tokenizer"), path)
-        if not byte_level:
+        if not byte_level and (spec.get("pre_tokenizer") or {}).get("type") != "Whitespace":
             raise _unsupported(path, "pre-tokenizer without ByteLevel",
                                spec.get("pre_tokenizer"))
-        self._byte_map = bytes_to_unicode()
-        self._decode_tokens = _decoder(spec.get("decoder"), path)
+        # None: the characters are the model's symbols, with no byte mapping
+        self._byte_map = bytes_to_unicode() if byte_level else None
+        self._decode_tokens = _decoder(spec.get("decoder"), path, byte_level)
         added = [_AddedToken(t, path) for t in spec.get("added_tokens", [])]
         self._check_added_ids(added)
         self._added_by_id = {t.id: t for t in added}
@@ -559,7 +592,8 @@ class Tokenizer:
                 for step in self._pre_steps:
                     words = [w for word in words for w in step(word) if w]
                 for w in words:
-                    yield "".join(self._byte_map[b] for b in w.encode("utf-8"))
+                    yield (w if self._byte_map is None
+                           else "".join(self._byte_map[b] for b in w.encode("utf-8")))
 
     def encode(self, text: str, add_special_tokens: bool = True) -> List[int]:
         ids: List[int] = list(self._before) if add_special_tokens else []

@@ -546,8 +546,6 @@ class Model(nn.Module):
     from `seed` (the GPT's `wpe` is a row of zeros, as in the JAX
     package)."""
 
-    _RUNTIME: dict = {}
-
     def __init__(self, args: Any = None, device=None, seed: int = 0):
         super().__init__()
         if isinstance(args, dict):
@@ -580,9 +578,12 @@ class Model(nn.Module):
         self.gpt.wpe.weight.data.zero_()
         if self.args.bigvgan is not None:
             self.bigvgan = BigVGANConditioning(self.args.bigvgan, device=dev, seed=seed + 1)
+        # host objects and a vocoder from `set_runtime`: a plain dict, so a
+        # vocoder set there is neither a parameter nor in the state dict
+        self._runtime: dict = {}
 
     def set_runtime(self, tokenizer=None, bigvgan=None):
-        rt = Model._RUNTIME.setdefault(id(self), {})
+        rt = self._runtime
         if tokenizer is not None:
             rt["tokenizer"] = tokenizer
         if bigvgan is not None:
@@ -614,8 +615,7 @@ class Model(nn.Module):
     def _tokenizer(self):
         """The tokenizer set by `set_runtime`, else the checkpoint's
         `tokenizer.model` through `sentencepiece` (where it is installed)."""
-        rt = Model._RUNTIME.get(id(self), {})
-        tokenizer = rt.get("tokenizer")
+        tokenizer = self._runtime.get("tokenizer")
         mp = getattr(self.args, "model_path", None)
         if tokenizer is None and mp:
             from pathlib import Path
@@ -630,7 +630,7 @@ class Model(nn.Module):
                         f"{tok_file}; install it or pass a tokenizer via set_runtime()"
                     ) from None
                 tokenizer = spm.SentencePieceProcessor(model_file=str(tok_file))
-                Model._RUNTIME.setdefault(id(self), {})["tokenizer"] = tokenizer
+                self._runtime["tokenizer"] = tokenizer
         if tokenizer is None:
             raise RuntimeError("IndexTTS tokenizer not set — call set_runtime() or load "
                                "via load_model()")
@@ -677,7 +677,7 @@ class Model(nn.Module):
             latents = latents[:n][None]
         if verbose:
             print(f"[indextts] {n} mel tokens")
-        vocoder = Model._RUNTIME.get(id(self), {}).get("bigvgan", getattr(self, "bigvgan", None))
+        vocoder = self._runtime.get("bigvgan", getattr(self, "bigvgan", None))
         if vocoder is None:
             raise RuntimeError("IndexTTS BigVGAN vocoder not attached")
         audio = vocoder(latents, ref_mel)[0, :, 0].float().cpu().numpy()

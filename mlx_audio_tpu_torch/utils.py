@@ -16,7 +16,7 @@ The JAX package's contract: `load_config`, `load_weight_files`
 - only the families the port has resolve (`whisper`, `qwen3_tts`,
   `kokoro`, `llama` (Orpheus), `qwen3` (VyvoTTS), `sesame` (CSM, also
   as `csm`), `dia`, `outetts` (a `llama` config in a directory whose
-  name carries `outetts`), `bark`, `spark`, `soprano`, `indextts` and
+  name carries `outetts`), `bark`, `spark`, `soprano`, `indextts`, `chatterbox` and
   `wav2vec` (also as `wav2vec2`)); any other raises the
   JAX package's "not supported" error;
 - `resample_audio` is scipy's `resample_poly`, the JAX package's second
@@ -49,7 +49,7 @@ logger = logging.getLogger(__name__)
 # the model families the port has, by category
 PORTED = {"stt": ("whisper", "wav2vec", "wav2vec2"),
           "tts": ("qwen3_tts", "kokoro", "llama", "qwen3", "sesame", "dia", "outetts",
-                  "bark", "spark", "soprano", "indextts")}
+                  "bark", "spark", "soprano", "indextts", "chatterbox")}
 
 NO_DOWNLOAD = ("the PyTorch port reads local checkpoint directories only and does not "
                "download: fetch {!r} first and pass its directory")

@@ -10,8 +10,10 @@ codebooks, Qwen3-TTS's code-predictor frame (the talker's codec table
 and the code predictor's), Spark's semantic codebook
 (`FactorizedVectorQuantize`) and its LLM's table, the codebooks under an
 EnCodec-driven Vocos's features, AdaLayerNorm's bandwidth columns, and
-IndexTTS's four tables and its GPT's one-row `wpe`, at ids -20, -1, N and
-N + 90. A scan of the
+IndexTTS's four tables and its GPT's one-row `wpe`, Chatterbox T3's four
+tables (and the decode step's learned speech position), at ids -20, -1, N
+and N + 90, and S3Gen's flow, which clips its token ids into the table
+(0 .. N - 1) as the JAX package does. A scan of the
 port's sources holds every other direct read of a `.weight` by id to the
 clamp.
 """
@@ -195,6 +197,65 @@ def test_indextts_tables_read_the_jax_rows(table):
     ids = _ids(n)
     with torch.no_grad():
         np.testing.assert_array_equal(emb(torch.from_numpy(ids)).numpy(), _jax_rows(w, ids))
+
+
+@pytest.mark.parametrize("table", ["text_emb", "speech_emb", "text_pos_emb.emb",
+                                   "speech_pos_emb.emb"])
+def test_chatterbox_t3_tables_read_the_jax_rows(table):
+    """T3 reads its text and speech tables and their learned position tables
+    through the embeddings' calls (the JAX package indexes `.weight`
+    directly, which clamps): the decode step's speech position and the
+    fixed bos position too."""
+    from mlx_audio_tpu_torch.nn.module import init_weights
+    from mlx_audio_tpu_torch.tts.models.chatterbox import T3, T3Config
+
+    from test_chatterbox import TINY_LLAMA
+
+    t3 = T3(T3Config(text_tokens_dict_size=50, speech_tokens_dict_size=70,
+                     start_speech_token=60, stop_speech_token=61, max_speech_tokens=64,
+                     speaker_embed_size=16, llama_overrides=TINY_LLAMA), device="cpu")
+    init_weights(t3, torch.Generator().manual_seed(4))
+    emb = t3.get_submodule(table)
+    w = emb.weight.detach().numpy()
+    n = w.shape[0]
+    ids = _ids(n)
+    with torch.no_grad():
+        np.testing.assert_array_equal(emb(torch.from_numpy(ids)).numpy(), _jax_rows(w, ids))
+        if table == "speech_pos_emb.emb":
+            for step in (-21, -2, n - 1, n + 89):  # the step's position is step + 1
+                got = t3.step_embedding(torch.tensor([3]), step) - t3.speech_emb(
+                    torch.tensor([3]))
+                np.testing.assert_allclose(got.numpy()[0], _jax_rows(w, np.array(step + 1)),
+                                           atol=1e-6)
+            np.testing.assert_array_equal(t3.speech_pos_emb.get_fixed_embedding(n + 5)[0, 0],
+                                          _jax_rows(w, np.array(n + 5)))
+
+
+def test_s3gen_flow_clips_its_token_ids():
+    """The flow clips ids into 0 .. N - 1 before its lookup, as the JAX
+    package does (-1 reads row 0 there, not the last): ids -20, -1, N and
+    N + 90 give the mel of ids 0, 0, N - 1 and N - 1."""
+    from mlx_audio_tpu_torch.codec.models import s3gen as ps
+
+    from test_torch_s3gen import EST, ENC
+
+    cfm = ps.CausalConditionalCFM(estimator=ps.ConditionalDecoder(**EST, device="cpu"))
+    cfm.MEL_CHANNELS = 8
+    flow = ps.CausalMaskedDiffWithXvec(input_size=16, output_size=8, vocab_size=70,
+                                       n_timesteps=1, decoder=cfm, device="cpu",
+                                       encoder=ps.UpsampleConformerEncoder(**ENC, device="cpu"))
+    for p in flow.parameters():
+        p.data.normal_(0.0, 0.1, generator=torch.Generator().manual_seed(5))
+    n = 70
+
+    def mel(tokens):
+        with torch.no_grad():
+            return flow.inference(torch.tensor([tokens]), torch.tensor([4]),
+                                  torch.tensor([[1, 2]]), torch.tensor([2]),
+                                  torch.zeros(1, 4, 8), torch.ones(1, 192))[0]
+
+    np.testing.assert_array_equal(mel([-20, -1, n, n + 90]).numpy(),
+                                  mel([0, 0, n - 1, n - 1]).numpy())
 
 
 _DIRECT_READ = re.compile(r"\.(weight|embedding)\[(?!:|\.\.\.)")

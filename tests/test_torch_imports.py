@@ -506,3 +506,65 @@ def test_indextts_slice_modules_are_scanned(name):
     assert name in {n for _, n in _modules()}
     assert "indextts" in PORTED["tts"] and "indextts" in get_available_models()
     assert get_model_class("indextts", None, "tts", {})[1] == "indextts"
+
+
+CHATTERBOX_SLICE_MODULES = (
+    "mlx_audio_tpu_torch.codec.models.s3tokenizer",
+    "mlx_audio_tpu_torch.codec.models.s3tokenizer.s3tokenizer",
+    "mlx_audio_tpu_torch.codec.models.s3gen", "mlx_audio_tpu_torch.codec.models.s3gen.mel",
+    "mlx_audio_tpu_torch.codec.models.s3gen.xvector",
+    "mlx_audio_tpu_torch.codec.models.s3gen.encoder",
+    "mlx_audio_tpu_torch.codec.models.s3gen.decoder",
+    "mlx_audio_tpu_torch.codec.models.s3gen.flow_matching",
+    "mlx_audio_tpu_torch.codec.models.s3gen.flow", "mlx_audio_tpu_torch.codec.models.s3gen.hifigan",
+    "mlx_audio_tpu_torch.codec.models.s3gen.s3gen", "mlx_audio_tpu_torch.tts.models.chatterbox",
+    "mlx_audio_tpu_torch.tts.models.chatterbox.config",
+    "mlx_audio_tpu_torch.tts.models.chatterbox.tokenizer",
+    "mlx_audio_tpu_torch.tts.models.chatterbox.voice_encoder",
+    "mlx_audio_tpu_torch.tts.models.chatterbox.t3",
+    "mlx_audio_tpu_torch.tts.models.chatterbox.chatterbox",
+    "mlx_audio_tpu_torch.tts.models.chatterbox.batcher",
+    "mlx_audio_tpu_torch.tts.models.chatterbox.convert")
+
+
+@pytest.mark.parametrize("name", CHATTERBOX_SLICE_MODULES)
+def test_chatterbox_slice_modules_are_scanned(name):
+    """S3Tokenizer, S3Gen and Chatterbox (the model, T3, the voice encoder,
+    the tokenizers, the config, the batcher, the converter) are among the
+    modules the import and scan tests cover, and the loader and the TTS
+    registry find Chatterbox by its model type."""
+    from mlx_audio_tpu_torch.tts.utils import get_available_models
+    from mlx_audio_tpu_torch.utils import PORTED, get_model_class
+
+    assert name in {n for _, n in _modules()}
+    assert "chatterbox" in PORTED["tts"] and "chatterbox" in get_available_models()
+    assert get_model_class("chatterbox", None, "tts", {})[1] == "chatterbox"
+
+
+def test_chatterbox_entry_points_default_to_the_card(monkeypatch):
+    """Chatterbox, S3Token2Wav and S3TokenizerV2 ask for `cuda` without a
+    device argument and raise with no card; Chatterbox's batcher runs on
+    its model's device."""
+    import torch
+
+    from mlx_audio_tpu_torch.codec.models.s3gen import S3Token2Wav
+    from mlx_audio_tpu_torch.codec.models.s3tokenizer import ModelConfig, S3TokenizerV2
+    from mlx_audio_tpu_torch.tts.models.chatterbox import Model, ModelConfig as CBConfig
+
+    from test_torch_chatterbox import T3_KW, TINY_SIZES
+    from mlx_audio_tpu_torch.tts.models.chatterbox import T3Config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    s3 = ModelConfig(n_mels=16, n_audio_state=16, n_audio_head=2, n_audio_layer=1)
+    cb = CBConfig(t3_config=T3Config(**T3_KW))
+    for make in (lambda **kw: S3TokenizerV2(config=s3, **kw),
+                 lambda **kw: S3Token2Wav(sizes=TINY_SIZES, **kw),
+                 lambda **kw: Model(cb, s3gen_sizes=TINY_SIZES, **kw)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+        assert make(device="cpu").device.type == "cpu"
+    batcher = Model(cb, s3gen_sizes=TINY_SIZES, device="cpu").make_batcher()
+    try:
+        assert batcher.device == torch.device("cpu")
+    finally:
+        batcher.close()

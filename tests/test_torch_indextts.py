@@ -275,6 +275,27 @@ def test_sanitize_keys_and_tokenizer_errors(planted, tmp_path):
             next(pm.generate("Hi.", ref_audio=REF))
 
 
+def test_runtime_lives_on_the_instance():
+    """A tokenizer set on one model is that model's alone: not in its
+    state dict, freed with it, and not seen by a model built after it (a
+    class-level table keyed by id() handed it to a later model at the same
+    address)."""
+    import gc
+    import weakref
+
+    pm = pi.Model(tiny_args(), device="cpu")
+    keys = set(pm.state_dict())
+    tok = FakeTok()
+    pm.set_runtime(tokenizer=tok)
+    assert pm._tokenizer() is tok and set(pm.state_dict()) == keys
+    gone = weakref.ref(tok)
+    del pm, tok
+    gc.collect()
+    assert gone() is None
+    with pytest.raises(RuntimeError, match="tokenizer not set"):
+        pi.Model(tiny_args(), device="cpu")._tokenizer()
+
+
 NORMALIZE_CASES = [
     "I have $42 and 3 cats", "what's 1 2 3", "你好，世界！", "ni3 hao3", "hello world",
     "It's 1,234,567 dollars; that's $1,000,000.", "Call 5 5 5 1 2 1 2 now!",
