@@ -138,8 +138,8 @@ Phases, each printing its own lines:
      frames/s, RTF), profiled, streamed at 0.5 s to 16 frames (each chunk's
      frames the monolithic decode's, time to first audio), the watermark found on the
      output and not on unmarked audio; `bench_sesame_serving` at bench.py's
-     settings cut in depth (8 x 8 frames where bench.py decodes 64, tick
-     8, pool 1024, one trial; greedy batched
+     streams, pool and prompts, cut to 8 x 4 frames (bench.py decodes 64)
+     with its tick cut from bench.py's 8 to 4, one trial; greedy batched
      frames equal to sequential); `convert(quantize=True)` to int4, loaded,
      with the direct loop's quantized launches held to the code's count; one
      streamed request served over HTTP, equal to the in-memory model's
@@ -249,6 +249,45 @@ Phases, each printing its own lines:
      loaded by `tts.load_model` and run by `generate_audio` for 16 steps,
      the quantized launches held to the code's count, the logits to the
      float32 port on the dequantized weights.
+ 20. CosyVoice2 at `CosyVoice2Config()` (Qwen2-0.5B: 896 x 24, 14 heads,
+     2 kv heads, MLP 4864; the conformer 512 x (6 + 4), the U-Net 256
+     channels x 12 mid blocks under 10 CFG Euler steps, HiFT at [8, 5, 3]
+     with the interpolating source), S3TokenizerV2 and CAM++, float32,
+     seeded, written as a consolidated checkpoint (the LM under its
+     upstream names, `campplus.*`, a Qwen2-style tokenizer.json,
+     s3tokenizer/): a zero-shot `generate` from a seeded 10 s reference,
+     its 4-token text capping the decode at 80 steps (wall, RTF, the
+     reference, LM, flow and vocoder split, a profiled LM step; no kernel
+     of the port launches); one voice conversion; `RASBatcher` with 4
+     requests at the argmax settings (the head scaled by 1e4), each equal
+     to its decode alone, and `generate` through the installed batcher
+     equal to the direct route; a copy at full width cut in depth (the LM
+     2 layers, the conformer 1 + 1, the U-Net 1 mid block) card against
+     CPU; int4 by `convert --quantize`, loaded by `tts.load_model` and run
+     by `generate_audio`, then the LM decode alone with its quantized
+     launches held to the code's count and its logits to the float32 port
+     on the dequantized weights.
+ 21. CosyVoice3 at `CosyVoice3Config()` (the Qwen2-0.5B LM over 6,761
+     speech rows; the DiT 1024 x 22, 16 heads of 64; the causal HiFT),
+     S3TokenizerV3 (12 layers) and CAM++, float32, seeded, the LM head's
+     rows past the speech tokens zero (the decode runs to its cap): a
+     zero-shot `generate` from the 10 s reference (80 tokens; timed and
+     split as phase 20); `tokens_to_mel` and `mel_to_audio` on the
+     reference's 250 prompt tokens and 400 seeded ones (N = 1300 frames),
+     where the DiT's unmasked attention launches `flash_fwd_f32` once a
+     block an Euler step, 220 times, counted through the wrapper; a copy
+     cut in depth (the LM 2 layers, the DiT 2 blocks) card against CPU.
+ 22. Chatterbox-Turbo: T3Turbo on GPT-2 medium (1024 x 24, 16 heads) and
+     the meanflow S3Gen (two steps), `VoiceEncoder()`, S3TokenizerV2,
+     float32, seeded, the stop's head row zero (top-k 1000 never keeps it:
+     the decode runs to `max_gen_len`): `generate` from a seeded 10 s
+     reference (loudness-normalised) to 75 tokens (wall, RTF, the
+     conditioning, T3, flow and HiFT split, a profiled T3 step; no kernel
+     of the port launches); `TurboBatcher` with 4 requests at temperature
+     0, each equal to its decode alone, and `generate` through the
+     installed batcher equal to the direct route; a copy cut in depth
+     (GPT-2 2 layers, S3Tokenizer 1, the conformer 1 + 1, the estimator 1
+     mid block) card against CPU.
 Phase 2 also holds the ReLU² attention kernel to its plain version and
 flash at B = 1, and the serving shapes: flash bf16 at B = 8, `qmm_mma` and
 the fused MLP at M = 8 (the batcher's tick), ReLU² f32 at B = 8, G = 2;
@@ -269,7 +308,11 @@ GPT-2 shapes and the 8,194-row mel head, M = 1 and 4, the tensor-core GEMM at
 its 44-row prompt and at the conformer's and perceiver's shapes), and
 Chatterbox T3 int4's (float32 x: the GEMV and the fused MLP at the CFG
 pair's M = 2, the tensor-core GEMM at the pair's 57-row prompt, M = 114,
-and the batcher's M = 8). The lines
+and the batcher's M = 8), and the CosyVoice shapes: flash at the DiT's
+CFG pair (B = 2, H = 16, D = 64, T = S = 1300 and 1500, f32 and bf16)
+beside `F.sdpa`, and int4 CosyVoice2's qmm (the GEMV at the 6,564-row LM
+head, the tensor-core GEMM at its 257-row prompt and at the flow's
+linears). The lines
 before the last
 hold phase 8's numbers ({"kokoro": ...}), the bf16 Qwen3-TTS step's
 ({"qwen3_bf16": ...}), phase 9's ({"whisper_rest": ...}), phase 10's
@@ -277,8 +320,9 @@ hold phase 8's numbers ({"kokoro": ...}), the bf16 Qwen3-TTS step's
 ...}), phase 13's ({"orpheus": ...}), phase 14's ({"csm": ...}), phase
 15's ({"dia_outetts": ...}), phase 16's ({"bark": ...}), phase 17's
 ({"spark_soprano": ...}), phase 18's ({"indextts": ...}), phase 19's
-({"chatterbox": ...}) and the kernels'
-JSON record, in that order;
+({"chatterbox": ...}), phase 20's ({"cosyvoice2": ...}), phase 21's
+({"cosyvoice3": ...}), phase 22's ({"chatterbox_turbo": ...}) and the
+kernels' JSON record, in that order;
 the last line is {"ok": true, "device": {...}}. Any failure raises and exits non-zero. It
 needs one CUDA card and the checkout's `mlx_audio_tpu_torch/` package.
 `--phases 1,2` runs a subset (a first check of new kernels), `--phases
@@ -286,7 +330,8 @@ needs one CUDA card and the checkout's `mlx_audio_tpu_torch/` package.
 `--phases 1,14` CSM-1B and Mimi, `--phases 1,15` DAC, Dia and OuteTTS,
 `--phases 1,16` EnCodec and Bark, `--phases 1,17` Vocos, Soprano, Spark-TTS
 and Wav2Vec2, `--phases 1,18` IndexTTS, `--phases 1,19` S3Tokenizer, S3Gen
-and Chatterbox; the default runs all of them.
+and Chatterbox, `--phases 1,20,21,22` CosyVoice2, CosyVoice3 and
+Chatterbox-Turbo; the default runs all of them.
 """
 
 from __future__ import annotations
@@ -824,6 +869,12 @@ def phase_kernels():
         # heads and XLSR-53's 16
         ("w2v_base_f32", 1, 12, 1499, 1499, 64, f32, False),
         ("w2v_xlsr_f32", 1, 16, 1499, 1499, 64, f32, False),
+        # CosyVoice3's DiT: the CFG pair, 16 heads of 64, unmasked, at the long
+        # flow call's N = 1300 (phase 21) and at 1500
+        ("cv3_dit1300_f32", 2, 16, 1300, 1300, 64, f32, False),
+        ("cv3_dit1300_bf16", 2, 16, 1300, 1300, 64, bf16, False),
+        ("cv3_dit1500_f32", 2, 16, 1500, 1500, 64, f32, False),
+        ("cv3_dit1500_bf16", 2, 16, 1500, 1500, 64, bf16, False),
     ]
     errs = {}
     for i, (name, B, H, T, S, D, dtype, causal) in enumerate(cases):
@@ -847,7 +898,11 @@ def phase_kernels():
                                  ("whisper_b1_f32", 1, f32, 20, 1500),
                                  ("whisper_b8_bf16", 8, bf16, 20, 1500),
                                  ("w2v_base_f32", 1, f32, 12, 1499),
-                                 ("w2v_xlsr_f32", 1, f32, 16, 1499)):
+                                 ("w2v_xlsr_f32", 1, f32, 16, 1499),
+                                 ("cv3_dit1300_f32", 2, f32, 16, 1300),
+                                 ("cv3_dit1300_bf16", 2, bf16, 16, 1300),
+                                 ("cv3_dit1500_f32", 2, f32, 16, 1500),
+                                 ("cv3_dit1500_bf16", 2, bf16, 16, 1500)):
         S, D = T, 64
         q, k, v = attention_inputs(B, H, T, S, D, dtype, seed=100)
         # device time: at B = 1 the kernel is shorter than a Python launch
@@ -1242,6 +1297,9 @@ def quant_bound_ms(wbytes, M, K, N, dtype, flops) -> tuple:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+# phase 20's int4 CosyVoice2 decode prompt: sos, the 4 text ids, task and
+# the 10 s reference's 251 speech tokens
+COSY2_PROMPT_ROWS = 257
 QMM_CASES = [  # name, bits, M, N, K, dtype: the routed shapes of phases 5 and 6
     ("qkv_m1_f32", 4, 1, 4096, 1024, torch.float32),
     ("qkv_m1_bf16", 4, 1, 4096, 1024, torch.bfloat16),
@@ -1437,6 +1495,19 @@ QMM_CASES = [  # name, bits, M, N, K, dtype: the routed shapes of phases 5 and 6
     ("chatterbox_o_proj_m114_f32", 4, 114, 1024, 1024, torch.float32),
     ("chatterbox_gate_up_m114_f32", 4, 114, 8192, 1024, torch.float32),
     ("chatterbox_down_m114_f32", 4, 114, 1024, 4096, torch.float32),
+    # CosyVoice2 int4 (phase 20), float32 x: the LM head (6,564 rows) at a
+    # decode step, the 257-row prompt's (COSY2_PROMPT_ROWS) fused q/k/v and
+    # down (the rest of the LM's shapes are Spark's, above), and the flow's
+    # linears at its rows: the conformer's feed-forward at 350 tokens, the
+    # upsampled stack's attention at 700 frames, the U-Net's attention and
+    # feed-forward at the CFG pair's 1400 rows
+    ("cv2_llm_decoder_m1_f32", 4, 1, 6564, 896, torch.float32),
+    ("cv2_qkv_prompt_f32", 4, COSY2_PROMPT_ROWS, 1152, 896, torch.float32),
+    ("cv2_down_prompt_f32", 4, COSY2_PROMPT_ROWS, 896, 4864, torch.float32),
+    ("cv2_enc_ff_m350_f32", 4, 350, 2048, 512, torch.float32),
+    ("cv2_up_attn_m700_f32", 4, 700, 512, 512, torch.float32),
+    ("cv2_est_attn_m1400_f32", 4, 1400, 512, 256, torch.float32),
+    ("cv2_est_ff_m1400_f32", 4, 1400, 1024, 256, torch.float32),
 ]
 # groups other than 64: K = 1040 is 65 groups of 16
 QMM_GROUP = {"q6_k1040_m1_f32": 16, "g32_m64_bf16": 32, "q6_g128_m96_f32": 128,
@@ -1552,6 +1623,12 @@ INDEXTTS_QMM = [("c_attn", 1, 3072, 1024), ("c_proj", 1, 1024, 1024), ("c_fc", 1
                 ("mlp_proj", 1, 1024, 4096), ("mel_head", 1, 8194, 1024),
                 ("mel_head", 4, 8194, 1024), ("c_attn", 44, 3072, 1024),
                 ("mlp_proj", 44, 1024, 4096)]
+# CosyVoice2 int4's shapes, timed in float32 x: the LM head at a decode step
+# and the int4 decode's prompt's four projections; a decode step's four are
+# Spark's (timed above)
+COSY2_QMM = [("llm_decoder", 1, 6564, 896), ("qkv", COSY2_PROMPT_ROWS, 1152, 896),
+             ("o_proj", COSY2_PROMPT_ROWS, 896, 896), ("gate_up", COSY2_PROMPT_ROWS, 9728, 896),
+             ("down", COSY2_PROMPT_ROWS, 896, 4864)]
 # Chatterbox T3 int4's shapes (Llama-520M: 1024 wide, 16 heads of 64, MLP
 # 4096), timed in float32 x: a CFG decode step (M = 2) and the pair's 57-row
 # prompt (M = 114; CHATTERBOX_PROMPT_ROWS), and the fused MLP at M = 2 and 8
@@ -1726,6 +1803,7 @@ def phase_quant_kernels():
     timing.update(time_csm(SPARK_QMM, "spark", ()))
     timing.update(time_csm(INDEXTTS_QMM, "indextts", ()))
     timing.update(time_csm(CHATTERBOX_QMM, "chatterbox", CHATTERBOX_QMLP))
+    timing.update(time_csm(COSY2_QMM, "cosyvoice2", ()))
     return errs, timing
 
 
@@ -5261,13 +5339,16 @@ CSM_LAYER_BAR = 1e-2
 # dimensions (the JAX package starts it at zero, which decodes every
 # codebook past the first to 0)
 CSM_HEAD_STD = 1024 ** -0.5
-# bench.py's bench_sesame_serving: 8 streams, ticks of 8, a 1024-row pool,
-# 48-token prompts, sampled at 0.9 / top-k 50, cut in depth to two ticks of
-# 8 frames a stream (bench.py's 64 until phase 15 came, when the sequential
-# run alone took ~100 s at ~190 ms a frame; 32 until phase 17 came, ~54 s;
-# 16, two ticks, until phase 19 came); greedy streams of 2 frames (4 until 19) for the
-# batched-against-sequential check
-CSM_STREAMS, CSM_SERVE_FRAMES, CSM_TICK, CSM_POOL, CSM_PROMPT = 8, 8, 8, 1024, 48
+# bench.py's bench_sesame_serving: 8 streams, a 1024-row pool, 48-token
+# prompts, sampled at 0.9 / top-k 50, cut to one tick of 4 frames a stream.
+# That cuts frames and changes a serving setting: the tick is 4 where
+# bench.py's is 8 (a tick always runs its full count of frames, so 4 frames
+# in a tick of 8 would cost what 8 do). Earlier: bench.py's 64 frames in
+# ticks of 8 until phase 15 came, when the sequential run alone took ~100 s
+# at ~190 ms a frame; 32 until phase 17 came, ~54 s; 16, two ticks, until
+# phase 19 came; 8, one tick of 8, until phase 20 came. Greedy streams of 2
+# frames (4 until 19) for the batched-against-sequential check
+CSM_STREAMS, CSM_SERVE_FRAMES, CSM_TICK, CSM_POOL, CSM_PROMPT = 8, 4, 4, 1024, 48
 CSM_GREEDY_FRAMES = 2  # 4 until phase 19 came
 CSM_INT4_FRAMES = 16
 CSM_SERVED_FRAMES = 16
@@ -5664,9 +5745,10 @@ def csm_generate(csm, mimi, ref, smi) -> dict:
 
 
 def csm_serving(csm) -> dict:
-    """bench.py's bench_sesame_serving on the port: a warm wave, then 8
-    streams of CSM_SERVE_FRAMES sampled frames one at a time and all at once through one
-    `SesameBatcher` (one trial, where bench.py takes the median of 3); then
+    """bench.py's bench_sesame_serving on the port, with its tick cut to
+    CSM_TICK (bench.py's is 8): a warm wave, then 8 streams of
+    CSM_SERVE_FRAMES sampled frames one at a time and all at once through
+    one `SesameBatcher` (one trial, where bench.py takes the median of 3); then
     8 greedy streams of CSM_GREEDY_FRAMES, batched against sequential
     through the same pool (identical frames)."""
     rng = np.random.default_rng(3)
@@ -9199,12 +9281,983 @@ def phase_chatterbox(smi: str) -> dict:
     return rec
 
 
+COSY_REF_S = 10.0  # the reference clip at 16 kHz: 250 prompt tokens at 25 Hz
+COSY_TEXT_TOKENS = 4  # x max_token_text_ratio 20: the decode's cap, 80 steps
+COSY_TEXTS = ("Hello world.", "The quick brown fox.", "Hi there.", "Hello.", "The lazy dog.",
+              "Jumps over the dog.", "Quick brown dog.")
+COSY_BATCH_TEXTS = ("Hello world.", "The quick brown fox jumps.", "Hi.",
+                    "The model turns text into speech.")
+COSY_BATCH_RATIO = 5.0  # the batched requests' caps: 5 steps a text token
+COSY_PROFILE_STEPS = 32
+COSY_ARGMAX_SCALE = 1e4  # the LM head scaled: every draw takes the argmax
+COSY_CPU_REF_S = 2.0  # the copies cut in depth: a 2 s reference, HiFT on 1 s
+COSY_CPU_STEPS = 8
+COSY_INT4_BAR = 1e-3  # int4 logits against the float32 port on the dequantized weights
+COSY3_FLOW_TOKENS = 400  # seeded tokens after the 250 prompt tokens: N = 1300 frames
+COSY3_FLASH = 22 * 10  # the DiT's blocks times the Euler steps
+TURBO_TOKENS = 75  # the decode's cap (max_gen_len): 3.0 s of audio
+TURBO_TEXT = HTTP_TEXT
+TURBO_TEXTS = (TURBO_TEXT, "Hello world.", "The model turns text into speech.",
+               "A seeded reference line that the model never heard.")
+TURBO_PROFILE_STEPS = 32
+TURBO_BATCH_TOKENS = 32  # two ticks of 16
+TURBO_REF_S = 10.0
+
+
+def cosy_text(tok, n: int = COSY_TEXT_TOKENS) -> str:
+    """The first of COSY_TEXTS that the tokenizer cuts into n tokens."""
+    for text in COSY_TEXTS:
+        if len(tok.encode(text)) == n:
+            return text
+    raise SystemExit(f"chip_smoke: none of {COSY_TEXTS} is {n} tokens long")
+
+
+def seeded_campplus(device, seed: int):
+    from mlx_audio_tpu_torch.codec.models.s3gen import CAMPPlus
+    from mlx_audio_tpu_torch.nn.module import init_weights
+
+    return init_weights(CAMPPlus(device=device),
+                        torch.Generator(device=device).manual_seed(seed))
+
+
+def cosy_config(family: str, cut: bool = False):
+    """The family's published configuration, cut in depth where `cut`: the
+    LM 2 layers, the conformer 1 + 1 blocks and the U-Net 1 mid block
+    (CosyVoice2), the DiT 2 blocks (CosyVoice3)."""
+    from mlx_audio_tpu_torch.tts.models.cosyvoice2 import CosyVoice2Config
+    from mlx_audio_tpu_torch.tts.models.cosyvoice3 import CosyVoice3Config
+
+    cfg = CosyVoice2Config() if family == "cosyvoice2" else CosyVoice3Config()
+    if cut:
+        cfg.llm.num_hidden_layers = 2
+        if family == "cosyvoice2":
+            cfg.flow.encoder_num_blocks = cfg.flow.encoder_num_up_blocks = 1
+            cfg.flow.decoder_num_mid_blocks = 1
+        else:
+            cfg.flow.dit.depth = 2
+    return cfg
+
+
+def s3_config(version: int):
+    from mlx_audio_tpu_torch.codec.models.s3tokenizer import ModelConfig
+
+    return ModelConfig() if version == 2 else ModelConfig(n_audio_layer=12)
+
+
+def write_cosyvoice_release(path: Path, model, s3tok, campplus, model_type: str) -> Path:
+    """`model` (a CosyVoice Model of the port) as a consolidated checkpoint:
+    model.safetensors with the LM under its upstream `llm.model.model.*`
+    names and CAM++ under `campplus.*`, config.json, a Qwen2-style
+    tokenizer.json, and the S3Tokenizer with its widths in s3tokenizer/."""
+    import dataclasses
+
+    from mlx_audio_tpu_torch.convert import save_model
+    from mlx_audio_tpu_torch.nn.module import flatten_params
+
+    path = Path(path)
+    weights = {k.replace("model.llm.llm.model.", "model.llm.llm.model.model.", 1): v
+               for k, v in flatten_params(model).items()}
+    weights.update({f"campplus.{k}": v for k, v in flatten_params(campplus).items()})
+    cfg = {"model_type": model_type, "sample_rate": 24000}
+    if model_type == "cosyvoice2":  # its loader reads the widths (CosyVoice3's does not)
+        cfg.update(dataclasses.asdict(model.model.config))
+    save_model(path, weights, cfg)
+    write_tokenizer_json(path, "qwen2")
+    save_model(path / "s3tokenizer", flatten_params(s3tok), dataclasses.asdict(s3tok.config))
+    return path
+
+
+def cosy_runtime(model, src: Path, s3tok, campplus) -> None:
+    """The checkpoint's tokenizer (the port's reader with the family's added
+    tokens), and the S3Tokenizer and CAM++ in memory."""
+    model.config.model_path = str(src)
+    model.set_runtime(tokenizer=model._runtime_part("tokenizer"), s3_tokenizer=s3tok,
+                      speaker_encoder=campplus)
+
+
+@contextlib.contextmanager
+def cosy_split(model):
+    """Each stage of the `generate` run inside timed apart: the reference
+    (the S3Tokenizer, CAM++ and the prompt mel), the LM, the flow and the
+    vocoder, each call wrapped on the instance and synchronised; yields the
+    dict of seconds, and what each stage last returned under "last"."""
+    out = {"last": {}}
+    stages = ((model, "prompt", "reference_s"), (model.model, "generate_tokens", "llm_s"),
+              (model.model, "tokens_to_mel", "flow_s"), (model.model, "mel_to_audio",
+                                                           "vocoder_s"))
+
+    def timed(fn, key):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a, **k)
+            torch.cuda.synchronize()
+            out[key] = out.get(key, 0.0) + time.perf_counter() - t0
+            out["last"][key] = r
+            return r
+        return call
+
+    for obj, name, key in stages:
+        setattr(obj, name, timed(getattr(obj, name), key))
+    try:
+        yield out
+    finally:
+        for obj, name, _ in stages:
+            delattr(obj, name)
+
+
+def cosy_generate(model, ref, text, label: str, smi) -> dict:
+    """A warm-up and a timed zero-shot `generate` from the 10 s reference; its
+    parts timed apart; a profiled prefill and COSY_PROFILE_STEPS LM steps;
+    the flow's and the vocoder's device time."""
+    from mlx_audio_tpu_torch.tts.models.cosyvoice2.llm import decode_loop
+
+    ref_text = "A seeded reference line."
+    lm = model.model.llm
+    tok = model._runtime_part("tokenizer")
+    with torch.inference_mode():
+        # warm each stage on a short input (the eager path compiles nothing)
+        prompt = model.prompt(ref[:16000])
+        lm.inference(np.asarray(tok.encode(text), np.int32), None, prompt[0],
+                     max_token_text_ratio=1.0, seed=0)
+        model.model.mel_to_audio(model.model.tokens_to_mel(np.arange(4), *prompt))
+        torch.cuda.synchronize()
+        zero_port_launches()
+        with cosy_split(model) as split:
+            t0 = time.perf_counter()
+            res = list(model.generate(text, ref_audio=ref, ref_text=ref_text, seed=1,
+                                      verbose=False))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    launches = port_kernel_launches()
+    audio = np.concatenate([r.audio for r in res])
+    if not np.isfinite(audio).all() or not np.abs(audio).max() > 0:
+        raise SystemExit(f"chip_smoke: {label}'s waveform is not finite, or silent")
+    audio_s = audio.size / model.sample_rate
+    last = split.pop("last")
+    prompt, tokens, mel = last["reference_s"], last["llm_s"], last["flow_s"]
+    ids = np.asarray(tok.encode(text), np.int32)
+    prompt_ids = np.asarray(tok.encode(model.prompt_text(ref_text)), np.int32)
+    with torch.inference_mode():
+        emb = lm.build_prompt_embeds(ids, prompt_ids, prompt[0])
+        profile_one_run(lambda: decode_loop(lm, emb, 0, 0, 0, v3=lm.V3),
+                        f"{label}'s LM prefill ({emb.shape[1]} rows)")
+        pre = dict(profile_one_run.last)
+        steps = COSY_PROFILE_STEPS
+        profile_one_run(lambda: decode_loop(lm, emb, steps, steps, 0, v3=lm.V3),
+                        f"{label}'s LM prefill and {steps} steps")
+        prof = dict(profile_one_run.last)
+        profile_one_run(lambda: model.model.tokens_to_mel(tokens, *prompt, seed=1),
+                        f"{label}'s flow on {tokens.size} tokens")
+        flow = dict(profile_one_run.last)
+        profile_one_run(lambda: model.model.mel_to_audio(mel, seed=1),
+                        f"{label}'s vocoder on {mel.shape[1]} frames")
+        voc = dict(profile_one_run.last)
+    per_step = {k: (prof[k] - pre[k]) / steps for k in ("launches", "device_ms", "wall_ms")}
+    per_step["idle_share"] = 1 - per_step["device_ms"] / per_step["wall_ms"]
+    log(f"[{label.lower()}] zero-shot generate from a {COSY_REF_S:.0f} s reference "
+        f"({prompt[0].shape[1]} prompt tokens), {len(ids)} text tokens: {audio_s:.3f} s of audio "
+        f"in {wall:.4f} s, RTF {wall / audio_s:.4f}; apart: reference {split['reference_s']:.4f} "
+        f"s, LM {split['llm_s']:.4f} s ({tokens.size} tokens), flow {split['flow_s']:.4f} s "
+        f"({flow['device_ms']:.2f} ms of device time, {flow['launches']} launches), vocoder "
+        f"{split['vocoder_s']:.4f} s ({voc['device_ms']:.2f} ms, {voc['launches']} launches); an "
+        f"LM step: {per_step['launches']:.0f} launches, {per_step['device_ms']:.3f} ms of device "
+        f"time in {per_step['wall_ms']:.3f} ms of wall (idle {100 * per_step['idle_share']:.1f}%);"
+        f" the port's kernels launched {launches} ({smi})")
+    return {"wall_s": wall, "audio_s": audio_s, "rtf": wall / audio_s,
+            "speech_tokens": int(tokens.size), "prompt_rows": int(emb.shape[1]),
+            "launches": launches, "split": split, "step": per_step,
+            "flow": {k: flow[k] for k in ("device_ms", "launches", "wall_ms")},
+            "vocoder": {k: voc[k] for k in ("device_ms", "launches", "wall_ms")}}, prompt
+
+
+@contextlib.contextmanager
+def argmax_head(lm, scale: float = COSY_ARGMAX_SCALE):
+    """The LM's head scaled so every RAS draw takes the argmax (the
+    batcher's comparison at the argmax settings); restored after."""
+    w = lm.llm_decoder.weight
+    b = getattr(lm.llm_decoder, "bias", None)
+    with torch.no_grad():
+        w.mul_(scale)
+        if b is not None:
+            b.mul_(scale)
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            w.div_(scale)
+            if b is not None:
+                b.div_(scale)
+
+
+def cosy_batched(model, ref, prompt, label: str) -> dict:
+    """RASBatcher with four requests of different texts at the argmax
+    settings, each capped at COSY_BATCH_RATIO steps a text token and equal
+    to the decode of the same request alone; the speedup over the four
+    alone one after another; then `generate` through the installed batcher
+    against the direct route."""
+    from mlx_audio_tpu_torch.serving import get_infer_hook
+    from mlx_audio_tpu_torch.tts.models.cosyvoice2.llm import decode_loop, step_limits
+
+    lm = model.model.llm
+    tok = model._runtime_part("tokenizer")
+    ptok = prompt[0]
+    reqs = []
+    with torch.inference_mode():
+        for i, text in enumerate(COSY_BATCH_TEXTS):
+            ids = np.asarray(tok.encode(text), np.int32)
+            emb = lm.build_prompt_embeds(ids, None, ptok)
+            reqs.append((emb, *step_limits(ids.size, emb.shape[1], COSY_BATCH_RATIO, 2.0),
+                         40 + i))
+    with argmax_head(lm):
+        with torch.inference_mode():
+            decode_loop(lm, reqs[0][0], 0, 4, 0, v3=lm.V3)  # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = [decode_loop(lm, e, lo, hi, s, v3=lm.V3) for e, lo, hi, s in reqs]
+            seq_s = time.perf_counter() - t0
+        b = model.make_batcher(slots=4, max_len=512, tick_frames=16)
+        try:
+            b.warmup()
+            t0 = time.perf_counter()
+            futs = [b.submit(e.float().cpu().numpy(), min_tokens=lo, max_steps=hi, seed=s)
+                    for e, lo, hi, s in reqs]
+            got = [f.result(timeout=SERVE_TIMEOUT) for f in futs]
+            batch_s = time.perf_counter() - t0
+            ticks = b.dispatch_count
+            b.install()
+            kw = dict(ref_audio=ref, ref_text="A seeded reference line.", seed=3, verbose=False)
+            served = list(model.generate(COSY_BATCH_TEXTS[2], **kw))[0]
+            served_ticks = b.dispatch_count - ticks
+        finally:
+            b.close()
+        if get_infer_hook(model.model) is not None or served_ticks < 1:
+            raise SystemExit(f"chip_smoke: {label}'s generate did not take the installed "
+                             "RASBatcher")
+        direct = list(model.generate(COSY_BATCH_TEXTS[2], **kw))[0]
+    rel = held_close(f"{label}'s generate through the installed RASBatcher against the direct "
+                     "route", served.audio, direct.audio)
+    for w, g in zip(want, got):
+        if w.tolist() != np.asarray(g).tolist():
+            raise SystemExit(f"chip_smoke: a batched {label} request's tokens {list(g)[:8]}... "
+                             f"part from its run alone {w.tolist()[:8]}...")
+    n_tok = sum(len(w) for w in want)
+    log(f"[{label.lower()}] RASBatcher, 4 requests at the argmax settings ({n_tok} tokens in "
+        f"all): {batch_s:.3f} s batched ({ticks} ticks), {seq_s:.3f} s alone one after another: "
+        f"{seq_s / batch_s:.2f}x; tokens identical; generate through the installed batcher "
+        f"({served_ticks} ticks) equals the direct route's audio")
+    return {"wall_s": batch_s, "sequential_s": seq_s, "speedup": seq_s / batch_s,
+            "tokens": n_tok, "ticks": ticks, "served_ticks": served_ticks,
+            "served_audio_rel": rel}
+
+
+def record_logits(module):
+    """A forward hook on `module` keeping each call's output, float32 on the
+    host; returns (rows, handle)."""
+    rows = []
+    handle = module.register_forward_hook(
+        lambda m, a, out: rows.append(out.detach().float().reshape(-1, out.shape[-1]).cpu()))
+    return rows, handle
+
+
+def cosy_cut_copy(build, label: str, ref, hift_draws) -> dict:
+    """A copy at full width cut in depth (`build(device)` makes it from its
+    seed), card against CPU in float32 on a COSY_CPU_REF_S reference: the
+    LM's prompt and COSY_CPU_STEPS steps' logits (the card replays the
+    CPU's argmax), the flow's mel (the same noise) and the vocoder on one
+    second (the same draws)."""
+    from mlx_audio_tpu_torch.nn import load_weights
+    from mlx_audio_tpu_torch.nn.module import flatten_params
+    from mlx_audio_tpu_torch.tts.models.cosyvoice2.llm import decode_loop
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(7)
+    ptok = rng.integers(0, 6561, (1, int(COSY_CPU_REF_S * 25)))
+    pmel = rng.standard_normal((1, 2 * ptok.shape[1], 80)).astype(np.float32)
+    spk = rng.standard_normal((1, 192)).astype(np.float32)
+    ids = rng.integers(0, 150000, 6).astype(np.int32)
+    flat, rec, noise = None, {}, None
+
+    def run(dev):
+        nonlocal flat, noise
+        m = build(dev)
+        if flat is None:
+            flat = flatten_params(m)
+        else:
+            load_weights(m, flat)
+        out = {}
+        lm = m.model.llm
+        rows, handle = record_logits(lm.llm_decoder)
+        it = iter(rec["codes"]) if "codes" in rec else None
+        taken = []
+
+        def sampler(logp, hist, gen):
+            tok = int(logp[0].argmax()) if it is None else next(it)
+            taken.append(tok)
+            return torch.tensor([tok], device=logp.device)
+
+        with torch.inference_mode():
+            emb = lm.build_prompt_embeds(ids, None, ptok)
+            out["prompt"] = emb.cpu()
+            decode_loop(lm, emb, 0, COSY_CPU_STEPS, 0, v3=lm.V3, sampler=sampler)
+            handle.remove()
+            out["rows"], rec["codes"] = rows, taken
+            tokens = np.array([t for t in taken if t < 6561] or [1])
+            T = 2 * (ptok.shape[1] + 50)
+            if noise is None:
+                noise = torch.randn(1, T, 80, generator=torch.Generator().manual_seed(5))
+            out["mel"] = m.model.tokens_to_mel(tokens, ptok, pmel, spk,
+                                               noise=noise.to(dev)).float().cpu()
+            voc = m.model.hifigan
+            out["wav"] = torch.as_tensor(m.model.mel_to_audio(
+                pmel[:, :50], draws=tuple(d.to(dev) for d in hift_draws(voc))))
+        return out
+
+    cpu = run("cpu")
+    cpu_s = time.perf_counter() - t0
+    card = run("cuda")
+    for key, what in (("prompt", "the LM's prompt"), ("mel", "the flow's mel"),
+                      ("wav", "the vocoder on 1 s")):
+        rec[f"{key}_rel"] = held_close(f"{label} cut copy, {what}, card against CPU", card[key],
+                                       cpu[key])
+    worst = max(close_to(a, b)[0] / close_to(a, b)[1] for a, b in zip(card["rows"], cpu["rows"]))
+    log(f"[{label.lower()}] cut copy, the prompt's and {COSY_CPU_STEPS} LM steps' logits card "
+        f"against CPU: worst {worst:.2e} of the peak (bar {CARD_VS_CPU_ATOL:g}); CPU side "
+        f"{cpu_s:.1f} s, all {time.perf_counter() - t0:.1f} s")
+    if worst > CARD_VS_CPU_ATOL:
+        raise SystemExit(f"chip_smoke: the {label} cut copy's LM logits part card from CPU")
+    rec.pop("codes")
+    rec.update(logits_worst_rel=worst, cpu_s=cpu_s, wall_s=time.perf_counter() - t0)
+    return rec
+
+
+def cosyvoice2_launches(cfg, prompt_rows: int, steps: int) -> dict:
+    """The quantized launches of one int4 CosyVoice2 LM decode from the code:
+    the prompt (M = T0: q/k/v fused, o_proj, gate/up fused and down on the
+    tensor-core GEMM; the fused MLP's guard refuses I = 4864), the head on
+    its last row, then each step (M = 1, the GEMV) and its head. The tables
+    (the text, speech and flow embeddings) dequantize rows, no kernel."""
+    from mlx_audio_tpu_torch.nn.quantized import fused_mlp_routable, qmm_routable
+
+    D, I, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
+    H, KV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, D // cfg.num_attention_heads
+    head = (cfg.speech_token_size + 3, D)
+    got = {"qmm": 0, "qmlp": 0, "qmm_kernel": 0, "qmm_gemv": 0, "qmm_mma": 0}
+
+    def add(M, n, N, K):
+        if qmm_routable(4, GROUP, N, K, M):
+            got["qmm"] += n
+            got["qmm_gemv" if M <= 4 else "qmm_mma"] += n
+
+    for M, n in ((prompt_rows, L), (1, L * steps)):
+        mlp_fused = fused_mlp_routable(4, GROUP, D, I, D, M)
+        for N, K in [((H + 2 * KV) * hd, D), (D, D)] + ([] if mlp_fused
+                                                        else [(2 * I, D), (D, I)]):
+            add(M, n, N, K)
+        got["qmlp"] += n if mlp_fused else 0
+    add(1, 1 + steps, *head)
+    return got
+
+
+def cosy_int4(src: Path, tmp: Path, ref, text, smi) -> dict:
+    """The consolidated checkpoint through `convert --quantize` (every 2-D
+    weight whose rows are a multiple of 64: the LM, its head and tables,
+    the flow's linears and tables), loaded by `tts.load_model` and run by
+    `tts.generate.generate_audio` on the checkpoint's S3Tokenizer and
+    CAM++; then the LM decode alone with the quantized launches held to the
+    code's count, its prompt's and every step's logits held to the float32
+    port on the dequantized weights (which replays the int4 model's
+    tokens)."""
+    from mlx_audio_tpu_torch import convert
+    from mlx_audio_tpu_torch.nn import load_weights
+    from mlx_audio_tpu_torch.ops.cuda import quant_matmul as qk
+    from mlx_audio_tpu_torch.tts import generate as tts_generate
+    from mlx_audio_tpu_torch.tts import utils as tts_utils
+    from mlx_audio_tpu_torch.tts.models.cosyvoice2 import Model, ModelConfig
+    from mlx_audio_tpu_torch.tts.models.cosyvoice2.llm import decode_loop, step_limits
+    from mlx_audio_tpu_torch.utils import load_weight_files
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        q = convert.convert(str(src), str(tmp / "cosyvoice2-int4"), quantize=True)
+    convert_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q4 = tts_utils.load_model(str(q))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    kinds = {type(q4.model.llm.llm.model.layers[0].mlp.down_proj).__name__,
+             type(q4.model.llm.llm_decoder).__name__,
+             type(q4.model.llm.speech_embedding).__name__,
+             type(q4.model.flow.encoder_proj).__name__}
+    if kinds != {"QuantizedLinear", "QuantizedEmbedding"}:
+        raise SystemExit(f"chip_smoke: the int4 CosyVoice2 loaded as {kinds}")
+    kw = dict(ref_audio=ref, ref_text="A seeded reference line.", verbose=False,
+              output_path=str(tmp / "int4-out"))
+    with torch.inference_mode(), contextlib.redirect_stdout(sys.stderr):
+        t0 = time.perf_counter()
+        res = tts_generate.generate_audio(text, model=q4, seed=0, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        gen_launches = quant_counts(4)
+        tok = q4._runtime_part("tokenizer")
+        ids = np.asarray(tok.encode(text), np.int32)
+        ptok, _, _ = q4.prompt(ref)
+        emb = q4.model.llm.build_prompt_embeds(ids, None, ptok)
+        lo, hi = step_limits(ids.size, emb.shape[1], 20.0, 2.0)
+    lm4 = q4.model.llm
+
+    def replay(lm, codes_in=None):
+        rows, handle = record_logits(lm.llm_decoder)
+        it = iter(codes_in) if codes_in is not None else None
+        taken = []
+
+        def sampler(logp, hist, gen):
+            tok_ = int(logp[0].argmax()) if it is None else next(it)
+            taken.append(tok_)
+            return torch.tensor([tok_], device=logp.device)
+
+        with torch.inference_mode():
+            decode_loop(lm, emb, lo, hi, 0, sampler=sampler)
+        handle.remove()
+        return rows, taken
+
+    torch.cuda.synchronize()
+    qk.reset_launches()
+    rows4, codes = replay(lm4)
+    torch.cuda.synchronize()
+    got = quant_counts(4)
+    steps = len(codes)  # the sampler is called once a step
+    predicted = cosyvoice2_launches(lm4.config, emb.shape[1], steps)
+    deq = Model(ModelConfig(cosyvoice2=cosy_config("cosyvoice2")), device="cuda")
+    load_weights(deq, deq.sanitize(convert.dequantize_weights(load_weight_files(q), 4, GROUP)),
+                 strict=False)
+    rowsd, _ = replay(deq.model.llm, codes)
+    del deq
+    worst = max(close_to(a, b)[0] / close_to(a, b)[1] for a, b in zip(rows4, rowsd))
+    log(f"[cosyvoice2] int4 g64 by convert --quantize in {convert_s:.1f} s, loaded by "
+        f"tts.load_model in {load_s:.1f} s; generate_audio {wall:.4f} s ({res[0].samples} "
+        f"samples, quantized launches {gen_launches}); the LM decode alone ({emb.shape[1]}-row "
+        f"prompt, {steps} steps): launches {got}, from the code {predicted}; the prompt's and "
+        f"{steps} steps' logits against the float32 port on the dequantized weights: worst "
+        f"{worst:.2e} of the peak (bar {COSY_INT4_BAR:g}) ({smi})")
+    if got != predicted:
+        raise SystemExit(f"chip_smoke: the int4 CosyVoice2 LM launched {got}, the code says "
+                         f"{predicted}")
+    if worst > COSY_INT4_BAR or not np.isfinite(res[0].audio).all():
+        raise SystemExit("chip_smoke: the int4 CosyVoice2 parts from the dequantized model")
+    rec = {"convert_s": convert_s, "load_s": load_s, "wall_s": wall, "samples": res[0].samples,
+           "generate_launches": gen_launches, "launches": got, "steps": steps,
+           "prompt_rows": int(emb.shape[1]), "logits_worst_rel": worst}
+    del q4
+    shutil.rmtree(q, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def cosy_vc(model, ref, label: str) -> dict:
+    """One voice-conversion call: 4 s of source audio through the S3Tokenizer
+    into the flow, no LM."""
+    src = csm_reference(4.0, seed=33, sr=16000)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        res = list(model.generate("", ref_audio=ref, source_audio=src, seed=2, verbose=False))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    audio = res[0].audio
+    n_src = model.source_tokens(src).shape[1]
+    if audio.size != n_src * 2 * 480 or not np.isfinite(audio).all():
+        raise SystemExit(f"chip_smoke: {label}'s voice conversion gave {audio.size} samples for "
+                         f"{n_src} source tokens")
+    log(f"[{label.lower()}] voice conversion of 4 s ({n_src} source tokens): {wall:.4f} s")
+    return {"wall_s": wall, "source_tokens": int(n_src), "samples": int(audio.size)}
+
+
+def phase_cosyvoice2(smi: str) -> dict:
+    """Phase 20 (see the module docstring)."""
+    from mlx_audio_tpu_torch.codec.models.s3tokenizer import S3TokenizerV2
+    from mlx_audio_tpu_torch.tts.models.cosyvoice2 import Model, ModelConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+
+    def mark(what):
+        log(f"[slice20] {time.perf_counter() - t_phase:.1f} s into phase 20 after {what}")
+
+    tmp = Path(tempfile.mkdtemp(prefix="slice20-"))
+    rec = {}
+    try:
+        t0 = time.perf_counter()
+        model = Model(ModelConfig(cosyvoice2=cosy_config("cosyvoice2")), device="cuda", seed=34)
+        s3tok = S3TokenizerV2(config=s3_config(2), device="cuda", seed=35)
+        campplus = seeded_campplus("cuda", 36)
+        src = write_cosyvoice_release(tmp / "cosyvoice2-release", model, s3tok, campplus,
+                                      "cosyvoice2")
+        cosy_runtime(model, src, s3tok, campplus)
+        text = cosy_text(model._runtime_part("tokenizer"))
+        parts = {"llm": model.model.llm, "flow": model.model.flow, "hift": model.model.hifigan,
+                 "s3tokenizer": s3tok, "campplus": campplus}
+        n_par = {k: sum(p.numel() for p in m.parameters()) for k, m in parts.items()}
+        write_s = time.perf_counter() - t0
+        log(f"[cosyvoice2] CosyVoice2 at CosyVoice2Config() (Qwen2-0.5B 896 x 24, 14 heads, "
+            f"2 kv heads, MLP 4864, 151,936 text and 6,564 speech rows; the flow's conformer "
+            f"512 x (6 + 4), the U-Net 256 channels x 12 mid blocks; HiFT [8, 5, 3]), float32, "
+            f"seeded; S3TokenizerV2 and CAM++ seeded: parameters (M) "
+            + ", ".join(f"{k} {v / 1e6:.1f}" for k, v in n_par.items())
+            + f"; the checkpoint written in {write_s:.1f} s; the text {text!r}")
+        rec.update(parameters=n_par, write_s=write_s)
+        ref = csm_reference(COSY_REF_S, seed=37, sr=16000)
+        rec["generate"], prompt = cosy_generate(model, ref, text, "CosyVoice2", smi)
+        if rec["generate"]["launches"] != dict.fromkeys(rec["generate"]["launches"], 0):
+            raise SystemExit("chip_smoke: the float32 CosyVoice2 launched the port's kernels")
+        mark("the float32 generate")
+        rec["vc"] = cosy_vc(model, ref, "CosyVoice2")
+        rec["batched"] = cosy_batched(model, ref, prompt, "CosyVoice2")
+        mark("RASBatcher")
+        del model, s3tok, campplus
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        def build(dev):
+            return Model(ModelConfig(cosyvoice2=cosy_config("cosyvoice2", cut=True)), device=dev,
+                         seed=38)
+
+        def draws(voc):
+            return voc.m_source.l_sin_gen.draws(1, 50 * voc.f0_upsample_scale, "cpu",
+                                                torch.Generator().manual_seed(6))
+
+        rec["card_vs_cpu"] = cosy_cut_copy(build, "CosyVoice2", ref, draws)
+        mark("the copy cut in depth")
+        rec["int4"] = cosy_int4(src, tmp, ref, text, smi)
+        if rec["int4"]["prompt_rows"] != COSY2_PROMPT_ROWS:
+            raise SystemExit(f"chip_smoke: the int4 CosyVoice2 prompt has "
+                             f"{rec['int4']['prompt_rows']} rows; phase 2 times "
+                             f"{COSY2_PROMPT_ROWS}")
+        mark("int4")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[slice20] phase 20 wall {rec['phase_s']:.1f} s")
+    return rec
+
+
+def cosy3_suppress_stop(model) -> None:
+    """The decode run to its cap: the LM head's rows past the speech tokens
+    (the stop and the other extended tokens) zero, the speech rows five
+    times their draw (their logits' spread about 3), so an extended token
+    is neither in the top-25 nucleus nor, but at ~3e-4 a step, drawn by the
+    repetition resample."""
+    lm = model.model.llm
+    V = lm.speech_token_size
+    with torch.no_grad():
+        lm.llm_decoder.weight[V:] = 0.0
+        lm.llm_decoder.weight[:V] *= 5.0
+
+
+def cosy3_long_flow(model, prompt) -> dict:
+    """`tokens_to_mel` plus `mel_to_audio` on the 10 s reference's 250 prompt
+    tokens and COSY3_FLOW_TOKENS seeded tokens (N = 1300 frames): the DiT
+    launches `flash_fwd_f32` once a block an Euler step, counted through the
+    wrapper; the flow's and the vocoder's times."""
+    from mlx_audio_tpu_torch.ops.cuda.flash_attention import flash_attention
+
+    ptok, pmel, emb = prompt
+    tokens = np.random.default_rng(39).integers(0, 6561, COSY3_FLOW_TOKENS)
+    m = model.model
+    # the code's count: one launch a DiT block an Euler step (22 x 10 at the
+    # published depth)
+    want = len(m.flow.decoder.estimator.transformer_blocks) * m.flow.n_timesteps
+    if want != COSY3_FLASH:
+        raise SystemExit(f"chip_smoke: CosyVoice3's DiT has {want} block-steps, not "
+                         f"{COSY3_FLASH}")
+    with torch.inference_mode():
+        m.tokens_to_mel(tokens[:50], ptok, pmel, emb, seed=0)  # warm (N < 1280: no flash)
+        torch.cuda.synchronize()
+        zero_port_launches()
+        t0 = time.perf_counter()
+        mel = m.tokens_to_mel(tokens, ptok, pmel, emb, seed=0)
+        torch.cuda.synchronize()
+        flow_s = time.perf_counter() - t0
+        n_flash = flash_attention.launches
+        launches = port_kernel_launches()
+        t0 = time.perf_counter()
+        wav = m.mel_to_audio(mel, seed=0)
+        voc_s = time.perf_counter() - t0
+        _, kernels = profile_one_run(lambda: m.tokens_to_mel(tokens, ptok, pmel, emb, seed=0),
+                                     f"CosyVoice3's flow at N = {2 * (ptok.shape[1] + 400)}")
+        flow_prof = dict(profile_one_run.last)
+    N = 2 * (ptok.shape[1] + tokens.size)
+    flash_dev = {k: v for k, v in kernels.items() if "flash_fwd" in k}
+    log(f"[cosyvoice3] the flow on {ptok.shape[1]} prompt + {tokens.size} seeded tokens (N = "
+        f"{N}, the CFG pair B = 2, 16 heads of 64): {flow_s:.4f} s, flash launches {n_flash} "
+        f"(the code: {want}), the port's kernels {launches}; profiled: "
+        f"{flow_prof['device_ms']:.2f} ms of device time, the flash kernels {flash_dev}; the "
+        f"vocoder on {mel.shape[1]} frames {voc_s:.4f} s ({wav.shape[-1]} samples)")
+    if n_flash != want or launches["flash"] != want:
+        raise SystemExit(f"chip_smoke: CosyVoice3's DiT launched flash {n_flash} times at N = "
+                         f"{N}; the code says {want}")
+    if mel.shape[1] != 2 * tokens.size or not torch.isfinite(mel).all() \
+            or not np.isfinite(wav).all():
+        raise SystemExit("chip_smoke: CosyVoice3's long flow gave a bad mel or waveform")
+    return {"N": N, "flow_s": flow_s, "vocoder_s": voc_s, "flash_launches": n_flash,
+            "launches": launches, "flow_device_ms": flow_prof["device_ms"],
+            "flash_device": {k: list(v) for k, v in flash_dev.items()}}
+
+
+def phase_cosyvoice3(smi: str) -> dict:
+    """Phase 21 (see the module docstring)."""
+    from mlx_audio_tpu_torch.codec.models.s3tokenizer import S3TokenizerV3
+    from mlx_audio_tpu_torch.tts.models.cosyvoice3 import Model, ModelConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+
+    def mark(what):
+        log(f"[slice21] {time.perf_counter() - t_phase:.1f} s into phase 21 after {what}")
+
+    tmp = Path(tempfile.mkdtemp(prefix="slice21-"))
+    rec = {}
+    try:
+        t0 = time.perf_counter()
+        model = Model(ModelConfig(cosyvoice3=cosy_config("cosyvoice3")), device="cuda", seed=40)
+        cosy3_suppress_stop(model)
+        s3tok = S3TokenizerV3(config=s3_config(3), device="cuda", seed=41)
+        campplus = seeded_campplus("cuda", 42)
+        write_tokenizer_json(tmp, "qwen2")
+        model.config.model_path = str(tmp)
+        model.set_runtime(tokenizer=model._runtime_part("tokenizer"), s3_tokenizer=s3tok,
+                          speaker_encoder=campplus)
+        text = cosy_text(model._runtime_part("tokenizer"))
+        parts = {"llm": model.model.llm, "flow": model.model.flow, "hift": model.model.hifigan,
+                 "s3tokenizer": s3tok, "campplus": campplus}
+        n_par = {k: sum(p.numel() for p in m.parameters()) for k, m in parts.items()}
+        log(f"[cosyvoice3] CosyVoice3 at CosyVoice3Config() (Qwen2-0.5B, 6,761 speech rows; "
+            f"the DiT 1024 x 22, 16 heads of 64; the causal HiFT), float32, seeded, the rows "
+            f"past the speech tokens pushed down (the decode runs to its cap); S3TokenizerV3 "
+            f"and CAM++ seeded: parameters (M) "
+            + ", ".join(f"{k} {v / 1e6:.1f}" for k, v in n_par.items())
+            + f" in {time.perf_counter() - t0:.1f} s; the text {text!r}")
+        rec["parameters"] = n_par
+        ref = csm_reference(COSY_REF_S, seed=43, sr=16000)
+        rec["generate"], prompt = cosy_generate(model, ref, text, "CosyVoice3", smi)
+        if rec["generate"]["launches"] != dict.fromkeys(rec["generate"]["launches"], 0):
+            raise SystemExit("chip_smoke: the float32 CosyVoice3 launched the port's kernels "
+                             "(its N is under flash's 1280)")
+        mark("the float32 generate")
+        rec["long_flow"] = cosy3_long_flow(model, prompt)
+        mark("the long flow")
+        del model, s3tok, campplus
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        def build(dev):
+            return Model(ModelConfig(cosyvoice3=cosy_config("cosyvoice3", cut=True)), device=dev,
+                         seed=44)
+
+        def draws(voc):
+            return voc.m_source.l_sin_gen.draws(1, 50 * voc.f0_upsample_scale, "cpu",
+                                                torch.Generator().manual_seed(6))
+
+        rec["card_vs_cpu"] = cosy_cut_copy(build, "CosyVoice3", ref, draws)
+        mark("the copy cut in depth")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[slice21] phase 21 wall {rec['phase_s']:.1f} s")
+    return rec
+
+
+def turbo_suppress_stop(model) -> None:
+    """The decode run to max_gen_len: the stop's head row zero, so its logit
+    (0) stays under the 1000th largest (about one spread up) and top-k
+    1000 never keeps it."""
+    with torch.no_grad():
+        model.t3.speech_head.weight[model.t3.hp.stop_speech_token] = 0.0
+
+
+def turbo_seeded(device="cuda", seed: int = 45, cut: bool = False):
+    """Chatterbox-Turbo at the published widths from `seed`, cut in depth
+    where `cut`: GPT-2 2 layers, the
+    conformer 1 + 1 blocks, the estimator 1 mid block."""
+    from mlx_audio_tpu_torch.tts.models.chatterbox_turbo import Model, ModelConfig, T3TurboConfig
+
+    hp = T3TurboConfig(gpt2_overrides={"n_layer": 2} if cut else None)
+    sizes = {part: dict(over) for part, over in CHATTERBOX_CUT_SIZES.items()} if cut else None
+    return Model(ModelConfig(t3_config=hp), device=device, seed=seed, s3gen_sizes=sizes)
+
+
+def turbo_generate(model, ref, smi) -> dict:
+    """A warm-up and a timed `generate` from the 10 s reference to the cap
+    (TURBO_TOKENS); its parts timed apart; a profiled prefill and
+    TURBO_PROFILE_STEPS steps; the flow's and HiFT's device time."""
+    kw = dict(sample_rate=24000, temperature=0.8, top_k=1000, top_p=0.95,
+              repetition_penalty=1.2)
+    with torch.inference_mode():
+        list(model.generate(TURBO_TEXT, ref_audio=ref, max_tokens=8, seed=0, **kw))
+        torch.cuda.synchronize()
+        zero_port_launches()
+        t0 = time.perf_counter()
+        res = list(model.generate(TURBO_TEXT, ref_audio=ref, max_tokens=TURBO_TOKENS, seed=1,
+                                  **kw))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = no_port_launches("Chatterbox-Turbo's float32 generate")
+    want = (TURBO_TOKENS + 3) * 2 * 480
+    if len(res) != 1 or res[0].samples != want:
+        raise SystemExit(f"chip_smoke: Chatterbox-Turbo generated {[r.samples for r in res]} "
+                         f"samples; {TURBO_TOKENS} tokens and 3 of silence give {want}")
+    audio = res[0].audio
+    if not np.isfinite(audio).all() or not np.abs(audio).max() > 0:
+        raise SystemExit("chip_smoke: Chatterbox-Turbo's waveform is not finite, or silent")
+    audio_s = res[0].samples / model.sample_rate
+    split = {}
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        conds = model.prepare_conditionals(ref, 24000)
+        torch.cuda.synchronize()
+        split["conditioning_s"] = time.perf_counter() - t0
+        ids = model._tokenize_text(TURBO_TEXT)
+        t0 = time.perf_counter()
+        toks = model.t3.inference_turbo(conds.t3, ids, max_gen_len=TURBO_TOKENS, seed=1,
+                                        **{k: v for k, v in kw.items() if k != "sample_rate"})
+        split["t3_s"] = time.perf_counter() - t0
+        tokens = model._filter_speech_tokens(toks)
+        t0 = time.perf_counter()
+        mel = model.tokens_to_mel(tokens)
+        torch.cuda.synchronize()
+        split["flow_s"] = time.perf_counter() - t0
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        t0 = time.perf_counter()
+        model.s3gen.hift_inference(mel, generator=gen)
+        torch.cuda.synchronize()
+        split["hift_s"] = time.perf_counter() - t0
+        emb = model.t3.prefill_embeds(conds.t3, ids)
+        args = (0.8, 1000, 0.95, 1.2, 0)
+        profile_one_run(lambda: list(model.t3.decode_chunks(emb, 0, *args)), "T3Turbo's prefill")
+        pre = dict(profile_one_run.last)
+        steps = TURBO_PROFILE_STEPS
+        profile_one_run(lambda: list(model.t3.decode_chunks(emb, steps, *args)),
+                        f"T3Turbo's prefill and {steps} steps")
+        prof = dict(profile_one_run.last)
+        profile_one_run(lambda: model.tokens_to_mel(tokens), "the meanflow flow (two steps)")
+        flow = dict(profile_one_run.last)
+        profile_one_run(lambda: model.s3gen.hift_inference(mel), f"HiFT on {mel.shape[1]} frames")
+        hift = dict(profile_one_run.last)
+    per_step = {k: (prof[k] - pre[k]) / steps for k in ("launches", "device_ms", "wall_ms")}
+    per_step["idle_share"] = 1 - per_step["device_ms"] / per_step["wall_ms"]
+    log(f"[turbo] generate from a {TURBO_REF_S:.0f} s reference (temperature 0.8, top-k 1000, "
+        f"top-p 0.95, repetition 1.2; {TURBO_TOKENS} speech tokens and 3 of silence, "
+        f"{audio_s:.3f} s of audio): wall {wall:.4f} s, RTF {wall / audio_s:.4f}; apart: "
+        f"conditioning {split['conditioning_s']:.4f} s, T3 {split['t3_s']:.4f} s, flow "
+        f"{split['flow_s']:.4f} s ({flow['device_ms']:.2f} ms of device time, {flow['launches']} "
+        f"launches), HiFT {split['hift_s']:.4f} s ({hift['device_ms']:.2f} ms, "
+        f"{hift['launches']} launches); a T3 step: {per_step['launches']:.0f} launches, "
+        f"{per_step['device_ms']:.3f} ms of device time in {per_step['wall_ms']:.3f} ms of wall "
+        f"(idle {100 * per_step['idle_share']:.1f}%); the port's kernels launched {launches} "
+        f"({smi})")
+    return {"wall_s": wall, "audio_s": audio_s, "rtf": wall / audio_s,
+            "speech_tokens": TURBO_TOKENS, "samples": res[0].samples, "launches": launches,
+            "split": split, "step": per_step, "prompt_rows": int(emb.shape[1]),
+            "flow": {k: flow[k] for k in ("device_ms", "launches", "wall_ms")},
+            "hift": {k: hift[k] for k in ("device_ms", "launches", "wall_ms")}}
+
+
+def turbo_batched(model, ref) -> dict:
+    """TurboBatcher with four requests at temperature 0, each capped at
+    TURBO_BATCH_TOKENS, each equal to the decode of the same request alone;
+    the speedup; then `generate` through the installed batcher against the
+    direct route."""
+    from mlx_audio_tpu_torch.serving import get_infer_hook
+
+    n_b = TURBO_BATCH_TOKENS
+    greedy = dict(temperature=0.0, top_k=1000, top_p=0.95, repetition_penalty=1.2)
+    with torch.inference_mode():
+        conds = model.prepare_conditionals(ref, 24000)
+        embs = [model.t3.prefill_embeds(conds.t3, model._tokenize_text(t)) for t in TURBO_TEXTS]
+
+        def alone(e, n, seed):
+            return np.concatenate([t for t, _ in model.t3.decode_chunks(
+                e, n, 0.0, 1000, 0.95, 1.2, seed)])
+
+        alone(embs[0], 4, 0)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = [alone(e, n_b, i) for i, e in enumerate(embs)]
+        seq_s = time.perf_counter() - t0
+    b = model.make_batcher(slots=4, max_len=512, tick_frames=16)
+    try:
+        b.warmup()
+        t0 = time.perf_counter()
+        futs = [b.submit(e.float().cpu().numpy(), max_tokens=n_b, seed=i, **greedy)
+                for i, e in enumerate(embs)]
+        got = [f.result(timeout=SERVE_TIMEOUT) for f in futs]
+        batch_s = time.perf_counter() - t0
+        ticks = b.dispatch_count
+        b.install()
+        kw = dict(ref_audio=ref, sample_rate=24000, max_tokens=16, seed=3, **greedy)
+        served = list(model.generate(TURBO_TEXTS[1], **kw))[0]
+        served_ticks = b.dispatch_count - ticks
+    finally:
+        b.close()
+    if get_infer_hook(model) is not None or served_ticks < 1:
+        raise SystemExit("chip_smoke: generate did not take the installed TurboBatcher")
+    direct = list(model.generate(TURBO_TEXTS[1], **kw))[0]
+    rel = held_close("Chatterbox-Turbo's generate through the installed TurboBatcher against "
+                     "the direct route", served.audio, direct.audio)
+    for w, g in zip(want, got):
+        if w.tolist() != np.asarray(g).tolist():
+            raise SystemExit(f"chip_smoke: a batched T3Turbo request's tokens {list(g)[:8]}... "
+                             f"part from its run alone {w.tolist()[:8]}...")
+    log(f"[turbo] TurboBatcher, 4 requests x {n_b} tokens at temperature 0: {batch_s:.3f} s "
+        f"batched ({ticks} ticks), {seq_s:.3f} s alone one after another: "
+        f"{seq_s / batch_s:.2f}x; tokens identical; generate through the installed batcher "
+        f"({served_ticks} ticks) equals the direct route's audio")
+    return {"wall_s": batch_s, "sequential_s": seq_s, "speedup": seq_s / batch_s,
+            "ticks": ticks, "served_ticks": served_ticks, "served_audio_rel": rel}
+
+
+def turbo_cut_copy(ref) -> dict:
+    """A copy at full width cut in depth (GPT-2 2 layers, the conformer 1 + 1
+    blocks, the estimator 1 mid block), card against CPU in float32 on a
+    COSY_CPU_REF_S reference with a 1-layer S3TokenizerV2: the
+    conditioning, T3's prompt and COSY_CPU_STEPS steps' logits (the card
+    replays the CPU's argmax), the meanflow mel (the same noise) and HiFT on
+    1 s (the same draws)."""
+    from mlx_audio_tpu_torch.codec.models.s3tokenizer import ModelConfig as S3Config
+    from mlx_audio_tpu_torch.codec.models.s3tokenizer import S3TokenizerV2
+    from mlx_audio_tpu_torch.nn import load_weights
+    from mlx_audio_tpu_torch.nn.module import flatten_params
+
+    t0 = time.perf_counter()
+    ref = ref[: int(COSY_CPU_REF_S * 24000)]
+    flat = s3flat = noise = draws = None
+    rec = {}
+
+    def run(dev):
+        nonlocal flat, s3flat, noise, draws
+        m = turbo_seeded(dev, 46, cut=True)
+        s3 = S3TokenizerV2(config=S3Config(n_audio_layer=1), device=dev,
+                           seed=47)
+        if flat is None:
+            flat, s3flat = flatten_params(m), flatten_params(s3)
+        else:
+            load_weights(m, flat)
+            load_weights(s3, s3flat)
+        m.set_runtime(s3_tokenizer=s3)
+        out = {}
+        with torch.inference_mode():
+            conds = m.prepare_conditionals(ref, 24000)
+            out["xvector"] = conds.gen["embedding"].cpu()
+            out["speaker"] = conds.t3.speaker_emb.cpu()
+            out["prompt_tokens"] = conds.gen["prompt_token"].cpu()
+            emb = m.t3.prefill_embeds(conds.t3, np.array([[255, 5, 6, 7, 8, 0]]))
+            out["prompt"] = emb.cpu()
+            rows, taken = [], []
+            it = iter(rec["codes"]) if "codes" in rec else None
+
+            def sampler(logits, gen):
+                rows.append(logits[0].float().cpu())
+                tok = int(logits[0].argmax()) if it is None else next(it)
+                taken.append(tok)
+                return torch.tensor([tok], device=logits.device)
+
+            list(m.t3.decode_chunks(emb, COSY_CPU_STEPS, 0.8, 1000, 0.95, 1.2, 0,
+                                    sampler=sampler))
+            out["rows"], rec["codes"] = rows, taken
+            tokens = m._filter_speech_tokens(np.array(taken))
+            T = 2 * (conds.gen["prompt_token"].shape[1] + tokens.size)
+            if noise is None:
+                noise = torch.randn(1, T, 80, generator=torch.Generator().manual_seed(5))
+            out["mel"] = m.tokens_to_mel(tokens, noise=noise.to(dev)).cpu()
+            frames = conds.gen["prompt_feat"][:, :50]
+            sg = m.s3gen.mel2wav.m_source.l_sin_gen
+            if draws is None:
+                draws = sg.draws(1, 50 * m.s3gen.mel2wav.f0_upsample_scale, "cpu",
+                                 torch.Generator().manual_seed(6))
+            wav, _ = m.s3gen.hift_inference(frames, draws=tuple(d.to(dev) for d in draws))
+            out["wav"] = wav.cpu()
+        return out
+
+    cpu = run("cpu")
+    cpu_s = time.perf_counter() - t0
+    card = run("cuda")
+    if not torch.equal(card["prompt_tokens"], cpu["prompt_tokens"]):
+        raise SystemExit("chip_smoke: the Turbo cut copy's S3Tokenizer prompt tokens part card "
+                         "from CPU")
+    for key, label in (("xvector", "CAM++ x-vector"), ("speaker", "voice encoder embedding"),
+                       ("prompt", "T3Turbo prompt"), ("mel", "the meanflow mel"),
+                       ("wav", "HiFT on 1 s")):
+        rec[f"{key}_rel"] = held_close(f"Turbo cut copy, {label}, card against CPU", card[key],
+                                       cpu[key])
+    worst = max(close_to(a, b)[0] / close_to(a, b)[1] for a, b in zip(card["rows"], cpu["rows"]))
+    log(f"[turbo] cut copy (GPT-2 2 layers, S3Tokenizer 1, conformer 1 + 1, estimator 1 mid "
+        f"block), {COSY_CPU_STEPS} T3 steps' logits card against CPU: worst {worst:.2e} of the "
+        f"peak (bar {CARD_VS_CPU_ATOL:g}); CPU side {cpu_s:.1f} s, all "
+        f"{time.perf_counter() - t0:.1f} s")
+    if worst > CARD_VS_CPU_ATOL:
+        raise SystemExit("chip_smoke: the Turbo cut copy's T3 logits part card from CPU")
+    rec.pop("codes")
+    rec.update(logits_worst_rel=worst, cpu_s=cpu_s, wall_s=time.perf_counter() - t0)
+    return rec
+
+
+def phase_turbo(smi: str) -> dict:
+    """Phase 22 (see the module docstring)."""
+    from mlx_audio_tpu_torch.codec.models.s3tokenizer import S3TokenizerV2
+    from mlx_audio_tpu_torch.tokenizer_json import load
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+
+    def mark(what):
+        log(f"[slice22] {time.perf_counter() - t_phase:.1f} s into phase 22 after {what}")
+
+    tmp = Path(tempfile.mkdtemp(prefix="slice22-"))
+    rec = {}
+    try:
+        t0 = time.perf_counter()
+        model = turbo_seeded()
+        turbo_suppress_stop(model)
+        s3tok = S3TokenizerV2(config=s3_config(2), device="cuda", seed=48)
+        model.set_runtime(tokenizer=load(write_tokenizer_json(tmp, "whisper")),
+                          s3_tokenizer=s3tok)
+        parts = {"t3": model.t3, "s3gen": model.s3gen, "ve": model.ve, "s3tokenizer": s3tok}
+        n_par = {k: sum(p.numel() for p in m.parameters()) for k, m in parts.items()}
+        log(f"[turbo] Chatterbox-Turbo (T3 on GPT-2 medium: 1024 x 24, 16 heads, 50,276 text "
+            f"and 6,563 speech rows; S3Gen with the meanflow estimator, two steps; "
+            f"VoiceEncoder()), float32, seeded, the stop's row pushed down (the decode runs to "
+            f"max_gen_len); S3TokenizerV2 seeded: parameters (M) "
+            + ", ".join(f"{k} {v / 1e6:.1f}" for k, v in n_par.items())
+            + f" in {time.perf_counter() - t0:.1f} s")
+        rec["parameters"] = n_par
+        ref = csm_reference(TURBO_REF_S, seed=49)
+        rec["generate"] = turbo_generate(model, ref, smi)
+        mark("the float32 generate")
+        rec["batched"] = turbo_batched(model, ref)
+        mark("TurboBatcher")
+        del model, s3tok
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["card_vs_cpu"] = turbo_cut_copy(ref)
+        mark("the copy cut in depth")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[slice22] phase 22 wall {rec['phase_s']:.1f} s")
+    return rec
+
+
 QUANT_SOURCE = "mlx_audio_tpu_torch/csrc/quant_matmul.cu"
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19",
+    ap.add_argument("--phases", default=",".join(str(p) for p in range(1, 23)),
                     help="comma-separated subset to run (12 runs 10 first for its checkpoint "
                          "directories); a subset prints no result")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
@@ -9286,7 +10339,16 @@ def run_phases(phases, smi, keep, ckpt: Path) -> None:
     if 19 in phases:
         chatterbox = phase_chatterbox(smi)
         took(19)
-    if phases != set(range(1, 20)):
+    if 20 in phases:
+        cosyvoice2 = phase_cosyvoice2(smi)
+        took(20)
+    if 21 in phases:
+        cosyvoice3 = phase_cosyvoice3(smi)
+        took(21)
+    if 22 in phases:
+        turbo = phase_turbo(smi)
+        took(22)
+    if phases != set(range(1, 23)):
         log(f"[device] {smi}")
         sys.exit(f"chip_smoke: ran phases {sorted(phases)} only; no result")
     record = {"kernels": [{
@@ -9447,6 +10509,26 @@ def run_phases(phases, smi, keep, ckpt: Path) -> None:
                                 "through qmm"}
     qmlp["serving"] = {"launches": serving["qwen3_int4"]["launches"]["qmlp"],
                        "m8": {"max_abs_err": qerrs["mlp_m8_f32"], **qtiming["qmlp_m8"]}}
+    # CosyVoice3's DiT (phase 21): the CFG pair B = 2, 16 heads of 64, at
+    # N = 1300 (the long flow call) and 1500; the f32 kernel launched once a
+    # block an Euler step, the bf16 one checked and timed at the same shapes
+    for entry, dt in zip(record["kernels"][:2], ("bf16", "f32")):
+        entry["cosyvoice3"] = {
+            "launches": cosyvoice3["long_flow"]["flash_launches"] if dt == "f32" else 0,
+            **{f"t{T}": {"max_abs_err": errs[f"cv3_dit{T}_{dt}"], **timing[f"cv3_dit{T}_{dt}"]}
+               for T in (1300, 1500)}}
+    # CosyVoice2 int4 (phase 20): the LM decode alone (its prompt on the
+    # tensor-core GEMM, each step on the GEMV; the MLP takes qmm: I = 4864),
+    # and generate_audio's launches with the flow's linears
+    c2 = cosyvoice2["int4"]
+    qmm["cosyvoice2"] = {
+        "launches": {k: c2["launches"][k] for k in ("qmm", "qmm_gemv", "qmm_mma", "qmm_kernel")},
+        "generate_launches": {k: c2["generate_launches"][k] for k in (
+            "qmm", "qmm_gemv", "qmm_mma", "qmm_kernel")},
+        "max_abs_err": qerrs["cv2_llm_decoder_m1_f32"],
+        "mma_max_abs_err": qerrs["cv2_qkv_prompt_f32"],
+        "shapes": {key[len("cosyvoice2_"):]: qtiming[key] for key in qtiming
+                   if key.startswith("cosyvoice2_")}}
     record["kernels"].append({
         "name": "relu2_attention", "route": "cuda",
         "source": "mlx_audio_tpu_torch/csrc/relu2_attention.cu",
@@ -9473,6 +10555,9 @@ def run_phases(phases, smi, keep, ckpt: Path) -> None:
     print(json.dumps({"spark_soprano": spark_soprano}), flush=True)
     print(json.dumps({"indextts": indextts}), flush=True)
     print(json.dumps({"chatterbox": chatterbox}), flush=True)
+    print(json.dumps({"cosyvoice2": cosyvoice2}), flush=True)
+    print(json.dumps({"cosyvoice3": cosyvoice3}), flush=True)
+    print(json.dumps({"chatterbox_turbo": turbo}), flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -50,7 +50,9 @@ class CausalMaskedDiffWithXvec(nn.Module):
         """token (1, T), prompt mel (1, T_pm, 80), x-vector (1, 192) → (mel
         (1, T_new, 80) of the region past the prompt, None). The flow runs in
         its parameters' dtype."""
-        wdt = self.input_embedding.weight.dtype
+        # the conformer's final norm is never quantized: its dtype is the
+        # flow's, where an int4 checkpoint packs the embedding's words
+        wdt = self.encoder.after_norm.weight.dtype
         emb = embedding / (torch.linalg.vector_norm(embedding.float(), dim=1, keepdim=True)
                            + 1e-8).to(embedding.dtype)
         emb = self.spk_embed_affine_layer(emb.to(wdt))
@@ -63,7 +65,7 @@ class CausalMaskedDiffWithXvec(nn.Module):
         token = token.clamp(0, self.input_embedding.weight.shape[0] - 1)
         h = self.input_embedding(token) * mask
 
-        h, _ = self.encoder(h, token_len, streaming=streaming)
+        h, _ = self.encoder(h.to(wdt), token_len, streaming=streaming)
         if not finalize:
             h = h[:, : h.shape[1] - self.pre_lookahead_len * self.token_mel_ratio]
         mel_len1 = prompt_feat.shape[1]

@@ -2,9 +2,10 @@
 Hamming windows, STFT (centered and reflect-padded for Whisper, or uncentered
 with a shorter window), ISTFT with the JAX module's window-sum semantics,
 the htk or slaney mel filterbank, the Whisper-normalised log-mel, and the
-Kaldi-compatible fbank with its deltas and mel banks.
+Kaldi-compatible fbank with its deltas and mel banks, and the BS.1770-4
+loudness meter (`integrated_loudness`, `normalize_loudness`).
 
-The other windows, `BatchISTFT` and loudness are not ported yet.
+The other windows and `BatchISTFT` are not ported yet.
 `torch.fft.rfft` takes the place of the JAX module's DFT-by-matmul.
 """
 
@@ -20,7 +21,8 @@ import torch.nn.functional as F
 
 __all__ = ["hanning", "hamming", "STR_TO_WINDOW_FN", "stft", "istft", "mel_filters",
            "log_mel_spectrogram", "compute_deltas_kaldi", "get_mel_banks_kaldi",
-           "kaldi_dither", "compute_fbank_kaldi", "compute_fbank_kaldi_rows"]
+           "kaldi_dither", "compute_fbank_kaldi", "compute_fbank_kaldi_rows",
+           "integrated_loudness", "normalize_loudness"]
 
 
 @lru_cache(maxsize=None)
@@ -66,18 +68,21 @@ def _resolve_window(window, win_length: int, n_fft: int, device) -> torch.Tensor
 
 def stft(x: torch.Tensor, n_fft: int = 800, hop_length: Optional[int] = None,
          window: Union[torch.Tensor, str] = "hann", win_length: Optional[int] = None,
-         center: bool = True) -> torch.Tensor:
+         center: bool = True, pad_mode: str = "reflect") -> torch.Tensor:
     """STFT of the last axis → complex (..., num_frames, n_fft//2 + 1).
-    `center` reflect-pads n_fft//2 on both sides."""
+    `center` pads n_fft//2 on both sides, reflecting (`pad_mode`
+    "reflect") or with zeros ("constant")."""
     if hop_length is None:
         hop_length = n_fft // 4
     w = _resolve_window(window, win_length or n_fft, n_fft, x.device)
     if center:
         pad = n_fft // 2
-        if x.shape[-1] <= pad:
+        if pad_mode not in ("reflect", "constant"):
+            raise ValueError(f"pad_mode {pad_mode!r}: 'reflect' or 'constant'")
+        if pad_mode == "reflect" and x.shape[-1] <= pad:
             raise ValueError(f"Input too short (length={x.shape[-1]}) to reflect-pad by {pad}")
         lead = x.shape[:-1]
-        x = F.pad(x.reshape(-1, 1, x.shape[-1]), (pad, pad), mode="reflect")
+        x = F.pad(x.reshape(-1, 1, x.shape[-1]), (pad, pad), mode=pad_mode)
         x = x.reshape(*lead, x.shape[-1])
     if x.shape[-1] < n_fft:
         raise ValueError(f"Input too short (length={x.shape[-1]}) for frame_length="
@@ -386,3 +391,93 @@ def _fbank_of_frames(frames, sample_rate, num_mels, win_type, preemphasis, dithe
     mel_banks = F.pad(torch.from_numpy(mel_banks).to(frames.device), (0, 1))
     feats = torch.matmul(spectrum, mel_banks.T)
     return torch.log(torch.clamp(feats, min=1e-8))
+
+
+# ---------------------------------------------------------------------------
+# Loudness (BS.1770-4), Chatterbox-Turbo's normalisation of its reference
+# clip: the JAX package's dependency-free meter, copied (host numpy and
+# scipy; the K-weighting biquads designed for any sample rate)
+# ---------------------------------------------------------------------------
+
+def _k_weighting_coeffs(sample_rate: float):
+    """Biquad coefficients for the two K-weighting stages (high shelf +
+    high pass), designed parametrically so any sample rate works."""
+    import math as _math
+
+    # bilinear-transform designs that reproduce the standard's 48 kHz
+    # coefficient tables exactly and generalize to any sample rate
+    def shelf(fc, q, gain_db):
+        K = _math.tan(_math.pi * fc / sample_rate)
+        Vh = 10.0 ** (gain_db / 20.0)
+        Vb = Vh ** 0.4996667741545416
+        d = 1.0 + K / q + K * K
+        b = [(Vh + Vb * K / q + K * K) / d,
+             2.0 * (K * K - Vh) / d,
+             (Vh - Vb * K / q + K * K) / d]
+        a = [1.0, 2.0 * (K * K - 1.0) / d, (1.0 - K / q + K * K) / d]
+        return b, a
+
+    def highpass(fc, q):
+        K = _math.tan(_math.pi * fc / sample_rate)
+        d = 1.0 + K / q + K * K
+        b = [1.0, -2.0, 1.0]
+        a = [1.0, 2.0 * (K * K - 1.0) / d, (1.0 - K / q + K * K) / d]
+        return b, a
+
+    stage1 = shelf(1681.974450955533, 0.7071752369554196, 3.999843853973347)
+    stage2 = highpass(38.13547087602444, 0.5003270373238773)
+    return stage1, stage2
+
+
+def integrated_loudness(wav, sample_rate: int) -> float:
+    """BS.1770-4 gated integrated loudness (LUFS) of a mono/multi-channel
+    host array shaped (T,) or (T, C)."""
+    import numpy as _np
+    from scipy.signal import lfilter
+
+    x = _np.asarray(wav, _np.float64)
+    if x.ndim == 1:
+        x = x[:, None]
+    (b1, a1), (b2, a2) = _k_weighting_coeffs(float(sample_rate))
+    y = lfilter(b2, a2, lfilter(b1, a1, x, axis=0), axis=0)
+
+    block = int(round(0.400 * sample_rate))
+    step = int(round(0.100 * sample_rate))
+    if y.shape[0] < block:
+        return -float("inf")
+    n_blocks = 1 + (y.shape[0] - block) // step
+    # per-block mean square, per channel, then channel-weighted sum
+    # (weights 1.0 for up to two channels; surround weighting out of scope)
+    z = _np.empty((n_blocks, y.shape[1]))
+    sq = y * y
+    csum = _np.concatenate([_np.zeros((1, y.shape[1])), _np.cumsum(sq, axis=0)])
+    for j in range(n_blocks):
+        s = j * step
+        z[j] = (csum[s + block] - csum[s]) / block
+    zj = z.sum(axis=1)
+    with _np.errstate(divide="ignore"):
+        lj = -0.691 + 10.0 * _np.log10(zj)
+    keep = lj > -70.0
+    if not keep.any():
+        return -float("inf")
+    rel_gate = -0.691 + 10.0 * _np.log10(zj[keep].mean()) - 10.0
+    keep &= lj > rel_gate
+    if not keep.any():
+        return -float("inf")
+    return float(-0.691 + 10.0 * _np.log10(zj[keep].mean()))
+
+
+def normalize_loudness(wav, sample_rate: int, target_lufs: float = -27.0):
+    """Scale `wav` so its integrated loudness hits `target_lufs`; returns the
+    input unchanged when loudness is unmeasurable (silence / too short)."""
+    import math as _math
+
+    import numpy as _np
+
+    loudness = integrated_loudness(wav, sample_rate)
+    if not _math.isfinite(loudness):
+        return wav
+    gain = 10.0 ** ((target_lufs - loudness) / 20.0)
+    if not _math.isfinite(gain) or gain <= 0.0:
+        return wav
+    return _np.asarray(wav) * gain

@@ -43,6 +43,7 @@ alternation order, backtracking included.
 
 from __future__ import annotations
 
+import copy
 import functools
 import heapq
 import json
@@ -575,6 +576,31 @@ class Tokenizer:
         if with_added_tokens:
             ids |= set(self._added_by_id)
         return len(ids)
+
+    def with_added_tokens(self, contents: Sequence[str]) -> "Tokenizer":
+        """A copy with `contents` added as special tokens, as `transformers`'
+        `add_special_tokens({"additional_special_tokens": ...})` adds them: a
+        token the vocabulary or the added tokens already hold keeps its id, a
+        new one takes the next id past the largest, in order; all are split
+        out before normalizing and pre-tokenizing. The tokenizer itself is
+        left as it is (`load` shares it)."""
+        new = copy.copy(self)
+        by_content = dict(self._added_by_content)
+        nxt = max(list(self._id_to_token) + list(self._added_by_id)) + 1
+        for c in contents:
+            t = by_content.get(c)
+            i = t.id if t is not None else self.model.vocab.get(c)
+            if i is None:
+                i, nxt = nxt, nxt + 1
+            by_content[c] = _AddedToken({"id": i, "content": c, "special": True,
+                                         "normalized": False}, self.path)
+        new._added_by_content = by_content
+        new._added_by_id = {t.id: t for t in by_content.values()}
+        new._special = self._special | set(contents)
+        new._raw = _Matcher({t.content: t for t in by_content.values() if not t.normalized})
+        new._norm = _Matcher({self._normalize(t.content): t for t in by_content.values()
+                              if t.normalized})
+        return new
 
     # ---- encode ----
 

@@ -16,8 +16,9 @@ The JAX package's contract: `load_config`, `load_weight_files`
 - only the families the port has resolve (`whisper`, `qwen3_tts`,
   `kokoro`, `llama` (Orpheus), `qwen3` (VyvoTTS), `sesame` (CSM, also
   as `csm`), `dia`, `outetts` (a `llama` config in a directory whose
-  name carries `outetts`), `bark`, `spark`, `soprano`, `indextts`, `chatterbox` and
-  `wav2vec` (also as `wav2vec2`)); any other raises the
+  name carries `outetts`), `bark`, `spark`, `soprano`, `indextts`, `chatterbox`,
+  `chatterbox_turbo`, `cosyvoice2`, `cosyvoice3` and `wav2vec` (also as
+  `wav2vec2`)); any other raises the
   JAX package's "not supported" error;
 - `resample_audio` is scipy's `resample_poly`, the JAX package's second
   route (its first is its native C resampler, not loaded here);
@@ -49,7 +50,8 @@ logger = logging.getLogger(__name__)
 # the model families the port has, by category
 PORTED = {"stt": ("whisper", "wav2vec", "wav2vec2"),
           "tts": ("qwen3_tts", "kokoro", "llama", "qwen3", "sesame", "dia", "outetts",
-                  "bark", "spark", "soprano", "indextts", "chatterbox")}
+                  "bark", "spark", "soprano", "indextts", "chatterbox", "chatterbox_turbo",
+                  "cosyvoice2", "cosyvoice3")}
 
 NO_DOWNLOAD = ("the PyTorch port reads local checkpoint directories only and does not "
                "download: fetch {!r} first and pass its directory")

@@ -11,9 +11,11 @@ and the code predictor's), Spark's semantic codebook
 (`FactorizedVectorQuantize`) and its LLM's table, the codebooks under an
 EnCodec-driven Vocos's features, AdaLayerNorm's bandwidth columns, and
 IndexTTS's four tables and its GPT's one-row `wpe`, Chatterbox T3's four
-tables (and the decode step's learned speech position), at ids -20, -1, N
-and N + 90, and S3Gen's flow, which clips its token ids into the table
-(0 .. N - 1) as the JAX package does. A scan of the
+tables (and the decode step's learned speech position), the CosyVoice2
+and CosyVoice3 LMs' tables (the prompt's sos and task rows included) and
+Chatterbox-Turbo T3's, at ids -20, -1, N and N + 90, and the S3Gen and
+CosyVoice3 flows, which clip their token ids into the table (0 .. N - 1)
+as the JAX package does. A scan of the
 port's sources holds every other direct read of a `.weight` by id to the
 clamp.
 """
@@ -253,6 +255,81 @@ def test_s3gen_flow_clips_its_token_ids():
             return flow.inference(torch.tensor([tokens]), torch.tensor([4]),
                                   torch.tensor([[1, 2]]), torch.tensor([2]),
                                   torch.zeros(1, 4, 8), torch.ones(1, 192))[0]
+
+    np.testing.assert_array_equal(mel([-20, -1, n, n + 90]).numpy(),
+                                  mel([0, 0, n - 1, n - 1]).numpy())
+
+
+def _cosyvoice_lm(v3: bool):
+    from mlx_audio_tpu_torch.nn.module import init_weights
+    from mlx_audio_tpu_torch.tts.models.cosyvoice2.llm import Qwen2LM
+    from mlx_audio_tpu_torch.tts.models.cosyvoice3.llm import CosyVoice3LM
+
+    if v3:
+        from test_cosyvoice3 import tiny_config
+    else:
+        from test_cosyvoice2 import tiny_config
+    lm = (CosyVoice3LM if v3 else Qwen2LM)(tiny_config().llm, device="cpu")
+    return init_weights(lm, torch.Generator().manual_seed(6))
+
+
+@pytest.mark.parametrize("v3,table", [(False, "llm_embedding"), (False, "speech_embedding"),
+                                      (True, "speech_embedding")])
+def test_cosyvoice_lm_tables_read_the_jax_rows(v3, table):
+    """The CosyVoice LMs read their tables through the embeddings' calls (the
+    JAX package indexes `.weight` for the prompt's sos and task rows and the
+    decode step's token): the prompt's rows are the tables' rows, and ids
+    past a table read the JAX rows."""
+    lm = _cosyvoice_lm(v3)
+    emb = lm.get_submodule(table)
+    w = emb.weight.detach().numpy()
+    ids = _ids(w.shape[0])
+    with torch.no_grad():
+        np.testing.assert_array_equal(emb(torch.from_numpy(ids)).numpy(), _jax_rows(w, ids))
+        if table != "speech_embedding" or v3:
+            prompt = lm.build_prompt_embeds(np.array([1, 2]), None, np.array([[3]]))[0]
+            sos, task = (lm.sos, lm.task_id) if v3 else (lm.sos_eos, lm.task_id)
+            np.testing.assert_array_equal(prompt[0].numpy(), w[sos])
+            np.testing.assert_array_equal(prompt[3].numpy(), w[task])
+
+
+@pytest.mark.parametrize("table", ["text_emb", "speech_emb", "tfmr.wpe"])
+def test_chatterbox_turbo_tables_read_the_jax_rows(table):
+    """T3Turbo reads its text and speech tables and GPT-2's positions through
+    the embeddings' calls (the JAX package indexes `.weight` for the decode
+    step's token)."""
+    from mlx_audio_tpu_torch.nn.module import init_weights
+    from mlx_audio_tpu_torch.tts.models.chatterbox_turbo import T3Turbo
+
+    from test_chatterbox_turbo import tiny_cfg
+
+    t3 = init_weights(T3Turbo(tiny_cfg(), device="cpu"), torch.Generator().manual_seed(7))
+    emb = t3.get_submodule(table)
+    w = emb.weight.detach().numpy()
+    ids = _ids(w.shape[0])
+    with torch.no_grad():
+        np.testing.assert_array_equal(emb(torch.from_numpy(ids)).numpy(), _jax_rows(w, ids))
+
+
+def test_cosyvoice3_flow_clips_its_token_ids():
+    """CosyVoice3's flow clips ids into 0 .. N - 1 before its lookup, as the
+    JAX package does: ids -20, -1, N and N + 90 give the mel of ids 0, 0,
+    N - 1 and N - 1."""
+    from mlx_audio_tpu_torch.tts.models.cosyvoice3 import build_cosyvoice3
+
+    from test_cosyvoice3 import tiny_config
+
+    flow = build_cosyvoice3(tiny_config(), device="cpu").flow
+    for p in flow.parameters():
+        p.data.normal_(0.0, 0.1, generator=torch.Generator().manual_seed(8))
+    n = flow.vocab_size
+    noise = torch.randn(1, 12, 16, generator=torch.Generator().manual_seed(9))
+
+    def mel(tokens):
+        with torch.no_grad():
+            return flow.inference(torch.tensor([tokens]), torch.tensor([4]),
+                                  torch.tensor([[1, 2]]), torch.tensor([2]),
+                                  torch.zeros(1, 4, 16), torch.ones(1, 8), noise=noise)[0]
 
     np.testing.assert_array_equal(mel([-20, -1, n, n + 90]).numpy(),
                                   mel([0, 0, n - 1, n - 1]).numpy())

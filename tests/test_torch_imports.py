@@ -568,3 +568,69 @@ def test_chatterbox_entry_points_default_to_the_card(monkeypatch):
         assert batcher.device == torch.device("cpu")
     finally:
         batcher.close()
+
+
+COSYVOICE_TURBO_SLICE_MODULES = (
+    "mlx_audio_tpu_torch.tts.models.cosyvoice2", "mlx_audio_tpu_torch.tts.models.cosyvoice2.config",
+    "mlx_audio_tpu_torch.tts.models.cosyvoice2.llm",
+    "mlx_audio_tpu_torch.tts.models.cosyvoice2.cosyvoice2",
+    "mlx_audio_tpu_torch.tts.models.cosyvoice2.batcher",
+    "mlx_audio_tpu_torch.tts.models.cosyvoice3", "mlx_audio_tpu_torch.tts.models.cosyvoice3.config",
+    "mlx_audio_tpu_torch.tts.models.cosyvoice3.special_tokens",
+    "mlx_audio_tpu_torch.tts.models.cosyvoice3.llm", "mlx_audio_tpu_torch.tts.models.cosyvoice3.dit",
+    "mlx_audio_tpu_torch.tts.models.cosyvoice3.flow",
+    "mlx_audio_tpu_torch.tts.models.cosyvoice3.hifigan",
+    "mlx_audio_tpu_torch.tts.models.cosyvoice3.cosyvoice3",
+    "mlx_audio_tpu_torch.tts.models.chatterbox_turbo",
+    "mlx_audio_tpu_torch.tts.models.chatterbox_turbo.chatterbox_turbo",
+    "mlx_audio_tpu_torch.tts.models.chatterbox_turbo.batcher", "mlx_audio_tpu_torch.dsp")
+
+
+@pytest.mark.parametrize("name", COSYVOICE_TURBO_SLICE_MODULES)
+def test_cosyvoice_turbo_slice_modules_are_scanned(name):
+    """CosyVoice2, CosyVoice3 and Chatterbox-Turbo (each family's model, LM,
+    config and batcher; CosyVoice3's DiT, flow, causal HiFT and special
+    tokens) and the loudness meter's module are among the modules the
+    import and scan tests cover, and the loader and the TTS registry find
+    the three families by their model types."""
+    from mlx_audio_tpu_torch.tts.utils import MODEL_REMAPPING, get_available_models
+    from mlx_audio_tpu_torch.utils import PORTED, get_model_class
+
+    assert name in {n for _, n in _modules()}
+    for family in ("cosyvoice2", "cosyvoice3", "chatterbox_turbo"):
+        assert family in PORTED["tts"] and family in get_available_models()
+        assert get_model_class(family, None, "tts", MODEL_REMAPPING)[1] == family
+
+
+def test_cosyvoice_turbo_entry_points_default_to_the_card(monkeypatch):
+    """The three families' Models, their inner models' build functions and T3Turbo
+    ask for `cuda` without a device argument and raise with no card; the
+    batchers run on their model's device."""
+    import torch
+
+    from mlx_audio_tpu_torch.tts.models import chatterbox_turbo as ct
+    from mlx_audio_tpu_torch.tts.models import cosyvoice2 as cv2
+    from mlx_audio_tpu_torch.tts.models import cosyvoice3 as cv3
+
+    from test_chatterbox_turbo import tiny_cfg
+    from test_cosyvoice2 import tiny_config as cv2_tiny
+    from test_cosyvoice3 import tiny_config as cv3_tiny
+    from test_torch_chatterbox import TINY_SIZES
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    turbo = ct.ModelConfig(t3_config=tiny_cfg())
+    makers = [lambda **kw: cv2.Model(cv2.ModelConfig(cosyvoice2=cv2_tiny()), **kw),
+              lambda **kw: cv3.Model(cv3.ModelConfig(cosyvoice3=cv3_tiny()), **kw),
+              lambda **kw: ct.Model(turbo, s3gen_sizes=TINY_SIZES, **kw)]
+    for make in makers + [lambda **kw: cv2.build_cosyvoice2(cv2_tiny(), **kw).llm,
+                          lambda **kw: cv3.build_cosyvoice3(cv3_tiny(), **kw).llm,
+                          lambda **kw: ct.T3Turbo(tiny_cfg(), **kw)]:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+        assert make(device="cpu").device.type == "cpu"
+    for make in makers:
+        batcher = make(device="cpu").make_batcher(max_len=64)
+        try:
+            assert batcher.device == torch.device("cpu")
+        finally:
+            batcher.close()

@@ -47,6 +47,8 @@ from mlx_audio_tpu_torch.tts.models.kokoro import albert as palb
 from mlx_audio_tpu_torch.tts.models.kokoro import istftnet as pist
 from mlx_audio_tpu_torch.tts.models.kokoro import modules as pmod
 
+from test_torch_lm import numpy_init, one_torch_thread  # noqa: F401  (fixture)
+
 REL = 1e-5
 LSB = 1 / 32767
 VOCAB = {c: i + 1 for i, c in enumerate(
@@ -309,7 +311,10 @@ def small_buckets():
 
 @pytest.fixture(scope="module")
 def models(small_buckets):
-    jm = jkok.Model(jkok.ModelConfig.from_dict(TINY))
+    # the JAX initialiser drawing from numpy: `jax.random` compiles a program
+    # for every weight shape
+    with numpy_init(0):
+        jm = jkok.Model(jkok.ModelConfig.from_dict(TINY))
     pm = pkok.Model(TINY, device="cpu")
     load_jax_params(pm, {k: np.asarray(v) for k, v in flatten_params(jm).items()})
     return jm, pm
